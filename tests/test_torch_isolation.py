@@ -1,0 +1,65 @@
+"""The port stands alone: importing it pulls in neither JAX nor any module
+of the JAX package, and no source file of the port (or chip_smoke.py)
+imports them."""
+
+import ast
+import json
+import os
+import subprocess
+import sys
+
+import pytest
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def port_sources():
+    out = [os.path.join(ROOT, "chip_smoke.py")]
+    for base, _, files in os.walk(os.path.join(ROOT, "ytpu_torch")):
+        out += [os.path.join(base, f) for f in files if f.endswith(".py")]
+    return sorted(out)
+
+
+def test_import_leaves_jax_and_ytpu_unloaded():
+    code = (
+        "import json, sys\n"
+        "import ytpu_torch, ytpu_torch.models.replay, ytpu_torch.ops.integrate_kernel\n"
+        "import ytpu_torch.ops.compaction, ytpu_torch.ops.decode_kernel, ytpu_torch.convert\n"
+        "import ytpu_torch.models.batch_doc, ytpu_torch.encoding.lib0, ytpu_torch.ops._build\n"
+        "print(json.dumps(sorted(m for m in sys.modules\n"
+        "    if m == 'jax' or m.startswith('jax.') or m == 'ytpu' or m.startswith('ytpu.'))))\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, env=env, capture_output=True, text=True, timeout=120
+    )
+    assert out.returncode == 0, out.stderr
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
+def _foreign_imports(path):
+    tree = ast.parse(open(path, encoding="utf-8").read(), filename=path)
+    bad = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [node.module or ""] if node.level == 0 else []
+        else:
+            continue
+        for name in names:
+            top = name.split(".")[0]
+            if top in ("jax", "jaxlib", "ytpu"):
+                bad.append(name)
+    return bad
+
+
+@pytest.mark.parametrize("path", port_sources(), ids=lambda p: os.path.relpath(p, ROOT))
+def test_source_imports_no_jax_or_ytpu(path):
+    assert _foreign_imports(path) == []
+
+
+def test_scan_catches_a_foreign_import(tmp_path):
+    p = tmp_path / "bad.py"
+    p.write_text("import numpy\nfrom ytpu.ops import integrate_kernel\nimport jax.numpy as jnp\nimport ytpu_torch\n")
+    assert _foreign_imports(str(p)) == ["ytpu.ops", "jax.numpy"]

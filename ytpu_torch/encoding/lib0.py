@@ -1,0 +1,339 @@
+"""lib0 v1 reading: the cursor half of `ytpu.encoding.lib0` plus a small
+update walker.
+
+`update_columns` walks one v1 update and yields what the replay planner
+reads: per block its kind, client, clock, length and content span, and the
+wire-section counts the device decoder's step budget needs
+(`n_client_sections`, `n_dels`, `n_ds_sections`, `n_zero_len_blocks`,
+`n_value_steps`). It follows the grammar of update.rs:433-488 and
+block.rs:1786-1835: zero-length item blocks are dropped from the columns
+but counted, Skip and GC carriers stay in them.
+"""
+
+from __future__ import annotations
+
+import struct
+from typing import List
+
+import numpy as np
+
+from ytpu_torch.core.content import (
+    BLOCK_GC,
+    BLOCK_SKIP,
+    CONTENT_ANY,
+    CONTENT_BINARY,
+    CONTENT_DELETED,
+    CONTENT_DOC,
+    CONTENT_EMBED,
+    CONTENT_FORMAT,
+    CONTENT_JSON,
+    CONTENT_MOVE,
+    CONTENT_STRING,
+    CONTENT_TYPE,
+)
+
+__all__ = ["Cursor", "EncodingError", "UpdateColumns", "update_columns", "utf16_units"]
+
+HAS_ORIGIN = 0x80
+HAS_RIGHT_ORIGIN = 0x40
+HAS_PARENT_SUB = 0x20
+TYPE_XML_ELEMENT = 3
+TYPE_XML_HOOK = 5
+TYPE_WEAK = 7
+
+
+class EncodingError(Exception):
+    """Malformed lib0 input (truncated buffer, bad varint, bad tag)."""
+
+
+class Cursor:
+    """Read cursor over an immutable byte buffer."""
+
+    __slots__ = ("buf", "pos")
+
+    def __init__(self, buf: bytes, pos: int = 0):
+        self.buf = buf
+        self.pos = pos
+
+    def has_content(self) -> bool:
+        return self.pos < len(self.buf)
+
+    def read_u8(self) -> int:
+        if self.pos >= len(self.buf):
+            raise EncodingError("end of buffer")
+        b = self.buf[self.pos]
+        self.pos += 1
+        return b
+
+    def read_exact(self, n: int) -> bytes:
+        end = self.pos + n
+        if n < 0 or end > len(self.buf):
+            raise EncodingError("end of buffer")
+        out = self.buf[self.pos : end]
+        self.pos = end
+        return out
+
+    def skip(self, n: int) -> None:
+        self.read_exact(n)
+
+    def read_var_uint(self) -> int:
+        num = 0
+        shift = 0
+        while True:
+            b = self.read_u8()
+            num |= (b & 0x7F) << shift
+            shift += 7
+            if b < 0x80:
+                return num
+            if shift >= 70:
+                raise EncodingError("varint too long")
+
+    def read_var_int(self) -> int:
+        """Signed varint: 6 payload bits + sign in the first byte."""
+        b = self.read_u8()
+        num = b & 0x3F
+        negative = (b & 0x40) != 0
+        shift = 6
+        while b & 0x80:
+            b = self.read_u8()
+            num |= (b & 0x7F) << shift
+            shift += 7
+        return -num if negative else num
+
+    def read_buf(self) -> bytes:
+        return self.read_exact(self.read_var_uint())
+
+    def read_string(self) -> str:
+        return self.read_buf().decode("utf-8")
+
+    def read_f32(self) -> float:
+        return struct.unpack(">f", self.read_exact(4))[0]
+
+    def read_f64(self) -> float:
+        return struct.unpack(">d", self.read_exact(8))[0]
+
+    def skip_any(self) -> None:
+        """Skip one lib0 Any value (any.rs:37-83)."""
+        tag = self.read_u8()
+        if tag in (127, 126, 121, 120):
+            return
+        if tag == 125:
+            self.read_var_int()
+        elif tag == 124:
+            self.skip(4)
+        elif tag in (123, 122):
+            self.skip(8)
+        elif tag in (119, 116):
+            self.skip(self.read_var_uint())
+        elif tag == 118:
+            for _ in range(self.read_var_uint()):
+                self.skip(self.read_var_uint())
+                self.skip_any()
+        elif tag == 117:
+            for _ in range(self.read_var_uint()):
+                self.skip_any()
+        else:
+            raise EncodingError(f"unknown Any tag {tag}")
+
+    def skip_any_tokens(self) -> int:
+        """Skip one Any value, returning the device decode steps it costs:
+        one per scalar or array header; a depth-1 object costs a header
+        step plus a key and a value step per pair."""
+        if self.pos < len(self.buf):
+            tag = self.buf[self.pos]
+            if tag == 118:
+                self.pos += 1
+                tokens = 1
+                for _ in range(self.read_var_uint()):
+                    self.skip(self.read_var_uint())
+                    tokens += 2
+                    self.skip_any()
+                return tokens
+            if tag == 117:
+                self.pos += 1
+                tokens = 1
+                for _ in range(self.read_var_uint()):
+                    tokens += self.skip_any_tokens()
+                return tokens
+        self.skip_any()
+        return 1
+
+
+def utf16_units(data: bytes) -> int:
+    """UTF-16 code units of a UTF-8 byte span (the Yjs clock unit)."""
+    units = 0
+    i = 0
+    n = len(data)
+    while i < n:
+        b = data[i]
+        if b < 0x80:
+            units += 1
+            i += 1
+        elif (b >> 5) == 0x6:
+            units += 1
+            i += 2
+        elif (b >> 4) == 0xE:
+            units += 1
+            i += 3
+        elif (b >> 3) == 0x1E:
+            units += 2
+            i += 4
+        else:
+            i += 1
+    return units
+
+
+class UpdateColumns:
+    """Per-block columns of one walked update (numpy int64 arrays) plus
+    its wire-section counts. ``content_bytes(i)`` is block i's content
+    span in the original payload."""
+
+    def __init__(self, payload: bytes):
+        self.payload = payload
+        self.error = False
+        self.n_client_sections = 0
+        self.n_ds_sections = 0
+        self.n_zero_len_blocks = 0
+        self.n_value_steps = 0
+        self.n_dels = 0
+        self.n_blocks = 0
+        self.kind = np.empty(0, dtype=np.int64)
+        self.client = np.empty(0, dtype=np.int64)
+        self.clock = np.empty(0, dtype=np.int64)
+        self.length = np.empty(0, dtype=np.int64)
+        self.content_start = np.empty(0, dtype=np.int64)
+        self.content_len_bytes = np.empty(0, dtype=np.int64)
+
+    def content_bytes(self, i: int) -> bytes:
+        s = int(self.content_start[i])
+        return self.payload[s : s + int(self.content_len_bytes[i])]
+
+
+def _read_content(cur: Cursor, info: int, out: UpdateColumns) -> int:
+    """Skip one content payload; returns its CRDT length (clock units)."""
+    ref = info & 0x0F
+    if ref == CONTENT_DELETED:
+        return cur.read_var_uint()
+    if ref == CONTENT_JSON:
+        n = cur.read_var_uint()
+        for _ in range(n):
+            cur.skip(cur.read_var_uint())
+        out.n_value_steps += n
+        return n
+    if ref in (CONTENT_BINARY, CONTENT_EMBED):
+        cur.skip(cur.read_var_uint())
+        return 1
+    if ref == CONTENT_STRING:
+        return utf16_units(cur.read_exact(cur.read_var_uint()))
+    if ref == CONTENT_FORMAT:
+        cur.skip(cur.read_var_uint())
+        cur.skip(cur.read_var_uint())
+        out.n_value_steps += 1
+        return 1
+    if ref == CONTENT_TYPE:
+        tag = cur.read_u8()
+        if tag in (TYPE_XML_ELEMENT, TYPE_XML_HOOK):
+            cur.skip(cur.read_var_uint())
+        elif tag == TYPE_WEAK:
+            flags = cur.read_u8()
+            cur.read_var_uint()
+            cur.read_var_uint()
+            if flags & 1:
+                cur.read_var_uint()
+                cur.read_var_uint()
+        return 1
+    if ref == CONTENT_ANY:
+        n = cur.read_var_uint()
+        for _ in range(n):
+            out.n_value_steps += cur.skip_any_tokens()
+        return n
+    if ref == CONTENT_DOC:
+        cur.skip(cur.read_var_uint())
+        cur.skip_any()
+        return 1
+    if ref == CONTENT_MOVE:
+        flags = cur.read_var_uint()
+        cur.read_var_uint()
+        cur.read_var_uint()
+        if not flags & 1:
+            cur.read_var_uint()
+            cur.read_var_uint()
+        return 1
+    raise EncodingError(f"unknown content ref {ref}")
+
+
+def update_columns(payload: bytes) -> UpdateColumns:
+    """Walk one v1 update into `UpdateColumns` (``error`` set on malformed
+    input; the columns then hold what was read before the fault)."""
+    out = UpdateColumns(payload)
+    cur = Cursor(payload)
+    kind: List[int] = []
+    client_l: List[int] = []
+    clock_l: List[int] = []
+    length: List[int] = []
+    cstart: List[int] = []
+    clen: List[int] = []
+    try:
+        n_clients = cur.read_var_uint()
+        out.n_client_sections = n_clients
+        for _ in range(n_clients):
+            n_blocks = cur.read_var_uint()
+            client = cur.read_var_uint()
+            clock = cur.read_var_uint()
+            for _ in range(n_blocks):
+                info = cur.read_u8()
+                if info in (BLOCK_SKIP, BLOCK_GC):
+                    n = cur.read_var_uint()
+                    kind.append(info)
+                    client_l.append(client)
+                    clock_l.append(clock)
+                    length.append(n)
+                    cstart.append(-1)
+                    clen.append(0)
+                    clock += n
+                    continue
+                if info & HAS_ORIGIN:
+                    cur.read_var_uint()
+                    cur.read_var_uint()
+                if info & HAS_RIGHT_ORIGIN:
+                    cur.read_var_uint()
+                    cur.read_var_uint()
+                if (info & (HAS_ORIGIN | HAS_RIGHT_ORIGIN)) == 0:
+                    if cur.read_var_uint() == 1:
+                        cur.skip(cur.read_var_uint())  # root name
+                    else:
+                        cur.read_var_uint()  # parent id client
+                        cur.read_var_uint()  # parent id clock
+                    if info & HAS_PARENT_SUB:
+                        cur.skip(cur.read_var_uint())
+                start = cur.pos
+                n = _read_content(cur, info, out)
+                if n == 0:
+                    # historical empty blocks have no effect (update.rs:737-742)
+                    out.n_zero_len_blocks += 1
+                    continue
+                kind.append(info & 0x0F)
+                client_l.append(client)
+                clock_l.append(clock)
+                length.append(n)
+                cstart.append(start)
+                clen.append(cur.pos - start)
+                clock += n
+        n_ds = cur.read_var_uint()
+        out.n_ds_sections = n_ds
+        for _ in range(n_ds):
+            cur.read_var_uint()  # client
+            for _ in range(cur.read_var_uint()):
+                cur.read_var_uint()
+                cur.read_var_uint()
+                out.n_dels += 1
+    except EncodingError:
+        out.error = True
+    out.n_blocks = len(kind)
+    out.kind = np.asarray(kind, dtype=np.int64)
+    out.client = np.asarray(client_l, dtype=np.int64)
+    out.clock = np.asarray(clock_l, dtype=np.int64)
+    out.length = np.asarray(length, dtype=np.int64)
+    out.content_start = np.asarray(cstart, dtype=np.int64)
+    out.content_len_bytes = np.asarray(clen, dtype=np.int64)
+    return out

@@ -1,0 +1,106 @@
+"""Build and load the port's hand-written CUDA kernels.
+
+Each source under ``ytpu_torch/csrc`` is compiled by ``nvcc`` for
+``sm_90a`` into a shared library with a plain C interface and loaded with
+`ctypes`. The build runs at first use, into ``ytpu_torch/_build/`` (listed
+in ``.gitignore``), keyed by a hash of the source, so an edited kernel
+rebuilds and an unchanged one loads at once. A failed build raises with
+the compiler's output. `build_all` starts one ``nvcc`` per source at the
+same time.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from typing import Dict
+
+__all__ = ["SOURCES", "build_all", "load", "nvcc_path"]
+
+_HERE = os.path.dirname(os.path.abspath(__file__))
+_PKG = os.path.dirname(_HERE)
+_CSRC = os.path.join(_PKG, "csrc")
+_BUILD = os.path.join(_PKG, "_build")
+
+#: kernel name -> source file under csrc/
+SOURCES = {"integrate": "integrate.cu"}
+
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+]
+
+_lock = threading.Lock()
+_libs: Dict[str, ctypes.CDLL] = {}
+
+
+def nvcc_path() -> str:
+    for cand in (
+        shutil.which("nvcc"),
+        os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc"),
+    ):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels build only where the CUDA toolkit is installed")
+
+
+def _target(name: str) -> str:
+    src = os.path.join(_CSRC, SOURCES[name])
+    with open(src, "rb") as f:
+        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return os.path.join(_BUILD, f"lib{name}_{digest}.so")
+
+
+def _spawn(name: str):
+    """Start nvcc for `name` unless its library is already built; returns
+    (target, process or None)."""
+    out = _target(name)
+    if os.path.exists(out):
+        return out, None
+    os.makedirs(_BUILD, exist_ok=True)
+    tmp = f"{out}.{os.getpid()}.tmp"
+    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, os.path.join(_CSRC, SOURCES[name])]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+    return out, (proc, tmp)
+
+
+def _finish(name: str, out: str, job) -> None:
+    if job is None:
+        return
+    proc, tmp = job
+    log, _ = proc.communicate()
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed for {SOURCES[name]} (exit {proc.returncode}):\n"
+            + log.decode(errors="replace")
+        )
+    os.replace(tmp, out)
+
+
+def build_all() -> Dict[str, str]:
+    """Build every kernel library, one nvcc per source started together;
+    returns name -> library path."""
+    with _lock:
+        jobs = {name: _spawn(name) for name in SOURCES}
+        for name, (out, job) in jobs.items():
+            _finish(name, out, job)
+        return {name: out for name, (out, _) in jobs.items()}
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of kernel `name`, building it first if needed."""
+    lib = _libs.get(name)
+    if lib is not None:
+        return lib
+    with _lock:
+        lib = _libs.get(name)
+        if lib is None:
+            out, job = _spawn(name)
+            _finish(name, out, job)
+            lib = ctypes.CDLL(out)
+            _libs[name] = lib
+    return lib

@@ -1,0 +1,817 @@
+"""Device-side lib0/V1 update decoding (PyTorch port of
+`ytpu.ops.decode_kernel`).
+
+Host half (copied): the flag bits, staging helpers (`pack_updates`,
+`pack_updates_into`, `pack_raw_updates_into`), the decode step budgets and
+the host key/client hashes.
+
+Device half (ported as torch ops): `gather_raw_lanes` and the lane-parallel
+varint state machine `decode_updates_v1`. Every iteration decodes one
+lib0 varint (or one info byte / one string skip) in every update lane at
+once; the per-lane parse is sequential, all S lanes advance in lockstep
+as ``[S]``-wide tensor ops. Only the arguments the replay passes are
+supported (no client/key/client-hash tables, no primary-root hash).
+
+JAX clamps out-of-range gathers; every gather here clamps its index
+explicitly. uint32 arithmetic is emulated in int64 with 32-bit masks.
+"""
+
+from __future__ import annotations
+
+from typing import List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ytpu_torch.core.content import (
+    BLOCK_GC,
+    BLOCK_SKIP,
+    CONTENT_ANY,
+    CONTENT_BINARY,
+    CONTENT_DELETED,
+    CONTENT_EMBED,
+    CONTENT_FORMAT,
+    CONTENT_JSON,
+    CONTENT_MOVE,
+    CONTENT_STRING,
+    CONTENT_TYPE,
+)
+from ytpu_torch.models.batch_doc import UpdateBatch
+
+__all__ = [
+    "FLAG_UNSUPPORTED",
+    "FLAG_OVERFLOW",
+    "FLAG_MALFORMED",
+    "FLAG_BIG_CLIENT",
+    "FLAG_MULTI_CLIENT",
+    "FLAG_UNKNOWN_CLIENT",
+    "FLAG_UNKNOWN_KEY",
+    "FLAG_ERRORS",
+    "EMPTY_UPDATE",
+    "pack_updates",
+    "pack_updates_into",
+    "pack_raw_updates_into",
+    "gather_raw_lanes",
+    "decode_updates_v1",
+    "identity_rank",
+    "default_steps",
+    "exact_steps",
+    "steps_for_columns",
+    "key_hash_host",
+    "client_hash_host",
+]
+
+I32 = torch.int32
+I64 = torch.int64
+U32_MASK = 0xFFFFFFFF
+
+# --- per-update flag bits ----------------------------------------------------
+FLAG_UNSUPPORTED = 1  # content kind / parent_sub the device cannot decode
+FLAG_OVERFLOW = 2  # more blocks / delete ranges than the U/R buckets
+FLAG_MALFORMED = 4  # ran past the buffer or did not reach DONE in T steps
+FLAG_BIG_CLIENT = 8  # a client id >= 2^31 (needs host interning)
+FLAG_MULTI_CLIENT = 16  # informational: >1 client section
+FLAG_UNKNOWN_CLIENT = 32  # a client id absent from the supplied intern table
+FLAG_UNKNOWN_KEY = 64  # a parent_sub hash absent from the supplied key table
+
+FLAG_ERRORS = (
+    FLAG_UNSUPPORTED
+    | FLAG_OVERFLOW
+    | FLAG_MALFORMED
+    | FLAG_BIG_CLIENT
+    | FLAG_UNKNOWN_CLIENT
+    | FLAG_UNKNOWN_KEY
+)
+
+# --- parser states -----------------------------------------------------------
+(
+    ST_NCLIENTS,
+    ST_NBLOCKS,
+    ST_CLIENT,
+    ST_CLOCK,
+    ST_INFO,
+    ST_ORIGIN_C,
+    ST_ORIGIN_K,
+    ST_ROR_C,
+    ST_ROR_K,
+    ST_PARENT_INFO,
+    ST_PARENT_NAME,
+    ST_PARENT_ID_C,
+    ST_PARENT_ID_K,
+    ST_PARENT_SUB,
+    ST_DEL_LEN,
+    ST_GC_LEN,
+    ST_SKIP_LEN,
+    ST_STR,
+    ST_DS_NCLIENTS,
+    ST_DS_CLIENT,
+    ST_DS_NRANGES,
+    ST_DS_CLOCK,
+    ST_DS_LEN,
+    ST_ANY_COUNT,  # ContentAny: value count
+    ST_ANY_VAL,  # ContentAny: one scalar value per step
+    ST_JSON_COUNT,  # ContentJson: string count
+    ST_JSON_VAL,  # ContentJson: one length-prefixed string per step
+    ST_SPAN1,  # ContentEmbed/Binary: one length-prefixed span, len 1
+    ST_FMT_KEY,  # ContentFormat: key string
+    ST_FMT_VAL,  # ContentFormat: one Any value
+    ST_TYPE_TAG,  # ContentType: branch TypeRef tag byte
+    ST_TYPE_NAME,  # ContentType: XmlElement/XmlHook name string
+    ST_MV_FLAGS,  # ContentMove: collapsed/assoc/priority flags varint
+    ST_MV_SC,  # ContentMove: range-start id client
+    ST_MV_SK,  # ContentMove: range-start id clock
+    ST_MV_EC,  # ContentMove: range-end id client (absent if collapsed)
+    ST_MV_EK,  # ContentMove: range-end id clock
+    ST_ANY_MKEY,  # ContentAny map value: one key string per step
+    ST_ANY_MVAL,  # ContentAny map value: one scalar value per step
+    ST_DONE,
+    ST_ERR,
+) = range(41)
+
+# key-hash window: parent_sub keys longer than this take the host lane
+KEY_HASH_BYTES = 32
+
+_PAD = 16  # gather guard past the longest update
+
+
+def pack_updates(
+    payloads: List[bytes], pad_to: Optional[int] = None
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Pad raw V1 update byte strings into an ``[S, L] uint8`` matrix."""
+    lens = np.array([len(p) for p in payloads], dtype=np.int32)
+    L = max(int(lens.max()) + _PAD if len(payloads) else _PAD, pad_to or 0)
+    buf = np.zeros((len(payloads), L), dtype=np.uint8)
+    for i, p in enumerate(payloads):
+        buf[i, : len(p)] = np.frombuffer(p, dtype=np.uint8)
+    return buf, lens
+
+
+# the minimal well-formed V1 update (0 client sections, empty delete set):
+# what staging pads short tail chunks with
+EMPTY_UPDATE = b"\x00\x00"
+
+
+def pack_updates_into(payloads: List[bytes], buf: np.ndarray, lens: np.ndarray) -> None:
+    """`pack_updates` into caller-provided staging buffers (in place); rows
+    past ``len(payloads)`` hold `EMPTY_UPDATE`."""
+    S, L = buf.shape
+    if len(payloads) > S:
+        raise ValueError(f"chunk of {len(payloads)} exceeds staging rows {S}")
+    for i in range(S):
+        p = payloads[i] if i < len(payloads) else EMPTY_UPDATE
+        n = len(p)
+        if n + _PAD > L:
+            raise ValueError(f"payload of {n} bytes exceeds staging width {L}")
+        prev = int(lens[i])
+        buf[i, :n] = np.frombuffer(p, dtype=np.uint8)
+        if prev + _PAD > n:
+            buf[i, n : prev + _PAD] = 0
+        lens[i] = n
+
+
+_EMPTY_NP = np.frombuffer(EMPTY_UPDATE, dtype=np.uint8)
+
+
+def pack_raw_updates_into(
+    wire: np.ndarray,
+    wire_offsets: np.ndarray,
+    pos: int,
+    end: int,
+    raw: np.ndarray,
+    offs: np.ndarray,
+    lens: np.ndarray,
+    width: Optional[int] = None,
+) -> int:
+    """Stage one chunk of the raw ingest lane: a slice copy of the run's
+    concatenated wire bytes plus in-chunk offset/length tables. Rows past
+    ``end - pos`` point at a staged `EMPTY_UPDATE` tail. Returns the staged
+    byte count."""
+    n = end - pos
+    if n > offs.shape[0]:
+        raise ValueError(f"chunk of {n} exceeds staging rows {offs.shape[0]}")
+    b0 = int(wire_offsets[pos])
+    b1 = int(wire_offsets[end])
+    nb = b1 - b0
+    if nb + len(EMPTY_UPDATE) > raw.shape[0]:
+        raise ValueError(
+            f"chunk of {nb} wire bytes exceeds staging capacity {raw.shape[0]}"
+        )
+    chunk_lens = wire_offsets[pos : end + 1]
+    if width is not None and n:
+        longest = int((chunk_lens[1:] - chunk_lens[:-1]).max())
+        if longest + _PAD > width:
+            raise ValueError(f"payload of {longest} bytes exceeds staging width {width}")
+    raw[:nb] = wire[b0:b1]
+    raw[nb : nb + len(EMPTY_UPDATE)] = _EMPTY_NP
+    offs[:n] = chunk_lens[:-1] - b0
+    lens[:n] = chunk_lens[1:] - chunk_lens[:-1]
+    offs[n:] = nb
+    lens[n:] = len(EMPTY_UPDATE)
+    return nb + len(EMPTY_UPDATE)
+
+
+def gather_raw_lanes(raw, offs, lens, width: int):
+    """``[RC]`` raw concatenated bytes + per-update offsets -> the padded
+    ``[S, width]`` lane matrix `pack_updates` builds on the host: one
+    clamped lane-parallel gather, bytes at ``j >= lens[s]`` zeroed."""
+    iota = torch.arange(width, dtype=I64, device=raw.device)[None, :]
+    idx = (offs[:, None].to(I64) + iota).clamp(0, raw.shape[0] - 1)
+    lanes = raw[idx]
+    return torch.where(iota < lens[:, None].to(I64), lanes, torch.zeros_like(lanes))
+
+
+def identity_rank(k: int, device="cpu") -> torch.Tensor:
+    """Rank table for raw-client-id streams: rank(c) = c."""
+    return torch.arange(k, dtype=I32, device=device)
+
+
+def default_steps(max_rows: int, max_dels: int) -> int:
+    """Safe iteration budget for scalar content."""
+    return 4 + 13 * max_rows + 4 * max_dels
+
+
+def key_hash_host(key: bytes) -> int:
+    """The device key hash, host side."""
+    h = 0
+    for i, byte in enumerate(key[:KEY_HASH_BYTES]):
+        h = (h + byte * pow(31, i, 1 << 32)) & 0xFFFFFFFF
+    h ^= (len(key) * 2654435761) & 0xFFFFFFFF
+    return h & 0x7FFFFFFF
+
+
+def client_hash_host(client: int) -> int:
+    """Hash of a client id's varint wire bytes (ids beyond i32)."""
+    h = 0
+    i = 0
+    v = client
+    while True:
+        byte = v & 0x7F
+        v >>= 7
+        if v:
+            byte |= 0x80
+        h = (h + byte * pow(31, i, 1 << 32)) & 0xFFFFFFFF
+        i += 1
+        if not v:
+            break
+    h ^= (i * 2654435761) & 0xFFFFFFFF
+    return h & 0x3FFFFFFF
+
+
+def exact_steps(
+    n_client_sections: int,
+    n_item_blocks: int,
+    n_skip_gc_blocks: int,
+    n_ds_sections: int,
+    n_del_ranges: int,
+    n_value_steps: int = 0,
+) -> int:
+    """Step budget for one update whose wire-section counts are known."""
+    return (
+        2
+        + 3 * n_client_sections
+        + 10 * n_item_blocks
+        + 2 * n_skip_gc_blocks
+        + 2 * n_ds_sections
+        + 2 * n_del_ranges
+        + n_value_steps
+    )
+
+
+def steps_for_columns(cols) -> int:
+    """Exact decode step budget for one update from its column walk
+    (`ytpu_torch.encoding.lib0.update_columns`)."""
+    n_skip_gc = int(np.count_nonzero((cols.kind == 10) | (cols.kind == 0)))
+    return exact_steps(
+        cols.n_client_sections,
+        cols.n_blocks - n_skip_gc + cols.n_zero_len_blocks,
+        n_skip_gc,
+        cols.n_ds_sections,
+        cols.n_dels,
+        getattr(cols, "n_value_steps", 0),
+    )
+
+
+def _pow31(n: int, device) -> torch.Tensor:
+    return torch.tensor([pow(31, i, 1 << 32) for i in range(n)], dtype=I64, device=device)
+
+
+def decode_updates_v1(
+    buf: torch.Tensor,
+    lens: torch.Tensor,
+    max_rows: int,
+    max_dels: int,
+    n_steps: Optional[int] = None,
+    max_sections: Optional[int] = None,
+) -> Tuple[UpdateBatch, torch.Tensor]:
+    """Decode S updates (``buf`` ``[S, L]`` uint8, ``lens`` ``[S]``) into an
+    ``[S, U] / [S, R]`` UpdateBatch stream. Returns ``(stream, flags)``;
+    lanes with ``flags & FLAG_ERRORS`` decoded incompletely and their rows
+    are marked invalid."""
+    dev = buf.device
+    S, L = buf.shape
+    U, R = max_rows, max_dels
+    T = n_steps or default_steps(U, R)
+    max_sec = max_sections if max_sections is not None else U + 1
+    b = buf.to(I64)
+    lens = lens.to(I64)
+
+    def full(v, shape=(S,)):
+        return torch.full(shape, v, dtype=I64, device=dev)
+
+    # UTF-16 length prefix sums: a UTF-8 head byte (not 0b10xxxxxx) is one
+    # code point; a 4-byte lead (>= 0xF0) is a surrogate pair, one extra
+    head = ((b & 0xC0) != 0x80).to(I64)
+    lead4 = (b >= 0xF0).to(I64)
+    u16_psum = torch.cat([full(0, (S, 1)), torch.cumsum(head + lead4, dim=1)], dim=1)
+
+    iota_u = torch.arange(U, device=dev)[None, :]
+    iota_r = torch.arange(R, device=dev)[None, :]
+    row_ids = torch.arange(S, dtype=I64, device=dev)
+    ar10 = torch.arange(10, dtype=I64, device=dev)[None, :]
+    arkh = torch.arange(KEY_HASH_BYTES, dtype=I64, device=dev)[None, :]
+    shifts = (7 * torch.arange(5, dtype=I64, device=dev))[None, :]
+    pow31 = _pow31(KEY_HASH_BYTES, dev)[None, :]
+    pow31_10 = _pow31(10, dev)[None, :]
+
+    def take(idx):
+        """b[s, clamp(idx[s, k])] (JAX clamps out-of-range gathers)."""
+        return torch.gather(b, 1, idx.clamp(0, L - 1))
+
+    def u16_span(a, bnd):
+        a = a.clamp(0, L)
+        bnd = bnd.clamp(0, L)
+        pa = torch.gather(u16_psum, 1, a[:, None])[:, 0]
+        pb = torch.gather(u16_psum, 1, bnd[:, None])[:, 0]
+        return pb - pa
+
+    def wrap32(x):
+        """int64 -> the int32 value with the same low 32 bits (as int64)."""
+        x = x & U32_MASK
+        return torch.where(x >= (1 << 31), x - (1 << 32), x)
+
+    regs = dict(
+        pos=full(0), st=full(ST_NCLIENTS), flags=full(0), clients_left=full(0),
+        blocks_left=full(0), client=full(0), clock=full(0), info=full(0),
+        oc=full(-1), ok=full(0), rc=full(-1), rk=full(0), ptag=full(0),
+        pc=full(-1), pk=full(0), ds_clients_left=full(0), ds_ranges_left=full(0),
+        ds_client=full(0), ds_clock=full(0), n_rows=full(0), n_dels=full(0),
+        keyh=full(-1), rooth=full(-1), vals_left=full(0), vals_n=full(0),
+        cref=full(-1), mpairs=full(0), mvf=full(0), msc=full(-1), msk=full(0),
+        mec=full(-1),
+    )
+    ushape = (S, U)
+    rows = dict(
+        client=full(0, ushape), clock=full(0, ushape), length=full(0, ushape),
+        oc=full(-1, ushape), ok=full(0, ushape), rc=full(-1, ushape),
+        rk=full(0, ushape), kind=full(0, ushape), ref=full(-1, ushape),
+        ptag=full(0, ushape), pc=full(-1, ushape), pk=full(0, ushape),
+        keyh=full(-1, ushape), rooth=full(-1, ushape), msc=full(-1, ushape),
+        msk=full(0, ushape), msa=full(0, ushape), mec=full(-1, ushape),
+        mek=full(0, ushape), mea=full(0, ushape), mprio=full(-1, ushape),
+        valid=torch.zeros(ushape, dtype=torch.bool, device=dev),
+    )
+    rshape = (S, R)
+    dels = dict(
+        client=full(0, rshape), start=full(0, rshape), end=full(0, rshape),
+        valid=torch.zeros(rshape, dtype=torch.bool, device=dev),
+    )
+
+    def where(c, a, b_):
+        if not torch.is_tensor(a):
+            a = full(a)
+        if not torch.is_tensor(b_):
+            b_ = full(b_)
+        return torch.where(c, a, b_)
+
+    for _ in range(T):
+        pos, st = regs["pos"], regs["st"]
+        active = (st != ST_DONE) & (st != ST_ERR)
+
+        # --- one varint (or u8) at the cursor, all lanes at once ---------
+        win = pos[:, None] + ar10
+        in_buf = win < lens[:, None]
+        bytes10 = torch.where(in_buf, take(win), torch.zeros_like(win))
+        cont = bytes10 >= 0x80
+        inb = torch.cat(
+            [full(1, (S, 1)), torch.cumprod(cont[:, :9].to(I64), dim=1)], dim=1
+        )
+        nbytes = inb.sum(dim=1)
+        val = wrap32(
+            torch.where(inb[:, :5] == 1, (bytes10[:, :5] & 0x7F) << shifts, 0).sum(dim=1)
+        )
+        ovf = (nbytes > 5) | ((nbytes == 5) & ((bytes10[:, 4] & 0x7F) >= 8))
+
+        is_info = st == ST_INFO
+        is_u8 = is_info | (st == ST_TYPE_TAG)
+        v = torch.where(is_u8, bytes10[:, 0], val)
+        consumed = torch.where(is_u8, full(1), nbytes)
+
+        is_str_skip = (
+            (st == ST_PARENT_NAME)
+            | (st == ST_PARENT_SUB)
+            | (st == ST_JSON_VAL)
+            | (st == ST_FMT_KEY)
+            | (st == ST_FMT_VAL)
+            | (st == ST_SPAN1)
+            | (st == ST_TYPE_NAME)
+            | (st == ST_ANY_MKEY)
+        )
+        is_str = st == ST_STR
+        str_start = pos + nbytes
+        consumed = consumed + torch.where(is_str_skip | is_str, v, 0)
+
+        # --- one lib0 Any value: tag byte, then a tag-dependent payload
+        is_any_val = st == ST_ANY_VAL
+        is_any_mval = st == ST_ANY_MVAL
+        tag = bytes10[:, 0]
+        cont2 = bytes10[:, 1:] >= 0x80
+        inb2 = torch.cat(
+            [full(1, (S, 1)), torch.cumprod(cont2[:, :8].to(I64), dim=1)], dim=1
+        )
+        nb2 = inb2.sum(dim=1)
+        val2 = wrap32(
+            torch.where(inb2[:, :5] == 1, (bytes10[:, 1:6] & 0x7F) << shifts, 0).sum(dim=1)
+        )
+        any_extra = torch.where(
+            (tag == 127) | (tag == 126) | (tag == 121) | (tag == 120),
+            0,
+            torch.where(
+                tag == 125,
+                nb2,
+                torch.where(
+                    tag == 124,
+                    4,
+                    torch.where(
+                        (tag == 123) | (tag == 122),
+                        8,
+                        torch.where(
+                            (tag == 119) | (tag == 116),
+                            nb2 + val2,
+                            torch.where((tag == 117) | (tag == 118), nb2, 0),
+                        ),
+                    ),
+                ),
+            ),
+        )
+        any_bad_tag = (is_any_val & (tag < 116)) | (
+            is_any_mval & ((tag == 117) | (tag == 118) | (tag < 116))
+        )
+        consumed = torch.where(is_any_val | is_any_mval, 1 + any_extra, consumed)
+
+        # --- parent_sub key hash over the string's first KEY_HASH_BYTES bytes
+        kh_bytes = take(str_start[:, None] + arkh)
+        kh_mask = arkh < v[:, None]
+        khash = (torch.where(kh_mask, kh_bytes * pow31, 0).sum(dim=1)) & U32_MASK
+        khash = (khash ^ (((v & U32_MASK) * 2654435761) & U32_MASK)) & 0x7FFFFFFF
+        key_too_long = (st == ST_PARENT_SUB) & (v > KEY_HASH_BYTES)
+
+        pos_after = pos + consumed
+        is_client_st = (
+            (st == ST_CLIENT) | (st == ST_ORIGIN_C) | (st == ST_ROR_C)
+            | (st == ST_PARENT_ID_C) | (st == ST_DS_CLIENT)
+            | (st == ST_MV_SC) | (st == ST_MV_EC)
+        )
+        # client ids beyond i32 are represented by -2 - hash of their bytes
+        cmask = ar10 < nbytes[:, None]
+        chash = (torch.where(cmask, bytes10 * pow31_10, 0).sum(dim=1)) & U32_MASK
+        chash = (chash ^ ((nbytes * 2654435761) & U32_MASK)) & 0x3FFFFFFF
+        vc = torch.where(is_client_st & ovf, -2 - chash, v)
+        bad = active & (
+            (pos_after > lens)
+            | ((is_str_skip | is_str) & (v > L))
+            | ((is_any_val | is_any_mval) & ((tag == 119) | (tag == 116)) & (val2 > L))
+            | (ovf & ~is_u8 & ~is_client_st & ~is_any_val & ~is_any_mval)
+            | ((st == ST_NCLIENTS) & (v > max_sec))
+        )
+        act = active & ~bad
+
+        def on(s):
+            return act & (st == s)
+
+        def upd(reg, cond, new):
+            return where(cond, new, reg)
+
+        # --- end-of-block / end-of-ds-range shared bookkeeping -----------
+        any_children = torch.where((st == ST_ANY_VAL) & (tag == 117), val2, 0)
+        map_open = on(ST_ANY_VAL) & (tag == 118) & (val2 > 0)
+        mpairs2 = upd(regs["mpairs"], on(ST_ANY_MVAL), regs["mpairs"] - 1)
+        map_done = on(ST_ANY_MVAL) & (mpairs2 == 0)
+        vals_dec = (on(ST_ANY_VAL) & ~map_open) | on(ST_JSON_VAL) | map_done
+        vals_left2 = upd(regs["vals_left"], vals_dec, regs["vals_left"] - 1 + any_children)
+        empty_list = (on(ST_ANY_COUNT) | on(ST_JSON_COUNT)) & (v == 0)
+        list_done = vals_dec & (vals_left2 == 0)
+        type_named = on(ST_TYPE_TAG) & ((v == 3) | (v == 5))
+        type_done = (on(ST_TYPE_TAG) & ~type_named) | on(ST_TYPE_NAME)
+        mv_collapsed = (regs["mvf"] & 1) != 0
+        move_done = (on(ST_MV_SK) & mv_collapsed) | on(ST_MV_EK)
+        emit_row_st = (
+            on(ST_DEL_LEN)
+            | on(ST_GC_LEN)
+            | on(ST_SKIP_LEN)
+            | on(ST_STR)
+            | list_done
+            | on(ST_SPAN1)
+            | on(ST_FMT_VAL)
+            | type_done
+            | move_done
+        )
+        str_len16 = u16_span(str_start, str_start + v)
+        blk_len = torch.where(
+            is_str,
+            str_len16,
+            torch.where(
+                list_done,
+                regs["vals_n"],
+                torch.where(on(ST_SPAN1) | on(ST_FMT_VAL) | type_done | move_done, 1, v),
+            ),
+        )
+        block_end = emit_row_st | empty_list
+        blocks_left2 = upd(regs["blocks_left"], block_end, regs["blocks_left"] - 1)
+        empty_client = on(ST_CLOCK) & (regs["blocks_left"] == 0)
+        client_done = (block_end & (blocks_left2 == 0)) | empty_client
+        clients_left2 = upd(regs["clients_left"], client_done, regs["clients_left"] - 1)
+        after_block = torch.where(
+            blocks_left2 > 0,
+            ST_INFO,
+            torch.where(clients_left2 > 0, ST_NBLOCKS, ST_DS_NCLIENTS),
+        )
+
+        ds_done_range = on(ST_DS_LEN)
+        ds_ranges_left2 = upd(regs["ds_ranges_left"], ds_done_range, regs["ds_ranges_left"] - 1)
+        ds_client_done = (ds_done_range & (ds_ranges_left2 == 0)) | (
+            on(ST_DS_NRANGES) & (v == 0)
+        )
+        ds_clients_left2 = upd(
+            regs["ds_clients_left"], ds_client_done, regs["ds_clients_left"] - 1
+        )
+        after_ds_range = torch.where(
+            ds_ranges_left2 > 0,
+            ST_DS_CLOCK,
+            torch.where(ds_clients_left2 > 0, ST_DS_CLIENT, ST_DONE),
+        )
+
+        # --- content dispatch after the last pre-content field -----------
+        kind4 = regs["info"] & 0b1111
+        content_st = full(ST_ERR)
+        for kind, state in (
+            (CONTENT_MOVE, ST_MV_FLAGS),
+            (CONTENT_TYPE, ST_TYPE_TAG),
+            (CONTENT_FORMAT, ST_FMT_KEY),
+            (CONTENT_BINARY, ST_SPAN1),
+            (CONTENT_EMBED, ST_SPAN1),
+            (CONTENT_JSON, ST_JSON_COUNT),
+            (CONTENT_ANY, ST_ANY_COUNT),
+            (CONTENT_STRING, ST_STR),
+            (CONTENT_DELETED, ST_DEL_LEN),
+        ):
+            content_st = torch.where(kind4 == kind, state, content_st)
+        content_unsupported = content_st == ST_ERR
+        has_psub = ((regs["info"] & 0xC0) == 0) & ((regs["info"] & 0x20) != 0)
+        after_parent = torch.where(has_psub, full(ST_PARENT_SUB), content_st)
+
+        # --- next state -----------------------------------------------------
+        nclients_hdr = on(ST_NCLIENTS)
+        info_gc = on(ST_INFO) & (v == BLOCK_GC)
+        info_skip = on(ST_INFO) & (v == BLOCK_SKIP)
+        info_item = on(ST_INFO) & ~info_gc & ~info_skip
+        item_next = torch.where(
+            (v & 0x80) != 0,
+            ST_ORIGIN_C,
+            torch.where((v & 0x40) != 0, ST_ROR_C, ST_PARENT_INFO),
+        )
+
+        st2 = st
+        st2 = upd(st2, nclients_hdr, torch.where(v > 0, ST_NBLOCKS, ST_DS_NCLIENTS))
+        st2 = upd(st2, on(ST_NBLOCKS), ST_CLIENT)
+        st2 = upd(st2, on(ST_CLIENT), ST_CLOCK)
+        st2 = upd(
+            st2,
+            on(ST_CLOCK),
+            torch.where(
+                regs["blocks_left"] > 0,
+                ST_INFO,
+                torch.where(clients_left2 > 0, ST_NBLOCKS, ST_DS_NCLIENTS),
+            ),
+        )
+        st2 = upd(st2, info_gc, ST_GC_LEN)
+        st2 = upd(st2, info_skip, ST_SKIP_LEN)
+        st2 = upd(st2, info_item, item_next)
+        st2 = upd(st2, on(ST_ORIGIN_C), ST_ORIGIN_K)
+        st2 = upd(
+            st2,
+            on(ST_ORIGIN_K),
+            torch.where((regs["info"] & 0x40) != 0, full(ST_ROR_C), content_st),
+        )
+        st2 = upd(st2, on(ST_ROR_C), ST_ROR_K)
+        st2 = upd(st2, on(ST_ROR_K), content_st)
+        st2 = upd(st2, on(ST_PARENT_INFO), torch.where(v == 1, ST_PARENT_NAME, ST_PARENT_ID_C))
+        st2 = upd(st2, on(ST_PARENT_NAME), after_parent)
+        st2 = upd(st2, on(ST_PARENT_ID_C), ST_PARENT_ID_K)
+        st2 = upd(st2, on(ST_PARENT_ID_K), after_parent)
+        st2 = upd(st2, on(ST_PARENT_SUB), content_st)
+        st2 = upd(st2, on(ST_ANY_COUNT) & (v > 0), ST_ANY_VAL)
+        st2 = upd(st2, map_open, ST_ANY_MKEY)
+        st2 = upd(st2, on(ST_ANY_MKEY), ST_ANY_MVAL)
+        st2 = upd(st2, on(ST_ANY_MVAL) & ~map_done, ST_ANY_MKEY)
+        st2 = upd(st2, map_done & (vals_left2 > 0), ST_ANY_VAL)
+        st2 = upd(st2, on(ST_JSON_COUNT) & (v > 0), ST_JSON_VAL)
+        st2 = upd(st2, on(ST_FMT_KEY), ST_FMT_VAL)
+        st2 = upd(st2, type_named, ST_TYPE_NAME)
+        st2 = upd(st2, on(ST_MV_FLAGS), ST_MV_SC)
+        st2 = upd(st2, on(ST_MV_SC), ST_MV_SK)
+        st2 = upd(st2, on(ST_MV_SK) & ~mv_collapsed, ST_MV_EC)
+        st2 = upd(st2, on(ST_MV_EC), ST_MV_EK)
+        st2 = upd(st2, block_end, after_block)
+        st2 = upd(st2, on(ST_DS_NCLIENTS), torch.where(v > 0, ST_DS_CLIENT, ST_DONE))
+        st2 = upd(st2, on(ST_DS_CLIENT), ST_DS_NRANGES)
+        st2 = upd(
+            st2,
+            on(ST_DS_NRANGES),
+            torch.where(
+                v > 0,
+                ST_DS_CLOCK,
+                torch.where(ds_clients_left2 > 0, ST_DS_CLIENT, ST_DONE),
+            ),
+        )
+        st2 = upd(st2, on(ST_DS_CLOCK), ST_DS_LEN)
+        st2 = upd(st2, ds_done_range, after_ds_range)
+
+        unsupported = (
+            (on(ST_ORIGIN_K) & ((regs["info"] & 0x40) == 0) & content_unsupported)
+            | (on(ST_ROR_K) & content_unsupported)
+            | ((on(ST_PARENT_NAME) | on(ST_PARENT_ID_K)) & ~has_psub & content_unsupported)
+            | (on(ST_PARENT_SUB) & content_unsupported)
+            | (act & key_too_long)
+            | (act & any_bad_tag)
+            | (on(ST_TYPE_TAG) & ((v == 7) | (v >= 8)))
+        )
+        st2 = upd(st2, unsupported, ST_ERR)
+        st2 = upd(st2, bad, ST_ERR)
+
+        # --- registers ------------------------------------------------------
+        regs2 = dict(regs)
+        regs2["pos"] = torch.where(act, pos_after, pos)
+        regs2["st"] = st2
+        regs2["clients_left"] = upd(clients_left2, nclients_hdr, v)
+        regs2["blocks_left"] = upd(blocks_left2, on(ST_NBLOCKS), v)
+        regs2["client"] = upd(regs["client"], on(ST_CLIENT), vc)
+        clock2 = upd(regs["clock"], on(ST_CLOCK), v)
+        regs2["clock"] = wrap32(upd(clock2, block_end, clock2 + blk_len))
+        regs2["keyh"] = upd(upd(regs["keyh"], on(ST_INFO), -1), on(ST_PARENT_SUB), khash)
+        regs2["rooth"] = upd(
+            upd(regs["rooth"], on(ST_INFO), -1),
+            on(ST_PARENT_NAME),
+            torch.where(v <= KEY_HASH_BYTES, khash, -2),
+        )
+        count_st = on(ST_ANY_COUNT) | on(ST_JSON_COUNT)
+        regs2["vals_n"] = upd(regs["vals_n"], count_st, v)
+        regs2["vals_left"] = upd(vals_left2, count_st, v)
+        regs2["cref"] = upd(regs["cref"], count_st | on(ST_FMT_KEY) | on(ST_TYPE_TAG), pos)
+        regs2["info"] = upd(regs["info"], on(ST_INFO), v)
+        fresh = on(ST_INFO)
+        regs2["oc"] = upd(upd(regs["oc"], fresh, -1), on(ST_ORIGIN_C), vc)
+        regs2["ok"] = upd(upd(regs["ok"], fresh, 0), on(ST_ORIGIN_K), v)
+        regs2["rc"] = upd(upd(regs["rc"], fresh, -1), on(ST_ROR_C), vc)
+        regs2["rk"] = upd(upd(regs["rk"], fresh, 0), on(ST_ROR_K), v)
+        ptag2 = upd(regs["ptag"], fresh, 0)
+        regs2["ptag"] = upd(ptag2, on(ST_PARENT_INFO), torch.where(v == 1, 1, 2))
+        regs2["pc"] = upd(upd(regs["pc"], fresh, -1), on(ST_PARENT_ID_C), vc)
+        regs2["pk"] = upd(upd(regs["pk"], fresh, 0), on(ST_PARENT_ID_K), v)
+        regs2["ds_clients_left"] = upd(ds_clients_left2, on(ST_DS_NCLIENTS), v)
+        regs2["ds_ranges_left"] = upd(ds_ranges_left2, on(ST_DS_NRANGES), v)
+        regs2["ds_client"] = upd(regs["ds_client"], on(ST_DS_CLIENT), vc)
+        regs2["ds_clock"] = upd(regs["ds_clock"], on(ST_DS_CLOCK), v)
+        regs2["mpairs"] = upd(mpairs2, map_open, val2)
+        regs2["mvf"] = upd(regs["mvf"], on(ST_MV_FLAGS), v)
+        regs2["msc"] = upd(regs["msc"], on(ST_MV_SC), vc)
+        regs2["msk"] = upd(regs["msk"], on(ST_MV_SK), v)
+        regs2["mec"] = upd(regs["mec"], on(ST_MV_EC), vc)
+
+        flags2 = (
+            regs["flags"]
+            | torch.where(bad, FLAG_MALFORMED, 0)
+            | torch.where(unsupported, FLAG_UNSUPPORTED, 0)
+            | torch.where(nclients_hdr & (v > 1), FLAG_MULTI_CLIENT, 0)
+        )
+
+        # --- row / delete-range emission -----------------------------------
+        emit = emit_row_st & ~on(ST_SKIP_LEN) & (blk_len > 0)
+        row_ovf = emit & (regs["n_rows"] >= U)
+        emit = emit & ~row_ovf
+        oh = (iota_u == regs["n_rows"][:, None]) & emit[:, None]
+
+        def put_row(name, vec):
+            rows[name] = torch.where(oh, vec[:, None], rows[name])
+
+        is_gc_row = on(ST_GC_LEN)
+        row_kind = torch.where(is_gc_row, BLOCK_GC, torch.where(is_str, CONTENT_STRING, kind4))
+        row_ref = torch.where(
+            is_str,
+            row_ids * L + str_start,
+            torch.where(
+                list_done | on(ST_FMT_VAL) | on(ST_TYPE_NAME),
+                row_ids * L + regs["cref"],
+                torch.where(on(ST_SPAN1) | on(ST_TYPE_TAG), row_ids * L + pos, -1),
+            ),
+        )
+        put_row("client", regs["client"])
+        put_row("clock", regs["clock"])
+        put_row("length", blk_len)
+        put_row("oc", torch.where(is_gc_row, -1, regs["oc"]))
+        put_row("ok", torch.where(is_gc_row, 0, regs["ok"]))
+        put_row("rc", torch.where(is_gc_row, -1, regs["rc"]))
+        put_row("rk", torch.where(is_gc_row, 0, regs["rk"]))
+        put_row("kind", row_kind)
+        put_row("ref", row_ref)
+        put_row("ptag", torch.where(is_gc_row, 0, regs["ptag"]))
+        put_row("pc", torch.where(is_gc_row, -1, regs["pc"]))
+        put_row("pk", torch.where(is_gc_row, 0, regs["pk"]))
+        put_row("keyh", torch.where(is_gc_row, -1, regs["keyh"]))
+        put_row("rooth", torch.where(is_gc_row, -1, regs["rooth"]))
+        # ContentMove range fields: assoc 0 = After, -1 = Before; a
+        # collapsed move's end id is its start id
+        mvf = regs["mvf"]
+        msa = torch.where((mvf & 2) != 0, 0, -1)
+        mea = torch.where((mvf & 4) != 0, 0, -1)
+        msk_cur = torch.where(on(ST_MV_SK), v, regs["msk"])
+        mv_end_c = torch.where(mv_collapsed, regs["msc"], regs["mec"])
+        put_row("msc", torch.where(move_done, regs["msc"], -1))
+        put_row("msk", torch.where(move_done, msk_cur, 0))
+        put_row("msa", torch.where(move_done, msa, 0))
+        put_row("mec", torch.where(move_done, mv_end_c, -1))
+        put_row("mek", torch.where(move_done, v, 0))
+        put_row("mea", torch.where(move_done, mea, 0))
+        put_row("mprio", torch.where(move_done, mvf >> 6, -1))
+        rows["valid"] = rows["valid"] | oh
+        regs2["n_rows"] = regs["n_rows"] + emit.to(I64)
+
+        emit_d = ds_done_range & (v > 0)
+        del_ovf = emit_d & (regs["n_dels"] >= R)
+        emit_d = emit_d & ~del_ovf
+        ohd = (iota_r == regs["n_dels"][:, None]) & emit_d[:, None]
+        dels["client"] = torch.where(ohd, regs["ds_client"][:, None], dels["client"])
+        dels["start"] = torch.where(ohd, regs["ds_clock"][:, None], dels["start"])
+        dels["end"] = torch.where(ohd, wrap32(regs["ds_clock"] + v)[:, None], dels["end"])
+        dels["valid"] = dels["valid"] | ohd
+        regs2["n_dels"] = regs["n_dels"] + emit_d.to(I64)
+
+        regs2["flags"] = flags2 | torch.where(row_ovf | del_ovf, FLAG_OVERFLOW, 0)
+        regs = regs2
+
+    flags = regs["flags"] | torch.where(regs["st"] != ST_DONE, FLAG_MALFORMED, 0)
+    return _resolve_and_pack(rows, dels, flags)
+
+
+def _resolve_and_pack(rows, dels, flags):
+    """Post-decode pass without intern tables: hashed big-client ids flag
+    FLAG_BIG_CLIENT, map rows flag FLAG_UNKNOWN_KEY, error lanes lose their
+    rows, and the columns pack into an int32 UpdateBatch."""
+    S, U = rows["client"].shape
+    dev = flags.device
+    bigf = torch.zeros((S,), dtype=torch.bool, device=dev)
+    for name in ("client", "oc", "rc", "pc", "msc", "mec"):
+        bigf = bigf | (rows["valid"] & (rows[name] <= -2)).any(dim=1)
+    bigf = bigf | (dels["valid"] & (dels["client"] <= -2)).any(dim=1)
+    flags = flags | torch.where(bigf, FLAG_BIG_CLIENT, 0)
+    key_miss = rows["valid"] & (rows["keyh"] >= 0)
+    flags = flags | torch.where(key_miss.any(dim=1), FLAG_UNKNOWN_KEY, 0)
+
+    lane_ok = (flags & FLAG_ERRORS) == 0
+    valid = rows["valid"] & lane_ok[:, None]
+    dvalid = dels["valid"] & lane_ok[:, None]
+
+    def i32(x):
+        return x.to(I32)
+
+    z_u = torch.zeros((S, U), dtype=I32, device=dev)
+    neg_u = torch.full((S, U), -1, dtype=I32, device=dev)
+    stream = UpdateBatch(
+        client=i32(rows["client"]),
+        clock=i32(rows["clock"]),
+        length=i32(rows["length"]),
+        origin_client=i32(rows["oc"]),
+        origin_clock=i32(rows["ok"]),
+        ror_client=i32(rows["rc"]),
+        ror_clock=i32(rows["rk"]),
+        kind=i32(rows["kind"]),
+        content_ref=i32(rows["ref"]),
+        content_off=z_u,
+        key=neg_u.clone(),
+        p_tag=i32(rows["ptag"]),
+        p_client=i32(rows["pc"]),
+        p_clock=i32(rows["pk"]),
+        p_root=neg_u.clone(),
+        mv_sc=i32(rows["msc"]),
+        mv_sk=i32(rows["msk"]),
+        mv_sa=i32(rows["msa"]),
+        mv_ec=i32(rows["mec"]),
+        mv_ek=i32(rows["mek"]),
+        mv_ea=i32(rows["mea"]),
+        mv_prio=i32(rows["mprio"]),
+        valid=valid,
+        del_client=i32(dels["client"]),
+        del_start=i32(dels["start"]),
+        del_end=i32(dels["end"]),
+        del_valid=dvalid,
+    )
+    return stream, flags.to(I32)

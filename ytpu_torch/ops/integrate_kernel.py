@@ -1,0 +1,1087 @@
+"""Packed-state integrate: the hand-written CUDA kernel, its plain PyTorch
+version, the chunk program and the chunked replay driver (PyTorch port of
+`ytpu.ops.integrate_kernel`).
+
+The state lives in the packed layout of the JAX package: ``cols`` is an
+``[NC=26, D, C]`` int32 plane stack and ``meta`` a ``[D, M_PAD=32]`` int32
+tile. `integrate_stream` integrates an ``[S, U, 23]`` row / ``[S, R, 4]``
+delete stream into every doc, in place. On a CUDA tensor it launches the
+kernel of ``csrc/integrate.cu``; on a CPU tensor it runs
+`integrate_stream_reference`, the plain version of the same function
+written like the Pallas kernel (vectorized over docs with ``[D, C]``
+masks).
+"""
+
+from __future__ import annotations
+
+import ctypes
+from dataclasses import dataclass
+from typing import List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ytpu_torch.core.content import (
+    BLOCK_GC,
+    BLOCK_ROOT_ANCHOR,
+    CONTENT_DELETED,
+    CONTENT_FORMAT,
+    CONTENT_MOVE,
+)
+from ytpu_torch.models.batch_doc import (
+    DEFAULT_COMPACTION_POLICY,
+    SCAN_REC_CHEAP,
+    SCAN_REC_MAX,
+    SCAN_REC_WORDS,
+    SCAN_WIDTH_BUCKETS,
+    U32_MASK,
+    BlockCols,
+    DocStateBatch,
+    UpdateBatch,
+    commit_fold_blocks,
+    scan_tier_plan,
+    scan_width_bucket,
+    scan_width_quantile,
+)
+
+__all__ = [
+    "NC",
+    "M_PAD",
+    "N_READOUT",
+    "pack_state",
+    "unpack_state",
+    "pack_stream",
+    "integrate_stream",
+    "integrate_stream_reference",
+    "replay_chunk_program_raw",
+    "packed_capacity_ledger",
+    "PackedReplayDriver",
+    "ReplayChunkStats",
+]
+
+I32 = torch.int32
+
+# plane indices in the packed [NC, D, C] state
+(
+    CL,  # client
+    CK,  # clock
+    LN,  # length
+    OC,  # origin client
+    OK,  # origin clock
+    RC,  # right-origin client
+    RK,  # right-origin clock
+    LT,  # left link
+    RT,  # right link
+    DL,  # deleted flag
+    CN,  # countable flag
+    KD,  # content kind
+    RF,  # content ref
+    OF,  # content offset
+    KEY,  # interned parent_sub (-1 = sequence item)
+    PA,  # parent ContentType row (-1 = root)
+    HD,  # child-sequence head (ContentType rows)
+    MV,  # slot of the move row owning this row (-1 = unowned)
+    MSC,  # move rows: range-start id client
+    MSK,  # move rows: range-start id clock
+    MSA,  # move rows: start assoc
+    MEC,  # move rows: range-end id client
+    MEK,  # move rows: range-end id clock
+    MEA,  # move rows: end assoc
+    MPR,  # move rows: conflict priority
+    OS,  # cached origin slot: the integrate kernel neither reads nor writes it
+) = range(26)
+NC = 26
+
+# meta words of the packed [D, 32] tile
+M_START, M_NBLOCKS, M_ERROR, M_MDIRTY = 0, 1, 2, 3
+M_HIST0 = 4
+M_SCANW_MAX = M_HIST0 + SCAN_REC_MAX  # 12
+M_TIER_CHEAP = M_HIST0 + SCAN_REC_CHEAP  # 13
+M_TIER_WIDE = M_TIER_CHEAP + 1  # 14
+M_CHEAP_TRIPS = M_TIER_CHEAP + 2  # 15
+M_WIDE_TRIPS = M_TIER_CHEAP + 3  # 16
+M_WIDTH_SUM = M_TIER_CHEAP + 4  # 17
+M_SCAN_END = M_HIST0 + SCAN_REC_WORDS  # 18 (exclusive)
+M_PAD = 32
+
+#: capacity-ledger readout words: sum of occupied rows, sum of dead rows,
+#: max per-doc dead rows
+LEDGER_WORDS = 3
+#: per-chunk readout: (max n_blocks, max error, decode flags), the scan
+#: record summed over docs (max for its max word), the commitment word,
+#: the ledger words
+N_READOUT = 3 + SCAN_REC_WORDS + 1 + LEDGER_WORDS
+
+ERR_CAPACITY = 1
+ERR_MISSING_DEP = 2
+
+_FIELD_PLANES = (
+    "client", "clock", "length", "origin_client", "origin_clock",
+    "ror_client", "ror_clock", "left", "right", "deleted", "countable",
+    "kind", "content_ref", "content_off", "key", "parent", "head", "moved",
+    "mv_sc", "mv_sk", "mv_sa", "mv_ec", "mv_ek", "mv_ea", "mv_prio",
+    "origin_slot",
+)
+
+
+def pack_state(state: DocStateBatch) -> Tuple[torch.Tensor, torch.Tensor]:
+    cols = torch.stack(
+        [getattr(state.blocks, name).to(I32) for name in _FIELD_PLANES]
+    )  # [NC, D, C]
+    D = state.start.shape[0]
+    meta = torch.zeros((D, M_PAD), dtype=I32, device=cols.device)
+    meta[:, M_START] = state.start
+    meta[:, M_NBLOCKS] = state.n_blocks
+    meta[:, M_ERROR] = state.error
+    return cols, meta
+
+
+def unpack_state(cols: torch.Tensor, meta: torch.Tensor) -> DocStateBatch:
+    planes = {name: cols[i] for i, name in enumerate(_FIELD_PLANES)}
+    planes["deleted"] = planes["deleted"].to(torch.bool)
+    planes["countable"] = planes["countable"].to(torch.bool)
+    return DocStateBatch(
+        blocks=BlockCols(**planes),
+        start=meta[:, M_START],
+        n_blocks=meta[:, M_NBLOCKS],
+        error=meta[:, M_ERROR],
+    )
+
+
+def pack_stream(stream: UpdateBatch) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Doc-free stream -> rows [S, U, 23] / dels [S, R, 4] int32."""
+    rows = torch.stack(
+        [
+            stream.client, stream.clock, stream.length,
+            stream.origin_client, stream.origin_clock,
+            stream.ror_client, stream.ror_clock,
+            stream.kind, stream.content_ref, stream.content_off,
+            stream.key, stream.p_tag, stream.p_client, stream.p_clock,
+            stream.valid.to(I32),
+            stream.mv_sc, stream.mv_sk, stream.mv_sa,
+            stream.mv_ec, stream.mv_ek, stream.mv_ea, stream.mv_prio,
+            stream.p_root,
+        ],
+        dim=-1,
+    ).to(I32)
+    dels = torch.stack(
+        [stream.del_client, stream.del_start, stream.del_end, stream.del_valid.to(I32)],
+        dim=-1,
+    ).to(I32)
+    return rows.contiguous(), dels.contiguous()
+
+
+# --- plain version -------------------------------------------------------------
+
+
+def integrate_stream_reference(cols, meta, rows, dels, rank, scan_plan=(32, 8)):
+    """Integrate the stream into every doc, in place: the plain PyTorch
+    version of the Pallas `_kernel` (ytpu/ops/integrate_kernel.py:283),
+    written the same way: every per-doc lookup is a one-hot sweep over the
+    C slots, every branch a mask, and the conflict scan runs the two-tier
+    (cheap / wide) loop of the kernel. Returns ``(cols, meta)``."""
+    _, D, C = cols.shape
+    dev = cols.device
+    cheap_bound, wide_unroll = scan_plan
+    rows_l = rows.cpu().tolist()
+    dels_l = dels.cpu().tolist()
+    rank = rank.reshape(-1).to(dev)
+    K = rank.shape[0]
+    iota_c = torch.arange(C, dtype=I32, device=dev)[None, :].expand(D, C)
+    didx = torch.arange(D, device=dev)
+
+    def full(v):
+        return torch.full((D,), int(v), dtype=I32, device=dev)
+
+    def n_blocks():
+        return meta[:, M_NBLOCKS].clone()
+
+    def gather(i, idx, fill):
+        """cols[i][d, idx[d]]; idx < 0 -> fill, idx >= C -> 0."""
+        v = cols[i].gather(1, idx.clamp(0, C - 1).long()[:, None])[:, 0]
+        v = torch.where(idx >= C, torch.zeros_like(v), v)
+        return torch.where(idx >= 0, v, fill if torch.is_tensor(fill) else full(fill))
+
+    def put(i, idx, val, active):
+        """cols[i][d, idx[d]] = val[d] where active[d] and 0 <= idx < C."""
+        mask = active & (idx >= 0) & (idx < C)
+        val = val if torch.is_tensor(val) else full(val)
+        cols[i, didx[mask], idx[mask].long()] = val[mask]
+
+    def put_many(idx, active, writes):
+        """Several planes at one slot per doc, as one indexed store."""
+        mask = active & (idx >= 0) & (idx < C)
+        planes = torch.tensor([i for i, _ in writes], device=dev)
+        vals = torch.stack([v if torch.is_tensor(v) else full(v) for _, v in writes])
+        cols[planes[:, None], didx[mask][None, :], idx[mask].long()[None, :]] = vals[:, mask]
+
+    def gather_all(idx):
+        """Every plane at idx[d] per doc ([NC, D]); idx >= C -> 0. Callers
+        read it only for docs whose idx is a valid slot."""
+        v = cols[:, didx, idx.clamp(0, C - 1).long()]
+        return torch.where((idx >= C)[None, :], torch.zeros_like(v), v)
+
+    def gather_rank(client_v):
+        c = client_v.clamp(min=0)
+        r = rank[c.clamp(max=max(K - 1, 0)).long()]
+        return torch.where(c < K, r, torch.zeros_like(r))
+
+    def find_slot(client_v, clock_v, enable):
+        valid = iota_c < n_blocks()[:, None]
+        m = (
+            valid
+            & (cols[CL] == client_v[:, None])
+            & (cols[CK] <= clock_v[:, None])
+            & (clock_v[:, None] < cols[CK] + cols[LN])
+            & enable[:, None]
+        )
+        idx = torch.where(m, iota_c, C).min(dim=1).values.to(I32)
+        found = idx < C
+        return torch.where(found, idx, full(-1)), found
+
+    def client_clock(client_s):
+        valid = iota_c < n_blocks()[:, None]
+        m = valid & (cols[CL] == client_s)
+        return torch.where(m, cols[CK] + cols[LN], 0).max(dim=1).values.to(I32)
+
+    def first_slot(mask):
+        idx = torch.where(mask, iota_c, C).min(dim=1).values.to(I32)
+        return idx, idx < C
+
+    def split(i_idx, off, want):
+        length_i = gather(LN, i_idx, 0)
+        do = want & (i_idx >= 0) & (off > 0) & (off < length_i)
+        j = n_blocks()
+        overflow = do & (j >= C)
+        do = do & (j < C)
+        meta[:, M_ERROR] |= torch.where(overflow, ERR_CAPACITY, 0).to(I32)
+        if bool(do.any()):
+            # written only where do, i.e. where i_idx is a valid slot
+            row = gather_all(i_idx)
+            right_i = torch.where(i_idx >= 0, row[RT], full(-1))
+            put_many(
+                j, do,
+                [
+                    (CL, row[CL]),
+                    (CK, row[CK] + off),
+                    (LN, length_i - off),
+                    (OC, row[CL]),
+                    (OK, row[CK] + off - 1),
+                    (RC, row[RC]),
+                    (RK, row[RK]),
+                    (LT, i_idx),
+                    (RT, right_i),
+                    (DL, row[DL]),
+                    (CN, row[CN]),
+                    (KD, row[KD]),
+                    (RF, row[RF]),
+                    (OF, row[OF] + off),
+                    (KEY, row[KEY]),
+                    (PA, row[PA]),
+                    (HD, row[HD]),
+                    (MV, row[MV]),
+                    (MSC, -1), (MSK, 0), (MSA, 0),
+                    (MEC, -1), (MEK, 0), (MEA, 0), (MPR, -1),
+                ],
+            )
+            put_many(i_idx, do, [(LN, off), (RT, j)])
+            put(LT, right_i, j, do & (right_i >= 0))
+            meta[:, M_NBLOCKS] = n_blocks() + do.to(I32)
+        return torch.where(do, j, i_idx)
+
+    def clean_end(client_v, clock_v, enable):
+        i, found = find_slot(client_v, clock_v, enable)
+        off = clock_v - gather(CK, i, 0) + 1
+        split(i, off, enable & found)
+        return i, found
+
+    def clean_start(client_v, clock_v, enable):
+        i, found = find_slot(client_v, clock_v, enable)
+        off = clock_v - gather(CK, i, 0)
+        j = split(i, off, enable & found)
+        return torch.where((i >= 0) & (off > 0), j, i), found
+
+    def origins_equal(ha, ca, ka, hb, cb, kb):
+        return (~ha & ~hb) | (ha & hb & (ca == cb) & (ka == kb))
+
+    def integrate_row(r):
+        (r_client, r_clock, r_len, r_oc, r_ok, r_rc, r_rk, r_kind, r_ref,
+         r_off, r_key, r_ptag, r_pclient, r_pclock, _valid, r_mv_sc, r_mv_sk,
+         r_mv_sa, r_mv_ec, r_mv_ek, r_mv_ea, r_mv_prio, r_proot) = r
+        is_move_row = r_kind == CONTENT_MOVE
+
+        local = client_clock(r_client)
+        applicable = local >= r_clock
+        missing = ~applicable
+        offset = local - r_clock
+        dup = applicable & (offset >= r_len)
+        do = applicable & ~dup
+
+        clock = r_clock + offset
+        length = r_len - offset
+        c_off = r_off + offset
+        has_origin = (offset > 0) | (r_oc >= 0)
+        origin_client = torch.where(offset > 0, full(r_client), full(r_oc))
+        origin_clock = torch.where(offset > 0, clock - 1, full(r_ok))
+        has_ror = r_rc >= 0
+        has_ror_v = torch.full((D,), has_ror, dtype=torch.bool, device=dev)
+        is_gc = r_kind == BLOCK_GC
+        linkable = do & (not is_gc)
+
+        left_idx, _ = clean_end(origin_client, origin_clock, linkable & has_origin)
+        right_idx, _ = clean_start(full(r_rc), full(r_rk), linkable & has_ror)
+        left_idx = torch.where(linkable & has_origin, left_idx, full(-1))
+        right_idx = torch.where(linkable & has_ror, right_idx, full(-1))
+        anchor_missing = (linkable & has_origin & (left_idx < 0)) | (
+            linkable & has_ror & (right_idx < 0)
+        )
+        missing = missing | anchor_missing
+        linkable = linkable & ~anchor_missing
+
+        parent_slot, _ = find_slot(
+            full(r_pclient), full(r_pclock), linkable & (r_ptag == 2)
+        )
+        left_parent = gather(PA, left_idx, -1)
+        right_parent = gather(PA, right_idx, -1)
+        inherited_parent = torch.where(left_idx >= 0, left_parent, right_parent)
+        anchor_idx, anchor_found = first_slot(
+            (iota_c < n_blocks()[:, None])
+            & (cols[KD] == BLOCK_ROOT_ANCHOR)
+            & (cols[KEY] == r_proot)
+        )
+        root_row = torch.where((r_proot >= 0) & anchor_found, anchor_idx, full(-1))
+        if r_ptag == 2:
+            parent_row = parent_slot
+        elif r_ptag == 1:
+            parent_row = root_row
+        else:
+            parent_row = inherited_parent
+        parent_missing = linkable & (
+            ((r_ptag == 2) & (parent_slot < 0))
+            | ((r_ptag == 1) & (r_proot >= 0) & ~anchor_found)
+        )
+        missing = missing | parent_missing
+        linkable = linkable & ~parent_missing
+
+        left_key = gather(KEY, left_idx, -1)
+        right_key = gather(KEY, right_idx, -1)
+        key_v = full(r_key) if r_key >= 0 else torch.where(left_key >= 0, left_key, right_key)
+        is_map = key_v >= 0
+
+        chain_idx, chain_ok = first_slot(
+            (iota_c < n_blocks()[:, None])
+            & (cols[KEY] == key_v[:, None])
+            & (cols[PA] == parent_row[:, None])
+            & (cols[LT] == -1)
+            & is_map[:, None]
+        )
+        chain_head = torch.where(chain_ok, chain_idx, full(-1))
+        seq_head = torch.where(
+            parent_row >= 0, gather(HD, parent_row, -1), meta[:, M_START].clone()
+        )
+        anchor0_base = torch.where(is_map, chain_head, seq_head)
+
+        right_left = gather(LT, right_idx, -1)
+        need_scan = linkable & (
+            ((left_idx < 0) & ((right_idx < 0) | (right_left >= 0)))
+            | ((left_idx >= 0) & (gather(RT, left_idx, -1) != right_idx))
+        )
+        o0 = torch.where(left_idx >= 0, gather(RT, left_idx, -1), anchor0_base)
+        o0 = torch.where(need_scan, o0, full(-1))
+        rank_r = gather_rank(full(r_client))
+
+        def scan_step(carry):
+            o, left, conflicting, before, brk, width = carry
+            active = (o >= 0) & (o != right_idx) & (brk == 0)
+            width = width + active.to(I32)
+            onehot_o = (iota_c == o[:, None]) & active[:, None]
+            before = before | onehot_o
+            conflicting = conflicting | onehot_o
+            o_oc = gather(OC, o, -1)
+            o_ok = gather(OK, o, 0)
+            same_origin = origins_equal(
+                has_origin, origin_client, origin_clock, o_oc >= 0, o_oc, o_ok
+            )
+            o_rc = gather(RC, o, -1)
+            o_rk = gather(RK, o, 0)
+            same_ror = origins_equal(has_ror_v, r_rc, r_rk, o_rc >= 0, o_rc, o_rk)
+            rank_o = gather_rank(gather(CL, o, -1))
+            case1_take = same_origin & (rank_o < rank_r)
+            case1_break = same_origin & ~case1_take & same_ror
+            oo_idx, oo_found = find_slot(o_oc, o_ok, active & (o_oc >= 0))
+            at_oo = iota_c == oo_idx[:, None]
+            in_before = oo_found & (before & at_oo).any(dim=1)
+            in_conflicting = oo_found & (conflicting & at_oo).any(dim=1)
+            case2_take = ~same_origin & in_before & ~in_conflicting
+            case2_break = ~same_origin & ~in_before
+            take = (case1_take | case2_take) & active
+            left = torch.where(take, o, left)
+            conflicting = conflicting & ~take[:, None]
+            brk = brk | ((case1_break | case2_break) & active).to(I32)
+            o_next = gather(RT, o, -1)
+            o = torch.where(active & (brk == 0), o_next, o)
+            return (o, left, conflicting, before, brk, width)
+
+        def still_active(carry):
+            o, _, _, _, brk, _ = carry
+            return (o >= 0) & (o != right_idx) & (brk == 0)
+
+        zeros = torch.zeros((D, C), dtype=torch.bool, device=dev)
+        carry = (o0, left_idx, zeros, zeros, full(0), full(0))
+        # cheap tier: one candidate per trip, all active docs in lockstep
+        while bool((still_active(carry) & (carry[5] < cheap_bound)).any()):
+            carry = scan_step(carry)
+        # wide tier: `wide_unroll` masked candidate steps per trip
+        wide_trips = full(0)
+        while bool(still_active(carry).any()):
+            wide_trips = wide_trips + still_active(carry).to(I32)
+            for _ in range(wide_unroll):
+                carry = scan_step(carry)
+        left_scanned, scan_width = carry[1], carry[5]
+        left_idx = torch.where(need_scan, left_scanned, left_idx)
+
+        wb = scan_width.clamp(min=0)
+        bucket = scan_width_bucket(wb)
+        for k in range(SCAN_WIDTH_BUCKETS):
+            meta[:, M_HIST0 + k] += (need_scan & (bucket == k)).to(I32)
+        meta[:, M_SCANW_MAX] = torch.maximum(
+            meta[:, M_SCANW_MAX], torch.where(need_scan, wb, 0).to(I32)
+        )
+        wide_used = need_scan & (wide_trips > 0)
+        meta[:, M_TIER_CHEAP] += (need_scan & ~wide_used).to(I32)
+        meta[:, M_TIER_WIDE] += wide_used.to(I32)
+        meta[:, M_CHEAP_TRIPS] += torch.where(
+            need_scan, wb.clamp(max=cheap_bound), 0
+        ).to(I32)
+        meta[:, M_WIDE_TRIPS] += torch.where(need_scan, wide_trips, 0).to(I32)
+        meta[:, M_WIDTH_SUM] += torch.where(need_scan, wb, 0).to(I32)
+
+        j = n_blocks()
+        overflow = do & (j >= C)
+        do = do & (j < C)
+        linkable = linkable & (j < C)
+
+        has_left = linkable & (left_idx >= 0)
+        right_final = torch.where(
+            has_left,
+            gather(RT, left_idx, -1),
+            torch.where(linkable, anchor0_base, full(-1)),
+        )
+        put(RT, left_idx, j, has_left)
+        new_head = linkable & ~has_left & ~is_map
+        meta[:, M_START] = torch.where(
+            new_head & (parent_row < 0), j, meta[:, M_START]
+        )
+        put(HD, parent_row, j, new_head & (parent_row >= 0))
+        put(LT, right_final, j, linkable & (right_final >= 0))
+
+        parent_deleted = (parent_row >= 0) & (gather(DL, parent_row, 0) == 1)
+        dead_on_arrival = linkable & (parent_deleted | (is_map & (right_final >= 0)))
+        row_deleted = dead_on_arrival | (
+            is_gc or r_kind == CONTENT_DELETED
+        )
+        row_countable = ~row_deleted & (
+            r_kind != CONTENT_FORMAT and r_kind != CONTENT_MOVE
+        )
+
+        left_moved = torch.where(has_left, gather(MV, left_idx, -1), full(-1))
+        right_moved = torch.where(
+            right_final >= 0, gather(MV, right_final, -1), full(-1)
+        )
+        inherit_moved = torch.where(left_moved == right_moved, left_moved, full(-1))
+        moved_conflict = linkable & (left_moved != right_moved)
+        meta[:, M_MDIRTY] |= (moved_conflict | (do & is_move_row)).to(I32)
+
+        put_many(
+            j, do,
+            [
+                (CL, r_client),
+                (CK, clock),
+                (LN, length),
+                (OC, torch.where(has_origin, origin_client, full(-1))),
+                (OK, torch.where(has_origin, origin_clock, full(0))),
+                (RC, r_rc if has_ror else -1),
+                (RK, r_rk if has_ror else 0),
+                (LT, torch.where(linkable, left_idx, full(-1))),
+                (RT, torch.where(linkable, right_final, full(-1))),
+                (DL, row_deleted.to(I32)),
+                (CN, row_countable.to(I32)),
+                (KD, r_kind),
+                (RF, r_ref),
+                (OF, c_off),
+                (KEY, key_v),
+                (PA, parent_row),
+                (HD, -1),
+                (MV, torch.where(linkable, inherit_moved, full(-1))),
+                (MSC, r_mv_sc if is_move_row else -1),
+                (MSK, r_mv_sk if is_move_row else 0),
+                (MSA, r_mv_sa if is_move_row else 0),
+                (MEC, r_mv_ec if is_move_row else -1),
+                (MEK, r_mv_ek if is_move_row else 0),
+                (MEA, r_mv_ea if is_move_row else 0),
+                (MPR, r_mv_prio if is_move_row else -1),
+            ],
+        )
+        new_tail = linkable & is_map & (right_final < 0)
+        put(DL, left_idx, 1, new_tail & has_left)
+        meta[:, M_NBLOCKS] = n_blocks() + do.to(I32)
+        meta[:, M_ERROR] |= (
+            torch.where(overflow, ERR_CAPACITY, 0) | torch.where(missing, ERR_MISSING_DEP, 0)
+        ).to(I32)
+
+    def delete_range(r):
+        client, start, end = r[0], r[1], r[2]
+        enable = torch.ones((D,), dtype=torch.bool, device=dev)
+        client_v, start_v, end_v = full(client), full(start), full(end)
+        i, found = find_slot(client_v, start_v, enable)
+        i_ok = found & (gather(DL, i, 1) == 0)
+        split(i, start_v - gather(CK, i, 0), i_ok)
+        k, kfound = find_slot(client_v, end_v - 1, enable)
+        k_ok = kfound & (gather(DL, k, 1) == 0)
+        split(k, end_v - gather(CK, k, 0), k_ok)
+        valid = iota_c < n_blocks()[:, None]
+        m = (
+            valid
+            & (cols[CL] == client)
+            & (cols[CK] >= start)
+            & (cols[CK] + cols[LN] <= end)
+        )
+        hit_move = (m & (cols[KD] == CONTENT_MOVE) & (cols[DL] == 0)).any(dim=1)
+        meta[:, M_MDIRTY] |= hit_move.to(I32)
+        cols[DL] = torch.where(m, 1, cols[DL]).to(I32)
+
+    # --- move ownership --------------------------------------------------
+    def resolve_move_ptr(c_v, k_v, assoc_v, enable):
+        after = assoc_v >= 0
+        i_a, found_a = clean_start(c_v, k_v, enable & after & (c_v >= 0))
+        i_b, found_b = clean_end(c_v, k_v, enable & ~after & (c_v >= 0))
+        right_b = gather(RT, i_b, -1)
+        ptr = torch.where(after, i_a, right_b)
+        found = (after & found_a) | (~after & found_b)
+        return ptr, found
+
+    def claim_move(s_v, enable):
+        msc = gather(MSC, s_v, -1)
+        msk = gather(MSK, s_v, 0)
+        msa = gather(MSA, s_v, 0)
+        mec = gather(MEC, s_v, -1)
+        mek = gather(MEK, s_v, 0)
+        mea = gather(MEA, s_v, 0)
+        start, s_found = resolve_move_ptr(msc, msk, msa, enable)
+        endp, e_found = resolve_move_ptr(mec, mek, mea, enable)
+        par = gather(PA, s_v, -1)
+        seq_head = torch.where(par < 0, meta[:, M_START].clone(), gather(HD, par, -1))
+        start = torch.where(msc < 0, seq_head, start)
+        endp = torch.where(mec < 0, full(-1), endp)
+        unresolved = enable & (((msc >= 0) & ~s_found) | ((mec >= 0) & ~e_found))
+        meta[:, M_ERROR] |= torch.where(unresolved, ERR_MISSING_DEP, 0).to(I32)
+        enable = enable & ~unresolved
+        prio_s = gather(MPR, s_v, -1)
+        rank_s = gather_rank(gather(CL, s_v, -1))
+        clock_s = gather(CK, s_v, 0)
+        cur, n = start, full(0)
+        while True:
+            active = enable & (cur >= 0) & (cur != endp) & (n <= C)
+            if not bool(active.any()):
+                break
+            m = gather(MV, cur, -1)
+            prev_prio = torch.where(m >= 0, gather(MPR, m, -1), full(-1))
+            prev_rank = gather_rank(gather(CL, m, -1))
+            prev_clock = gather(CK, m, 0)
+            takes = (prev_prio < prio_s) | (
+                (prev_prio == prio_s)
+                & (m >= 0)
+                & ((prev_rank < rank_s) | ((prev_rank == rank_s) & (prev_clock < clock_s)))
+            )
+            m_msc = gather(MSC, m, -1)
+            m_collapsed = (
+                (m >= 0)
+                & (m_msc >= 0)
+                & (m_msc == gather(MEC, m, -2))
+                & (gather(MSK, m, 0) == gather(MEK, m, -1))
+            )
+            put(DL, m, 1, active & takes & m_collapsed)
+            put(MV, cur, s_v, active & takes)
+            cur = torch.where(active, gather(RT, cur, -1), cur)
+            n = n + 1
+        return enable
+
+    def move_cycle(s_v, enable):
+        def live_move(idx):
+            return (gather(KD, idx, -1) == CONTENT_MOVE) & (gather(DL, idx, 1) == 0)
+
+        first = gather(MV, s_v, -1)
+        cur = torch.where(live_move(first), first, full(-1))
+        n, hit = full(0), full(0)
+        while True:
+            active = enable & (cur >= 0) & (hit == 0) & (n <= C)
+            if not bool(active.any()):
+                break
+            nxt = gather(MV, cur, -1)
+            hit = hit | (active & (nxt == s_v) & (s_v >= 0)).to(I32)
+            nxt = torch.where(live_move(nxt), nxt, full(-1))
+            cur = torch.where(active, nxt, cur)
+            n = n + 1
+        return hit > 0
+
+    def recompute_moves():
+        dirty = meta[:, M_MDIRTY] > 0
+        if bool(dirty.any()):
+            cols[MV] = torch.where(dirty[:, None], -1, cols[MV]).to(I32)
+            done = torch.zeros((D, C), dtype=torch.bool, device=dev)
+            while True:
+                am = (
+                    (iota_c < n_blocks()[:, None])
+                    & (cols[KD] == CONTENT_MOVE)
+                    & (cols[DL] == 0)
+                    & ~done
+                    & dirty[:, None]
+                )
+                if not bool(am.any()):
+                    break
+                s_idx, exists = first_slot(am)
+                s_v = torch.where(exists, s_idx, full(-1))
+                enable = claim_move(s_v, dirty & exists)
+                cyc = move_cycle(s_v, enable) & exists
+                put(DL, s_v, 1, cyc)
+                cols[MV] = torch.where(cyc[:, None], -1, cols[MV]).to(I32)
+                onehot_s = (iota_c == s_v[:, None]) & exists[:, None]
+                done = torch.where(cyc[:, None], False, done | onehot_s)
+        meta[:, M_MDIRTY] = 0
+
+    for s in range(len(rows_l)):
+        for r in rows_l[s]:
+            if r[14] == 1:
+                integrate_row(r)
+        for r in dels_l[s]:
+            if r[3] == 1:
+                delete_range(r)
+        recompute_moves()
+    return cols, meta
+
+
+# --- the CUDA kernel -------------------------------------------------------------
+
+
+def _next_pow2(n: int) -> int:
+    return 1 << max(0, int(n - 1).bit_length())
+
+
+def _check_int32(name, t, ndim, device):
+    if not torch.is_tensor(t):
+        raise TypeError(f"{name} must be a tensor")
+    if t.dtype != I32:
+        raise TypeError(f"{name} must be int32, got {t.dtype}")
+    if t.dim() != ndim:
+        raise ValueError(f"{name} must have {ndim} dims, got shape {tuple(t.shape)}")
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, cols on {device}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def _integrate_lib():
+    """The built kernel library with its C signatures declared."""
+    from ytpu_torch.ops import _build
+
+    lib = _build.load("integrate")
+    if not getattr(lib, "_ytpu_typed", False):
+        ptr, i32 = ctypes.c_void_p, ctypes.c_int
+        lib.ytpu_integrate_stream.restype = i32
+        lib.ytpu_integrate_stream.argtypes = (
+            [ptr] * 5 + [i32] * 8 + [ptr, ptr, i32, ptr, ptr, i32] + [ptr] * 4
+        )
+        lib.ytpu_integrate_kc.restype = i32
+        lib.ytpu_integrate_kc.argtypes = []
+        lib.ytpu_cuda_error_string.restype = ctypes.c_char_p
+        lib.ytpu_cuda_error_string.argtypes = [i32]
+        lib._ytpu_typed = True
+    return lib
+
+
+def integrate_stream(cols, meta, rows, dels, rank, scan_plan=None):
+    """Integrate an ``[S, U, 23]`` row / ``[S, R, 4]`` delete stream into
+    every doc of the packed state, updating ``cols`` ``[26, D, C]`` and
+    ``meta`` ``[D, 32]`` IN PLACE (the port's counterpart of the JAX
+    package's buffer donation) and returning them. ``rank`` is the
+    ``[K]`` client tie-break table, ``scan_plan`` the (cheap, unroll)
+    conflict-scan accounting plan (default `scan_tier_plan()`).
+
+    On CUDA tensors this launches the hand-written kernel
+    (``csrc/integrate.cu``) on the current stream and counts the launch in
+    ``integrate_stream.launches``; on CPU tensors it runs
+    `integrate_stream_reference`. Any other device raises."""
+    if scan_plan is None:
+        scan_plan = scan_tier_plan()
+    cheap, unroll = int(scan_plan[0]), int(scan_plan[1])
+    if cheap < 0 or unroll < 1:
+        raise ValueError(f"scan_plan needs cheap >= 0 and unroll >= 1, got {scan_plan}")
+    dev = cols.device
+    _check_int32("cols", cols, 3, dev)
+    _check_int32("meta", meta, 2, dev)
+    _check_int32("rows", rows, 3, dev)
+    _check_int32("dels", dels, 3, dev)
+    _check_int32("rank", rank, 1, dev)
+    n_planes, D, C = cols.shape
+    if n_planes != NC or tuple(meta.shape) != (D, M_PAD):
+        raise ValueError(f"state shapes {tuple(cols.shape)} / {tuple(meta.shape)} are not [26, D, C] / [D, 32]")
+    if rows.shape[2] != 23 or dels.shape[2] != 4 or rows.shape[0] != dels.shape[0]:
+        raise ValueError(f"stream shapes {tuple(rows.shape)} / {tuple(dels.shape)} are not [S, U, 23] / [S, R, 4]")
+    if dev.type == "cpu":
+        return integrate_stream_reference(cols, meta, rows, dels, rank, (cheap, unroll))
+    if dev.type != "cuda":
+        raise ValueError(f"integrate_stream runs on cuda or cpu tensors, not {dev}")
+    lib = _integrate_lib()
+    S, U = rows.shape[0], rows.shape[1]
+    R, K = dels.shape[1], rank.shape[0]
+    kc = lib.ytpu_integrate_kc()
+    hb, hs = _next_pow2(8 * C), _next_pow2(2 * C)
+    # per-doc scratch: bitmap index, start map, client clocks, scan stamps
+    bkeys = torch.empty((D, hb), dtype=torch.int64, device=dev)
+    bwords = torch.empty((D, hb), dtype=torch.int64, device=dev)
+    skeys = torch.empty((D, hs), dtype=torch.int64, device=dev)
+    svals = torch.empty((D, hs), dtype=I32, device=dev)
+    cclock = torch.empty((D, kc), dtype=I32, device=dev)
+    bstamp = torch.empty((D, C), dtype=I32, device=dev)
+    cstamp = torch.empty((D, C), dtype=I32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = lib.ytpu_integrate_stream(
+        cols.data_ptr(), meta.data_ptr(), rows.data_ptr(), dels.data_ptr(),
+        rank.data_ptr(), S, U, R, K, D, C, cheap, unroll,
+        bkeys.data_ptr(), bwords.data_ptr(), hb,
+        skeys.data_ptr(), svals.data_ptr(), hs,
+        cclock.data_ptr(), bstamp.data_ptr(), cstamp.data_ptr(), stream,
+    )
+    if err != 0:
+        msg = lib.ytpu_cuda_error_string(err).decode()
+        raise RuntimeError(f"integrate kernel launch failed: cudaError {err} ({msg})")
+    integrate_stream.launches += 1
+    return cols, meta
+
+
+integrate_stream.launches = 0
+
+
+# --- readout ----------------------------------------------------------------------
+
+
+def _live_rows(cols, meta):
+    C = cols.shape[-1]
+    slots = torch.arange(C, device=cols.device)
+    return (slots[None, :] < meta[:, M_NBLOCKS][:, None]) & (cols[CL] >= 0)
+
+
+def _packed_commit_fold(cols, meta):
+    """[D] int64 per-doc commitment words (uint32 values) over live rows."""
+    return commit_fold_blocks(cols[CL], cols[CK], cols[LN], _live_rows(cols, meta))
+
+
+def _packed_dead_rows(cols, meta):
+    """[D] per-doc tombstoned rows inside the occupied prefix."""
+    return (_live_rows(cols, meta) & (cols[DL] > 0)).sum(dim=1).to(I32)
+
+
+def packed_capacity_ledger(cols, meta):
+    """Per-doc ``([D] occupied-live, [D] dead)`` int32 rows."""
+    dead = _packed_dead_rows(cols, meta)
+    return meta[:, M_NBLOCKS] - dead, dead
+
+
+def _to_i32(x: torch.Tensor) -> torch.Tensor:
+    """int64 holding a uint32 value -> the int32 with the same bits."""
+    x = x & U32_MASK
+    return torch.where(x >= (1 << 31), x - (1 << 32), x).to(I32)
+
+
+def _readout_words(cols, meta, err):
+    """``[N_READOUT]`` int32: max n_blocks, max sticky error, decode flags,
+    scan bucket totals, max scan width, tier/trip totals, the commitment
+    word (wrap-sum over docs), sum occupied, sum dead, max dead."""
+    hist = meta[:, M_HIST0:M_SCANW_MAX].sum(dim=0)
+    tiers = meta[:, M_TIER_CHEAP:M_SCAN_END].sum(dim=0)
+    commit = _to_i32(_packed_commit_fold(cols, meta).sum())
+    dead = _packed_dead_rows(cols, meta)
+    head = torch.stack(
+        [meta[:, M_NBLOCKS].max(), meta[:, M_ERROR].max(), err.reshape(()).to(I32)]
+    )
+    ledger = torch.stack([meta[:, M_NBLOCKS].sum(), dead.sum(), dead.max()])
+    return torch.cat(
+        [
+            head.to(I32),
+            hist.to(I32),
+            meta[:, M_SCANW_MAX].max()[None].to(I32),
+            tiers.to(I32),
+            commit[None],
+            ledger.to(I32),
+        ]
+    )
+
+
+def decode_chunk_raw(
+    err, raw, offs, lens, refs, *, width: int, max_rows: int, max_dels: int,
+    n_steps: int, max_sections: int,
+):
+    """The decode half of a chunk: lane gather -> decode -> global unit-ref
+    rebase (``refs`` >= 0 replaces the decoded ref) -> OR of the decode
+    error flags into the sticky ``err``. Returns ``(rows, dels, err)``."""
+    from ytpu_torch.ops.decode_kernel import FLAG_ERRORS, decode_updates_v1, gather_raw_lanes
+
+    buf = gather_raw_lanes(raw, offs, lens, width)
+    stream, flags = decode_updates_v1(
+        buf, lens, max_rows=max_rows, max_dels=max_dels, n_steps=n_steps,
+        max_sections=max_sections,
+    )
+    stream = stream._replace(
+        content_ref=torch.where(refs >= 0, refs, stream.content_ref)
+    )
+    rows, dels = pack_stream(stream)
+    return rows, dels, err | _or_reduce(flags & FLAG_ERRORS)
+
+
+def replay_chunk_program_raw(
+    cols, meta, err, raw, offs, lens, refs, rank, *, width: int, max_rows: int,
+    max_dels: int, n_steps: int, max_sections: int, scan_plan=None,
+):
+    """One replay chunk from raw concatenated wire bytes: `decode_chunk_raw`
+    -> integrate -> readout. ``cols``/``meta`` update in place; returns
+    ``(cols, meta, err, readout)``. Each phase is a `torch.profiler`
+    span (``ytpu_torch.decode`` / ``.integrate`` / ``.readout``)."""
+    record = torch.profiler.record_function
+    with record("ytpu_torch.decode"):
+        rows, dels, err = decode_chunk_raw(
+            err, raw, offs, lens, refs, width=width, max_rows=max_rows,
+            max_dels=max_dels, n_steps=n_steps, max_sections=max_sections,
+        )
+    with record("ytpu_torch.integrate"):
+        integrate_stream(cols, meta, rows, dels, rank, scan_plan)
+    with record("ytpu_torch.readout"):
+        readout = _readout_words(cols, meta, err)
+    return cols, meta, err, readout
+
+
+def _or_reduce(x: torch.Tensor) -> torch.Tensor:
+    """Bitwise OR over a 1-D int32 tensor (flag bits < 2^7)."""
+    bits = torch.zeros((), dtype=I32, device=x.device)
+    for b in range(8):
+        bits = bits | (((x >> b) & 1).any().to(I32) << b)
+    return bits
+
+
+# --- chunked replay driver ----------------------------------------------------------
+
+
+@dataclass
+class ReplayChunkStats:
+    """Counters of one chunked replay."""
+
+    chunks: int = 0
+    compactions: int = 0
+    growths: int = 0
+    syncs: int = 0  # readouts actually materialized
+    capacity: int = 0
+    peak_blocks: int = 0  # max occupancy observed at readouts
+    final_blocks: int = 0
+    scan_hist: tuple = ()
+    scan_max: int = 0
+    scan_p50: int = 0
+    scan_p99: int = 0
+    scan_tier_cheap: int = 0
+    scan_tier_wide: int = 0
+    scan_trips_serial: int = 0
+    scan_trips_two_tier: int = 0
+    commit_word: int = 0
+    occupied_rows: int = 0
+    dead_rows: int = 0
+    dead_max: int = 0
+    reclaimed_rows: int = 0
+    compact_gap_chunks: int = 0
+    # sum over integrate launches of the occupied rows (all docs) before
+    # plus after the launch: the state rows the launches must move at least
+    launch_rows: int = 0
+
+
+class PackedReplayDriver:
+    """Chunked replay over a packed ``[NC, D, C]`` state with between-chunk
+    compaction under one `CompactionPolicy`.
+
+    Occupancy protocol: the host keeps an optimistic upper bound on the
+    max per-doc block count (each chunk adds its worst-case growth) and
+    every chunk leaves a readout tensor un-materialized; only when the
+    bound says the next chunk might not fit does the host read the newest
+    readout. If the actual occupancy still trips the policy, the state is
+    compacted in place and, when even that cannot make room, grown. Sticky
+    integrate errors and decode flags surface at every materialized
+    readout and at `finish()`."""
+
+    def __init__(
+        self,
+        cols,
+        meta,
+        client_rank,
+        *,
+        policy=None,
+        unit_refs: bool = False,
+        gc_ranges: bool = False,
+        max_capacity: Optional[int] = None,
+        sync_every_chunk: bool = False,
+        initial_occupancy: int = 0,
+    ):
+        self.cols = cols
+        self.meta = meta
+        self.rank = client_rank
+        self.policy = policy or DEFAULT_COMPACTION_POLICY
+        self.unit_refs = unit_refs
+        self.gc_ranges = gc_ranges
+        self.max_capacity = max_capacity or cols.shape[2]
+        self.sync_every_chunk = sync_every_chunk
+        self.stats = ReplayChunkStats(capacity=cols.shape[2])
+        self._hi_bound = int(initial_occupancy)
+        self._pending: List[torch.Tensor] = []  # un-materialized launch readouts
+        self._err = torch.zeros((), dtype=I32, device=cols.device)
+        self._last_compact_chunk = -1
+        self._occupied = int(meta[:, M_NBLOCKS].sum())  # as of the last readout
+
+    @property
+    def capacity(self) -> int:
+        return self.cols.shape[2]
+
+    def _absorb(self, readout: torch.Tensor) -> int:
+        """Fold one readout into the stats; returns its max occupancy.
+        Raises on a sticky integrate error or decode flag."""
+        vals = readout.cpu().numpy()
+        occ, kerr, derr = int(vals[0]), int(vals[1]), int(vals[2])
+        self._record_scan_width(
+            vals[3 : 3 + SCAN_WIDTH_BUCKETS],
+            int(vals[3 + SCAN_WIDTH_BUCKETS]),
+            vals[3 + SCAN_WIDTH_BUCKETS + 1 : 3 + SCAN_REC_WORDS],
+        )
+        self.stats.commit_word = int(vals[3 + SCAN_REC_WORDS]) & U32_MASK
+        base = 4 + SCAN_REC_WORDS
+        self.stats.occupied_rows = int(vals[base])
+        self.stats.dead_rows = int(vals[base + 1])
+        self.stats.dead_max = int(vals[base + 2])
+        self.stats.peak_blocks = max(self.stats.peak_blocks, occ)
+        if derr != 0:
+            self._raise_decode_error(derr)
+        if kerr != 0:
+            self._raise_device_error()
+        return occ
+
+    def _drain_readouts(self) -> int:
+        """Materialize every pending launch readout; returns the freshest
+        actual occupancy."""
+        hi = self._hi_bound
+        if not self._pending:
+            return hi
+        for fut in self._pending:
+            hi = self._absorb(fut)
+            # the launch read the rows its docs held before it and wrote
+            # the rows they hold after it
+            self.stats.launch_rows += self._occupied + self.stats.occupied_rows
+            self._occupied = self.stats.occupied_rows
+        self._pending.clear()
+        self.stats.syncs += 1
+        self._hi_bound = hi
+        return hi
+
+    def _record_scan_width(self, buckets, observed_max: int, tiers) -> None:
+        counts = [int(c) for c in buckets]
+        st = self.stats
+        st.scan_hist = tuple(counts)
+        st.scan_max = int(observed_max)
+        st.scan_p50 = scan_width_quantile(counts, 0.50, st.scan_max)
+        st.scan_p99 = scan_width_quantile(counts, 0.99, st.scan_max)
+        cheap, wide, cheap_trips, wide_trips, width_sum = (int(t) for t in tiers)
+        st.scan_tier_cheap = cheap
+        st.scan_tier_wide = wide
+        st.scan_trips_serial = width_sum
+        st.scan_trips_two_tier = cheap_trips + wide_trips
+
+    def _raise_device_error(self):
+        meta_np = self.meta.cpu().numpy()
+        bad = meta_np[meta_np[:, M_ERROR] != 0][:4]
+        raise RuntimeError(f"device error flags {bad}")
+
+    def _raise_decode_error(self, flags_or: int):
+        raise RuntimeError(
+            f"device decode flagged errors in a deferred chunk (sticky flags "
+            f"{flags_or}); replay with sync_every_chunk=True to localize the update"
+        )
+
+    def compact(self) -> int:
+        """Compact the packed state in place; returns the actual high-water
+        block count afterwards."""
+        from ytpu_torch.ops.compaction import compact_packed
+
+        self._drain_readouts()
+        occ_before = self.stats.occupied_rows
+        with torch.profiler.record_function("ytpu_torch.compaction"):
+            self.cols, self.meta = compact_packed(
+                self.cols, self.meta, self.unit_refs, self.gc_ranges
+            )
+        self.stats.compactions += 1
+        if self._last_compact_chunk >= 0:
+            self.stats.compact_gap_chunks = self.stats.chunks - self._last_compact_chunk
+        self._last_compact_chunk = self.stats.chunks
+        hi = self._hi_bound = self._absorb(_readout_words(self.cols, self.meta, self._err))
+        self._occupied = self.stats.occupied_rows
+        self.stats.syncs += 1
+        self.stats.reclaimed_rows += max(0, occ_before - self.stats.occupied_rows)
+        return hi
+
+    def ensure_room(self, margin: int) -> None:
+        """Compact (and grow, when allowed) before a chunk whose worst-case
+        growth is `margin`, so ERR_CAPACITY cannot fire mid-chunk."""
+        if not self.policy.should_compact(self._hi_bound, margin, self.capacity):
+            return
+        hi = self._drain_readouts()
+        if not self.policy.should_compact(hi, margin, self.capacity):
+            return
+        hi = self.compact()
+        while hi + margin > self.capacity:
+            new_cap = min(self.capacity * 2, self.max_capacity)
+            if new_cap <= self.capacity:
+                raise RuntimeError(
+                    f"state needs {hi + margin} block slots but replay is "
+                    f"capacity-exhausted: max_capacity {self.max_capacity} "
+                    f"(current capacity {self.capacity})"
+                )
+            from ytpu_torch.ops.compaction import grow_packed
+
+            with torch.profiler.record_function("ytpu_torch.grow"):
+                self.cols, self.meta = grow_packed(self.cols, self.meta, new_cap)
+            self.stats.growths += 1
+            self.stats.capacity = new_cap
+
+    def step_raw(self, raw, offs, lens, refs, dims, width: int, margin: int):
+        """Integrate one chunk from raw concatenated wire bytes plus its
+        offsets table: lane gather -> decode -> rebase -> integrate ->
+        readout. ``dims`` is ``(max_rows, max_dels, n_steps,
+        max_sections)``; ``refs`` the chunk's ``[S, U]`` global unit refs;
+        ``margin`` its worst-case slot growth. Returns the device inputs."""
+        max_rows, max_dels, n_steps, max_sections = dims
+        self.ensure_room(margin)
+        dev = self.cols.device
+        d_raw, d_offs, d_lens, d_refs = (
+            torch.as_tensor(np.ascontiguousarray(a)).to(dev)
+            for a in (raw, offs, lens, refs)
+        )
+        self.cols, self.meta, self._err, readout = replay_chunk_program_raw(
+            self.cols, self.meta, self._err, d_raw, d_offs, d_lens, d_refs,
+            self.rank, width=width, max_rows=max_rows, max_dels=max_dels,
+            n_steps=n_steps, max_sections=max_sections, scan_plan=scan_tier_plan(),
+        )
+        self._pending.append(readout)
+        self._hi_bound += margin
+        self.stats.chunks += 1
+        if self.sync_every_chunk:
+            self._drain_readouts()
+        return d_raw, d_offs, d_lens, d_refs
+
+    def finish(self):
+        """Drain every pending readout (surfacing sticky errors) and
+        return the packed (cols, meta)."""
+        self._drain_readouts()
+        self.stats.capacity = self.capacity
+        self.stats.final_blocks = int(self.meta[:, M_NBLOCKS].max())
+        return self.cols, self.meta
