@@ -6,13 +6,22 @@ Usage (on a machine with one NVIDIA GPU and the CUDA toolkit):
 
     python3 chip_smoke.py
 
-Phases, one JSON line each: ``build``, ``kernel_vs_plain`` (small cases),
+Phases, one JSON line each: ``build`` (the three CUDA sources, one nvcc
+each, in parallel), ``kernel_vs_plain`` (small cases),
 ``kernel_vs_plain_full_width`` (one late B4 chunk at the main path's
 capacity and chunk size), ``b4_replay`` (`FusedReplay.run` over the whole
-log at 256 docs, then the same run under `torch.profiler`); then the
+log at 256 docs, then the same run under `torch.profiler`),
+``stream_replay_full_width`` (the whole log decoded into one stream and
+replayed through `replay_stream_fused` at 256 docs, then the kernel
+against its plain version on one late window at the grown capacity),
+``mosaic_ladder``
+(rungs 0-10), ``plane_rmw`` (the three repros), ``diag_kernels`` (each
+diagnostic kernel against its plain version, then timed); then the
 card's name and power limit, the ``kernels`` line and, last,
-``{"ok": true, "device": {...}}``. Any failure exits non-zero without the
-last line. It imports neither JAX nor the JAX package.
+``{"ok": true, "device": {...}}``. Launch counts are set to 0 just
+before each program runs and read just after it. Any failure exits
+non-zero without the last line. It imports neither JAX nor the JAX
+package.
 """
 
 from __future__ import annotations
@@ -37,9 +46,15 @@ CHUNK = 8192
 # the full-width comparison integrates this chunk (the last full one)
 LATE_CHUNK = 30
 
+# the stream replay's byte refs keep rows of different updates apart, so
+# its state may grow past CAPACITY up to this many slots
+STREAM_MAX_CAPACITY = 1 << 18
+
 # card peak used for the bound (H100 SXM data sheet): HBM3 bytes per second
 HBM_BYTES_PER_S = 3.35e12
 INTEGRATE_REPLACES = "ytpu/ops/integrate_kernel.py:1057"
+KERNEL_KEYS = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
+               "bound_ms", "bound_by", "library_ms")
 
 
 def emit(obj) -> None:
@@ -450,6 +465,340 @@ def phase_b4_replay(gpu, log, expect, plan, plan_s: float):
     return launches, sum(integrate_ms) / len(integrate_ms), bound_ms
 
 
+def _diag_cases():
+    from ytpu_torch.benches import mosaic_ladder, plane_rmw_repro, plane_rmw_repro2, plane_rmw_repro3
+
+    return mosaic_ladder.CASES + plane_rmw_repro.CASES + plane_rmw_repro2.CASES + plane_rmw_repro3.CASES
+
+
+def _reset_counts(wrappers):
+    for w in wrappers:
+        w.launches = 0
+
+
+def phase_mosaic_ladder(gpu, dev="cuda"):
+    """The ladder's main path: rungs 0-7 launch their CUDA kernels (each
+    held against the JAX rung's assert and its plain version), rungs 8-10
+    the integrate kernel through `apply_update_stream_fused` on the
+    committed logs. Each rung's name goes to stderr before it launches."""
+    from ytpu_torch.benches import mosaic_ladder
+    from ytpu_torch.ops import integrate_kernel as ik
+
+    wrappers = [fn for _, fn, *_ in mosaic_ladder.RUNGS]
+    _reset_counts(wrappers + [ik.integrate_stream])
+    state = mosaic_ladder.run_ladder(
+        dev, on_attempt=lambda name: print(f"mosaic_ladder: attempting {name}", file=sys.stderr,
+                                              flush=True))
+    launches = {w.__name__: w.launches for w in wrappers}
+    launches["integrate_stream"] = ik.integrate_stream.launches
+    emit({"phase": "mosaic_ladder", "steps": state["steps"], "failures": state["failures"],
+          "launches": launches, "gpu": gpu})
+    if state["failures"]:
+        raise RuntimeError(f"mosaic_ladder: rungs failed: {state['failures']}")
+    idle = [name for name, n in launches.items() if n == 0]
+    if idle or launches["integrate_stream"] != 3:
+        raise RuntimeError(f"mosaic_ladder: launches {launches}")
+    # rungs 8-10 each held the integrate kernel's state against the plain version's
+    integrate_err = max(s["max_abs_err"] for name, s in state["steps"].items() if "_kernel_" in name)
+    return launches, integrate_err
+
+
+def phase_plane_rmw(gpu, dev="cuda"):
+    """The three plane RMW repros' main paths: every case in place, g3d
+    also out of place, each against its expected output."""
+    from ytpu_torch.benches import plane_rmw_repro, plane_rmw_repro2, plane_rmw_repro3
+
+    wrappers = [c.fn for c in plane_rmw_repro.CASES + plane_rmw_repro2.CASES + plane_rmw_repro3.CASES]
+    _reset_counts(wrappers)
+    results = {"plane_rmw_repro": plane_rmw_repro.main(dev),
+               "plane_rmw_repro2": plane_rmw_repro2.main(dev),
+               "plane_rmw_repro3": plane_rmw_repro3.main(dev)}
+    launches = {w.__name__: w.launches for w in wrappers}
+    bad = [f"{prog}.{name}" for prog, r in results.items()
+           for name, c in r["cases"].items() if c["status"] != "ok"]
+    emit({"phase": "plane_rmw", "results": results, "launches": launches,
+          "staged_smem_limit_bytes": plane_rmw_repro3.staged_smem_limit(), "gpu": gpu})
+    if bad:
+        raise RuntimeError(f"plane_rmw: cases failed: {bad}")
+    if results["plane_rmw_repro3"]["cases"]["v_body"]["meta"] != [[0, 0, 2, 0, 0, 0, 0, 0]] * 8:
+        raise RuntimeError("plane_rmw: v_body flagged other meta words than the missing dependency")
+    idle = [name for name, n in launches.items() if n == 0]
+    if idle:
+        raise RuntimeError(f"plane_rmw: kernels never launched: {idle}")
+    return launches
+
+
+def _graph_ms(fn, reps: int = 200, rounds: int = 5) -> float:
+    """Device ms per call of `fn`: `reps` calls captured in one CUDA graph,
+    replayed `rounds` times between two CUDA events (no host issue time in
+    the measure). A capture the runtime refuses raises."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    ms = _time_ms(graph.replay, rounds) / reps
+    del graph
+    return ms
+
+
+# fills a separate output before a launch: an element the kernel misses or
+# misplaces keeps it, and the comparison with the plain version fails
+SENTINEL = -123456789
+# the diagnostic kernels that can write a separate output (``out=``)
+OUT_OF_PLACE = ("a_static3d_allfalse", "a2_static3d_slot0", "g3d", "g2d_flat", "v_vmem", "v_multi")
+
+
+def _variants(case, args, seed: int):
+    """The inputs a diagnostic kernel is held against its plain version on,
+    as ``[(inputs, kwargs maker)]``: the program's own; a seeded variant
+    where the kernel decides on data; for the kernels in OUT_OF_PLACE the
+    program's inputs written into an output filled with SENTINEL; and for
+    g3d and g2d a seeded state with a live slot (``idx >= 0``) and a nonzero
+    fill, in place and into a SENTINEL-filled output."""
+    import numpy as np
+    import torch
+
+    from ytpu_torch.benches import plane_rmw_repro2
+
+    out = [(args, dict)]
+    seeded = _seeded_inputs(case, args, seed)
+    if seeded is not None:
+        out.append((seeded, dict))
+    if case.name in OUT_OF_PLACE:
+        target = args[-1]  # x, or meta for v_multi
+
+        out.append((args, lambda: {"out": torch.full_like(target, SENTINEL)}))
+    if case.name in ("g3d", "g2d_flat"):
+        rng = np.random.default_rng(seed)
+        (x,) = args
+        x = torch.from_numpy(rng.integers(-(2**31), 2**31, size=tuple(x.shape), dtype=np.int64)
+                             .astype(np.int32)).to(x.device)
+        slots = x.shape[-1] if case.name == "g3d" else x.shape[1] // plane_rmw_repro2.NC
+        live = {"idx": int(rng.integers(slots)), "fill": 12345}
+        out.append(((x,), lambda: dict(live)))
+        out.append(((x,), lambda: {"out": torch.full_like(x, SENTINEL), **live}))
+    return out
+
+
+def _seeded_inputs(case, args, seed: int):
+    """A seeded variant of a case's inputs that reaches the data-dependent
+    branches (wrapping sums, out-of-range one-hot indices, rows breaking at
+    different steps, a firing guard, live slots for the client clock), or
+    None for the plane passthroughs (their seeded variants are in
+    `_variants`)."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    if case.source.endswith("mosaic_ladder.cu"):
+        (x,) = args
+        full = rng.integers(-(2**31), 2**31, size=tuple(x.shape), dtype=np.int64).astype(np.int32)
+        if case.name == "rung1_onehot_put":
+            full[:, 0] = rng.integers(-2, x.shape[1] + 2, size=x.shape[0])
+        elif case.name in ("rung2_mrow_mask", "rung4_while_scan"):
+            full = rng.integers(0 if case.name == "rung4_while_scan" else -10, 12,
+                                size=tuple(x.shape)).astype(np.int32)
+        elif case.name == "rung6_pl_when":
+            full[:, 0] = rng.integers(-50, 100, size=x.shape[0])
+            full[3, 0] = 101
+        return (torch.from_numpy(full).to(x.device),)
+    if case.name == "v_body":
+        rows, dels, rank, cols, meta = (a.clone() for a in args)
+        D, C = cols.shape[1], cols.shape[2]
+        dev = cols.device
+        cols[0] = torch.from_numpy(rng.integers(0, 4, size=(D, C)).astype(np.int32)).to(dev)
+        cols[1] = torch.from_numpy(rng.integers(0, 50, size=(D, C)).astype(np.int32)).to(dev)
+        cols[2] = torch.from_numpy(rng.integers(1, 4, size=(D, C)).astype(np.int32)).to(dev)
+        meta[:, 1] = torch.from_numpy(rng.integers(0, C + 1, size=D).astype(np.int32)).to(dev)
+        rows[0, :, 0] = torch.from_numpy(rng.integers(0, 5, size=rows.shape[1]).astype(np.int32)).to(dev)
+        rows[0, :, 1] = torch.from_numpy(rng.integers(0, 60, size=rows.shape[1]).astype(np.int32)).to(dev)
+        rows[0, 1, 14] = 0
+        return rows, dels, rank, cols, meta
+    return None
+
+
+def _abs_err(got, want) -> int:
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    err = 0
+    for g, w in zip(got, want):
+        if g.shape != w.shape:
+            raise RuntimeError(f"shape {tuple(g.shape)} != {tuple(w.shape)}")
+        err = max(err, int((g.long() - w.long()).abs().max()))
+    return err
+
+
+def phase_diag_kernels(gpu, launches, dev="cuda"):
+    """Every diagnostic kernel at its program's shapes: held against its
+    plain version on the inputs of `_variants`, then timed: the kernel and
+    the one PyTorch call that computes the same function (where there is
+    one) as device time per launch inside a CUDA graph, and also as
+    back-to-back launches from the host; the plain version with CUDA
+    events. These launches are not counted: the counts come from the
+    programs' own runs."""
+    import torch
+
+    from ytpu_torch.benches import plane_rmw_repro2
+
+    entries = []
+    for case in _diag_cases():
+        args = case.inputs(dev)
+        err = 0
+        variants = _variants(case, args, 11)
+        for inputs, make_kw in variants:
+            k_inputs, kw = tuple(a.clone() for a in inputs), make_kw()
+            got = case.fn(*k_inputs, **kw)
+            want = case.plain(*(a.clone() for a in inputs), **make_kw())
+            err = max(err, _abs_err(got, want))
+            if "out" in kw and not all(torch.equal(a, b) for a, b in zip(k_inputs, inputs)):
+                raise RuntimeError(f"{case.name} out of place wrote its input")
+        extra = {}
+        if case.name == "g3d":  # the program also runs it out of place
+            x, o = args[0].clone(), torch.empty_like(args[0])
+            extra["out_of_place_ms"] = _graph_ms(lambda: plane_rmw_repro2.g3d(x, out=o))
+        if err != 0:
+            raise RuntimeError(f"{case.name}: kernel and plain version differ (max abs err {err})")
+        run_args = tuple(a.clone() for a in args)
+        ms = _graph_ms(lambda: case.fn(*run_args))
+        stream_ms = _time_ms(lambda: case.fn(*run_args), 200)
+        plain_args = tuple(a.clone() for a in args)
+        plain_ms = _time_ms(lambda: case.plain(*plain_args), 20)
+        library_ms = library_stream_ms = None
+        if case.library is not None:
+            lib_call = case.library(args)
+            library_ms = _graph_ms(lib_call)
+            library_stream_ms = _time_ms(lib_call, 200)
+        bound_b = case.bound_bytes(args)
+        entries.append({
+            "name": case.name, "route": "cuda", "source": case.source, "replaces": case.replaces,
+            "launches": launches[case.fn.__name__], "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_b / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+            "library_ms": library_ms, "host_issued_ms": stream_ms,
+            "library_host_issued_ms": library_stream_ms, "bound_bytes": bound_b,
+            "variants_compared": len(variants), "shapes": [list(a.shape) for a in args], **extra,
+        })
+    emit({"phase": "diag_kernels", "kernels": entries, "gpu": gpu})
+    return entries
+
+
+def phase_stream_replay_full_width(gpu, log, expect, plan, dev="cuda"):
+    """The packed-stream entry point at the flagship envelope: the whole B4
+    log decoded on the device into one ``[S, U]`` stream (`pack_updates`,
+    content refs ``s * L + byte``), then `replay_stream_fused` over 256 docs
+    from 65,536 slots in windows of 8,192 steps. Byte refs do not let
+    compaction merge rows of different updates, so the live rows outgrow
+    65,536 slots and the driver grows the state (up to STREAM_MAX_CAPACITY).
+    Checks the text of the first and last doc, the sticky error, one launch
+    per window, and the kernel against its plain version on one late window
+    at the final capacity (`_late_window_vs_plain`)."""
+    import torch
+
+    from ytpu_torch.models.batch_doc import get_string, init_state
+    from ytpu_torch.ops import integrate_kernel as ik
+    from ytpu_torch.ops.decode_kernel import (
+        FLAG_ERRORS, RawPayloadView, decode_updates_v1, identity_rank, pack_updates,
+    )
+
+    t0 = time.perf_counter()
+    buf_np, lens_np = pack_updates(log)
+    buf, lens = torch.from_numpy(buf_np).to(dev), torch.from_numpy(lens_np).to(dev)
+    stream, flags = decode_updates_v1(
+        buf, lens, max_rows=plan.max_rows, max_dels=plan.max_dels, n_steps=plan.max_steps,
+        max_sections=plan.max_sections,
+    )
+    bad = int(((flags & FLAG_ERRORS) != 0).sum())
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    if bad:
+        raise RuntimeError(f"stream_replay_full_width: decode flagged {bad} updates")
+    state = init_state(N_DOCS, CAPACITY, dev)
+    rank = identity_rank(256, dev)
+    torch.cuda.synchronize()
+    ik.integrate_stream.launches = 0
+    t0 = time.perf_counter()
+    state, st = ik.replay_stream_fused(state, stream, rank, chunk_steps=CHUNK,
+                                       max_capacity=STREAM_MAX_CAPACITY)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ik.integrate_stream.launches
+    err = int(state.error.max())
+    view = RawPayloadView(buf_np)
+    text_ok = [get_string(state, d, view) == expect for d in (0, N_DOCS - 1)]
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    del state
+    vs_plain = _late_window_vs_plain(stream, rank, st.capacity, dev)
+    line = {
+        "phase": "stream_replay_full_width", "updates": len(log), "docs": N_DOCS,
+        "capacity_start": CAPACITY, "capacity_end": st.capacity, "chunk_steps": CHUNK,
+        "lane_width": int(buf_np.shape[1]), "decode_s": decode_s, "wall_s": wall,
+        "updates_per_s": len(log) / wall, "doc_updates_per_s": len(log) * N_DOCS / wall,
+        "chunks": st.chunks, "compactions": st.compactions, "growths": st.growths,
+        "peak_blocks": st.peak_blocks, "final_blocks": st.final_blocks, "launches": launches,
+        "sticky_error": err, "text_ok": text_ok, "peak_memory_gb": peak_gb,
+        "kernel_vs_plain": vs_plain, "gpu": gpu,
+    }
+    emit(line)
+    if err != 0:
+        raise RuntimeError(f"stream_replay_full_width: sticky error {err}")
+    if not all(text_ok):
+        raise RuntimeError("stream_replay_full_width: replayed text differs from the log's expected text")
+    if launches != -(-len(log) // CHUNK) or launches != st.chunks:
+        raise RuntimeError(f"stream_replay_full_width: {launches} launches for {st.chunks} windows")
+    return launches, vs_plain
+
+
+def _late_window_vs_plain(stream, rank, capacity: int, dev):
+    """The integrate kernel against its plain version at the stream
+    replay's final `capacity`, on the state of 2 docs before window
+    LATE_CHUNK (docs are independent and share the stream, so every doc of
+    the run held this state): the prefix replayed through
+    `replay_stream_fused`, room made for the window as
+    `PackedReplayDriver.step` makes it, the state grown to `capacity` if
+    the prefix had not grown it yet, then the window through both. All 26
+    planes and all meta words must be equal, with sticky error 0."""
+    from ytpu_torch.models.batch_doc import UpdateBatch, init_state, stream_worst_case_adds
+    from ytpu_torch.ops import integrate_kernel as ik
+    from ytpu_torch.ops.compaction import grow_packed
+
+    pos = LATE_CHUNK * CHUNK
+    prefix = UpdateBatch(*(a[:pos] for a in stream))
+    window = UpdateBatch(*(a[pos : pos + CHUNK] for a in stream))
+    state, _ = ik.replay_stream_fused(init_state(2, CAPACITY, dev), prefix, rank, chunk_steps=CHUNK,
+                                      max_capacity=STREAM_MAX_CAPACITY)
+    driver = ik.PackedReplayDriver(*ik.pack_state(state), rank, max_capacity=STREAM_MAX_CAPACITY,
+                                   initial_occupancy=int(state.n_blocks.max()))
+    driver.ensure_room(int(stream_worst_case_adds(window).sum()) + 8)
+    cols_k, meta_k = driver.cols, driver.meta
+    grown = cols_k.shape[2] < capacity
+    if grown:
+        cols_k, meta_k = grow_packed(cols_k, meta_k, capacity)
+    blocks_before = int(meta_k[:, ik.M_NBLOCKS].max())
+    rows, dels = ik.pack_stream(window)
+    cols_p, meta_p = cols_k.clone(), meta_k.clone()
+    k_ms = _time_ms(lambda: ik.integrate_stream(cols_k, meta_k, rows, dels, rank))
+    p_ms = _time_ms(lambda: ik.integrate_stream_reference(cols_p, meta_p, rows, dels, rank))
+    max_err = _compare("grown capacity", cols_k, meta_k, cols_p, meta_p)
+    sticky = int(meta_k[:, ik.M_ERROR].max())
+    if sticky != 0:
+        raise RuntimeError(f"stream_replay_full_width: sticky error {sticky} in the compared window")
+    return {
+        "case": f"stream window {pos}..{pos + CHUNK}, 2 docs, C={cols_k.shape[2]}, S={CHUNK}",
+        "capacity": cols_k.shape[2], "grown_for_check": grown, "blocks_before": blocks_before,
+        "blocks_after": int(meta_k[:, ik.M_NBLOCKS].max()), "max_abs_err": max_err,
+        "kernel_ms": k_ms, "plain_ms": p_ms,
+    }
+
+
 def main() -> int:
     import torch
 
@@ -472,18 +821,29 @@ def main() -> int:
     max_err = phase_kernel_vs_plain(gpu, log, plan)
     err_full, full_kernel_ms, full_plain_ms = phase_full_width_vs_plain(gpu, log, plan)
     launches, ms, bound_ms = phase_b4_replay(gpu, log, expect, plan, plan_s)
+    torch.cuda.empty_cache()
+    stream_launches, stream_vs_plain = phase_stream_replay_full_width(gpu, log, expect, plan)
+    torch.cuda.empty_cache()
+    diag_launches, ladder_err = phase_mosaic_ladder(gpu)
+    ladder_integrate = diag_launches.pop("integrate_stream")
+    diag_launches.update(phase_plane_rmw(gpu))
+    diag = phase_diag_kernels(gpu, diag_launches)
     print(f"gpu: {gpu}", flush=True)
     emit({"kernels": [{
         "name": "integrate_stream", "route": "cuda", "source": "ytpu_torch/csrc/integrate.cu",
-        "replaces": INTEGRATE_REPLACES, "launches": launches, "max_abs_err": max(max_err, err_full),
+        "replaces": INTEGRATE_REPLACES, "launches": launches,
+        "max_abs_err": max(max_err, err_full, stream_vs_plain["max_abs_err"], ladder_err),
         "ms": ms, "plain_ms": full_plain_ms, "bound_ms": bound_ms, "bound_by": "bytes",
         "library_ms": None,
+        "launches_by_path": {"b4_replay": launches, "stream_replay_full_width": stream_launches,
+                             "mosaic_ladder": ladder_integrate},
         "plain_vs_kernel_case": {
             "shape": f"one B4 chunk, 2 docs, C={CAPACITY}, S={CHUNK}",
             "kernel_ms": full_kernel_ms, "plain_ms": full_plain_ms,
         },
+        "plain_vs_kernel_grown": stream_vs_plain,
         "gpu": gpu,
-    }]})
+    }] + [{k: e[k] for k in KERNEL_KEYS} for e in diag]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
     return 0

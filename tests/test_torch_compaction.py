@@ -50,7 +50,7 @@ def state_of(name):
 def test_compact_packed_matches(name, unit_refs, gc_ranges):
     cols, meta = state_of(name)
     j_cols, j_meta = jcomp.compact_packed(jnp.array(cols), jnp.array(meta), unit_refs, gc_ranges)
-    t_cols, t_meta = tcomp.compact_packed(*packed_from_numpy(cols, meta), unit_refs, gc_ranges)
+    t_cols, t_meta = tcomp.compact_packed(*packed_from_numpy(cols, meta, "cpu"), unit_refs, gc_ranges)
     t_cols, t_meta = packed_to_numpy(t_cols, t_meta)
     np.testing.assert_array_equal(np.asarray(j_cols), t_cols)
     np.testing.assert_array_equal(np.asarray(j_meta), t_meta)
@@ -62,7 +62,7 @@ def test_compact_packed_matches(name, unit_refs, gc_ranges):
 def test_grow_packed_matches(new_capacity):
     cols, meta = state_of("moves_midstream")
     j_cols, j_meta = jcomp.grow_packed(jnp.array(cols), jnp.array(meta), new_capacity)
-    t_cols, t_meta = tcomp.grow_packed(*packed_from_numpy(cols, meta), new_capacity)
+    t_cols, t_meta = tcomp.grow_packed(*packed_from_numpy(cols, meta, "cpu"), new_capacity)
     np.testing.assert_array_equal(np.asarray(j_cols), t_cols.numpy())
     np.testing.assert_array_equal(np.asarray(j_meta), t_meta.numpy())
     with pytest.raises(ValueError):
@@ -76,7 +76,7 @@ def test_compacted_state_keeps_replaying():
     rows, dels = packed_numpy(stream)
     cols, meta = run_port(*empty_packed(XLA_D, XLA_C), rows[:12], dels[:12], rank)
     j_cols, j_meta = (np.asarray(a) for a in jcomp.compact_packed(jnp.array(cols), jnp.array(meta), True, True))
-    t_cols, t_meta = tcomp.compact_packed(*packed_from_numpy(cols, meta), True, True)
+    t_cols, t_meta = tcomp.compact_packed(*packed_from_numpy(cols, meta, "cpu"), True, True)
     a = run_port(j_cols, j_meta, rows[12:], dels[12:], rank)
     b = run_port(*packed_to_numpy(t_cols, t_meta), rows[12:], dels[12:], rank)
     np.testing.assert_array_equal(a[0], b[0])

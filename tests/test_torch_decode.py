@@ -226,6 +226,6 @@ def test_host_helpers_match():
         assert tdk.client_hash_host(client) == jdk.client_hash_host(client)
     assert tdk.default_steps(3, 5) == jdk.default_steps(3, 5)
     assert tdk.exact_steps(1, 2, 3, 4, 5, 6) == jdk.exact_steps(1, 2, 3, 4, 5, 6)
-    np.testing.assert_array_equal(tdk.identity_rank(16).numpy(), np.asarray(jdk.identity_rank(16)))
+    np.testing.assert_array_equal(tdk.identity_rank(16, "cpu").numpy(), np.asarray(jdk.identity_rank(16)))
     assert tdk.EMPTY_UPDATE == jdk.EMPTY_UPDATE
     assert tdk.FLAG_ERRORS == jdk.FLAG_ERRORS

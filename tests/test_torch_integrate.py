@@ -103,8 +103,8 @@ def empty_packed(n_docs, capacity):
 
 
 def run_port(cols, meta, rows, dels, rank, scan_plan=(32, 8)):
-    c, m = packed_from_numpy(cols, meta)
-    r, d = stream_from_numpy(rows, dels)
+    c, m = packed_from_numpy(cols, meta, "cpu")
+    r, d = stream_from_numpy(rows, dels, "cpu")
     tik.integrate_stream(c, m, r, d, torch.from_numpy(np.array(rank, np.int32)), scan_plan)
     return packed_to_numpy(c, m)
 
@@ -414,7 +414,7 @@ def test_reference_matches_xla_lane(case):
     if expect is not None:
         from ytpu_torch.models.batch_doc import get_string
 
-        state = tik.unpack_state(*packed_from_numpy(p_cols, p_meta))
+        state = tik.unpack_state(*packed_from_numpy(p_cols, p_meta, "cpu"))
         assert get_string(state, 0, enc.payloads) == expect
         assert get_string(state, XLA_D - 1, enc.payloads) == expect
 
@@ -439,7 +439,7 @@ def test_scan_record_matches_xla_lane_at_scan_plans(scan_plan):
 
 
 def _tiny_state():
-    cols, meta = tik.pack_state(init_state(2, 8))
+    cols, meta = tik.pack_state(init_state(2, 8, "cpu"))
     return cols, meta
 
 

@@ -26,6 +26,9 @@ def test_import_leaves_jax_and_ytpu_unloaded():
         "import ytpu_torch, ytpu_torch.models.replay, ytpu_torch.ops.integrate_kernel\n"
         "import ytpu_torch.ops.compaction, ytpu_torch.ops.decode_kernel, ytpu_torch.convert\n"
         "import ytpu_torch.models.batch_doc, ytpu_torch.encoding.lib0, ytpu_torch.ops._build\n"
+        "import ytpu_torch.core.device, ytpu_torch.benches.mosaic_ladder\n"
+        "import ytpu_torch.benches.plane_rmw_repro, ytpu_torch.benches.plane_rmw_repro2\n"
+        "import ytpu_torch.benches.plane_rmw_repro3\n"
         "print(json.dumps(sorted(m for m in sys.modules\n"
         "    if m == 'jax' or m.startswith('jax.') or m == 'ytpu' or m.startswith('ytpu.'))))\n"
     )

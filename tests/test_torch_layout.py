@@ -53,21 +53,21 @@ def test_unpack_state_and_convert_round_trip():
     rows, dels = packed_numpy(stream)
     cols, meta = run_port(*empty_packed(XLA_D, XLA_C), rows, dels, rank)
     j_state = jik.unpack_state(jnp.asarray(cols), jnp.asarray(meta), None)
-    t_state = tik.unpack_state(*convert.packed_from_numpy(cols, meta))
+    t_state = tik.unpack_state(*convert.packed_from_numpy(cols, meta, "cpu"))
     for name in jbd.BlockCols._fields:
         np.testing.assert_array_equal(
             np.asarray(getattr(j_state.blocks, name)), getattr(t_state.blocks, name).numpy(), err_msg=name
         )
     for name in ("start", "n_blocks", "error"):
         np.testing.assert_array_equal(np.asarray(getattr(j_state, name)), getattr(t_state, name).numpy())
-    back = convert.packed_to_numpy(*convert.packed_from_numpy(cols, meta))
+    back = convert.packed_to_numpy(*convert.packed_from_numpy(cols, meta, "cpu"))
     np.testing.assert_array_equal(back[0], cols)
     np.testing.assert_array_equal(back[1], meta)
-    r, d = convert.stream_from_numpy(rows, dels)
+    r, d = convert.stream_from_numpy(rows, dels, "cpu")
     np.testing.assert_array_equal(r.numpy(), rows)
     np.testing.assert_array_equal(d.numpy(), dels)
     with pytest.raises(ValueError):
-        convert.packed_from_numpy(cols[:25], meta)
+        convert.packed_from_numpy(cols[:25], meta, "cpu")
 
 
 def test_pack_stream_matches_on_a_decoded_stream():
@@ -123,7 +123,7 @@ def test_readout_words_and_ledger_match(case):
     cols, meta = run_port(*empty_packed(XLA_D, XLA_C), rows, dels, rank)
     err = np.int32(5)
     j = np.asarray(jax.jit(jik._readout_words)(jnp.asarray(cols), jnp.asarray(meta), jnp.asarray(err)))
-    t_cols, t_meta = convert.packed_from_numpy(cols, meta)
+    t_cols, t_meta = convert.packed_from_numpy(cols, meta, "cpu")
     t = tik._readout_words(t_cols, t_meta, torch.tensor(int(err), dtype=torch.int32))
     np.testing.assert_array_equal(j, t.numpy())
     j_occ, j_dead = jik.packed_capacity_ledger(jnp.asarray(cols), jnp.asarray(meta))

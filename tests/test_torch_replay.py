@@ -175,7 +175,7 @@ def test_port_finishes_from_jax_midreplay_state(runs):
     # a fresh driver starts from the state's actual occupancy (what the
     # JAX driver reads from its pending readouts before deciding to compact)
     driver = tik.PackedReplayDriver(
-        *packed_from_numpy(cols, meta), tr._resolve_rank(None), unit_refs=True,
+        *packed_from_numpy(cols, meta, "cpu"), tr._resolve_rank(None), unit_refs=True,
         gc_ranges=True, max_capacity=1 << 17,
         initial_occupancy=int(meta[:, tik.M_NBLOCKS].max()),
     )

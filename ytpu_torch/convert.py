@@ -14,6 +14,8 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from ytpu_torch.core.device import resolve_device
+
 __all__ = ["packed_from_numpy", "packed_to_numpy", "stream_from_numpy"]
 
 
@@ -21,8 +23,10 @@ def _tensor(a, device) -> torch.Tensor:
     return torch.from_numpy(np.array(np.asarray(a), dtype=np.int32, order="C")).to(device)
 
 
-def packed_from_numpy(cols, meta, device="cpu") -> Tuple[torch.Tensor, torch.Tensor]:
-    """numpy ``[26, D, C]`` cols / ``[D, 32]`` meta -> int32 tensors."""
+def packed_from_numpy(cols, meta, device=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """numpy ``[26, D, C]`` cols / ``[D, 32]`` meta -> int32 tensors (on the
+    GPU unless `device` says otherwise)."""
+    device = resolve_device(device)
     cols_t, meta_t = _tensor(cols, device), _tensor(meta, device)
     if cols_t.dim() != 3 or cols_t.shape[0] != 26 or tuple(meta_t.shape) != (cols_t.shape[1], 32):
         raise ValueError(f"not a packed state: {tuple(cols_t.shape)} / {tuple(meta_t.shape)}")
@@ -34,8 +38,10 @@ def packed_to_numpy(cols: torch.Tensor, meta: torch.Tensor) -> Tuple[np.ndarray,
     return cols.cpu().numpy().astype(np.int32), meta.cpu().numpy().astype(np.int32)
 
 
-def stream_from_numpy(rows, dels, device="cpu") -> Tuple[torch.Tensor, torch.Tensor]:
-    """numpy ``[S, U, 23]`` rows / ``[S, R, 4]`` deletes -> int32 tensors."""
+def stream_from_numpy(rows, dels, device=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """numpy ``[S, U, 23]`` rows / ``[S, R, 4]`` deletes -> int32 tensors (on
+    the GPU unless `device` says otherwise)."""
+    device = resolve_device(device)
     rows_t, dels_t = _tensor(rows, device), _tensor(dels, device)
     if rows_t.dim() != 3 or rows_t.shape[2] != 23 or dels_t.dim() != 3 or dels_t.shape[2] != 4:
         raise ValueError(f"not a packed stream: {tuple(rows_t.shape)} / {tuple(dels_t.shape)}")

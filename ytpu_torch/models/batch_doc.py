@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from ytpu_torch.core.content import CONTENT_MOVE, CONTENT_STRING
+from ytpu_torch.core.device import resolve_device
 
 __all__ = [
     "BlockCols",
@@ -28,6 +29,8 @@ __all__ = [
     "UpdateBatch",
     "COL_DEFAULTS",
     "init_state",
+    "mark_origin_slot_stale",
+    "origin_slot_is_stale",
     "CompactionPolicy",
     "DEFAULT_COMPACTION_POLICY",
     "stream_worst_case_adds",
@@ -152,8 +155,10 @@ COL_DEFAULTS: Dict[str, object] = {
 assert tuple(COL_DEFAULTS) == BlockCols._fields
 
 
-def init_state(n_docs: int, capacity: int, device="cpu") -> DocStateBatch:
-    """Allocate an empty batch of docs with `capacity` block slots each."""
+def init_state(n_docs: int, capacity: int, device=None) -> DocStateBatch:
+    """Allocate an empty batch of docs with `capacity` block slots each,
+    on the GPU unless `device` says otherwise."""
+    device = resolve_device(device)
     shape = (n_docs, capacity)
     blocks = BlockCols(
         **{
@@ -171,6 +176,33 @@ def init_state(n_docs: int, capacity: int, device="cpu") -> DocStateBatch:
         n_blocks=torch.zeros((n_docs,), dtype=I32, device=device),
         error=torch.zeros((n_docs,), dtype=I32, device=device),
     )
+
+
+# --- lazy origin_slot refresh ---------------------------------------------------
+# The fused integrate passes the origin_slot plane through without
+# maintaining it, so its output marks the plane STALE: a host-side flag
+# keyed on the plane tensor's identity, retired by `weakref.finalize` when
+# the tensor dies so a recycled id never reads as stale. The port has no
+# reader of the plane yet (the XLA-lane applies that rebuild it are not
+# ported), so nothing refreshes it.
+
+_STALE_ORIGIN_SLOT: set = set()
+
+
+def mark_origin_slot_stale(state: DocStateBatch) -> None:
+    """Flag `state.blocks.origin_slot` as stale (fused-lane output)."""
+    import weakref
+
+    arr = state.blocks.origin_slot
+    key = id(arr)
+    if key not in _STALE_ORIGIN_SLOT:
+        _STALE_ORIGIN_SLOT.add(key)
+        weakref.finalize(arr, _STALE_ORIGIN_SLOT.discard, key)
+
+
+def origin_slot_is_stale(state: DocStateBatch) -> bool:
+    """One set lookup."""
+    return id(state.blocks.origin_slot) in _STALE_ORIGIN_SLOT
 
 
 class CompactionPolicy(NamedTuple):

@@ -20,6 +20,8 @@ from typing import List, Tuple
 import numpy as np
 import torch
 
+from ytpu_torch.core.device import resolve_device
+
 __all__ = [
     "ReplayPlan",
     "UnitArenaView",
@@ -279,14 +281,6 @@ class _RawStagingSlot:
         self.end = 0
 
 
-def resolve_device(device=None) -> torch.device:
-    """``None`` means the GPU; a missing GPU raises (no CPU fallback)."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("CUDA is not available; pass device='cpu' to replay on the CPU")
-    return dev
-
-
 class FusedReplay:
     """Chunked replay of one shared update stream over a doc batch, on the
     raw ingest lane: per chunk, the host stages the raw wire bytes and the
@@ -328,8 +322,8 @@ class FusedReplay:
                     f"stream contains client id {self.plan.max_client}; "
                     "pass an explicit client_rank table"
                 )
-            client_rank = identity_rank(256)
-        return torch.as_tensor(client_rank, dtype=torch.int32).to(self.device).contiguous()
+            client_rank = identity_rank(256, self.device)
+        return torch.as_tensor(client_rank, dtype=torch.int32, device=self.device).contiguous()
 
     def make_driver(self, client_rank=None):
         from ytpu_torch.ops.integrate_kernel import PackedReplayDriver

@@ -19,7 +19,7 @@ import subprocess
 import threading
 from typing import Dict
 
-__all__ = ["SOURCES", "build_all", "load", "nvcc_path"]
+__all__ = ["SOURCES", "bind", "build_all", "check", "load", "nvcc_path"]
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _PKG = os.path.dirname(_HERE)
@@ -27,7 +27,11 @@ _CSRC = os.path.join(_PKG, "csrc")
 _BUILD = os.path.join(_PKG, "_build")
 
 #: kernel name -> source file under csrc/
-SOURCES = {"integrate": "integrate.cu"}
+SOURCES = {
+    "integrate": "integrate.cu",
+    "mosaic_ladder": "mosaic_ladder.cu",
+    "plane_rmw": "plane_rmw.cu",
+}
 
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -104,3 +108,26 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(out)
             _libs[name] = lib
     return lib
+
+
+def bind(name: str, signatures: Dict[str, list], error_string: str) -> ctypes.CDLL:
+    """`load(name)` with each C function of `signatures` declared as
+    returning int and taking the listed ctypes argument types, and
+    `error_string` (the library's cudaGetErrorString wrapper) declared."""
+    lib = load(name)
+    if not getattr(lib, "_ytpu_typed", False):
+        for fn, args in signatures.items():
+            getattr(lib, fn).restype = ctypes.c_int
+            getattr(lib, fn).argtypes = args
+        getattr(lib, error_string).restype = ctypes.c_char_p
+        getattr(lib, error_string).argtypes = [ctypes.c_int]
+        lib._ytpu_error_string = getattr(lib, error_string)
+        lib._ytpu_typed = True
+    return lib
+
+
+def check(lib: ctypes.CDLL, err: int, what: str) -> None:
+    """Raise if a launch returned a CUDA error (the launch never ran)."""
+    if err != 0:
+        msg = lib._ytpu_error_string(err).decode()
+        raise RuntimeError(f"{what} launch failed: cudaError {err} ({msg})")

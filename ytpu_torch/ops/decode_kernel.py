@@ -36,6 +36,7 @@ from ytpu_torch.core.content import (
     CONTENT_STRING,
     CONTENT_TYPE,
 )
+from ytpu_torch.core.device import resolve_device
 from ytpu_torch.models.batch_doc import UpdateBatch
 
 __all__ = [
@@ -54,6 +55,8 @@ __all__ = [
     "gather_raw_lanes",
     "decode_updates_v1",
     "identity_rank",
+    "RawPayloadView",
+    "utf8_slice_u16",
     "default_steps",
     "exact_steps",
     "steps_for_columns",
@@ -220,9 +223,64 @@ def gather_raw_lanes(raw, offs, lens, width: int):
     return torch.where(iota < lens[:, None].to(I64), lanes, torch.zeros_like(lanes))
 
 
-def identity_rank(k: int, device="cpu") -> torch.Tensor:
-    """Rank table for raw-client-id streams: rank(c) = c."""
-    return torch.arange(k, dtype=I32, device=device)
+def identity_rank(k: int, device=None) -> torch.Tensor:
+    """Rank table for raw-client-id streams: rank(c) = c (on the GPU unless
+    `device` says otherwise)."""
+    return torch.arange(k, dtype=I32, device=resolve_device(device))
+
+
+def utf8_slice_u16(buf: np.ndarray, start: int, off: int, length: int) -> str:
+    """Slice ``length`` UTF-16 units at unit-offset ``off`` from the UTF-8
+    string starting at byte ``start`` of ``buf``. Offsets landing inside a
+    surrogate pair render the severed half as U+FFFD."""
+    i = int(start)
+
+    def unit_at(i):
+        b0 = buf[i]
+        if b0 < 0x80:
+            return 1, 1
+        if b0 < 0xE0:
+            return 2, 1
+        if b0 < 0xF0:
+            return 3, 1
+        return 4, 2
+
+    out = []
+    u = 0
+    while u < off:
+        nb, nu = unit_at(i)
+        i += nb
+        u += nu
+    need = length
+    if u > off:
+        # the slice starts inside a surrogate pair: its severed low half
+        out.append("�")
+        need -= u - off
+    s = i
+    while need > 0:
+        nb, nu = unit_at(i)
+        if nu > need:
+            # ends inside a pair: the severed high half
+            out.append(bytes(buf[s:i]).decode("utf-8", errors="surrogatepass"))
+            out.append("�")
+            return "".join(out)
+        i += nb
+        need -= nu
+    out.append(bytes(buf[s:i]).decode("utf-8", errors="surrogatepass"))
+    return "".join(out)
+
+
+class RawPayloadView:
+    """Text reader over the padded ``[S, L]`` wire-byte matrix of
+    `pack_updates`: device-decoded string rows address their content by
+    ``ref = s * L + byte_start`` with ``(off, len)`` in UTF-16 units.
+    Only `slice_text` is ported (`get_string` reads nothing else)."""
+
+    def __init__(self, buf: np.ndarray):
+        self.buf = np.ascontiguousarray(buf, dtype=np.uint8).reshape(-1)
+
+    def slice_text(self, ref: int, off: int, length: int) -> str:
+        return utf8_slice_u16(self.buf, int(ref), off, length)
 
 
 def default_steps(max_rows: int, max_dels: int) -> int:

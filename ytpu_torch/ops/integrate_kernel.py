@@ -53,6 +53,8 @@ __all__ = [
     "pack_stream",
     "integrate_stream",
     "integrate_stream_reference",
+    "apply_update_stream_fused",
+    "replay_stream_fused",
     "replay_chunk_program_raw",
     "packed_capacity_ledger",
     "PackedReplayDriver",
@@ -684,19 +686,15 @@ def _integrate_lib():
     """The built kernel library with its C signatures declared."""
     from ytpu_torch.ops import _build
 
-    lib = _build.load("integrate")
-    if not getattr(lib, "_ytpu_typed", False):
-        ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.ytpu_integrate_stream.restype = i32
-        lib.ytpu_integrate_stream.argtypes = (
-            [ptr] * 5 + [i32] * 8 + [ptr, ptr, i32, ptr, ptr, i32] + [ptr] * 4
-        )
-        lib.ytpu_integrate_kc.restype = i32
-        lib.ytpu_integrate_kc.argtypes = []
-        lib.ytpu_cuda_error_string.restype = ctypes.c_char_p
-        lib.ytpu_cuda_error_string.argtypes = [i32]
-        lib._ytpu_typed = True
-    return lib
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    return _build.bind(
+        "integrate",
+        {
+            "ytpu_integrate_stream": [ptr] * 5 + [i32] * 8 + [ptr, ptr, i32, ptr, ptr, i32] + [ptr] * 4,
+            "ytpu_integrate_kc": [],
+        },
+        "ytpu_cuda_error_string",
+    )
 
 
 def integrate_stream(cols, meta, rows, dels, rank, scan_plan=None):
@@ -731,6 +729,8 @@ def integrate_stream(cols, meta, rows, dels, rank, scan_plan=None):
         return integrate_stream_reference(cols, meta, rows, dels, rank, (cheap, unroll))
     if dev.type != "cuda":
         raise ValueError(f"integrate_stream runs on cuda or cpu tensors, not {dev}")
+    from ytpu_torch.ops import _build
+
     lib = _integrate_lib()
     S, U = rows.shape[0], rows.shape[1]
     R, K = dels.shape[1], rank.shape[0]
@@ -752,14 +752,42 @@ def integrate_stream(cols, meta, rows, dels, rank, scan_plan=None):
         skeys.data_ptr(), svals.data_ptr(), hs,
         cclock.data_ptr(), bstamp.data_ptr(), cstamp.data_ptr(), stream,
     )
-    if err != 0:
-        msg = lib.ytpu_cuda_error_string(err).decode()
-        raise RuntimeError(f"integrate kernel launch failed: cudaError {err} ({msg})")
+    _build.check(lib, err, "integrate kernel")
     integrate_stream.launches += 1
     return cols, meta
 
 
 integrate_stream.launches = 0
+
+
+def apply_update_stream_fused(
+    state: DocStateBatch,
+    stream: UpdateBatch,
+    client_rank,
+    refresh_cache: bool = False,
+) -> DocStateBatch:
+    """One-call integrate of a stacked ``[S, ...]`` stream into every doc:
+    `pack_state` -> `pack_stream` -> `integrate_stream` -> `unpack_state`.
+    Sequence, map, nested-branch and move rows all integrate in the one
+    launch. The input state is left as it was (the packed copy is what the
+    kernel updates in place). The returned state's origin_slot plane is
+    marked stale, as the fused kernel leaves it unmaintained;
+    ``refresh_cache=True`` (an eager rebuild of that plane) needs
+    `recompute_origin_slot`, which is not ported."""
+    from ytpu_torch.models.batch_doc import mark_origin_slot_stale
+
+    if refresh_cache:
+        raise NotImplementedError(
+            "refresh_cache=True needs recompute_origin_slot, which comes with the "
+            "XLA-lane slice of the port (ROADMAP A.7 / B3)"
+        )
+    cols, meta = pack_state(state)
+    rows, dels = pack_stream(stream)
+    rank = torch.as_tensor(client_rank, dtype=I32, device=cols.device).reshape(-1).contiguous()
+    integrate_stream(cols, meta, rows, dels, rank)
+    out = unpack_state(cols, meta)
+    mark_origin_slot_stale(out)
+    return out
 
 
 # --- readout ----------------------------------------------------------------------
@@ -1053,6 +1081,26 @@ class PackedReplayDriver:
             self.stats.growths += 1
             self.stats.capacity = new_cap
 
+    def step(self, stream: UpdateBatch, margin: Optional[int] = None) -> None:
+        """Integrate one ``[S, ...]`` stream chunk (a doc-free leading step
+        axis, on the state's device): room check -> `pack_stream` ->
+        integrate -> lazy readout. ``margin`` is the chunk's worst-case
+        slot growth; when None it is read from the stream's valid masks."""
+        from ytpu_torch.models.batch_doc import stream_worst_case_adds
+
+        if margin is None:
+            margin = int(stream_worst_case_adds(stream).sum()) + 8
+        self.ensure_room(margin)
+        rows, dels = pack_stream(stream)
+        with torch.profiler.record_function("ytpu_torch.integrate"):
+            integrate_stream(self.cols, self.meta, rows, dels, self.rank, scan_tier_plan())
+        with torch.profiler.record_function("ytpu_torch.readout"):
+            self._pending.append(_readout_words(self.cols, self.meta, self._err))
+        self._hi_bound += margin
+        self.stats.chunks += 1
+        if self.sync_every_chunk:
+            self._drain_readouts()
+
     def step_raw(self, raw, offs, lens, refs, dims, width: int, margin: int):
         """Integrate one chunk from raw concatenated wire bytes plus its
         offsets table: lane gather -> decode -> rebase -> integrate ->
@@ -1085,3 +1133,51 @@ class PackedReplayDriver:
         self.stats.capacity = self.capacity
         self.stats.final_blocks = int(self.meta[:, M_NBLOCKS].max())
         return self.cols, self.meta
+
+
+def replay_stream_fused(
+    state: DocStateBatch,
+    stream: UpdateBatch,
+    client_rank,
+    *,
+    chunk_steps: int = 64,
+    policy=None,
+    max_capacity: Optional[int] = None,
+) -> Tuple[DocStateBatch, ReplayChunkStats]:
+    """Chunked replay of a stacked ``[S, ...]`` update stream with
+    between-chunk compaction: `apply_update_stream_fused` for streams whose
+    peak block count exceeds the capacity. The stream is cut into windows
+    of `chunk_steps` steps (the tail padded with invalid steps, so every
+    launch sees one shape); each window is one `PackedReplayDriver.step`
+    and, between windows, the `CompactionPolicy` decides when the packed
+    state compacts or grows (up to `max_capacity`). Returns the final
+    state, its origin_slot plane marked stale, and the driver's stats."""
+    from ytpu_torch.models.batch_doc import mark_origin_slot_stale, stream_worst_case_adds
+
+    S = stream.valid.shape[0]
+    if S == 0:
+        return state, ReplayChunkStats(capacity=state.blocks.client.shape[-1])
+    adds = stream_worst_case_adds(stream)
+    initial = int(state.n_blocks.max())
+    cols, meta = pack_state(state)
+    rank = torch.as_tensor(client_rank, dtype=I32, device=cols.device).reshape(-1).contiguous()
+    driver = PackedReplayDriver(
+        cols, meta, rank, policy=policy, max_capacity=max_capacity, initial_occupancy=initial
+    )
+    for s in range(0, S, chunk_steps):
+        e = min(S, s + chunk_steps)
+        chunk = UpdateBatch(*(a[s:e] for a in stream))
+        if e - s < chunk_steps:
+            # pad the tail to the window shape: replicate the last step,
+            # then invalidate the padding rows and deletes
+            pad = chunk_steps - (e - s)
+            chunk = UpdateBatch(
+                *(torch.cat([a, a[-1:].expand((pad,) + tuple(a.shape[1:]))]) for a in chunk)
+            )
+            chunk.valid[e - s :] = False
+            chunk.del_valid[e - s :] = False
+        driver.step(chunk, margin=int(adds[s:e].sum()) + 8)
+    cols, meta = driver.finish()
+    out = unpack_state(cols, meta)
+    mark_origin_slot_stale(out)
+    return out, driver.stats
