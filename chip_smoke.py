@@ -6,14 +6,20 @@ Usage (on a machine with one NVIDIA GPU and the CUDA toolkit):
 
     python3 chip_smoke.py
 
-Phases, one JSON line each: ``build`` (the three CUDA sources, one nvcc
-each, in parallel), ``kernel_vs_plain`` (small cases),
-``kernel_vs_plain_full_width`` (one late B4 chunk at the main path's
-capacity and chunk size), ``b4_replay`` (`FusedReplay.run` over the whole
-log at 256 docs, then the same run under `torch.profiler`),
-``stream_replay_full_width`` (the whole log decoded into one stream and
-replayed through `replay_stream_fused` at 256 docs, then the kernel
-against its plain version on one late window at the grown capacity),
+Phases, one JSON line each: ``build`` (the four CUDA libraries, one nvcc
+each, in parallel; the integrate kernel must use no stack frame and no
+spills), ``kernel_vs_plain`` (small cases: B4 chunks, synthetic streams
+at three scan plans and a capacity cut, 8 clients typing, clients above
+the client-clock table, a misaligned stream view that must raise),
+``integrate_profile`` (cycles per step per phase of the profiling build
+on one late B4 chunk), ``kernel_vs_plain_full_width`` (that chunk at the
+main path's capacity and chunk size), ``b4_replay`` (`FusedReplay.run`
+over the whole log at 256 docs, then the same run under
+`torch.profiler`), ``stream_replay_full_width`` (the whole log decoded
+into one stream and replayed through `replay_stream_fused` at 256 docs,
+again under `torch.profiler` for the time of each launch, then the
+kernel against its plain version on one late window at the grown
+capacity),
 ``mosaic_ladder``
 (rungs 0-10), ``plane_rmw`` (the three repros), ``diag_kernels`` (each
 diagnostic kernel against its plain version, then timed); then the
@@ -71,106 +77,35 @@ def gpu_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-# --- synthetic stream: concurrent clients, map, nested, move rows ---------------
-
-
-def synthetic_stream(seed: int, steps: int, U: int = 4, R: int = 2, storm_every: int = 5):
-    """A seeded ``[S, U, 23]`` row / ``[S, R, 4]`` delete stream over six
-    clients (one above the rank table, one above the client-clock table):
-    string, deleted, GC, format, nested-type and move rows, map rows on
-    three keys, root-anchor parents, gaps and duplicates, and every
-    `storm_every`-th step a same-origin storm of U concurrent inserts."""
-    import numpy as np
-
-    rng = np.random.default_rng(seed)
-    clients = [1, 2, 3, 7, 300, 5000]
-    nxt = {c: 0 for c in clients}
-    ids = []  # (client, clock, len, kind)
-    types = []
-    rows = np.zeros((steps, U, 23), dtype=np.int32)
-    dels = np.zeros((steps, R, 4), dtype=np.int32)
-    ref = 0
-
-    def some_id():
-        c, k, n, _ = ids[int(rng.integers(len(ids)))]
-        return c, k + int(rng.integers(n))
-
-    for s in range(steps):
-        storm = s % storm_every == storm_every - 1 and ids
-        storm_origin = some_id() if storm else None
-        for u in range(U):
-            r = rows[s, u]
-            c = clients[u % len(clients)] if storm else clients[int(rng.integers(len(clients)))]
-            kind = int(rng.choice([4, 4, 4, 4, 1, 0, 6, 7, 11]))
-            length = 1 if kind in (6, 7, 11) else int(rng.integers(1, 4))
-            clock = nxt[c]
-            roll = rng.random()
-            if roll < 0.05:
-                clock += 1  # gap: missing dependency
-            elif roll < 0.10 and clock > 0:
-                clock = max(0, clock - 1)  # partial duplicate
-            oc = ok = -1
-            rc, rk = -1, 0
-            if storm:
-                oc, ok = storm_origin
-            elif ids and rng.random() < 0.75:
-                oc, ok = some_id()
-            if not storm and ids and rng.random() < 0.4:
-                rc, rk = some_id()
-            key, ptag, pc, pk, proot = -1, 0, -1, 0, -1
-            if oc < 0 and rc < 0:
-                ptag = int(rng.choice([1, 1, 2])) if types else 1
-                if ptag == 2:
-                    pc, pk = types[int(rng.integers(len(types)))]
-                elif rng.random() < 0.2:
-                    proot = int(rng.choice([7, 9]))  # anchor 7 exists, 9 does not
-                if rng.random() < 0.3:
-                    key = int(rng.integers(3))
-            mv = (-1, 0, 0, -1, 0, 0, -1)
-            if kind == 11 and ids:
-                sc, sk = some_id()
-                if rng.random() < 0.4:
-                    ec, ek = sc, sk  # collapsed
-                else:
-                    ec, ek = some_id()
-                mv = (sc, sk, int(rng.choice([0, -1])), ec, ek, int(rng.choice([0, -1])),
-                      int(rng.integers(3)))
-            valid = 0 if rng.random() < 0.05 else 1
-            r[:] = [c, clock, length, oc, max(ok, 0), rc, rk, kind, ref, 0, key, ptag,
-                    pc, pk, valid, *mv, proot]
-            ref += length
-            if valid:
-                ids.append((c, clock, length, kind))
-                nxt[c] = max(nxt[c], clock + length)
-                if kind == 7:
-                    types.append((c, clock))
-        for q in range(R):
-            if ids and rng.random() < 0.6:
-                c, k, n, _ = ids[int(rng.integers(len(ids)))]
-                a = k + int(rng.integers(n))
-                b = a + int(rng.integers(1, 4))
-                dels[s, q] = [c, a, b, 1]
-    return rows, dels
-
-
-def anchored_state(n_docs: int, capacity: int, device):
-    """Empty packed state with a root-anchor row for key 7 in every doc."""
-    from ytpu_torch.models.batch_doc import init_state
-    from ytpu_torch.ops.integrate_kernel import CL, KD, KEY, LN, M_NBLOCKS, pack_state
-
-    cols, meta = pack_state(init_state(n_docs, capacity, device))
-    cols[KD, :, 0] = 12
-    cols[KEY, :, 0] = 7
-    cols[CL, :, 0] = -1
-    cols[LN, :, 0] = 0
-    meta[:, M_NBLOCKS] = 1
-    return cols, meta
-
-
 # --- phases ---------------------------------------------------------------------------
 
 
+def _ptxas(log: str, kernel: str) -> dict:
+    """Registers, stack frame, spills and shared memory of `kernel` from a
+    ``-Xptxas -v`` build log."""
+    import re
+
+    out, inside = {}, False
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            inside = kernel in line
+        elif inside:
+            for key, pat in (("stack_frame_bytes", r"(\d+) bytes stack frame"),
+                             ("spill_store_bytes", r"(\d+) bytes spill stores"),
+                             ("spill_load_bytes", r"(\d+) bytes spill loads"),
+                             ("registers", r"Used (\d+) registers"),
+                             ("static_smem_bytes", r"(\d+) bytes smem")):
+                m = re.search(pat, line)
+                if m:
+                    out[key] = int(m.group(1))
+    if "registers" not in out or "stack_frame_bytes" not in out:
+        raise RuntimeError(f"no ptxas report for {kernel} in the build log")
+    return out
+
+
 def phase_build(gpu):
+    """Every library, one nvcc each in parallel; the integrate kernel's
+    ptxas report must show no stack frame and no spills."""
     from ytpu_torch.ops import _build
 
     t0 = time.perf_counter()
@@ -179,8 +114,14 @@ def phase_build(gpu):
     # load each library now, so that no timed launch pays for the dlopen
     for name in libs:
         _build.load(name)
+    ptxas = {name: _ptxas(_build.build_log(name), "integrate_kernel")
+             for name in ("integrate", "integrate_profile")}
     emit({"phase": "build", "seconds": build_s, "load_seconds": time.perf_counter() - t0 - build_s,
-          "libraries": sorted(libs), "gpu": gpu})
+          "libraries": sorted(libs), "integrate_ptxas": ptxas, "gpu": gpu})
+    main = ptxas["integrate"]
+    if main["stack_frame_bytes"] or main["spill_store_bytes"] or main["spill_load_bytes"]:
+        raise RuntimeError(f"integrate_kernel uses local memory: {main}")
+    return main
 
 
 def _time_ms(fn, reps: int = 1):
@@ -195,41 +136,6 @@ def _time_ms(fn, reps: int = 1):
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
-
-
-def _b4_chunks(plan, log, starts, chunk: int, device):
-    """Stage and decode the B4 chunks of `chunk` updates that begin at
-    `starts`, as the main path does: ``[(rows, dels), ...]`` with global
-    unit refs."""
-    import numpy as np
-    import torch
-
-    from ytpu_torch.models.replay import build_wire_table, raw_chunk_cap
-    from ytpu_torch.ops.decode_kernel import pack_raw_updates_into
-    from ytpu_torch.ops.integrate_kernel import decode_chunk_raw
-
-    wire, woffs = build_wire_table(log)
-    cap = raw_chunk_cap(woffs, chunk)
-    width = plan.max_len + 16
-    out = []
-    for pos in starts:
-        end = min(pos + chunk, len(log))
-        raw = np.zeros(cap, np.uint8)
-        offs = np.zeros(chunk, np.int32)
-        lens = np.zeros(chunk, np.int32)
-        pack_raw_updates_into(wire, woffs, pos, end, raw, offs, lens, width=width)
-        refs = np.full((chunk, plan.unit_refs.shape[1]), -1, np.int32)
-        refs[: end - pos] = plan.unit_refs[pos:end]
-        t = [torch.from_numpy(a).to(device) for a in (raw, offs, lens, refs)]
-        err = torch.zeros((), dtype=torch.int32, device=device)
-        rows, dels, err = decode_chunk_raw(
-            err, *t, width=width, max_rows=plan.max_rows, max_dels=plan.max_dels,
-            n_steps=plan.max_steps, max_sections=plan.max_sections,
-        )
-        if int(err):
-            raise RuntimeError(f"decode flagged the B4 chunk at {pos}: {int(err)}")
-        out.append((rows, dels))
-    return out
 
 
 def _compare(name, cols_k, meta_k, cols_p, meta_p):
@@ -251,6 +157,8 @@ def phase_kernel_vs_plain(gpu, log, plan):
     import numpy as np
     import torch
 
+    from ytpu_torch.benches.integrate_profile import b4_chunks
+    from ytpu_torch.benches.streams import anchored_state, synthetic_stream
     from ytpu_torch.models.batch_doc import init_state
     from ytpu_torch.ops.decode_kernel import identity_rank
     from ytpu_torch.ops.integrate_kernel import (
@@ -265,7 +173,7 @@ def phase_kernel_vs_plain(gpu, log, plan):
     # B4: the first 2 chunks of 512 updates at 32 docs, C = 2048
     rank = identity_rank(256, dev)
     cols_k, meta_k = pack_state(init_state(32, 2048, dev))
-    chunks = _b4_chunks(plan, log, (0, 512), 512, dev)
+    chunks = b4_chunks(plan, log, (0, 512), 512, dev)
     # one untimed launch first, so the timed ones do not pay for module loading
     integrate_stream(cols_k.clone(), meta_k.clone(), *chunks[0], rank, plan_scan)
     kernel_ms = plain_ms = 0.0
@@ -303,7 +211,54 @@ def phase_kernel_vs_plain(gpu, log, plan):
             "max_blocks": int(meta_k[:, 1].max()), "error_max": int(meta_k[:, 2].max()),
             "scan_width_max": int(meta_k[:, 12].max()), "moves_claimed": int((cols_k[17] >= 0).sum()),
         })
+    max_err = max(max_err, _typing_cases(cases, dev))
     emit({"phase": "kernel_vs_plain", "equal": True, "max_abs_err": max_err, "cases": cases, "gpu": gpu})
+    return max_err
+
+
+def _typing_cases(cases, dev):
+    """Cases aimed at the kernel's launch plan, cursor cache and tables:
+    8 clients typing and deleting at random positions (cache entries split
+    and evicted) at D = 5 (not a multiple of the docs per CTA) over 1,001
+    steps (not a multiple of the tile: the ring wraps and the last tile is
+    ragged); clients at indices >= KC with a 2,048-entry rank table (the
+    client-clock sweep); and a misaligned ``rows`` view, which must raise."""
+    import numpy as np
+    import torch
+
+    from ytpu_torch.benches.streams import typing_stream
+    from ytpu_torch.models.batch_doc import init_state
+    from ytpu_torch.ops import integrate_kernel as ik
+
+    max_err = 0
+    for name, D, C, S, first, K in (("typing_8clients_D5_S1001", 5, 8192, 1001, 1, 256),
+                                    ("typing_clients_above_KC_K2048", 3, 2048, 300, 1500, 2048)):
+        rank = torch.from_numpy(np.random.default_rng(5).permutation(K).astype(np.int32)).to(dev)
+        rows, dels = (torch.from_numpy(a).to(dev) for a in typing_stream(17, S, first_client=first))
+        cols_k, meta_k = ik.pack_state(init_state(D, C, dev))
+        cols_p, meta_p = cols_k.clone(), meta_k.clone()
+        p_ms = _time_ms(lambda: ik.integrate_stream_reference(cols_p, meta_p, rows, dels, rank))
+        k_ms = _time_ms(lambda: ik.integrate_stream(cols_k, meta_k, rows, dels, rank))
+        max_err = max(max_err, _compare(name, cols_k, meta_k, cols_p, meta_p))
+        if int(meta_k[:, ik.M_ERROR].max()):
+            raise RuntimeError(f"kernel_vs_plain {name}: sticky error {int(meta_k[:, ik.M_ERROR].max())}")
+        cases.append({"case": name, "kernel_ms": k_ms, "plain_ms": p_ms,
+                      "max_blocks": int(meta_k[:, ik.M_NBLOCKS].max()),
+                      "launch_plan": ik.launch_plan(S, 1, 1, D, C)})
+    # a view of the stream that starts 4 bytes past a 16-byte boundary
+    buf = torch.zeros(rows.numel() + 4, dtype=torch.int32, device=dev)
+    off = 1 if buf.data_ptr() % 16 == 0 else 0
+    rows_m = buf[off : off + rows.numel()].view(rows.shape)
+    rows_m.copy_(rows)
+    launches = ik.integrate_stream.launches
+    try:
+        ik.integrate_stream(cols_k, meta_k, rows_m, dels, rank)
+    except ValueError as e:
+        cases.append({"case": "misaligned_rows_view", "raised": str(e)})
+    else:
+        raise RuntimeError("kernel_vs_plain: a misaligned rows view did not raise")
+    if ik.integrate_stream.launches != launches:
+        raise RuntimeError("kernel_vs_plain: a refused launch was counted")
     return max_err
 
 
@@ -315,33 +270,41 @@ def phase_full_width_vs_plain(gpu, log, plan):
     that each doc of the main path holds there."""
     import torch
 
-    from ytpu_torch.models.replay import FusedReplay
+    from ytpu_torch.benches.integrate_profile import late_chunk, profile_table
     from ytpu_torch.ops.integrate_kernel import (
         CK, M_NBLOCKS, integrate_stream, integrate_stream_reference,
     )
 
     pos = LATE_CHUNK * CHUNK
-    rep = FusedReplay(2, plan, capacity=CAPACITY, max_capacity=CAPACITY, chunk=CHUNK, device="cuda")
-    rep.run(log[:pos])
-    rep.driver.compact()  # slots renumbered, as after a compaction in the run
-    cols_k, meta_k, rank = rep.driver.cols, rep.driver.meta, rep.driver.rank
+    cols_k, meta_k, rank, rows, dels = late_chunk(plan, log, LATE_CHUNK, CHUNK, CAPACITY)
     blocks_before = int(meta_k[:, M_NBLOCKS].max())
-    ((rows, dels),) = _b4_chunks(plan, log, (pos,), CHUNK, cols_k.device)
+    # where the cycles of a step go: the profiling build on copies of this
+    # state (its launches are not counted)
+    profile = profile_table(cols_k, meta_k, rows, dels, rank)
+    emit({"phase": "integrate_profile", "case": f"B4 updates {pos}..{pos + CHUNK}, 2 docs, C={CAPACITY}",
+          **profile, "gpu": gpu})
     cols_p, meta_p = cols_k.clone(), meta_k.clone()
+    cols_0, nb0 = cols_k.clone(), meta_k[:, M_NBLOCKS].clone()
     k_ms = _time_ms(lambda: integrate_stream(cols_k, meta_k, rows, dels, rank))
     t0 = time.perf_counter()
     p_ms = _time_ms(lambda: integrate_stream_reference(cols_p, meta_p, rows, dels, rank))
     plain_s = time.perf_counter() - t0
     max_err = _compare("full width", cols_k, meta_k, cols_p, meta_p)
+    # what the launch wrote: the rows it added, and the words it changed in
+    # the rows the docs held before it (which the byte bound leaves out)
+    old_rows = torch.arange(cols_k.shape[2], device=cols_k.device)[None, :] < nb0[:, None]
+    written = {"rows_read": int(nb0.sum()), "rows_added": int((meta_k[:, M_NBLOCKS] - nb0).sum()),
+               "old_row_words_changed": int(((cols_k != cols_0) & old_rows).sum())}
+    del cols_0
     line = {
         "phase": "kernel_vs_plain_full_width", "equal": True, "max_abs_err": max_err,
         "case": f"B4 updates {pos}..{pos + CHUNK} after a compaction, 2 docs, C={CAPACITY}, S={CHUNK}",
         "blocks_before": blocks_before, "blocks_after": int(meta_k[:, M_NBLOCKS].max()),
         "max_clock": int(cols_k[CK].max()), "kernel_ms": k_ms, "plain_ms": p_ms,
-        "plain_wall_s": plain_s, "gpu": gpu,
+        "plain_wall_s": plain_s, "launch_wrote": written, "gpu": gpu,
     }
     emit(line)
-    return max_err, k_ms, p_ms
+    return max_err, k_ms, p_ms, profile
 
 
 def _trace_breakdown(prof, wall_s: float):
@@ -350,7 +313,9 @@ def _trace_breakdown(prof, wall_s: float):
     any span is ``other``), the device time of every integrate kernel, and
     the device's idle share of the traced wall time. A device event is
     placed by the host time of the runtime call that launched it (the CPU
-    event of the same CUPTI correlation id)."""
+    event of the same CUPTI correlation id). Returns the breakdown, the
+    integrate kernels as ``(launch host ns, device ms)`` in launch order,
+    and the spans as ``(start ns, end ns, name)``."""
     from torch.autograd import DeviceType
 
     events = prof.profiler.kineto_results.events()
@@ -373,9 +338,9 @@ def _trace_breakdown(prof, wall_s: float):
         if e.device_type() != DeviceType.CUDA or e.is_user_annotation():
             continue
         busy.append((e.start_ns(), e.end_ns()))
-        if "integrate_kernel" in e.name():
-            integrate_ms.append(e.duration_ns() / 1e6)
         t = launched_at.get(e.correlation_id())
+        if "integrate_kernel" in e.name():
+            integrate_ms.append((t, e.duration_ns() / 1e6))
         i = bisect.bisect_right(span_starts, t) - 1 if t is not None else -1
         name = spans[i][2] if i >= 0 and t <= spans[i][1] else "other"
         device_s[name] += e.duration_ns() / 1e9
@@ -391,7 +356,7 @@ def _trace_breakdown(prof, wall_s: float):
     return {
         "host_s": host_s, "device_s": device_s, "device_busy_s": busy_ns / 1e9,
         "device_idle_share": 1.0 - busy_ns / 1e9 / wall_s, "device_events": len(busy),
-    }, integrate_ms
+    }, sorted(integrate_ms), spans
 
 
 def _replay(plan, log, expect, traced: bool):
@@ -430,6 +395,19 @@ def _replay(plan, log, expect, traced: bool):
     return st, wall, launches, err, readout, prof
 
 
+def _launch_bound_bytes(plan, launches: int, rows_read: int, rows_added: int) -> float:
+    """Bytes one integrate launch of the main path must move at least, the
+    mean over its `launches`: the stream (rows and deletes), the rank table
+    and meta (read and written); CL, CK and LN of every row the docs held
+    before the launch (read to index them); the 25 planes the kernel writes
+    of every row it added (it never touches OS). Words a launch changes in
+    rows that existed before it are left out, so this is a lower bound
+    (`phase_full_width_vs_plain` counts them on one chunk)."""
+    stream_b = 4 * CHUNK * (plan.max_rows * 23 + plan.max_dels * 4)
+    launch_b = stream_b + 4 * (2 * N_DOCS * 32 + 256)
+    return launch_b + 4 * (3 * rows_read + 25 * rows_added) / launches
+
+
 def phase_b4_replay(gpu, log, expect, plan, plan_s: float):
     """The main path: `FusedReplay.run` over the whole log (its wall clock
     gives updates/s), then the same run again under `torch.profiler` for
@@ -439,22 +417,20 @@ def phase_b4_replay(gpu, log, expect, plan, plan_s: float):
     st, wall, launches, err, readout, _ = _replay(plan, log, expect, traced=False)
     torch.cuda.empty_cache()
     st_t, wall_t, launches_t, _, _, prof = _replay(plan, log, expect, traced=True)
-    trace, integrate_ms = _trace_breakdown(prof, wall_t)
+    trace, integrate, _ = _trace_breakdown(prof, wall_t)
+    integrate_ms = [ms for _, ms in integrate]
     if len(integrate_ms) != launches_t:
         raise RuntimeError(f"b4_replay: the trace holds {len(integrate_ms)} integrate kernels "
                            f"for {launches_t} launches")
-    # bytes the launches must move at least: the occupied rows of every doc
-    # read before and written after each launch, plus its rows, deletes,
-    # meta (read and written) and rank table
-    stream_b = 4 * CHUNK * (plan.max_rows * 23 + plan.max_dels * 4)
-    launch_b = stream_b + 4 * (2 * N_DOCS * 32 + 256)
-    bound_ms = (4 * 26 * st.launch_rows + launches * launch_b) / launches / HBM_BYTES_PER_S * 1e3
+    bound_b = _launch_bound_bytes(plan, launches, st.launch_rows_read, st.launch_rows_added)
+    bound_ms = bound_b / HBM_BYTES_PER_S * 1e3
     line = {
         "phase": "b4_replay", "updates": len(log), "docs": N_DOCS, "capacity": CAPACITY,
         "chunk": CHUNK, "updates_per_s": len(log) / wall, "doc_updates_per_s": len(log) * N_DOCS / wall,
         "wall_s": wall, "plan_s": plan_s, "chunks": st.chunks, "compactions": st.compactions,
         "growths": st.growths, "peak_blocks": st.peak_blocks, "final_blocks": st.final_blocks,
-        "sticky_error": err, "launches": launches, "launch_rows": st.launch_rows,
+        "sticky_error": err, "launches": launches, "launch_rows_read": st.launch_rows_read,
+        "launch_rows_added": st.launch_rows_added, "bound_bytes_per_launch": bound_b,
         "readout": readout, "text_ok": True,
         "traced": {"wall_s": wall_t, "updates_per_s": len(log) / wall_t, "launches": launches_t,
                    "integrate_ms_mean": sum(integrate_ms) / len(integrate_ms),
@@ -700,7 +676,8 @@ def phase_stream_replay_full_width(gpu, log, expect, plan, dev="cuda"):
     65,536 slots and the driver grows the state (up to STREAM_MAX_CAPACITY).
     Checks the text of the first and last doc, the sticky error, one launch
     per window, and the kernel against its plain version on one late window
-    at the final capacity (`_late_window_vs_plain`)."""
+    at the final capacity (`_late_window_vs_plain`). A second, traced run
+    times each integrate launch (`_stream_launch_ms`)."""
     import torch
 
     from ytpu_torch.models.batch_doc import get_string, init_state
@@ -736,6 +713,8 @@ def phase_stream_replay_full_width(gpu, log, expect, plan, dev="cuda"):
     text_ok = [get_string(state, d, view) == expect for d in (0, N_DOCS - 1)]
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     del state
+    torch.cuda.empty_cache()
+    launch_ms = _stream_launch_ms(stream, rank, dev)
     vs_plain = _late_window_vs_plain(stream, rank, st.capacity, dev)
     line = {
         "phase": "stream_replay_full_width", "updates": len(log), "docs": N_DOCS,
@@ -745,7 +724,7 @@ def phase_stream_replay_full_width(gpu, log, expect, plan, dev="cuda"):
         "chunks": st.chunks, "compactions": st.compactions, "growths": st.growths,
         "peak_blocks": st.peak_blocks, "final_blocks": st.final_blocks, "launches": launches,
         "sticky_error": err, "text_ok": text_ok, "peak_memory_gb": peak_gb,
-        "kernel_vs_plain": vs_plain, "gpu": gpu,
+        "integrate_launch_ms": launch_ms, "kernel_vs_plain": vs_plain, "gpu": gpu,
     }
     emit(line)
     if err != 0:
@@ -754,7 +733,36 @@ def phase_stream_replay_full_width(gpu, log, expect, plan, dev="cuda"):
         raise RuntimeError("stream_replay_full_width: replayed text differs from the log's expected text")
     if launches != -(-len(log) // CHUNK) or launches != st.chunks:
         raise RuntimeError(f"stream_replay_full_width: {launches} launches for {st.chunks} windows")
-    return launches, vs_plain
+    return launches, vs_plain, launch_ms
+
+
+def _stream_launch_ms(stream, rank, dev):
+    """`replay_stream_fused` as in the phase, under `torch.profiler`: the
+    device ms of each integrate launch, grouped by the capacity it ran at
+    (the state doubles at each ``ytpu_torch.grow`` span)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from ytpu_torch.models.batch_doc import init_state
+    from ytpu_torch.ops import integrate_kernel as ik
+
+    state = init_state(N_DOCS, CAPACITY, dev)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, _ = ik.replay_stream_fused(state, stream, rank, chunk_steps=CHUNK,
+                                          max_capacity=STREAM_MAX_CAPACITY)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    del state
+    _, integrate, spans = _trace_breakdown(prof, wall)
+    grows = [t for t, _, name in spans if name == "grow"]
+    by_cap = {}
+    for t, ms in integrate:
+        cap = min(CAPACITY << sum(1 for g in grows if g < t), STREAM_MAX_CAPACITY)
+        by_cap.setdefault(str(cap), []).append(ms)
+    return {cap: {"launches": len(v), "ms_mean": sum(v) / len(v), "ms_max": max(v), "ms": v}
+            for cap, v in by_cap.items()}
 
 
 def _late_window_vs_plain(stream, rank, capacity: int, dev):
@@ -799,6 +807,14 @@ def _late_window_vs_plain(stream, rank, capacity: int, dev):
     }
 
 
+def ik_launch_plan(plan) -> dict:
+    """The integrate kernel's launch on the main path: one B4 chunk into
+    the flagship envelope."""
+    from ytpu_torch.ops.integrate_kernel import launch_plan
+
+    return launch_plan(CHUNK, plan.max_rows, plan.max_dels, N_DOCS, CAPACITY)
+
+
 def main() -> int:
     import torch
 
@@ -814,15 +830,16 @@ def main() -> int:
         data = pickle.load(f)
     log, expect = data["log"], data["expect"]
 
-    phase_build(gpu)
+    ptxas = phase_build(gpu)
     t0 = time.perf_counter()
     plan = plan_replay(log)
     plan_s = time.perf_counter() - t0
     max_err = phase_kernel_vs_plain(gpu, log, plan)
-    err_full, full_kernel_ms, full_plain_ms = phase_full_width_vs_plain(gpu, log, plan)
+    err_full, full_kernel_ms, full_plain_ms, profile = phase_full_width_vs_plain(gpu, log, plan)
     launches, ms, bound_ms = phase_b4_replay(gpu, log, expect, plan, plan_s)
     torch.cuda.empty_cache()
-    stream_launches, stream_vs_plain = phase_stream_replay_full_width(gpu, log, expect, plan)
+    stream_launches, stream_vs_plain, stream_launch_ms = phase_stream_replay_full_width(
+        gpu, log, expect, plan)
     torch.cuda.empty_cache()
     diag_launches, ladder_err = phase_mosaic_ladder(gpu)
     ladder_integrate = diag_launches.pop("integrate_stream")
@@ -842,6 +859,10 @@ def main() -> int:
             "kernel_ms": full_kernel_ms, "plain_ms": full_plain_ms,
         },
         "plain_vs_kernel_grown": stream_vs_plain,
+        "stream_replay_launch_ms": {cap: {k: v[k] for k in ("launches", "ms_mean", "ms_max")}
+                                    for cap, v in stream_launch_ms.items()},
+        "cycles_per_step": profile["cycles_per_step"],
+        "launch_plan": ik_launch_plan(plan), "ptxas": ptxas,
         "gpu": gpu,
     }] + [{k: e[k] for k in KERNEL_KEYS} for e in diag]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

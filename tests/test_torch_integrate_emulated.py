@@ -1,0 +1,57 @@
+"""The CUDA integrate kernel's own source, run on the CPU through a host
+emulator of the CUDA pieces it uses (tests/cuda_host/cuda_runtime.h), held
+exactly against its plain version.
+
+The kernel itself is compiled and run only on the card (`chip_smoke.py`).
+Here g++ compiles the same ``csrc/integrate.cu`` with every CUDA thread a
+host thread: the warp collectives, the mbarrier ring and the bulk copies
+of the stream, the cursor cache, the index and the store ordering between
+lanes all run, and a result that differs from `integrate_stream_reference`
+in any plane or meta word fails. It says nothing of speed, and nothing of
+what nvcc makes of the source.
+
+The emulation runs in a child process under a time limit, so that a
+kernel that deadlocks fails the test instead of stopping the suite.
+"""
+
+import json
+import os
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+HERE = Path(__file__).resolve().parent
+CASES = [
+    "synthetic_plan32_8_C256",
+    "synthetic_plan4_1_C256",
+    "synthetic_plan32_8_C64",
+    "synthetic_negative_start_deletes",
+    "typing_8clients_D3_S601",
+    "typing_clients_above_KC",
+]
+
+
+@pytest.fixture(scope="module")
+def emulated(tmp_path_factory):
+    if shutil.which("g++") is None:
+        pytest.skip("needs g++ to build the kernel source for the host")
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    out = subprocess.run(
+        [sys.executable, str(HERE / "_emulated_integrate.py"), str(tmp_path_factory.mktemp("integrate_host"))],
+        capture_output=True, text=True, timeout=300, env=env,
+    )
+    assert out.returncode == 0, out.stderr[-4000:]
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_kernel_source_matches_plain_version(emulated, case):
+    r = emulated[case]
+    assert r["max_abs_err"] == 0, r
+    if case == "synthetic_plan32_8_C64":
+        assert r["error"] & 1  # the capacity cut overflows
+    else:
+        assert r["blocks"] > 90

@@ -140,11 +140,13 @@ def test_chunk_readouts_match(runs):
 
 
 def test_launch_rows_count_rows_before_and_after_each_launch(runs):
-    """`stats.launch_rows`, taken from the lazy readouts, equals the
-    occupied rows read around every integrate launch."""
+    """`stats.launch_rows_read` and `launch_rows_added`, taken from the
+    lazy readouts, equal the occupied rows before every integrate launch
+    and the rows each launch added."""
     _, _, tr, records = runs
     assert len(records["occupied"]) == tr.stats.chunks
-    assert tr.stats.launch_rows == sum(b + a for b, a in records["occupied"]) > 0
+    assert tr.stats.launch_rows_read == sum(b for b, _ in records["occupied"]) > 0
+    assert tr.stats.launch_rows_added == sum(a - b for b, a in records["occupied"]) > 0
 
 
 def test_chunk_phases_are_profiler_spans():

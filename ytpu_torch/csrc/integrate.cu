@@ -1,4 +1,4 @@
-// Hand-written Hopper integrate kernel: one doc per CTA replays a whole
+// Hand-written Hopper integrate kernel: one warp per doc replays a whole
 // S-step update stream (rows, then delete ranges, then the move-ownership
 // recompute, per step) into that doc's packed block planes, in place.
 //
@@ -9,49 +9,77 @@
 // dependent lookups per doc (find the origin block, split it, walk the
 // conflict scan, link). The Pallas kernel answers every lookup with a
 // one-hot sweep over all C slots of a VMEM tile; on a GPU the planes live
-// in device memory (26 x C x 4 B per doc, 6.8 MB at C = 65,536), so a
-// sweep per lookup would move ~10^13-10^14 bytes over the full B4 replay.
-// The kernel is therefore latency-bound on dependent global loads, not
-// bandwidth-bound.
+// in device memory (26 x C x 4 B per doc, 6.8 MB at C = 65,536), so the
+// kernel is bound by the latency of the dependent global loads on each
+// doc's chain, not by bandwidth: the work per step is a few hundred bytes.
 //
-// What the design does about it:
-//   * find_slot never sweeps. At launch start the CTA builds, per doc and
-//     in device scratch, (a) a hash map (client, start clock) -> slot and
-//     (b) a 5-level hashed bitmap of block starts per client (64-way
-//     words, keys (client, level, clock >> 6(level+1))). find_slot asks
-//     (b) for the largest start <= clock (a predecessor query of a few
-//     probes), maps it to its slot through (a) and checks coverage.
-//     Blocks of one client never overlap in clock (the client_clock gate
-//     appends only past the client's clock; splits and compaction
-//     preserve the partition), so the only covering slot is also the
-//     smallest one, which is what the Pallas find_slot returns. Appends
-//     and splits add their start to both structures; compaction renumbers
-//     slots between launches, so the structures are rebuilt per launch.
-//   * client_clock reads a per-doc client -> max clock table (clients in
-//     [0, KC)); other clients fall back to the exact sweep.
-//   * the delete-range mark walks block starts in [start, end) with a
-//     successor query instead of sweeping every slot.
+// What the design does about it, per doc:
+//   * the doc's serial logic runs on one warp, all 32 lanes on the same
+//     (warp-uniform) scalars and control flow; a load of one address is a
+//     broadcast, and every lane stores the same value to the same address
+//     (one transaction), so each lane reads back its own writes. Lanes are
+//     not bound to run in lockstep, so each group of stores starts with a
+//     __syncwarp (warp_stores): no lane's store overtakes another lane's
+//     earlier load or store of the same address. Lanes differ only inside
+//     the lookup helpers, whose results come back through __ballot_sync /
+//     __shfl_sync, and in the sweeps, which scan 32 slots per step
+//     (bracketed by __syncwarp where lanes store to different slots).
+//   * a cursor cache of the last 32 blocks found or created, one entry
+//     (client, start, len, slot) in the registers of each lane, answers
+//     find_slot with one ballot and no load. For x >= 0 the block of a
+//     client covering x is unique (blocks of one client never overlap in
+//     clock: the client_clock gate appends only past the client's clock,
+//     splits and compaction keep the partition), so a hit is exact as long
+//     as every split updates the entry of the split slot (its len) and
+//     enters the new slot. A split refused for capacity leaves the cache as
+//     it is. The cache lives for one launch (compaction renumbers slots
+//     between launches); x < 0 keeps the exact sweep.
+//   * on a miss, a per-launch index in device scratch: a 5-level hashed
+//     bitmap of block starts per client (64-way words, keys (client,
+//     level, clock >> 6(level+1))) and a hash map (client, start clock) ->
+//     slot, both as interleaved 16-byte {key, payload} entries, so one
+//     probe is one load. The predecessor query reads the words of all five
+//     levels in one round (five lanes per level, each lane one entry of a
+//     window of the level's linear-probe chain) and descends only where
+//     level 0 misses. Index inserts probe the five levels and the start
+//     map in one round, loaded ahead as soon as the new block is known.
+//   * a delete range walks the client's blocks block to block through
+//     find_slot (the cursor cache first), not through successor queries.
+//   * the client -> clock table (clients in [0, KC)) lives in shared
+//     memory; other clients sweep.
+//   * the stream is staged once per CTA into a ring of shared-memory tiles
+//     of T steps by a producer warp with cp.async.bulk (the TMA's 1-D bulk
+//     copy) and full/empty mbarriers; a CTA holds DOCS_PER_CTA docs, one
+//     consumer warp each, so D = 256 runs as 128 CTAs in one wave.
+//   * the loads one step needs from an anchor are issued together, and the
+//     doc's scalars (n_blocks, start, error, the move-dirty flag, the 14
+//     scan-record words) stay in registers.
 //   * the conflict scan's `before` / `conflicting` sets are epoch-stamped
-//     slot arrays: clearing a set is one counter increment.
-//   * the two-tier scan accounting (cheap tier of `cheap` trips in
-//     lockstep, wide tier of `unroll` steps per trip) is reproduced in
-//     closed form from the serial width w: min(w, cheap) cheap trips and
-//     ceil((w - cheap) / unroll) wide trips when w > cheap.
-//   * after the parallel index build, thread 0 of the CTA runs the doc's
-//     serial integrate; the map-chain head, root-anchor and move-recompute
-//     searches stay sweeps over the live slots (they run only for map,
-//     named-root and move rows).
+//     slot arrays (clearing a set is one counter increment); its two-tier
+//     accounting (min(w, cheap) cheap trips, ceil((w - cheap) / unroll)
+//     wide trips when w > cheap) is reproduced in closed form.
+//   * phase 1 (every warp of the CTA) clears the scratch and indexes the
+//     live slots with atomics; the map-chain head, root-anchor and
+//     move-recompute searches stay sweeps over the live slots (they run
+//     only for map, named-root and move rows).
 //
 // Semantics follow `_kernel` exactly, including its edge cases: gather of
 // idx < 0 yields the fill, of idx >= C yields 0; put drops idx < 0 and
 // idx >= C; a split on a full doc sets ERR_CAPACITY without splitting; the
 // fused kernel never reads or writes the OS plane.
 //
+// Built with -DYTPU_INTEGRATE_PROFILE, each doc also counts clock64()
+// cycles per phase (ProfWord) into a [D, PROF_WORDS] int64 buffer.
+//
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-//        -Xcompiler -fPIC -o libytpu_integrate.so integrate.cu
+//        -Xcompiler -fPIC -Xptxas -v -o libytpu_integrate.so integrate.cu
 
+#include <algorithm>
 #include <cstdint>
 #include <cuda_runtime.h>
+
+// client -> max clock table width (clients outside [0, KC) use a sweep)
+#define YTPU_KC 1024
 
 namespace {
 
@@ -62,41 +90,127 @@ enum Plane {
 };
 constexpr int M_START = 0, M_NBLOCKS = 1, M_ERROR = 2, M_MDIRTY = 3;
 constexpr int M_HIST0 = 4, M_PAD = 32;
-constexpr int SC_MAX = 8, SC_CHEAP = 9, SC_WIDE = 10, SC_CHEAP_TRIPS = 11,
-              SC_WIDE_TRIPS = 12, SC_WIDTH_SUM = 13, SC_WORDS = 14;
+constexpr int SC_BUCKETS = 8, SC_MAX = 8, SC_CHEAP = 9, SC_WIDE = 10,
+              SC_CHEAP_TRIPS = 11, SC_WIDE_TRIPS = 12, SC_WIDTH_SUM = 13,
+              SC_WORDS = 14;
 constexpr int ERR_CAPACITY = 1, ERR_MISSING_DEP = 2;
 constexpr int BLOCK_GC = 0, CONTENT_DELETED = 1, CONTENT_FORMAT = 6,
               CONTENT_MOVE = 11, BLOCK_ROOT_ANCHOR = 12;
 constexpr int ROW_W = 23, DEL_W = 4;
 constexpr int LEVELS = 5;
 constexpr unsigned long long EMPTY = ~0ull;
-constexpr int THREADS = 256;
+constexpr unsigned FULL = 0xffffffffu;
 
-}  // namespace
+// launch shape: DOCS_PER_CTA consumer warps and one producer warp; a ring
+// of STAGES stream tiles in dynamic shared memory after the barriers and
+// the client-clock tables
+constexpr int DOCS_PER_CTA = 2;
+constexpr int THREADS = (DOCS_PER_CTA + 1) * 32;
+constexpr int STAGES = 2;
+constexpr int BAR_BYTES = 128;
+// lanes of a level probe (level g on lanes [g * LVL_G, (g + 1) * LVL_G))
+// and of the start-map probe beside it
+constexpr int LVL_G = 5;
+constexpr int MAP_BASE = LEVELS * LVL_G, MAP_G = 32 - MAP_BASE;
 
-// client -> max clock table width (clients outside [0, KC) use a sweep)
-#define YTPU_KC 1024
+// shared memory the ring may take, and the longest tile, in steps
+constexpr int RING_BUDGET = 64 * 1024, MAX_TILE = 256;
 
-namespace {
+// The launch for an [S, U, 23] / [S, R, 4] stream into D docs. The tile T
+// is a multiple of 4 steps, so that every tile but the last starts 16-byte
+// aligned, and as long as the ring fits RING_BUDGET; the last tile holds
+// the rest, whose rows may end up to three words past a 16-byte boundary.
+enum PlanWord {
+  P_DOCS_PER_CTA, P_CTAS, P_THREADS, P_STAGES, P_TILE, P_TILES, P_LAST,
+  P_RAGGED, P_SMEM, PLAN_WORDS
+};
+void launch_plan(int S, int U, int R, int D, int* p) {
+  const int step_b = 4 * (U * ROW_W + R * DEL_W);
+  const int fit = step_b ? RING_BUDGET / (STAGES * step_b) : MAX_TILE;
+  const int T = std::max(4, std::min({MAX_TILE, fit, (std::max(S, 1) + 3) / 4 * 4}) / 4 * 4);
+  const int tiles = (S + T - 1) / T;
+  const int last = tiles ? S - (tiles - 1) * T : 0;
+  p[P_DOCS_PER_CTA] = DOCS_PER_CTA;
+  p[P_CTAS] = (D + DOCS_PER_CTA - 1) / DOCS_PER_CTA;
+  p[P_THREADS] = THREADS;
+  p[P_STAGES] = STAGES;
+  p[P_TILE] = T;
+  p[P_TILES] = tiles;
+  p[P_LAST] = last;
+  p[P_RAGGED] = (last * U * ROW_W) % 4;
+  p[P_SMEM] = BAR_BYTES + DOCS_PER_CTA * YTPU_KC * 4 + STAGES * T * step_b;
+}
+
+// ---- per-phase cycle counters (built only with -DYTPU_INTEGRATE_PROFILE) ---
+// Each doc accumulates clock64() cycles per phase, exclusively (a nested
+// phase pauses the one around it), and a few event counts; lane 0 keeps
+// them in shared memory and the launch writes them out at the end.
+enum ProfWord {
+  PH_OTHER, PH_STREAM, PH_CLOCK, PH_FIND_HIT, PH_FIND_INDEX, PH_SPLIT, PH_SCAN,
+  PH_LINK, PH_INDEX_ADD, PH_DELETE, PH_MOVES,
+  CNT_STEPS, CNT_ROWS, CNT_DELS, CNT_HITS, CNT_LOOKUPS, PROF_WORDS
+};
+#ifdef YTPU_INTEGRATE_PROFILE
+struct Prof {
+  long long* acc;
+  bool lane0;
+  int cur;
+  long long t;
+};
+__device__ __forceinline__ int prof_switch(Prof& p, int ph) {
+  const long long now = clock64();
+  if (p.lane0) p.acc[p.cur] += now - p.t;
+  p.t = now;
+  const int old = p.cur;
+  p.cur = ph;
+  return old;
+}
+struct ProfScope {
+  Prof& p;
+  int prev;
+  __device__ ProfScope(Prof& q, int ph) : p(q), prev(prof_switch(q, ph)) {}
+  __device__ ~ProfScope() { prof_switch(p, prev); }
+};
+#define PROF_CAT2(a, b) a##b
+#define PROF_CAT(a, b) PROF_CAT2(a, b)
+#define PROF_SCOPE(d, ph) ProfScope PROF_CAT(prof_scope_, __LINE__)((d).prof, ph)
+#define PROF_COUNT(d, w)                      \
+  do {                                        \
+    if ((d).prof.lane0) (d).prof.acc[w] += 1; \
+  } while (0)
+#else
+#define PROF_SCOPE(d, ph)
+#define PROF_COUNT(d, w)
+#endif
+
+// ---- the doc a consumer warp integrates (every field warp-uniform, except
+// ---- the lane's own cursor-cache entry) ------------------------------------
 
 struct Doc {
-  int* p[NC];
+  int* cols;  // plane p, slot i at cols[p * dc + i]
+  size_t dc;  // D * C
   int C;
+  int lane;
   int nb, start, err, mdirty;
   int sc[SC_WORDS];
-  unsigned long long* bkeys;
-  unsigned long long* bwords;
+  ulonglong2* bidx;  // {key, 64-bit word}
   uint32_t bmask;
-  unsigned long long* skeys;
-  int* svals;
+  ulonglong2* sidx;  // {key, slot}
   uint32_t smask;
-  int* cclock;
+  int* cclock;  // shared memory
   int* bstamp;
   int* cstamp;
   int row_epoch, conf_epoch;
   const int* rank;
   int K;
   int cheap, unroll;
+  // this lane's cursor-cache entry (len 0: empty) and the next victim lane
+  int cc_client, cc_start, cc_len, cc_slot;
+  int cc_next;
+  int index_writes;  // stores to the index so far (see Ahead)
+#ifdef YTPU_INTEGRATE_PROFILE
+  Prof prof;
+#endif
 };
 
 __device__ __forceinline__ uint32_t hmix(unsigned long long k) {
@@ -117,266 +231,392 @@ __device__ __forceinline__ unsigned long long bkey(int c, int lvl, uint32_t b) {
          ((unsigned long long)lvl << 28) | b;
 }
 
-// ---- index: parallel build (atomics) -------------------------------------
+// ---- column access with the Pallas kernel's gather/put semantics ---------
 
-__device__ void start_put_atomic(Doc& d, int c, int k, int slot) {
-  unsigned long long key = skey(c, k);
-  uint32_t i = hmix(key) & d.smask;
+__device__ __forceinline__ int* plane(const Doc& d, int p) {
+  return d.cols + (size_t)p * d.dc;
+}
+
+__device__ __forceinline__ int ld(const Doc& d, int p, int idx) {
+  return plane(d, p)[idx];
+}
+
+__device__ __forceinline__ void st(const Doc& d, int p, int idx, int v) {
+  plane(d, p)[idx] = v;
+}
+
+__device__ __forceinline__ int gat(const Doc& d, int p, int idx, int fill) {
+  int v = 0;  // no one-hot hit at idx >= C
+  if (idx >= 0 && idx < d.C) v = ld(d, p, idx);
+  return idx < 0 ? fill : v;
+}
+
+__device__ __forceinline__ void put(const Doc& d, int p, int idx, int v) {
+  if (idx >= 0 && idx < d.C) st(d, p, idx, v);
+}
+
+// before a group of stores: every lane's earlier loads and stores are done
+__device__ __forceinline__ void warp_stores() { __syncwarp(); }
+
+__device__ __forceinline__ int gather_rank(const Doc& d, int client) {
+  const int c = client > 0 ? client : 0;
+  return c < d.K ? d.rank[c] : 0;
+}
+
+// first slot in [from, to) where pred holds, -1 if none: 32 slots a step
+template <class F>
+__device__ __forceinline__ int first_slot(const Doc& d, int from, int to, F pred) {
+  for (int base = from; base < to; base += 32) {
+    const int s = base + d.lane;
+    const unsigned b = __ballot_sync(FULL, s < to && pred(s));
+    if (b) return base + __ffs(b) - 1;
+  }
+  return -1;
+}
+
+// ---- index: hashed tables of 16-byte entries ---------------------------------
+
+struct Probe {
+  bool found;
+  uint32_t pos;  // slot of the key, or of the first EMPTY where it would go
+  unsigned long long val;
+};
+
+// Lanes [base, base + g) look up one key: each round every lane of the
+// group loads one entry of a window of g consecutive slots of the key's
+// linear-probe chain, and the first slot holding the key or EMPTY ends the
+// chain. Every lane of the group returns the group's result. Several
+// groups (on several tables) probe side by side; lanes with act false only
+// take part in the warp collectives.
+// With has_first, `first` is this lane's entry of the first round, loaded
+// ahead.
+__device__ __forceinline__ Probe probe(const ulonglong2* tab, uint32_t mask,
+                                       unsigned long long key, bool act,
+                                       int lane, int base, int g,
+                                       bool has_first = false,
+                                       ulonglong2 first = ulonglong2{}) {
+  const unsigned gmask = (g >= 32 ? FULL : ((1u << g) - 1u)) << base;
+  uint32_t i = (hmix(key) + (uint32_t)(lane - base)) & mask;
+  Probe out{false, 0u, 0ull};
+  bool done = !act;
+  bool loaded = has_first;
   while (true) {
-    unsigned long long prev = atomicCAS(&d.skeys[i], EMPTY, key);
-    if (prev == EMPTY || prev == key) {
-      atomicMin(&d.svals[i], slot);
-      return;
+    ulonglong2 e = make_ulonglong2(EMPTY, 0ull);
+    if (!done) e = loaded ? first : tab[i];
+    loaded = false;
+    const unsigned hit = __ballot_sync(FULL, !done && e.x == key) & gmask;
+    const unsigned stop =
+        hit | (__ballot_sync(FULL, !done && e.x == EMPTY) & gmask);
+    const int first = stop ? __ffs(stop) - 1 : lane;
+    const unsigned long long v = __shfl_sync(FULL, e.y, first);
+    const uint32_t at = __shfl_sync(FULL, i, first);
+    if (!done && stop) {
+      done = true;
+      out.found = (hit >> first) & 1u;
+      out.pos = at;
+      out.val = out.found ? v : 0ull;
     }
-    i = (i + 1) & d.smask;
+    if (!__any_sync(FULL, !done)) break;
+    i = (i + (uint32_t)g) & mask;
   }
+  return out;
 }
 
-__device__ void bit_set_atomic(Doc& d, int c, int k) {
-  for (int lvl = 0; lvl < LEVELS; ++lvl) {
-    uint32_t b = (uint32_t)k >> (6 * (lvl + 1));
-    unsigned long long bit = 1ull << (((uint32_t)k >> (6 * lvl)) & 63);
-    unsigned long long key = bkey(c, lvl, b);
-    uint32_t i = hmix(key) & d.bmask;
-    while (true) {
-      unsigned long long prev = atomicCAS(&d.bkeys[i], EMPTY, key);
-      if (prev == EMPTY || prev == key) break;
-      i = (i + 1) & d.bmask;
-    }
-    unsigned long long old = atomicOr(&d.bwords[i], bit);
-    if (old & bit) return;  // the levels above were set by that insert
-  }
+// the bitmap word (c, lvl, b), 0 if absent: one key over the whole warp
+__device__ __forceinline__ unsigned long long word_get(const Doc& d, int c, int lvl,
+                                                       uint32_t b) {
+  return probe(d.bidx, d.bmask, bkey(c, lvl, b), true, d.lane, 0, 32).val;
 }
 
-// ---- index: serial use (thread 0 only) -------------------------------------
-
-__device__ int start_find(const Doc& d, int c, int k) {
-  unsigned long long key = skey(c, k);
-  uint32_t i = hmix(key) & d.smask;
-  while (true) {
-    unsigned long long kk = d.skeys[i];
-    if (kk == key) return d.svals[i];
-    if (kk == EMPTY) return -1;
-    i = (i + 1) & d.smask;
-  }
-}
-
-__device__ void start_put(Doc& d, int c, int k, int slot) {
-  unsigned long long key = skey(c, k);
-  uint32_t i = hmix(key) & d.smask;
-  while (true) {
-    unsigned long long kk = d.skeys[i];
-    if (kk == EMPTY) {
-      d.skeys[i] = key;
-      d.svals[i] = slot;
-      return;
-    }
-    if (kk == key) {
-      if (slot < d.svals[i]) d.svals[i] = slot;
-      return;
-    }
-    i = (i + 1) & d.smask;
-  }
-}
-
-__device__ unsigned long long word_get(const Doc& d, int c, int lvl, uint32_t b) {
-  unsigned long long key = bkey(c, lvl, b);
-  uint32_t i = hmix(key) & d.bmask;
-  while (true) {
-    unsigned long long kk = d.bkeys[i];
-    if (kk == key) return d.bwords[i];
-    if (kk == EMPTY) return 0;
-    i = (i + 1) & d.bmask;
-  }
-}
-
-__device__ void bit_set(Doc& d, int c, int k) {
-  for (int lvl = 0; lvl < LEVELS; ++lvl) {
-    uint32_t b = (uint32_t)k >> (6 * (lvl + 1));
-    unsigned long long bit = 1ull << (((uint32_t)k >> (6 * lvl)) & 63);
-    unsigned long long key = bkey(c, lvl, b);
-    uint32_t i = hmix(key) & d.bmask;
-    while (true) {
-      unsigned long long kk = d.bkeys[i];
-      if (kk == key) break;
-      if (kk == EMPTY) {
-        d.bkeys[i] = key;
-        d.bwords[i] = 0;
-        break;
-      }
-      i = (i + 1) & d.bmask;
-    }
-    unsigned long long old = d.bwords[i];
-    d.bwords[i] = old | bit;
-    if (old & bit) return;
-  }
+// the five level words of client c around clock x in one round: lane l
+// (l < LEVELS) returns level l's word
+__device__ __forceinline__ unsigned long long level_words(const Doc& d, int c,
+                                                          int x) {
+  const int g = d.lane / LVL_G;
+  const bool act = g < LEVELS;
+  const int lvl = act ? g : 0;
+  const Probe p =
+      probe(d.bidx, d.bmask, bkey(c, lvl, (uint32_t)x >> (6 * (lvl + 1))), act,
+            d.lane, lvl * LVL_G, LVL_G);
+  return __shfl_sync(FULL, p.val, min(d.lane, LEVELS - 1) * LVL_G);
 }
 
 // largest block start <= x for client c, -1 if none (x >= 0)
-__device__ int pred_start(const Doc& d, int c, int x) {
-  for (int lvl = 0; lvl < LEVELS; ++lvl) {
-    uint32_t b = (uint32_t)x >> (6 * (lvl + 1));
-    int bit = ((uint32_t)x >> (6 * lvl)) & 63;
-    unsigned long long w = word_get(d, c, lvl, b);
-    unsigned long long m =
-        lvl == 0 ? (w & ((2ull << bit) - 1)) : (w & ((1ull << bit) - 1));
-    if (m) {
-      uint32_t cur = (b << 6) | (uint32_t)(63 - __clzll((long long)m));
-      for (int l = lvl - 1; l >= 0; --l) {
-        unsigned long long w2 = word_get(d, c, l, cur);
-        if (w2 == 0) return -1;
-        cur = (cur << 6) | (uint32_t)(63 - __clzll((long long)w2));
-      }
-      return (int)cur;
-    }
+__device__ __forceinline__ int pred_start(const Doc& d, int c, int x) {
+  const unsigned long long w = level_words(d, c, x);
+  const int l = min(d.lane, LEVELS - 1);
+  const int bit = ((uint32_t)x >> (6 * l)) & 63;
+  const unsigned long long m =
+      l == 0 ? (w & ((2ull << bit) - 1)) : (w & ((1ull << bit) - 1));
+  const unsigned any = __ballot_sync(FULL, d.lane < LEVELS && m != 0);
+  if (!any) return -1;
+  const int lvl = __ffs(any) - 1;
+  const unsigned long long ml = __shfl_sync(FULL, m, lvl);
+  uint32_t cur = (((uint32_t)x >> (6 * (lvl + 1))) << 6) |
+                 (uint32_t)(63 - __clzll((long long)ml));
+  for (int k = lvl - 1; k >= 0; --k) {
+    const unsigned long long w2 = word_get(d, c, k, cur);
+    if (w2 == 0) return -1;
+    cur = (cur << 6) | (uint32_t)(63 - __clzll((long long)w2));
   }
-  return -1;
+  return (int)cur;
 }
 
 // smallest block start >= x for client c, -1 if none (x >= 0)
-__device__ int succ_start(const Doc& d, int c, int x) {
-  for (int lvl = 0; lvl < LEVELS; ++lvl) {
-    uint32_t b = (uint32_t)x >> (6 * (lvl + 1));
-    int bit = ((uint32_t)x >> (6 * lvl)) & 63;
-    unsigned long long w = word_get(d, c, lvl, b);
-    unsigned long long m =
-        lvl == 0 ? (w & ~((1ull << bit) - 1)) : (w & ~((2ull << bit) - 1));
-    if (m) {
-      uint32_t cur = (b << 6) | (uint32_t)(__ffsll((long long)m) - 1);
-      for (int l = lvl - 1; l >= 0; --l) {
-        unsigned long long w2 = word_get(d, c, l, cur);
-        if (w2 == 0) return -1;
-        cur = (cur << 6) | (uint32_t)(__ffsll((long long)w2) - 1);
-      }
-      return (int)cur;
-    }
+__device__ __forceinline__ int succ_start(const Doc& d, int c, int x) {
+  const unsigned long long w = level_words(d, c, x);
+  const int l = min(d.lane, LEVELS - 1);
+  const int bit = ((uint32_t)x >> (6 * l)) & 63;
+  const unsigned long long m =
+      l == 0 ? (w & ~((1ull << bit) - 1)) : (w & ~((2ull << bit) - 1));
+  const unsigned any = __ballot_sync(FULL, d.lane < LEVELS && m != 0);
+  if (!any) return -1;
+  const int lvl = __ffs(any) - 1;
+  const unsigned long long ml = __shfl_sync(FULL, m, lvl);
+  uint32_t cur = (((uint32_t)x >> (6 * (lvl + 1))) << 6) |
+                 (uint32_t)(__ffsll((long long)ml) - 1);
+  for (int k = lvl - 1; k >= 0; --k) {
+    const unsigned long long w2 = word_get(d, c, k, cur);
+    if (w2 == 0) return -1;
+    cur = (cur << 6) | (uint32_t)(__ffsll((long long)w2) - 1);
   }
-  return -1;
+  return (int)cur;
 }
 
-// a new block [k, k + l) of client c at `slot`
-__device__ void index_add(Doc& d, int c, int k, int l, int slot) {
+__device__ __forceinline__ int start_find(const Doc& d, int c, int k) {
+  const Probe p = probe(d.sidx, d.smask, skey(c, k), true, d.lane, 0, 32);
+  return p.found ? (int)(uint32_t)p.val : -1;
+}
+
+// the cursor cache: a new entry goes to the lane after the last one filled
+__device__ __forceinline__ void cache_put(Doc& d, int c, int k, int l, int slot) {
+  if (l <= 0 || k < 0) return;  // what the index does not hold either
+  if (d.lane == d.cc_next) {
+    d.cc_client = c;
+    d.cc_start = k;
+    d.cc_len = l;
+    d.cc_slot = slot;
+  }
+  d.cc_next = (d.cc_next + 1) & 31;
+}
+
+// The lanes of an index insert of start k of client c: levels 0..4 of the
+// bitmap on lanes [5 lvl, 5 lvl + 5), the start map on lanes 25..31.
+struct InsertLane {
+  const ulonglong2* tab;
+  uint32_t mask;
+  unsigned long long key;
+  int base, g;
+};
+
+__device__ __forceinline__ InsertLane insert_lane(const Doc& d, int c, int k) {
+  const int g = d.lane / LVL_G;
+  if (g < LEVELS)
+    return InsertLane{d.bidx, d.bmask, bkey(c, g, (uint32_t)k >> (6 * (g + 1))),
+                      g * LVL_G, LVL_G};
+  return InsertLane{d.sidx, d.smask, skey(c, k), MAP_BASE, MAP_G};
+}
+
+// The first probe round of an index insert, loaded as soon as the block
+// is known, so that its latency overlaps the loads in between; it stands
+// only while no index store has happened since.
+struct Ahead {
+  ulonglong2 e;
+  int writes;
+};
+
+__device__ __forceinline__ Ahead index_ahead(const Doc& d, int c, int k) {
+  const InsertLane t = insert_lane(d, c, k);
+  return Ahead{t.tab[(hmix(t.key) + (uint32_t)(d.lane - t.base)) & t.mask],
+               d.index_writes};
+}
+
+// a new block [k, k + l) of client c at `slot`: the start map and the
+// five bitmap levels probed in one round (with has_ahead, `ahead` may hold
+// it), then stored
+__device__ __forceinline__ void index_add(Doc& d, int c, int k, int l, int slot,
+                                          bool has_ahead = false,
+                                          Ahead ahead = Ahead{}) {
+  PROF_SCOPE(d, PH_INDEX_ADD);
   if (l > 0 && k >= 0) {
-    start_put(d, c, k, slot);
-    bit_set(d, c, k);
+    const InsertLane t = insert_lane(d, c, k);
+    const Probe p = probe(t.tab, t.mask, t.key, true, d.lane, t.base, t.g,
+                          has_ahead && ahead.writes == d.index_writes, ahead.e);
+    d.index_writes += 1;
+    const bool s_found = __shfl_sync(FULL, p.found, MAP_BASE);
+    const uint32_t s_pos = __shfl_sync(FULL, p.pos, MAP_BASE);
+    const int s_val = (int)(uint32_t)__shfl_sync(FULL, p.val, MAP_BASE);
+    warp_stores();
+    if (!s_found)
+      d.sidx[s_pos] = make_ulonglong2(skey(c, k), (unsigned long long)(uint32_t)slot);
+    else if (slot < s_val)
+      reinterpret_cast<int*>(&d.sidx[s_pos])[2] = slot;
+    uint32_t ins[LEVELS];
+#pragma unroll
+    for (int lv = 0; lv < LEVELS; ++lv) {
+      ins[lv] = 0xffffffffu;
+      bool f = __shfl_sync(FULL, p.found, lv * LVL_G);
+      uint32_t pos = __shfl_sync(FULL, p.pos, lv * LVL_G);
+      unsigned long long w = __shfl_sync(FULL, p.val, lv * LVL_G);
+      const unsigned long long key = bkey(c, lv, (uint32_t)k >> (6 * (lv + 1)));
+      // a level below may just have taken the EMPTY this level's probe saw
+      bool clash = false;
+#pragma unroll
+      for (int q = 0; q < lv; ++q) clash = clash || (!f && ins[q] == pos);
+      if (clash) {
+        const Probe r = probe(d.bidx, d.bmask, key, true, d.lane, 0, 32);
+        f = r.found;
+        pos = r.pos;
+        w = r.val;
+        warp_stores();
+      }
+      const unsigned long long bit = 1ull << (((uint32_t)k >> (6 * lv)) & 63);
+      if (f) {
+        if (w & bit) break;  // the levels above were set by that insert
+        d.bidx[pos].y = w | bit;
+      } else {
+        d.bidx[pos] = make_ulonglong2(key, bit);
+        ins[lv] = pos;
+      }
+    }
   }
   if (c >= 0 && c < YTPU_KC) {
-    int e = k + l;
+    const int e = k + l;
+    warp_stores();
     if (e > d.cclock[c]) d.cclock[c] = e;
   }
 }
 
-// ---- column access with the Pallas kernel's gather/put semantics ---------
-
-__device__ __forceinline__ int gat(const Doc& d, int plane, int idx, int fill) {
-  if (idx < 0) return fill;
-  if (idx >= d.C) return 0;  // no one-hot hit
-  return d.p[plane][idx];
-}
-
-__device__ __forceinline__ void put(Doc& d, int plane, int idx, int v) {
-  if (idx >= 0 && idx < d.C) d.p[plane][idx] = v;
-}
-
-__device__ __forceinline__ int gather_rank(const Doc& d, int client) {
-  int c = client > 0 ? client : 0;
-  return c < d.K ? d.rank[c] : 0;
-}
-
-__device__ int client_clock(const Doc& d, int c) {
+__device__ __forceinline__ int client_clock(Doc& d, int c) {
+  PROF_SCOPE(d, PH_CLOCK);
   if (c >= 0 && c < YTPU_KC) return d.cclock[c];
   int best = 0;
-  for (int s = 0; s < d.nb; ++s)
-    if (d.p[CL][s] == c) {
-      int e = d.p[CK][s] + d.p[LN][s];
+  for (int base = 0; base < d.nb; base += 32) {
+    const int s = base + d.lane;
+    if (s < d.nb && ld(d, CL, s) == c) {
+      const int e = ld(d, CK, s) + ld(d, LN, s);
       if (e > best) best = e;
     }
-  return best;
+  }
+  return __reduce_max_sync(FULL, best);
 }
 
-// (idx, found) of the block covering (c, x): the smallest such slot
-__device__ int find_slot(const Doc& d, int c, int x, bool enable, bool* found) {
-  *found = false;
-  if (!enable) return -1;
+// the block covering (c, x): its slot (the smallest such, -1 if none) and
+// its clock and length (0 and 0 if none)
+struct Hit {
+  int slot;
+  bool found;
+  int ck, ln;
+};
+
+__device__ __forceinline__ Hit find_slot(Doc& d, int c, int x, bool enable) {
+  Hit h{-1, false, 0, 0};
+  if (!enable) return h;
   if (x < 0) {  // not indexed (block clocks are >= 0): exact sweep
-    for (int s = 0; s < d.nb; ++s)
-      if (d.p[CL][s] == c && d.p[CK][s] <= x && x < d.p[CK][s] + d.p[LN][s]) {
-        *found = true;
-        return s;
-      }
-    return -1;
+    PROF_SCOPE(d, PH_FIND_INDEX);
+    const int s = first_slot(d, 0, d.nb, [&](int t) {
+      if (ld(d, CL, t) != c) return false;
+      const int ck = ld(d, CK, t);
+      return ck <= x && x < ck + ld(d, LN, t);
+    });
+    if (s >= 0) h = Hit{s, true, ld(d, CK, s), ld(d, LN, s)};
+    return h;
   }
-  int st = pred_start(d, c, x);
-  if (st < 0) return -1;
-  int s = start_find(d, c, st);
-  if (s < 0 || s >= d.nb) return -1;
-  if (d.p[CL][s] == c && d.p[CK][s] <= x && x < d.p[CK][s] + d.p[LN][s]) {
-    *found = true;
-    return s;
+  {
+    PROF_SCOPE(d, PH_FIND_HIT);
+    const unsigned hit = __ballot_sync(
+        FULL, d.cc_len > 0 && d.cc_client == c && d.cc_start <= x &&
+                  x < d.cc_start + d.cc_len);
+    if (hit) {
+      PROF_COUNT(d, CNT_HITS);
+      const int src = __ffs(hit) - 1;
+      h.slot = __shfl_sync(FULL, d.cc_slot, src);
+      h.ck = __shfl_sync(FULL, d.cc_start, src);
+      h.ln = __shfl_sync(FULL, d.cc_len, src);
+      h.found = true;
+      return h;
+    }
   }
-  return -1;
+  PROF_SCOPE(d, PH_FIND_INDEX);
+  PROF_COUNT(d, CNT_LOOKUPS);
+  const int stt = pred_start(d, c, x);
+  if (stt < 0) return h;
+  const int s = start_find(d, c, stt);
+  if (s < 0 || s >= d.nb) return h;
+  const int cl = ld(d, CL, s), ck = ld(d, CK, s), ln = ld(d, LN, s);
+  if (cl == c && ck <= x && x < ck + ln) {
+    h = Hit{s, true, ck, ln};
+    cache_put(d, c, ck, ln, s);
+  }
+  return h;
 }
 
-__device__ int split(Doc& d, int i, int off, bool want) {
-  int length_i = gat(d, LN, i, 0);
+// split the block h of client cl at offset off; returns the right half's
+// slot, or h's slot when nothing was split
+__device__ __forceinline__ int split(Doc& d, const Hit& h, int cl, int off, bool want) {
+  PROF_SCOPE(d, PH_SPLIT);
+  const int i = h.slot, ck = h.ck, length_i = h.ln;
   bool doit = want && i >= 0 && off > 0 && off < length_i;
-  int j = d.nb;
+  const int j = d.nb;
   if (doit && j >= d.C) {
     d.err |= ERR_CAPACITY;
     doit = false;
   }
   if (!doit) return i;
-  int cl = d.p[CL][i], ck = d.p[CK][i];
-  int right_i = d.p[RT][i];
-  int rc = d.p[RC][i], rk = d.p[RK][i];
-  int dl = d.p[DL][i], cn = d.p[CN][i], kd = d.p[KD][i];
-  int rf = d.p[RF][i], of = d.p[OF][i], key = d.p[KEY][i];
-  int pa = d.p[PA][i], hd = d.p[HD][i], mv = d.p[MV][i];
-  d.p[CL][j] = cl;
-  d.p[CK][j] = ck + off;
-  d.p[LN][j] = length_i - off;
-  d.p[OC][j] = cl;
-  d.p[OK][j] = ck + off - 1;
-  d.p[RC][j] = rc;
-  d.p[RK][j] = rk;
-  d.p[LT][j] = i;
-  d.p[RT][j] = right_i;
-  d.p[DL][j] = dl;
-  d.p[CN][j] = cn;
-  d.p[KD][j] = kd;
-  d.p[RF][j] = rf;
-  d.p[OF][j] = of + off;
-  d.p[KEY][j] = key;
-  d.p[PA][j] = pa;
-  d.p[HD][j] = hd;
-  d.p[MV][j] = mv;
-  d.p[MSC][j] = -1;
-  d.p[MSK][j] = 0;
-  d.p[MSA][j] = 0;
-  d.p[MEC][j] = -1;
-  d.p[MEK][j] = 0;
-  d.p[MEA][j] = 0;
-  d.p[MPR][j] = -1;
-  d.p[LN][i] = off;
-  d.p[RT][i] = j;
+  const Ahead ahead = index_ahead(d, cl, ck + off);
+  const int right_i = ld(d, RT, i);
+  const int rc = ld(d, RC, i), rk = ld(d, RK, i);
+  const int dl = ld(d, DL, i), cn = ld(d, CN, i), kd = ld(d, KD, i);
+  const int rf = ld(d, RF, i), of = ld(d, OF, i), key = ld(d, KEY, i);
+  const int pa = ld(d, PA, i), hd = ld(d, HD, i), mv = ld(d, MV, i);
+  warp_stores();
+  st(d, CL, j, cl);
+  st(d, CK, j, ck + off);
+  st(d, LN, j, length_i - off);
+  st(d, OC, j, cl);
+  st(d, OK, j, ck + off - 1);
+  st(d, RC, j, rc);
+  st(d, RK, j, rk);
+  st(d, LT, j, i);
+  st(d, RT, j, right_i);
+  st(d, DL, j, dl);
+  st(d, CN, j, cn);
+  st(d, KD, j, kd);
+  st(d, RF, j, rf);
+  st(d, OF, j, of + off);
+  st(d, KEY, j, key);
+  st(d, PA, j, pa);
+  st(d, HD, j, hd);
+  st(d, MV, j, mv);
+  st(d, MSC, j, -1);
+  st(d, MSK, j, 0);
+  st(d, MSA, j, 0);
+  st(d, MEC, j, -1);
+  st(d, MEK, j, 0);
+  st(d, MEA, j, 0);
+  st(d, MPR, j, -1);
+  st(d, LN, i, off);
+  st(d, RT, i, j);
   put(d, LT, right_i, j);
   d.nb += 1;
-  index_add(d, cl, ck + off, length_i - off, j);
+  if (d.cc_len > 0 && d.cc_slot == i) d.cc_len = off;
+  cache_put(d, cl, ck + off, length_i - off, j);
+  index_add(d, cl, ck + off, length_i - off, j, true, ahead);
   return j;
 }
 
-__device__ int clean_end(Doc& d, int c, int x, bool enable, bool* found) {
-  int i = find_slot(d, c, x, enable, found);
-  int off = x - gat(d, CK, i, 0) + 1;
-  split(d, i, off, enable && *found);
-  return i;
+__device__ __forceinline__ Hit clean_end(Doc& d, int c, int x, bool enable) {
+  const Hit h = find_slot(d, c, x, enable);
+  split(d, h, c, x - h.ck + 1, enable && h.found);
+  return h;
 }
 
-__device__ int clean_start(Doc& d, int c, int x, bool enable, bool* found) {
-  int i = find_slot(d, c, x, enable, found);
-  int off = x - gat(d, CK, i, 0);
-  int j = split(d, i, off, enable && *found);
-  return (i >= 0 && off > 0) ? j : i;
+__device__ __forceinline__ Hit clean_start(Doc& d, int c, int x, bool enable) {
+  Hit h = find_slot(d, c, x, enable);
+  const int off = x - h.ck;
+  const int j = split(d, h, c, off, enable && h.found);
+  h.slot = (h.slot >= 0 && off > 0) ? j : h.slot;
+  return h;
 }
 
 __device__ __forceinline__ bool origins_equal(bool ha, int ca, int ka, bool hb,
@@ -384,14 +624,14 @@ __device__ __forceinline__ bool origins_equal(bool ha, int ca, int ka, bool hb,
   return (!ha && !hb) || (ha && hb && ca == cb && ka == kb);
 }
 
-__device__ int scan_bucket(int w) {
-  const int th[7] = {2, 4, 8, 16, 32, 64, 128};
-  int b = 0;
-  for (int t = 0; t < 7; ++t) b += (w >= th[t]) ? 1 : 0;
-  return b;
+__device__ __forceinline__ int scan_bucket(int w) {
+  return (w >= 2) + (w >= 4) + (w >= 8) + (w >= 16) + (w >= 32) + (w >= 64) +
+         (w >= 128);
 }
 
-__device__ void integrate_row(Doc& d, const int* r) {
+__device__ __forceinline__ void integrate_row(Doc& d, const int* r) {
+  PROF_SCOPE(d, PH_LINK);
+  PROF_COUNT(d, CNT_ROWS);
   const int r_client = r[0], r_clock = r[1], r_len = r[2], r_oc = r[3],
             r_ok = r[4], r_rc = r[5], r_rk = r[6], r_kind = r[7], r_ref = r[8],
             r_off = r[9], r_key = r[10], r_ptag = r[11], r_pclient = r[12],
@@ -416,10 +656,11 @@ __device__ void integrate_row(Doc& d, const int* r) {
   const bool has_ror = r_rc >= 0;
   const bool is_gc = r_kind == BLOCK_GC;
   bool linkable = doit && !is_gc;
+  Ahead ahead{};
+  if (doit) ahead = index_ahead(d, r_client, clock);
 
-  bool lfound, rfound;
-  int left_idx = clean_end(d, origin_client, origin_clock, linkable && has_origin, &lfound);
-  int right_idx = clean_start(d, r_rc, r_rk, linkable && has_ror, &rfound);
+  int left_idx = clean_end(d, origin_client, origin_clock, linkable && has_origin).slot;
+  int right_idx = clean_start(d, r_rc, r_rk, linkable && has_ror).slot;
   left_idx = (linkable && has_origin) ? left_idx : -1;
   right_idx = (linkable && has_ror) ? right_idx : -1;
   const bool anchor_missing = (linkable && has_origin && left_idx < 0) ||
@@ -427,23 +668,24 @@ __device__ void integrate_row(Doc& d, const int* r) {
   missing = missing || anchor_missing;
   linkable = linkable && !anchor_missing;
 
+  // what this row reads of its anchors, issued together (nothing below
+  // writes these planes before their last read here)
+  const int left0 = left_idx;
+  const int l_pa = gat(d, PA, left_idx, -1), l_key = gat(d, KEY, left_idx, -1);
+  const int l_rt = gat(d, RT, left_idx, -1), l_mv = gat(d, MV, left_idx, -1);
+  const int r_pa = gat(d, PA, right_idx, -1), r_key2 = gat(d, KEY, right_idx, -1);
+  const int r_lt = gat(d, LT, right_idx, -1), r_mv = gat(d, MV, right_idx, -1);
+
   // parent branch: p_tag 2 = nested branch by id; 1 = root; 0 = inherit
-  bool pfound;
   const int parent_slot =
-      find_slot(d, r_pclient, r_pclock, linkable && r_ptag == 2, &pfound);
-  const int left_parent = gat(d, PA, left_idx, -1);
-  const int right_parent = gat(d, PA, right_idx, -1);
-  const int inherited_parent = left_idx >= 0 ? left_parent : right_parent;
-  bool anchor_found = false;
+      find_slot(d, r_pclient, r_pclock, linkable && r_ptag == 2).slot;
+  const int inherited_parent = left_idx >= 0 ? l_pa : r_pa;
   int anchor_idx = -1;
-  if (r_ptag == 1 && r_proot >= 0) {
-    for (int s = 0; s < d.nb; ++s)
-      if (d.p[KD][s] == BLOCK_ROOT_ANCHOR && d.p[KEY][s] == r_proot) {
-        anchor_idx = s;
-        anchor_found = true;
-        break;
-      }
-  }
+  if (r_ptag == 1 && r_proot >= 0)
+    anchor_idx = first_slot(d, 0, d.nb, [&](int s) {
+      return ld(d, KD, s) == BLOCK_ROOT_ANCHOR && ld(d, KEY, s) == r_proot;
+    });
+  const bool anchor_found = anchor_idx >= 0;
   const int root_row = (r_proot >= 0 && anchor_found) ? anchor_idx : -1;
   const int parent_row =
       r_ptag == 2 ? parent_slot : (r_ptag == 1 ? root_row : inherited_parent);
@@ -452,32 +694,29 @@ __device__ void integrate_row(Doc& d, const int* r) {
                    (r_ptag == 1 && r_proot >= 0 && !anchor_found));
   missing = missing || parent_missing;
   linkable = linkable && !parent_missing;
+  const int p_hd = gat(d, HD, parent_row, -1), p_dl = gat(d, DL, parent_row, 0);
 
   // parent_sub inherited from the anchors when omitted on the wire
-  const int left_key = gat(d, KEY, left_idx, -1);
-  const int right_key = gat(d, KEY, right_idx, -1);
-  const int key_v = r_key >= 0 ? r_key : (left_key >= 0 ? left_key : right_key);
+  const int key_v = r_key >= 0 ? r_key : (l_key >= 0 ? l_key : r_key2);
   const bool is_map = key_v >= 0;
 
   // map rows anchor on their (parent, key) chain's leftmost item
   int chain_head = -1;
-  if (is_map) {
-    for (int s = 0; s < d.nb; ++s)
-      if (d.p[KEY][s] == key_v && d.p[PA][s] == parent_row && d.p[LT][s] == -1) {
-        chain_head = s;
-        break;
-      }
-  }
-  const int seq_head = parent_row >= 0 ? gat(d, HD, parent_row, -1) : d.start;
+  if (is_map)
+    chain_head = first_slot(d, 0, d.nb, [&](int s) {
+      return ld(d, KEY, s) == key_v && ld(d, PA, s) == parent_row &&
+             ld(d, LT, s) == -1;
+    });
+  const int seq_head = parent_row >= 0 ? p_hd : d.start;
   const int anchor0_base = is_map ? chain_head : seq_head;
 
-  const int right_left = gat(d, LT, right_idx, -1);
   const bool need_scan =
-      linkable && ((left_idx < 0 && (right_idx < 0 || right_left >= 0)) ||
-                   (left_idx >= 0 && gat(d, RT, left_idx, -1) != right_idx));
+      linkable && ((left_idx < 0 && (right_idx < 0 || r_lt >= 0)) ||
+                   (left_idx >= 0 && l_rt != right_idx));
 
   if (need_scan) {
-    int o = left_idx >= 0 ? gat(d, RT, left_idx, -1) : anchor0_base;
+    PROF_SCOPE(d, PH_SCAN);
+    int o = left_idx >= 0 ? l_rt : anchor0_base;
     int left = left_idx;
     int width = 0;
     const int rank_r = gather_rank(d, r_client);
@@ -485,23 +724,24 @@ __device__ void integrate_row(Doc& d, const int* r) {
     d.conf_epoch += 1;
     while (o >= 0 && o != right_idx) {
       width += 1;
+      const int o_oc = gat(d, OC, o, -1), o_ok = gat(d, OK, o, 0);
+      const int o_rc = gat(d, RC, o, -1), o_rk = gat(d, RK, o, 0);
+      const int o_cl = gat(d, CL, o, -1), o_rt = gat(d, RT, o, -1);
+      warp_stores();
       if (o < d.C) {  // a one-hot over C lanes has no hit at o >= C
         d.bstamp[o] = d.row_epoch;
         d.cstamp[o] = d.conf_epoch;
       }
-      const int o_oc = gat(d, OC, o, -1), o_ok = gat(d, OK, o, 0);
       const bool same_origin = origins_equal(has_origin, origin_client,
                                              origin_clock, o_oc >= 0, o_oc, o_ok);
-      const int o_rc = gat(d, RC, o, -1), o_rk = gat(d, RK, o, 0);
       const bool same_ror =
           origins_equal(has_ror, r_rc, r_rk, o_rc >= 0, o_rc, o_rk);
-      const int rank_o = gather_rank(d, gat(d, CL, o, -1));
+      const int rank_o = gather_rank(d, o_cl);
       const bool case1_take = same_origin && rank_o < rank_r;
       const bool case1_break = same_origin && !case1_take && same_ror;
-      bool oo_found;
-      const int oo_idx = find_slot(d, o_oc, o_ok, o_oc >= 0, &oo_found);
-      const bool in_before = oo_found && d.bstamp[oo_idx] == d.row_epoch;
-      const bool in_conf = oo_found && d.cstamp[oo_idx] == d.conf_epoch;
+      const Hit oo = find_slot(d, o_oc, o_ok, o_oc >= 0);
+      const bool in_before = oo.found && d.bstamp[oo.slot] == d.row_epoch;
+      const bool in_conf = oo.found && d.cstamp[oo.slot] == d.conf_epoch;
       const bool case2_take = !same_origin && in_before && !in_conf;
       const bool case2_break = !same_origin && !in_before;
       if (case1_take || case2_take) {
@@ -509,12 +749,14 @@ __device__ void integrate_row(Doc& d, const int* r) {
         d.conf_epoch += 1;  // conflicting := {}
       }
       if (case1_break || case2_break) break;
-      o = gat(d, RT, o, -1);
+      o = o_rt;
     }
     left_idx = left;
     // scan record: the two-tier trip accounting in closed form
     const int wb = width;
-    d.sc[scan_bucket(wb)] += 1;
+    const int b = scan_bucket(wb);
+#pragma unroll
+    for (int k = 0; k < SC_BUCKETS; ++k) d.sc[k] += b == k ? 1 : 0;
     if (wb > d.sc[SC_MAX]) d.sc[SC_MAX] = wb;
     const int wide_trips =
         wb > d.cheap ? (wb - d.cheap + d.unroll - 1) / d.unroll : 0;
@@ -533,8 +775,15 @@ __device__ void integrate_row(Doc& d, const int* r) {
   linkable = linkable && j < d.C;
 
   const bool has_left = linkable && left_idx >= 0;
-  const int right_final =
-      has_left ? gat(d, RT, left_idx, -1) : (linkable ? anchor0_base : -1);
+  const int left_rt = left_idx == left0 ? l_rt : gat(d, RT, left_idx, -1);
+  const int right_final = has_left ? left_rt : (linkable ? anchor0_base : -1);
+  const int left_moved =
+      has_left ? (left_idx == left0 ? l_mv : gat(d, MV, left_idx, -1)) : -1;
+  const int right_moved =
+      right_final >= 0
+          ? (right_final == right_idx ? r_mv : gat(d, MV, right_final, -1))
+          : -1;
+  warp_stores();
   if (has_left) put(d, RT, left_idx, j);
   // sequence rows with no left become the head of the root or the parent
   const bool new_head = linkable && !has_left && !is_map;
@@ -544,45 +793,43 @@ __device__ void integrate_row(Doc& d, const int* r) {
 
   // self-delete on arrival: under a tombstoned parent, or a map row
   // landing with a right neighbor
-  const bool parent_deleted = parent_row >= 0 && gat(d, DL, parent_row, 0) == 1;
+  const bool parent_deleted = parent_row >= 0 && p_dl == 1;
   const bool dead_on_arrival =
       linkable && (parent_deleted || (is_map && right_final >= 0));
   const bool row_deleted = is_gc || r_kind == CONTENT_DELETED || dead_on_arrival;
   const bool row_countable =
       !row_deleted && r_kind != CONTENT_FORMAT && r_kind != CONTENT_MOVE;
 
-  const int left_moved = has_left ? gat(d, MV, left_idx, -1) : -1;
-  const int right_moved = right_final >= 0 ? gat(d, MV, right_final, -1) : -1;
   const int inherit_moved = left_moved == right_moved ? left_moved : -1;
   const bool moved_conflict = linkable && left_moved != right_moved;
   if (moved_conflict || (doit && is_move_row)) d.mdirty = 1;
 
   if (doit) {
-    d.p[CL][j] = r_client;
-    d.p[CK][j] = clock;
-    d.p[LN][j] = length;
-    d.p[OC][j] = has_origin ? origin_client : -1;
-    d.p[OK][j] = has_origin ? origin_clock : 0;
-    d.p[RC][j] = has_ror ? r_rc : -1;
-    d.p[RK][j] = has_ror ? r_rk : 0;
-    d.p[LT][j] = linkable ? left_idx : -1;
-    d.p[RT][j] = linkable ? right_final : -1;
-    d.p[DL][j] = row_deleted ? 1 : 0;
-    d.p[CN][j] = row_countable ? 1 : 0;
-    d.p[KD][j] = r_kind;
-    d.p[RF][j] = r_ref;
-    d.p[OF][j] = c_off;
-    d.p[KEY][j] = key_v;
-    d.p[PA][j] = parent_row;
-    d.p[HD][j] = -1;
-    d.p[MV][j] = linkable ? inherit_moved : -1;
-    d.p[MSC][j] = is_move_row ? r_mv_sc : -1;
-    d.p[MSK][j] = is_move_row ? r_mv_sk : 0;
-    d.p[MSA][j] = is_move_row ? r_mv_sa : 0;
-    d.p[MEC][j] = is_move_row ? r_mv_ec : -1;
-    d.p[MEK][j] = is_move_row ? r_mv_ek : 0;
-    d.p[MEA][j] = is_move_row ? r_mv_ea : 0;
-    d.p[MPR][j] = is_move_row ? r_mv_prio : -1;
+    st(d, CL, j, r_client);
+    st(d, CK, j, clock);
+    st(d, LN, j, length);
+    st(d, OC, j, has_origin ? origin_client : -1);
+    st(d, OK, j, has_origin ? origin_clock : 0);
+    st(d, RC, j, has_ror ? r_rc : -1);
+    st(d, RK, j, has_ror ? r_rk : 0);
+    st(d, LT, j, linkable ? left_idx : -1);
+    st(d, RT, j, linkable ? right_final : -1);
+    st(d, DL, j, row_deleted ? 1 : 0);
+    st(d, CN, j, row_countable ? 1 : 0);
+    st(d, KD, j, r_kind);
+    st(d, RF, j, r_ref);
+    st(d, OF, j, c_off);
+    st(d, KEY, j, key_v);
+    st(d, PA, j, parent_row);
+    st(d, HD, j, -1);
+    st(d, MV, j, linkable ? inherit_moved : -1);
+    st(d, MSC, j, is_move_row ? r_mv_sc : -1);
+    st(d, MSK, j, is_move_row ? r_mv_sk : 0);
+    st(d, MSA, j, is_move_row ? r_mv_sa : 0);
+    st(d, MEC, j, is_move_row ? r_mv_ec : -1);
+    st(d, MEK, j, is_move_row ? r_mv_ek : 0);
+    st(d, MEA, j, is_move_row ? r_mv_ea : 0);
+    st(d, MPR, j, is_move_row ? r_mv_prio : -1);
   }
   // a map row that became its chain's tail is the key's live value; the
   // previous winner (its immediate left) gets tombstoned
@@ -590,60 +837,73 @@ __device__ void integrate_row(Doc& d, const int* r) {
   if (new_tail && has_left) put(d, DL, left_idx, 1);
   if (doit) {
     d.nb += 1;
-    index_add(d, r_client, clock, length, j);
+    cache_put(d, r_client, clock, length, j);
+    index_add(d, r_client, clock, length, j, true, ahead);
   }
   if (overflow) d.err |= ERR_CAPACITY;
   if (missing) d.err |= ERR_MISSING_DEP;
 }
 
-__device__ void delete_range(Doc& d, const int* r) {
+__device__ __forceinline__ void delete_range(Doc& d, const int* r) {
+  PROF_SCOPE(d, PH_DELETE);
+  PROF_COUNT(d, CNT_DELS);
   const int client = r[0], start = r[1], end = r[2];
-  bool found;
-  int i = find_slot(d, client, start, true, &found);
-  bool i_ok = found && gat(d, DL, i, 1) == 0;
-  split(d, i, start - gat(d, CK, i, 0), i_ok);
-  bool kfound;
-  int k = find_slot(d, client, end - 1, true, &kfound);
-  bool k_ok = kfound && gat(d, DL, k, 1) == 0;
-  split(d, k, end - gat(d, CK, k, 0), k_ok);
+  const Hit hi = find_slot(d, client, start, true);
+  split(d, hi, client, start - hi.ck, hi.found && gat(d, DL, hi.slot, 1) == 0);
+  const Hit hk = find_slot(d, client, end - 1, true);
+  split(d, hk, client, end - hk.ck, hk.found && gat(d, DL, hk.slot, 1) == 0);
   // mark every block of `client` with [CK, CK + LN) inside [start, end);
   // tombstoning a live move row dirties the doc
   if (start < 0) {
-    for (int s = 0; s < d.nb; ++s)
-      if (d.p[CL][s] == client && d.p[CK][s] >= start &&
-          d.p[CK][s] + d.p[LN][s] <= end) {
-        if (d.p[KD][s] == CONTENT_MOVE && d.p[DL][s] == 0) d.mdirty = 1;
-        d.p[DL][s] = 1;
+    __syncwarp();
+    bool hit_move = false;
+    for (int base = 0; base < d.nb; base += 32) {
+      const int s = base + d.lane;
+      if (s < d.nb && ld(d, CL, s) == client && ld(d, CK, s) >= start &&
+          ld(d, CK, s) + ld(d, LN, s) <= end) {
+        hit_move = hit_move || (ld(d, KD, s) == CONTENT_MOVE && ld(d, DL, s) == 0);
+        st(d, DL, s, 1);
       }
+    }
+    if (__any_sync(FULL, hit_move)) d.mdirty = 1;
+    __syncwarp();
     return;
   }
-  int st = succ_start(d, client, start);
-  while (st >= 0 && st < end) {
-    int s = start_find(d, client, st);
-    if (s >= 0 && s < d.nb && d.p[CL][s] == client &&
-        d.p[CK][s] + d.p[LN][s] <= end) {
-      if (d.p[KD][s] == CONTENT_MOVE && d.p[DL][s] == 0) d.mdirty = 1;
-      d.p[DL][s] = 1;
+  // x >= 0: walk the client's blocks from `start` in clock order, block to
+  // block through find_slot (the cursor cache first), jumping gaps with a
+  // successor query. Covering blocks are unique, so this visits exactly
+  // the blocks whose start lies in [start, end).
+  int x = start;
+  while (x < end) {
+    const Hit h = find_slot(d, client, x, true);
+    if (!h.found) {
+      x = succ_start(d, client, x);
+      if (x < 0) break;
+      continue;
     }
-    if (st == 0x7FFFFFFF) break;
-    st = succ_start(d, client, st + 1);
+    if (h.ck >= start && h.ck + h.ln <= end) {
+      const int kd = ld(d, KD, h.slot), dl = ld(d, DL, h.slot);
+      warp_stores();
+      if (kd == CONTENT_MOVE && dl == 0) d.mdirty = 1;
+      st(d, DL, h.slot, 1);
+    }
+    x = h.ck + h.ln;
   }
 }
 
 // ---- move ownership (end-of-step recompute for dirty docs) ---------------
 
-__device__ int resolve_move_ptr(Doc& d, int c, int k, int assoc, bool enable,
-                                bool* found) {
+__device__ __forceinline__ int resolve_move_ptr(Doc& d, int c, int k, int assoc,
+                                                bool enable, bool* found) {
   const bool after = assoc >= 0;
-  bool found_a, found_b;
-  int i_a = clean_start(d, c, k, enable && after && c >= 0, &found_a);
-  int i_b = clean_end(d, c, k, enable && !after && c >= 0, &found_b);
-  int right_b = gat(d, RT, i_b, -1);
-  *found = after ? found_a : found_b;
-  return after ? i_a : right_b;
+  const Hit a = clean_start(d, c, k, enable && after && c >= 0);
+  const Hit b = clean_end(d, c, k, enable && !after && c >= 0);
+  const int right_b = gat(d, RT, b.slot, -1);
+  *found = after ? a.found : b.found;
+  return after ? a.slot : right_b;
 }
 
-__device__ bool claim_move(Doc& d, int s, bool enable) {
+__device__ __forceinline__ bool claim_move(Doc& d, int s, bool enable) {
   const int msc = gat(d, MSC, s, -1), msk = gat(d, MSK, s, 0),
             msa = gat(d, MSA, s, 0);
   const int mec = gat(d, MEC, s, -1), mek = gat(d, MEK, s, 0),
@@ -676,6 +936,7 @@ __device__ bool claim_move(Doc& d, int s, bool enable) {
     const int m_msc = gat(d, MSC, m, -1);
     const bool m_collapsed = m >= 0 && m_msc >= 0 && m_msc == gat(d, MEC, m, -2) &&
                              gat(d, MSK, m, 0) == gat(d, MEK, m, -1);
+    warp_stores();
     if (takes && m_collapsed) put(d, DL, m, 1);
     if (takes) put(d, MV, cur, s);
     cur = gat(d, RT, cur, -1);
@@ -688,7 +949,7 @@ __device__ __forceinline__ bool live_move(const Doc& d, int idx) {
 }
 
 // does s sit on an ownership cycle of live moves?
-__device__ bool move_cycle(const Doc& d, int s, bool enable) {
+__device__ __forceinline__ bool move_cycle(const Doc& d, int s, bool enable) {
   int cur = gat(d, MV, s, -1);
   if (!live_move(d, cur)) cur = -1;
   bool hit = false;
@@ -701,24 +962,29 @@ __device__ bool move_cycle(const Doc& d, int s, bool enable) {
   return hit;
 }
 
-__device__ void recompute_moves(Doc& d) {
+// every MV slot to -1, 32 slots a step
+__device__ __forceinline__ void clear_moved(const Doc& d) {
+  __syncwarp();
+  for (int s = d.lane; s < d.C; s += 32) st(d, MV, s, -1);
+  __syncwarp();
+}
+
+__device__ __forceinline__ void recompute_moves(Doc& d) {
+  PROF_SCOPE(d, PH_MOVES);
   if (d.mdirty) {
-    for (int s = 0; s < d.C; ++s) d.p[MV][s] = -1;
+    clear_moved(d);
     int from = 0;
     while (true) {
-      int s = -1;
-      for (int t = from; t < d.nb; ++t)
-        if (d.p[KD][t] == CONTENT_MOVE && d.p[DL][t] == 0) {
-          s = t;
-          break;
-        }
+      const int s = first_slot(d, from, d.nb, [&](int t) {
+        return ld(d, KD, t) == CONTENT_MOVE && ld(d, DL, t) == 0;
+      });
       if (s < 0) break;
-      bool enable = claim_move(d, s, true);
-      bool cyc = move_cycle(d, s, enable);
-      if (cyc) {
+      const bool enable = claim_move(d, s, true);
+      if (move_cycle(d, s, enable)) {
         // cycle: release every claim and replay without s
-        d.p[DL][s] = 1;
-        for (int t = 0; t < d.C; ++t) d.p[MV][t] = -1;
+        warp_stores();
+        st(d, DL, s, 1);
+        clear_moved(d);
         from = 0;
       } else {
         from = s + 1;
@@ -728,85 +994,259 @@ __device__ void recompute_moves(Doc& d) {
   d.mdirty = 0;
 }
 
-__global__ void __launch_bounds__(THREADS)
+// ---- mbarriers and the TMA bulk copy -----------------------------------------
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_addr(bar))
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                   smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// wait for the completion of the barrier's phase of parity `parity`
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@!p bra WAIT;\n"
+      "}\n" ::"r"(smem_addr(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// the producer's copy of tile t of the stream into its ring stage: the
+// rows and the deletes of up to T steps. Bulk copies move multiples of 16
+// bytes; the up to three words of a ragged rows tail are copied by hand
+// before the arrival that releases them.
+__device__ __forceinline__ void issue_tile(int t, unsigned char* ring, uint64_t* full,
+                                           const int* rows, const int* dels,
+                                           int S, int U, int R, int T) {
+  const int stg = t % STAGES;
+  unsigned char* base = ring + (size_t)stg * T * (U * ROW_W + R * DEL_W) * 4;
+  const int s0 = t * T;
+  const int n = min(T, S - s0);
+  const uint32_t rb = (uint32_t)n * U * ROW_W * 4, rb16 = rb & ~15u;
+  const uint32_t db = (uint32_t)n * R * DEL_W * 4;
+  const int* src_rows = rows + (size_t)s0 * U * ROW_W;
+  for (uint32_t w = rb16 / 4; w < rb / 4; ++w)
+    reinterpret_cast<int*>(base)[w] = src_rows[w];
+  mbar_arrive_expect_tx(&full[stg], rb16 + db);
+  if (rb16) bulk_copy(base, src_rows, rb16, &full[stg]);
+  if (db)
+    bulk_copy(base + (size_t)T * U * ROW_W * 4, dels + (size_t)s0 * R * DEL_W, db,
+              &full[stg]);
+}
+
+// ---- phase 1: the index of the live slots (atomics) --------------------------
+
+__device__ __forceinline__ void start_put_atomic(ulonglong2* tab, uint32_t mask,
+                                                 int c, int k, int slot) {
+  const unsigned long long key = skey(c, k);
+  uint32_t i = hmix(key) & mask;
+  while (true) {
+    const unsigned long long prev = atomicCAS(&tab[i].x, EMPTY, key);
+    if (prev == EMPTY || prev == key) {
+      atomicMin(reinterpret_cast<int*>(&tab[i]) + 2, slot);
+      return;
+    }
+    i = (i + 1) & mask;
+  }
+}
+
+__device__ __forceinline__ void bit_set_atomic(ulonglong2* tab, uint32_t mask, int c,
+                                               int k) {
+  for (int lvl = 0; lvl < LEVELS; ++lvl) {
+    const uint32_t b = (uint32_t)k >> (6 * (lvl + 1));
+    const unsigned long long bit = 1ull << (((uint32_t)k >> (6 * lvl)) & 63);
+    const unsigned long long key = bkey(c, lvl, b);
+    uint32_t i = hmix(key) & mask;
+    while (true) {
+      const unsigned long long prev = atomicCAS(&tab[i].x, EMPTY, key);
+      if (prev == EMPTY || prev == key) break;
+      i = (i + 1) & mask;
+    }
+    const unsigned long long old = atomicOr(&tab[i].y, bit);
+    if (old & bit) return;  // the levels above were set by that insert
+  }
+}
+
+__global__ void __launch_bounds__(THREADS, 1)
 integrate_kernel(int* __restrict__ cols, int* __restrict__ meta,
                  const int* __restrict__ rows, const int* __restrict__ dels,
                  const int* __restrict__ rank, int S, int U, int R, int K,
-                 int D, int C, int cheap, int unroll,
-                 unsigned long long* bkeys, unsigned long long* bwords, int HB,
-                 unsigned long long* skeys, int* svals, int HS, int* cclock,
-                 int* bstamp, int* cstamp) {
-  const int doc = blockIdx.x;
-  const int tid = threadIdx.x;
+                 int D, int C, int cheap, int unroll, int T,
+                 ulonglong2* bidx, int HB, ulonglong2* sidx, int HS,
+                 int* bstamp, int* cstamp, long long* prof) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem);
+  uint64_t* empty = full + STAGES;
+  int* cclock_all = reinterpret_cast<int*>(smem + BAR_BYTES);
+  unsigned char* ring = smem + BAR_BYTES + DOCS_PER_CTA * YTPU_KC * 4;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int doc0 = blockIdx.x * DOCS_PER_CTA;
+  const int n_act = min(DOCS_PER_CTA, D - doc0);
+  const int n_tiles = (S + T - 1) / T;
+
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], n_act);  // one arrival per live consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  // the first tiles stream in while the CTA builds the index
+  if (warp == DOCS_PER_CTA && lane == 0)
+    for (int t = 0; t < min(STAGES, n_tiles); ++t)
+      issue_tile(t, ring, full, rows, dels, S, U, R, T);
+
+  // ---- phase 1 (whole CTA): clear scratch, index the live slots ---------
+  const uint32_t bmask = (uint32_t)(HB - 1), smask = (uint32_t)(HS - 1);
+  for (int i = tid; i < DOCS_PER_CTA * YTPU_KC; i += THREADS) cclock_all[i] = 0;
+  for (int w = 0; w < n_act; ++w) {
+    const size_t doc = doc0 + w;
+    ulonglong2* b = bidx + doc * HB;
+    ulonglong2* sm = sidx + doc * HS;
+    for (int i = tid; i < HB; i += THREADS) b[i] = make_ulonglong2(EMPTY, 0ull);
+    for (int i = tid; i < HS; i += THREADS) sm[i] = make_ulonglong2(EMPTY, 0x7FFFFFFFull);
+    for (int i = tid; i < C; i += THREADS) {
+      bstamp[doc * C + i] = 0;
+      cstamp[doc * C + i] = 0;
+    }
+  }
+  __syncthreads();
+  const size_t dc = (size_t)D * C;
+  for (int w = 0; w < n_act; ++w) {
+    const size_t doc = doc0 + w;
+    const int* p = cols + doc * C;
+    const int nb0 = meta[doc * M_PAD + M_NBLOCKS];
+    for (int s = tid; s < nb0; s += THREADS) {
+      const int c = p[CL * dc + s], k = p[CK * dc + s], l = p[LN * dc + s];
+      if (l > 0 && k >= 0) {
+        start_put_atomic(sidx + doc * HS, smask, c, k, s);
+        bit_set_atomic(bidx + doc * HB, bmask, c, k);
+      }
+      if (c >= 0 && c < YTPU_KC) atomicMax(&cclock_all[w * YTPU_KC + c], k + l);
+    }
+  }
+  __syncthreads();
+
+  if (warp == DOCS_PER_CTA) {  // the producer: refill each stage once freed
+    if (lane == 0)
+      for (int t = STAGES; t < n_tiles; ++t) {
+        mbar_wait(&empty[t % STAGES], (uint32_t)((t / STAGES - 1) & 1));
+        issue_tile(t, ring, full, rows, dels, S, U, R, T);
+      }
+    return;
+  }
+  if (warp >= n_act) return;
+
+  // ---- phase 2 (one warp per doc): the doc's serial integrate -------------
+  const size_t doc = doc0 + warp;
+  int* m = meta + doc * M_PAD;
   Doc d;
-  for (int p = 0; p < NC; ++p) d.p[p] = cols + ((size_t)p * D + doc) * C;
+  d.cols = cols + doc * C;
+  d.dc = dc;
   d.C = C;
-  d.bkeys = bkeys + (size_t)doc * HB;
-  d.bwords = bwords + (size_t)doc * HB;
-  d.bmask = (uint32_t)(HB - 1);
-  d.skeys = skeys + (size_t)doc * HS;
-  d.svals = svals + (size_t)doc * HS;
-  d.smask = (uint32_t)(HS - 1);
-  d.cclock = cclock + (size_t)doc * YTPU_KC;
-  d.bstamp = bstamp + (size_t)doc * C;
-  d.cstamp = cstamp + (size_t)doc * C;
+  d.lane = lane;
+  d.bidx = bidx + doc * HB;
+  d.bmask = bmask;
+  d.sidx = sidx + doc * HS;
+  d.smask = smask;
+  d.cclock = cclock_all + warp * YTPU_KC;
+  d.bstamp = bstamp + doc * C;
+  d.cstamp = cstamp + doc * C;
   d.rank = rank;
   d.K = K;
   d.cheap = cheap;
   d.unroll = unroll;
-  int* m = meta + (size_t)doc * M_PAD;
-
-  // ---- phase 1 (whole CTA): clear scratch, index the live slots -------
-  for (int i = tid; i < HB; i += THREADS) {
-    d.bkeys[i] = EMPTY;
-    d.bwords[i] = 0;
-  }
-  for (int i = tid; i < HS; i += THREADS) {
-    d.skeys[i] = EMPTY;
-    d.svals[i] = 0x7FFFFFFF;
-  }
-  for (int i = tid; i < YTPU_KC; i += THREADS) d.cclock[i] = 0;
-  for (int i = tid; i < C; i += THREADS) {
-    d.bstamp[i] = 0;
-    d.cstamp[i] = 0;
-  }
-  __syncthreads();
-  const int nb0 = m[M_NBLOCKS];
-  for (int s = tid; s < nb0; s += THREADS) {
-    const int c = d.p[CL][s], k = d.p[CK][s], l = d.p[LN][s];
-    if (l > 0 && k >= 0) {
-      start_put_atomic(d, c, k, s);
-      bit_set_atomic(d, c, k);
-    }
-    if (c >= 0 && c < YTPU_KC) atomicMax(&d.cclock[c], k + l);
-  }
-  __syncthreads();
-  if (tid != 0) return;
-
-  // ---- phase 2 (thread 0): the doc's serial integrate ------------------
   d.start = m[M_START];
-  d.nb = nb0;
+  d.nb = m[M_NBLOCKS];
   d.err = m[M_ERROR];
   d.mdirty = m[M_MDIRTY];
+#pragma unroll
   for (int w = 0; w < SC_WORDS; ++w) d.sc[w] = m[M_HIST0 + w];
   d.row_epoch = 0;
   d.conf_epoch = 0;
-  for (int s = 0; s < S; ++s) {
-    for (int u = 0; u < U; ++u) {
-      const int* r = rows + ((size_t)s * U + u) * ROW_W;
-      if (r[14] == 1) integrate_row(d, r);
+  d.cc_client = 0;
+  d.cc_start = 0;
+  d.cc_len = 0;
+  d.cc_slot = -1;
+  d.cc_next = 0;
+  d.index_writes = 0;
+#ifdef YTPU_INTEGRATE_PROFILE
+  __shared__ long long prof_acc[DOCS_PER_CTA][PROF_WORDS];
+  if (lane == 0)
+    for (int w = 0; w < PROF_WORDS; ++w) prof_acc[warp][w] = 0;
+  d.prof.acc = prof_acc[warp];
+  d.prof.lane0 = lane == 0;
+  d.prof.cur = PH_OTHER;
+  d.prof.t = clock64();
+#endif
+  const size_t stage_b = (size_t)T * (U * ROW_W + R * DEL_W) * 4;
+  for (int t = 0; t < n_tiles; ++t) {
+    const int stg = t % STAGES;
+    {
+      PROF_SCOPE(d, PH_STREAM);
+      mbar_wait(&full[stg], (uint32_t)((t / STAGES) & 1));
     }
-    for (int q = 0; q < R; ++q) {
-      const int* r = dels + ((size_t)s * R + q) * DEL_W;
-      if (r[3] == 1) delete_range(d, r);
+    const int* trows = reinterpret_cast<const int*>(ring + stg * stage_b);
+    const int* tdels = trows + (size_t)T * U * ROW_W;
+    const int n = min(T, S - t * T);
+    for (int sl = 0; sl < n; ++sl) {
+      PROF_COUNT(d, CNT_STEPS);
+      for (int u = 0; u < U; ++u) {
+        const int* r = trows + ((size_t)sl * U + u) * ROW_W;
+        if (r[14] == 1) integrate_row(d, r);
+      }
+      for (int q = 0; q < R; ++q) {
+        const int* r = tdels + ((size_t)sl * R + q) * DEL_W;
+        if (r[3] == 1) delete_range(d, r);
+      }
+      recompute_moves(d);
     }
-    recompute_moves(d);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[stg]);
   }
-  m[M_START] = d.start;
-  m[M_NBLOCKS] = d.nb;
-  m[M_ERROR] = d.err;
-  m[M_MDIRTY] = d.mdirty;
-  for (int w = 0; w < SC_WORDS; ++w) m[M_HIST0 + w] = d.sc[w];
+  if (lane == 0) {
+    m[M_START] = d.start;
+    m[M_NBLOCKS] = d.nb;
+    m[M_ERROR] = d.err;
+    m[M_MDIRTY] = d.mdirty;
+#pragma unroll
+    for (int w = 0; w < SC_WORDS; ++w) m[M_HIST0 + w] = d.sc[w];
+  }
+#ifdef YTPU_INTEGRATE_PROFILE
+  prof_switch(d.prof, PH_OTHER);
+  if (lane == 0 && prof != nullptr)
+    for (int w = 0; w < PROF_WORDS; ++w) prof[doc * PROF_WORDS + w] = prof_acc[warp][w];
+#endif
 }
 
 }  // namespace
@@ -814,19 +1254,41 @@ integrate_kernel(int* __restrict__ cols, int* __restrict__ meta,
 extern "C" int ytpu_integrate_stream(
     void* cols, void* meta, const void* rows, const void* dels,
     const void* rank, int S, int U, int R, int K, int D, int C, int cheap,
-    int unroll, void* bkeys, void* bwords, int HB, void* skeys, void* svals,
-    int HS, void* cclock, void* bstamp, void* cstamp, void* stream) {
+    int unroll, void* bidx, int HB, void* sidx, int HS, void* bstamp,
+    void* cstamp, void* prof, void* stream) {
   if (D <= 0) return 0;
-  integrate_kernel<<<D, THREADS, 0, (cudaStream_t)stream>>>(
+  if (HB <= 0 || (HB & (HB - 1)) || HS <= 0 || (HS & (HS - 1)))
+    return (int)cudaErrorInvalidValue;
+  if (((uintptr_t)rows | (uintptr_t)dels | (uintptr_t)bidx | (uintptr_t)sidx) & 15)
+    return (int)cudaErrorMisalignedAddress;
+  int p[PLAN_WORDS];
+  launch_plan(S, U, R, D, p);
+  const size_t smem = p[P_SMEM];
+  cudaError_t e = cudaFuncSetAttribute(
+      integrate_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  integrate_kernel<<<p[P_CTAS], THREADS, smem, (cudaStream_t)stream>>>(
       (int*)cols, (int*)meta, (const int*)rows, (const int*)dels,
-      (const int*)rank, S, U, R, K, D, C, cheap, unroll,
-      (unsigned long long*)bkeys, (unsigned long long*)bwords, HB,
-      (unsigned long long*)skeys, (int*)svals, HS, (int*)cclock,
-      (int*)bstamp, (int*)cstamp);
+      (const int*)rank, S, U, R, K, D, C, cheap, unroll, p[P_TILE],
+      (ulonglong2*)bidx, HB, (ulonglong2*)sidx, HS, (int*)bstamp, (int*)cstamp,
+      (long long*)prof);
   return (int)cudaGetLastError();
 }
 
-extern "C" int ytpu_integrate_kc() { return YTPU_KC; }
+// the launch `ytpu_integrate_stream` makes, as PLAN_WORDS ints in PlanWord
+// order
+extern "C" int ytpu_integrate_plan(int S, int U, int R, int D, int* out) {
+  launch_plan(S, U, R, D, out);
+  return PLAN_WORDS;
+}
+
+extern "C" int ytpu_integrate_prof_words() {
+#ifdef YTPU_INTEGRATE_PROFILE
+  return PROF_WORDS;
+#else
+  return 0;
+#endif
+}
 
 extern "C" const char* ytpu_cuda_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);

@@ -192,7 +192,8 @@ class ReplayStats:
     dead_rows: int = 0
     dead_max: int = 0
     reclaimed_rows: int = 0
-    launch_rows: int = 0
+    launch_rows_read: int = 0
+    launch_rows_added: int = 0
 
 
 @dataclass(frozen=True)
@@ -400,7 +401,8 @@ class FusedReplay:
         st.dead_rows = d.dead_rows
         st.dead_max = d.dead_max
         st.reclaimed_rows += d.reclaimed_rows
-        st.launch_rows += d.launch_rows
+        st.launch_rows_read += d.launch_rows_read
+        st.launch_rows_added += d.launch_rows_added
         self._hi = d.final_blocks
 
     def get_string(self, doc: int) -> str:

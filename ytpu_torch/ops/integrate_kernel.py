@@ -52,7 +52,9 @@ __all__ = [
     "unpack_state",
     "pack_stream",
     "integrate_stream",
+    "integrate_stream_profile",
     "integrate_stream_reference",
+    "launch_plan",
     "apply_update_stream_fused",
     "replay_stream_fused",
     "replay_chunk_program_raw",
@@ -682,33 +684,50 @@ def _check_int32(name, t, ndim, device):
         raise ValueError(f"{name} must be contiguous")
 
 
-def _integrate_lib():
-    """The built kernel library with its C signatures declared."""
+#: the C signatures of the integrate library (``csrc/integrate.cu``)
+INTEGRATE_SIGNATURES = {
+    "ytpu_integrate_stream": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8
+    + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 4,
+    "ytpu_integrate_plan": [ctypes.c_int] * 4 + [ctypes.c_void_p],
+    "ytpu_integrate_prof_words": [],
+}
+#: the words of ``ytpu_integrate_plan``, in the kernel's ``PlanWord`` order
+PLAN_KEYS = ("docs_per_cta", "ctas", "threads", "ring_stages", "tile_steps", "tiles",
+             "last_tile_steps", "last_tile_ragged_words", "smem_bytes")
+
+
+def scratch_entries(C: int):
+    """Entries per doc of the kernel's two scratch tables for ``C`` slots:
+    the 5-level bitmap (every start's five level words at a load of at
+    most 5/8) and the start map (every start at a load of at most 1/2),
+    each a power of two of 16-byte entries."""
+    return _next_pow2(8 * C), _next_pow2(2 * C)
+
+
+def launch_plan(S: int, U: int, R: int, D: int, C: int, lib=None) -> dict:
+    """The launch the kernel makes for an ``[S, U, 23]`` / ``[S, R, 4]``
+    stream into ``D`` docs of ``C`` slots, as the kernel library `lib`
+    (default: the card's build) plans it: CTAs, the tile of steps each ring
+    stage holds, the ragged last tile, the dynamic shared memory; plus the
+    per-doc scratch the wrapper allocates."""
+    lib = _integrate_lib() if lib is None else lib
+    out = (ctypes.c_int * len(PLAN_KEYS))()
+    if lib.ytpu_integrate_plan(S, U, R, D, out) != len(PLAN_KEYS):
+        raise RuntimeError("the kernel library plans a launch in other words than PLAN_KEYS")
+    hb, hs = scratch_entries(C)
+    return {**dict(zip(PLAN_KEYS, out)), "bitmap_entries": hb, "start_map_entries": hs,
+            "scratch_bytes_per_doc": 16 * hb + 16 * hs + 2 * 4 * C}
+
+
+def _integrate_lib(name: str = "integrate"):
+    """The built kernel library `name` (``integrate``, or its profiling
+    build ``integrate_profile``) with its C signatures declared."""
     from ytpu_torch.ops import _build
 
-    ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    return _build.bind(
-        "integrate",
-        {
-            "ytpu_integrate_stream": [ptr] * 5 + [i32] * 8 + [ptr, ptr, i32, ptr, ptr, i32] + [ptr] * 4,
-            "ytpu_integrate_kc": [],
-        },
-        "ytpu_cuda_error_string",
-    )
+    return _build.bind(name, INTEGRATE_SIGNATURES, "ytpu_cuda_error_string")
 
 
-def integrate_stream(cols, meta, rows, dels, rank, scan_plan=None):
-    """Integrate an ``[S, U, 23]`` row / ``[S, R, 4]`` delete stream into
-    every doc of the packed state, updating ``cols`` ``[26, D, C]`` and
-    ``meta`` ``[D, 32]`` IN PLACE (the port's counterpart of the JAX
-    package's buffer donation) and returning them. ``rank`` is the
-    ``[K]`` client tie-break table, ``scan_plan`` the (cheap, unroll)
-    conflict-scan accounting plan (default `scan_tier_plan()`).
-
-    On CUDA tensors this launches the hand-written kernel
-    (``csrc/integrate.cu``) on the current stream and counts the launch in
-    ``integrate_stream.launches``; on CPU tensors it runs
-    `integrate_stream_reference`. Any other device raises."""
+def _check_args(cols, meta, rows, dels, rank, scan_plan):
     if scan_plan is None:
         scan_plan = scan_tier_plan()
     cheap, unroll = int(scan_plan[0]), int(scan_plan[1])
@@ -725,36 +744,91 @@ def integrate_stream(cols, meta, rows, dels, rank, scan_plan=None):
         raise ValueError(f"state shapes {tuple(cols.shape)} / {tuple(meta.shape)} are not [26, D, C] / [D, 32]")
     if rows.shape[2] != 23 or dels.shape[2] != 4 or rows.shape[0] != dels.shape[0]:
         raise ValueError(f"stream shapes {tuple(rows.shape)} / {tuple(dels.shape)} are not [S, U, 23] / [S, R, 4]")
-    if dev.type == "cpu":
-        return integrate_stream_reference(cols, meta, rows, dels, rank, (cheap, unroll))
-    if dev.type != "cuda":
-        raise ValueError(f"integrate_stream runs on cuda or cpu tensors, not {dev}")
+    return cheap, unroll
+
+
+def _launch(lib, cols, meta, rows, dels, rank, cheap, unroll, prof):
+    """One launch of the kernel in `lib` on the current stream; `prof` is
+    the [D, words] int64 counter buffer of the profiling build, or None.
+    The stream is copied into shared memory by bulk copies, which need
+    16-byte-aligned sources: a misaligned ``rows`` or ``dels`` raises."""
     from ytpu_torch.ops import _build
 
-    lib = _integrate_lib()
+    for name, t in (("rows", rows), ("dels", dels)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must start 16-byte aligned on the device, got address {t.data_ptr():#x}")
+    dev = cols.device
+    _, D, C = cols.shape
     S, U = rows.shape[0], rows.shape[1]
     R, K = dels.shape[1], rank.shape[0]
-    kc = lib.ytpu_integrate_kc()
-    hb, hs = _next_pow2(8 * C), _next_pow2(2 * C)
-    # per-doc scratch: bitmap index, start map, client clocks, scan stamps
-    bkeys = torch.empty((D, hb), dtype=torch.int64, device=dev)
-    bwords = torch.empty((D, hb), dtype=torch.int64, device=dev)
-    skeys = torch.empty((D, hs), dtype=torch.int64, device=dev)
-    svals = torch.empty((D, hs), dtype=I32, device=dev)
-    cclock = torch.empty((D, kc), dtype=I32, device=dev)
+    hb, hs = scratch_entries(C)
+    # per-doc scratch: the bitmap index and the start map ({key, payload}
+    # pairs of int64), the scan stamps
+    bidx = torch.empty((D, hb, 2), dtype=torch.int64, device=dev)
+    sidx = torch.empty((D, hs, 2), dtype=torch.int64, device=dev)
     bstamp = torch.empty((D, C), dtype=I32, device=dev)
     cstamp = torch.empty((D, C), dtype=I32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.ytpu_integrate_stream(
         cols.data_ptr(), meta.data_ptr(), rows.data_ptr(), dels.data_ptr(),
         rank.data_ptr(), S, U, R, K, D, C, cheap, unroll,
-        bkeys.data_ptr(), bwords.data_ptr(), hb,
-        skeys.data_ptr(), svals.data_ptr(), hs,
-        cclock.data_ptr(), bstamp.data_ptr(), cstamp.data_ptr(), stream,
+        bidx.data_ptr(), hb, sidx.data_ptr(), hs, bstamp.data_ptr(), cstamp.data_ptr(),
+        None if prof is None else prof.data_ptr(), stream,
     )
     _build.check(lib, err, "integrate kernel")
+
+
+def integrate_stream(cols, meta, rows, dels, rank, scan_plan=None):
+    """Integrate an ``[S, U, 23]`` row / ``[S, R, 4]`` delete stream into
+    every doc of the packed state, updating ``cols`` ``[26, D, C]`` and
+    ``meta`` ``[D, 32]`` IN PLACE (the port's counterpart of the JAX
+    package's buffer donation) and returning them. ``rank`` is the
+    ``[K]`` client tie-break table, ``scan_plan`` the (cheap, unroll)
+    conflict-scan accounting plan (default `scan_tier_plan()`).
+
+    On CUDA tensors this launches the hand-written kernel
+    (``csrc/integrate.cu``) on the current stream and counts the launch in
+    ``integrate_stream.launches``; on CPU tensors it runs
+    `integrate_stream_reference`. Any other device raises."""
+    cheap, unroll = _check_args(cols, meta, rows, dels, rank, scan_plan)
+    dev = cols.device
+    if dev.type == "cpu":
+        return integrate_stream_reference(cols, meta, rows, dels, rank, (cheap, unroll))
+    if dev.type != "cuda":
+        raise ValueError(f"integrate_stream runs on cuda or cpu tensors, not {dev}")
+    _launch(_integrate_lib(), cols, meta, rows, dels, rank, cheap, unroll, None)
     integrate_stream.launches += 1
     return cols, meta
+
+
+def integrate_stream_profile(cols, meta, rows, dels, rank, scan_plan=None):
+    """`integrate_stream` through the profiling build of the kernel
+    (``-DYTPU_INTEGRATE_PROFILE``), on CUDA tensors only: updates the
+    state in place the same way and returns the ``[D, words]`` int64
+    per-doc cycle counters (see `PROFILE_WORDS`). Not counted in
+    ``integrate_stream.launches``: it is a measurement, not the main
+    path."""
+    cheap, unroll = _check_args(cols, meta, rows, dels, rank, scan_plan)
+    if cols.device.type != "cuda":
+        raise ValueError("integrate_stream_profile runs the CUDA kernel only")
+    lib = _integrate_lib("integrate_profile")
+    words = lib.ytpu_integrate_prof_words()
+    if words != len(PROFILE_WORDS):
+        raise RuntimeError(f"the profiling build has {words} counter words, expected {len(PROFILE_WORDS)}")
+    prof = torch.zeros((cols.shape[1], words), dtype=torch.int64, device=cols.device)
+    _launch(lib, cols, meta, rows, dels, rank, cheap, unroll, prof)
+    return prof
+
+
+#: the counter words of the profiling build, in the order of
+#: ``csrc/integrate.cu``'s ``ProfWord``: cycles per phase (exclusive),
+#: then event counts
+PROFILE_WORDS = (
+    "other", "stream_fetch", "client_clock", "find_slot_cache_hit", "find_slot_index",
+    "split", "conflict_scan", "link_and_writes", "index_add", "delete_mark",
+    "move_recompute", "steps", "rows", "delete_ranges", "cache_hits", "index_lookups",
+)
+PROFILE_PHASES = PROFILE_WORDS[:11]
 
 
 integrate_stream.launches = 0
@@ -923,9 +997,11 @@ class ReplayChunkStats:
     dead_max: int = 0
     reclaimed_rows: int = 0
     compact_gap_chunks: int = 0
-    # sum over integrate launches of the occupied rows (all docs) before
-    # plus after the launch: the state rows the launches must move at least
-    launch_rows: int = 0
+    # sums over integrate launches, all docs: the occupied rows before the
+    # launch (their CL/CK/LN are read to index them) and the rows it added
+    # (written whole): the state rows the launches must move at least
+    launch_rows_read: int = 0
+    launch_rows_added: int = 0
 
 
 class PackedReplayDriver:
@@ -1004,8 +1080,9 @@ class PackedReplayDriver:
         for fut in self._pending:
             hi = self._absorb(fut)
             # the launch read the rows its docs held before it and wrote
-            # the rows they hold after it
-            self.stats.launch_rows += self._occupied + self.stats.occupied_rows
+            # the rows it added (an integrate never frees a row)
+            self.stats.launch_rows_read += self._occupied
+            self.stats.launch_rows_added += self.stats.occupied_rows - self._occupied
             self._occupied = self.stats.occupied_rows
         self._pending.clear()
         self.stats.syncs += 1
