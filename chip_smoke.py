@@ -22,7 +22,9 @@ kernel against its plain version on one late window at the grown
 capacity),
 ``mosaic_ladder``
 (rungs 0-10), ``plane_rmw`` (the three repros), ``diag_kernels`` (each
-diagnostic kernel against its plain version, then timed); then the
+diagnostic kernel against its plain version, then timed beside its
+library call in the same mode; g3d and g2d also in place on a live slot
+and at the main path's width); then the
 card's name and power limit, the ``kernels`` line and, last,
 ``{"ok": true, "device": {...}}``. Launch counts are set to 0 just
 before each program runs and read just after it. Any failure exits
@@ -504,34 +506,13 @@ def phase_plane_rmw(gpu, dev="cuda"):
     return launches
 
 
-def _graph_ms(fn, reps: int = 200, rounds: int = 5) -> float:
-    """Device ms per call of `fn`: `reps` calls captured in one CUDA graph,
-    replayed `rounds` times between two CUDA events (no host issue time in
-    the measure). A capture the runtime refuses raises."""
-    import torch
-
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        for _ in range(3):
-            fn()
-    torch.cuda.current_stream().wait_stream(side)
-    torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(reps):
-            fn()
-    graph.replay()
-    ms = _time_ms(graph.replay, rounds) / reps
-    del graph
-    return ms
-
-
 # fills a separate output before a launch: an element the kernel misses or
 # misplaces keeps it, and the comparison with the plain version fails
 SENTINEL = -123456789
 # the diagnostic kernels that can write a separate output (``out=``)
 OUT_OF_PLACE = ("a_static3d_allfalse", "a2_static3d_slot0", "g3d", "g2d_flat", "v_vmem", "v_multi")
+# the two entry points of the column put, also timed in place and at full width
+COLUMN_PUTS = ("g3d", "g2d_flat")
 
 
 def _variants(case, args, seed: int):
@@ -539,12 +520,9 @@ def _variants(case, args, seed: int):
     as ``[(inputs, kwargs maker)]``: the program's own; a seeded variant
     where the kernel decides on data; for the kernels in OUT_OF_PLACE the
     program's inputs written into an output filled with SENTINEL; and for
-    g3d and g2d a seeded state with a live slot (``idx >= 0``) and a nonzero
-    fill, in place and into a SENTINEL-filled output."""
-    import numpy as np
+    g3d and g2d a seeded state with a live slot (`_live_slot`), in place
+    and into a SENTINEL-filled output."""
     import torch
-
-    from ytpu_torch.benches import plane_rmw_repro2
 
     out = [(args, dict)]
     seeded = _seeded_inputs(case, args, seed)
@@ -554,16 +532,30 @@ def _variants(case, args, seed: int):
         target = args[-1]  # x, or meta for v_multi
 
         out.append((args, lambda: {"out": torch.full_like(target, SENTINEL)}))
-    if case.name in ("g3d", "g2d_flat"):
-        rng = np.random.default_rng(seed)
-        (x,) = args
-        x = torch.from_numpy(rng.integers(-(2**31), 2**31, size=tuple(x.shape), dtype=np.int64)
-                             .astype(np.int32)).to(x.device)
-        slots = x.shape[-1] if case.name == "g3d" else x.shape[1] // plane_rmw_repro2.NC
-        live = {"idx": int(rng.integers(slots)), "fill": 12345}
+    if case.name in COLUMN_PUTS:
+        x, live = _live_slot(case.name, args[0], seed)
         out.append(((x,), lambda: dict(live)))
         out.append(((x,), lambda: {"out": torch.full_like(x, SENTINEL), **live}))
     return out
+
+
+def _slots(name: str, x) -> int:
+    """The plane width C of g3d's ``[NC, D, C]`` or g2d's ``[D, NC * C]``."""
+    from ytpu_torch.benches.plane_rmw_repro2 import NC
+
+    return x.shape[-1] if name == "g3d" else x.shape[1] // NC
+
+
+def _live_slot(name: str, like, seed: int):
+    """A seeded int32 state of `like`'s shape and device, and a live slot
+    (``idx`` in ``[0, C)``, fill 12,345) for g3d or g2d."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.integers(-(2**31), 2**31, size=tuple(like.shape), dtype=np.int64)
+                         .astype(np.int32)).to(like.device)
+    return x, {"idx": int(rng.integers(_slots(name, x))), "fill": 12345}
 
 
 def _seeded_inputs(case, args, seed: int):
@@ -604,27 +596,112 @@ def _seeded_inputs(case, args, seed: int):
 
 
 def _abs_err(got, want) -> int:
+    """Max abs difference of tensors or tuples of tensors (computed only
+    where they differ: at full width the difference alone takes GBs)."""
+    import torch
+
     got = got if isinstance(got, tuple) else (got,)
     want = want if isinstance(want, tuple) else (want,)
     err = 0
     for g, w in zip(got, want):
         if g.shape != w.shape:
             raise RuntimeError(f"shape {tuple(g.shape)} != {tuple(w.shape)}")
-        err = max(err, int((g.long() - w.long()).abs().max()))
+        if not torch.equal(g, w):
+            err = max(err, int((g.long() - w.long()).abs().max()))
     return err
+
+
+def _column_put_pairs(case, like, seed: int):
+    """g3d or g2d beside the one PyTorch call that computes the same
+    function, in the same mode, on the same input: in place on
+    `_live_slot`'s input at the program's shape, beside the fill of that
+    column; then at the main path's width, ``[26, 256, 65,536]`` (g2d:
+    ``[256, 26 * 65,536]``), on an input made on the card from a seeded
+    generator: out of place (held on the live slot and at the program's
+    idx -1, timed at idx -1) beside ``copy_``, in
+    place on a live slot beside the column fill, and in place at idx -1
+    (no library call: nothing changes). Every kernel result is held
+    against the plain version's, and each library call's against the
+    kernel's. Returns the fields and the max abs error."""
+    import numpy as np
+    import torch
+
+    from ytpu_torch.benches._kernels import graph_ms
+    from ytpu_torch.benches.plane_rmw_repro2 import NC
+
+    fn, name = case.fn, case.name
+
+    def column_fill(x, idx, fill):
+        planes = x if name == "g3d" else x.view(x.shape[0], NC, -1)
+        return lambda: planes.select(-1, idx).fill_(fill)
+
+    x, live = _live_slot(name, like, seed)
+    xk, xl = x.clone(), x.clone()
+    fields = {"in_place_live_ms": graph_ms(lambda: fn(xk, **live)),
+              "in_place_library_ms": graph_ms(column_fill(xl, **live))}
+    want = case.plain(x.clone(), **live)
+    err = max(_abs_err(xk, want), _abs_err(xl, want))
+    del x, xk, xl, want
+
+    shape = (NC, N_DOCS, CAPACITY) if name == "g3d" else (N_DOCS, NC * CAPACITY)
+    gen = torch.Generator(device=like.device)
+    gen.manual_seed(seed)
+    x = torch.empty(shape, dtype=torch.int32, device=like.device).random_(-(2**31), 2**31, generator=gen)
+    live = {"idx": int(np.random.default_rng(seed).integers(CAPACITY)), "fill": 12345}
+    # out of place into SENTINEL, the input left as it was: on the live
+    # slot, then at idx -1
+    x0, o = x.clone(), torch.full_like(x, SENTINEL)
+    fn(x, out=o, **live)
+    want = case.plain(x, out=torch.empty_like(x), **live)
+    err = max(err, _abs_err(o, want), _abs_err(x, x0))
+    del want
+    o.fill_(SENTINEL)
+    fn(x, out=o)
+    want = case.plain(x, out=torch.empty_like(x))
+    err = max(err, _abs_err(o, want), _abs_err(x, x0))
+    del x0, want
+    copy_out = torch.empty_like(x)
+    wide = {"shape": list(shape), "out_of_place_ms": graph_ms(lambda: fn(x, out=o)),
+            "library_ms": graph_ms(lambda: copy_out.copy_(x))}
+    err = max(err, _abs_err(copy_out, o))
+    del copy_out
+    # in place, live slot: the kernel on `o`, the plain version and the
+    # column fill on copies of `x`
+    o.copy_(x)
+    fn(o, **live)
+    want = case.plain(x.clone(), **live)
+    err = max(err, _abs_err(o, want))
+    del want
+    wide["in_place_live_ms"] = graph_ms(lambda: fn(o, **live))
+    wide["in_place_library_ms"] = graph_ms(column_fill(x, **live))
+    err = max(err, _abs_err(x, o))
+    wide["in_place_ms"] = graph_ms(lambda: fn(o))
+    err = max(err, _abs_err(x, o))
+    rows = x.numel() // _slots(name, x)
+    wide["full_width_bound_ms"] = {"out_of_place": 2 * 4 * x.numel() / HBM_BYTES_PER_S * 1e3,
+                                   "in_place": 4 * rows / HBM_BYTES_PER_S * 1e3}
+    wide["live"] = live
+    del x, o
+    torch.cuda.empty_cache()
+    fields["full_width"] = wide
+    return fields, err
 
 
 def phase_diag_kernels(gpu, launches, dev="cuda"):
     """Every diagnostic kernel at its program's shapes: held against its
-    plain version on the inputs of `_variants`, then timed: the kernel and
-    the one PyTorch call that computes the same function (where there is
-    one) as device time per launch inside a CUDA graph, and also as
-    back-to-back launches from the host; the plain version with CUDA
-    events. These launches are not counted: the counts come from the
-    programs' own runs."""
+    plain version on the inputs of `_variants`, then timed beside the one
+    PyTorch call that computes the same function (where there is one), in
+    the same mode on the same input: device time per launch of a CUDA graph
+    (`graph_ms`: min, mean and max over its rounds) and back-to-back
+    launches from the host; the plain version with CUDA events. The
+    kernels in OUT_OF_PLACE are timed out of place, the mode of their
+    library call (``copy_``, ``torch.where``), with the in-place call
+    beside it (``in_place_ms``); g3d and g2d also get `_column_put_pairs`.
+    These launches are not counted: the counts come from the programs' own
+    runs."""
     import torch
 
-    from ytpu_torch.benches import plane_rmw_repro2
+    from ytpu_torch.benches._kernels import graph_ms
 
     entries = []
     for case in _diag_cases():
@@ -639,28 +716,34 @@ def phase_diag_kernels(gpu, launches, dev="cuda"):
             if "out" in kw and not all(torch.equal(a, b) for a, b in zip(k_inputs, inputs)):
                 raise RuntimeError(f"{case.name} out of place wrote its input")
         extra = {}
-        if case.name == "g3d":  # the program also runs it out of place
-            x, o = args[0].clone(), torch.empty_like(args[0])
-            extra["out_of_place_ms"] = _graph_ms(lambda: plane_rmw_repro2.g3d(x, out=o))
+        if case.name in COLUMN_PUTS:
+            pairs, pair_err = _column_put_pairs(case, args[0], 11)
+            err = max(err, pair_err)
+            extra.update(pairs)
         if err != 0:
             raise RuntimeError(f"{case.name}: kernel and plain version differ (max abs err {err})")
         run_args = tuple(a.clone() for a in args)
-        ms = _graph_ms(lambda: case.fn(*run_args))
-        stream_ms = _time_ms(lambda: case.fn(*run_args), 200)
         plain_args = tuple(a.clone() for a in args)
-        plain_ms = _time_ms(lambda: case.plain(*plain_args), 20)
-        library_ms = library_stream_ms = None
+        kw = plain_kw = {}
+        if case.name in OUT_OF_PLACE:
+            extra["in_place_ms"] = graph_ms(lambda: case.fn(*run_args))
+            kw = {"out": torch.empty_like(args[-1])}
+            plain_kw = {"out": torch.empty_like(args[-1])}
+        timed = graph_ms(lambda: case.fn(*run_args, **kw))
+        stream_ms = _time_ms(lambda: case.fn(*run_args, **kw), 200)
+        plain_ms = _time_ms(lambda: case.plain(*plain_args, **plain_kw), 20)
+        library = library_stream_ms = None
         if case.library is not None:
             lib_call = case.library(args)
-            library_ms = _graph_ms(lib_call)
+            library = graph_ms(lib_call)
             library_stream_ms = _time_ms(lib_call, 200)
         bound_b = case.bound_bytes(args)
         entries.append({
             "name": case.name, "route": "cuda", "source": case.source, "replaces": case.replaces,
-            "launches": launches[case.fn.__name__], "max_abs_err": err, "ms": ms,
+            "launches": launches[case.fn.__name__], "max_abs_err": err, "ms": timed["mean"],
             "plain_ms": plain_ms, "bound_ms": bound_b / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
-            "library_ms": library_ms, "host_issued_ms": stream_ms,
-            "library_host_issued_ms": library_stream_ms, "bound_bytes": bound_b,
+            "library_ms": library and library["mean"], "ms_spread": timed, "library_spread": library,
+            "host_issued_ms": stream_ms, "library_host_issued_ms": library_stream_ms, "bound_bytes": bound_b,
             "variants_compared": len(variants), "shapes": [list(a.shape) for a in args], **extra,
         })
     emit({"phase": "diag_kernels", "kernels": entries, "gpu": gpu})

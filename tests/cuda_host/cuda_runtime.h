@@ -1,6 +1,8 @@
-// Host stand-in for the CUDA pieces ytpu_torch/csrc/integrate.cu uses, so
-// that g++ can compile the kernel source and run its logic on the CPU
-// (tests/test_torch_integrate_emulated.py). It is an emulator, not a GPU:
+// Host stand-in for the CUDA pieces ytpu_torch/csrc/integrate.cu and the
+// column put of ytpu_torch/csrc/plane_rmw.cu use, so that g++ can compile
+// the kernel source and run its logic on the CPU
+// (tests/test_torch_integrate_emulated.py,
+// tests/test_torch_plane_rmw_emulated.py). It is an emulator, not a GPU:
 //
 //   * every CUDA thread is a std::thread; the CTAs of a launch run one
 //     after another;
@@ -36,7 +38,7 @@
 #define __host__
 #define __global__
 #define __forceinline__ inline
-#define __launch_bounds__(a, b)
+#define __launch_bounds__(...)
 #define __shared__ static
 #define __align__(n)
 #define __restrict__
@@ -48,7 +50,14 @@ inline ulonglong2 make_ulonglong2(unsigned long long a, unsigned long long b) { 
 struct EmuIndex {
   int x;
 };
-inline thread_local EmuIndex blockIdx, threadIdx;
+inline thread_local EmuIndex blockIdx, threadIdx, gridDim, blockDim;
+struct int4 {
+  int x, y, z, w;
+};
+template <class T>
+inline T __ldg(const T* p) {
+  return *p;
+}
 using std::max;
 using std::min;
 
@@ -220,10 +229,12 @@ inline unsigned char* emu_dyn_smem() {
 inline void emu_launch(int grid, int threads, size_t smem, std::function<void()> body) {
   for (int b = 0; b < grid; ++b) {
     EmuCta cta(threads, smem);
-    std::atomic<bool> finished{false};
+    std::mutex watch_mu;
+    std::condition_variable watch_cv;
+    bool finished = false;
     std::thread watch([&] {
-      for (int i = 0; i < 600 && !finished; ++i) std::this_thread::sleep_for(std::chrono::milliseconds(50));
-      if (finished) return;
+      std::unique_lock<std::mutex> g(watch_mu);
+      if (watch_cv.wait_for(g, std::chrono::seconds(30), [&] { return finished; })) return;
       std::fprintf(stderr, "CTA %d stuck; last collective line per thread:", b);
       for (int t = 0; t < threads; ++t) std::fprintf(stderr, " %d:%d", t, emu_line[t]);
       std::fprintf(stderr, "\n");
@@ -233,11 +244,17 @@ inline void emu_launch(int grid, int threads, size_t smem, std::function<void()>
       ts.emplace_back([&, b, t] {
         blockIdx.x = b;
         threadIdx.x = t;
+        gridDim.x = grid;
+        blockDim.x = threads;
         emu_cta = &cta;
         body();
       });
     for (auto& th : ts) th.join();
-    finished = true;
+    {
+      std::lock_guard<std::mutex> g(watch_mu);
+      finished = true;
+    }
+    watch_cv.notify_all();
     watch.join();
   }
 }

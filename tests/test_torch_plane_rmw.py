@@ -351,6 +351,31 @@ def test_out_of_place_writes_every_element(name):
     assert all(torch.equal(a, b) for a, b in zip(args, kept))
 
 
+@pytest.mark.parametrize("name", ["a_static3d_allfalse", "a2_static3d_slot0", "g3d", "g2d_flat",
+                                  "v_vmem", "v_multi"])
+def test_out_overlapping_x_raises(name):
+    """An `out` one element past `x` in the same buffer is refused: a kernel
+    would read elements its own stores had already changed."""
+    case = {c.name: c for c in t1.CASES + t2.CASES + t3.CASES}[name]
+    args = list(case.inputs("cpu"))
+    target = args[-1]
+    buf = torch.empty(target.numel() + 1, dtype=target.dtype)
+    args[-1] = buf[: target.numel()].view(target.shape).copy_(target)
+    with pytest.raises(ValueError, match="overlaps x"):
+        case.fn(*args, out=buf[1:].view(target.shape))
+    with pytest.raises(ValueError, match="overlaps x"):
+        case.plain(*args, out=buf[1:].view(target.shape))
+
+
+@pytest.mark.parametrize("fn", [t2.g3d, t2.g2d_flat])
+def test_out_at_the_address_of_x_is_the_in_place_call(fn):
+    x = _t(x3()) if fn is t2.g3d else _t(x2())
+    want = fn(x.clone(), idx=9, fill=-5)
+    same = x.view(x.shape)
+    assert fn(x, out=same, idx=9, fill=-5) is same
+    assert torch.equal(x, want)
+
+
 @pytest.mark.parametrize("fn", [t2.g3d, t2.g2d_flat])
 def test_masked_write_of_a_live_slot(fn):
     """idx >= 0 puts `fill` at that slot of every plane and doc, in place

@@ -39,13 +39,12 @@ def plane_lib():
     """The plane RMW kernel library with its C signatures declared."""
     from ytpu_torch.ops import _build
 
-    p, i = ctypes.c_void_p, ctypes.c_int
+    p, i, q = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     return _build.bind(
         "plane_rmw",
         {
             "ytpu_plane_masked_put": [p, p, i, i, i, i, i, i, p],
-            "ytpu_plane_g3d": [p, p, i, i, i, i, i, i, p],
-            "ytpu_plane_g2d": [p, p, i, i, i, i, i, i, p],
+            "ytpu_column_put": [p, p, q, i, i, i, p],
             "ytpu_plane_vmem": [p, p, i, i, i, i, p],
             "ytpu_plane_v_multi": [p, p, i, i, p],
             "ytpu_plane_v_body": [p, p, p, p, i, i, i, i, i, i, p],

@@ -5,12 +5,14 @@ The integrate kernel's own call shape against a flat layout, on a known
 pattern with every plane given a masked write under an all-False mask (so
 the result must equal the input):
 
-  g3d_alias   : grid over blocks of DB docs, the [NC, D, C] state, in place
+  g3d_alias   : the [NC, D, C] state, in place
   g3d_noalias : the same into a separate output tensor
   g2d_flat    : the [D, NC * C] layout, a plane being a lane slice, in place
 
-The kernels are ``ytpu_plane_g3d`` / ``ytpu_plane_g2d`` of
-``csrc/plane_rmw.cu``; beside them are their plain PyTorch versions.
+(the JAX script's grid runs over blocks of 8 docs). Both layouts are one
+function of the flat elements, ``where(i mod C == idx, fill, x[i])``, so
+g3d and g2d both call ``ytpu_column_put`` of ``csrc/plane_rmw.cu``, with
+their own plane width C; beside them are their plain PyTorch versions.
 `main` returns each case's ``status`` / ``n_bad`` / ``first_bad`` as the
 JAX script records them.
 
@@ -35,7 +37,7 @@ from ytpu_torch.core.device import resolve_device
 
 __all__ = ["CASES", "g3d", "g2d_flat", "main"]
 
-NC, D, C, DB = 26, 8, 512, 8
+NC, D, C = 26, 8, 512
 IDX, FILL = -1, 0  # the all-False mask: no slot, fill 0
 
 
@@ -91,9 +93,8 @@ def g3d(x, out=None, idx: int = IDX, fill: int = FILL):
     from ytpu_torch.ops import _build
 
     lib = plane_lib()
-    n_planes, n_docs, width = x.shape
-    err = lib.ytpu_plane_g3d(x.data_ptr(), o.data_ptr(), n_planes, n_docs, width, DB, idx, fill,
-                             stream_of(x))
+    err = lib.ytpu_column_put(x.data_ptr(), o.data_ptr(), x.numel(), x.shape[2], idx, fill,
+                              stream_of(x))
     _build.check(lib, err, "g3d")
     g3d.launches += 1
     return o
@@ -116,9 +117,8 @@ def g2d_flat(x, out=None, idx: int = IDX, fill: int = FILL):
     from ytpu_torch.ops import _build
 
     lib = plane_lib()
-    n_docs, lanes = x.shape
-    err = lib.ytpu_plane_g2d(x.data_ptr(), o.data_ptr(), NC, n_docs, lanes // NC, DB, idx, fill,
-                             stream_of(x))
+    err = lib.ytpu_column_put(x.data_ptr(), o.data_ptr(), x.numel(), x.shape[1] // NC, idx, fill,
+                              stream_of(x))
     _build.check(lib, err, "g2d_flat")
     g2d_flat.launches += 1
     return o

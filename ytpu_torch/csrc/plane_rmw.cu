@@ -13,17 +13,31 @@
 //
 // `input_output_aliases` becomes a launch whose output pointer is the
 // input's (in place); without aliasing the launch writes a separate
-// output. The kernels never assume either: an element is read before it
-// is written, by the same thread.
+// output. The wrappers refuse an output that overlaps its input without
+// being it.
 //
-// What bounds them on this card: the launch. The state is [26, 8, 512]
-// i32 (426 KB), read once and written once in 0.25 us at 3.35 TB/s, far
-// under a launch. The design keeps one launch per call, a grid of about a
-// hundred CTAs for the repros' shapes (one CTA per SM's worth of work, so
-// the call costs one memory round trip) and one 16-byte group per thread
-// where the rows allow it (C a multiple of 4, 16-byte aligned tensors).
-// g3d and g2d keep the Pallas grid over blocks of DB docs as the grid's y
-// axis; each plane of a block is cut into CTAs of 256 groups.
+// g3d and g2d are one kernel, the column put. Neither the Pallas doc block
+// nor the plane index is part of their function: in both layouts ([NC, D,
+// C], and [D, NC * C] with a plane a lane slice) flat element i gets
+// `fill` exactly when i mod C == idx (0 <= idx < C) and keeps x[i]
+// otherwise. In place only that column can change, so the in-place call
+// writes NC * D ints and reads nothing (at the repros' idx = -1 its
+// threads return at once; the launch still happens). Out of place it is a
+// streaming copy bound by the card's memory rate (each element read once
+// and written once: 3.49 GB for the main path's [26, 256, 65,536] state,
+// 1.04 ms at 3.35 TB/s): each thread issues the non-coherent loads of G
+// 16-byte groups before any store and patches the column in registers
+// (one 32-bit mod C a group); the grid covers the state once. A row whose
+// width is not a multiple of 4, or a tensor not 16-byte aligned, takes
+// the same loop one int at a time. At the repros' [26, 8, 512] (426 KB)
+// every call is launch latency.
+//
+// The other kernels are bound by the launch too: their state is [26, 8,
+// 512] i32 (426 KB), read once and written once in 0.25 us at 3.35 TB/s,
+// far under a launch. They keep one launch per call, a grid of about a
+// hundred CTAs (one CTA per SM's worth of work, so the call costs one
+// memory round trip) and one 16-byte group per thread where the rows
+// allow it (C a multiple of 4, 16-byte aligned tensors).
 //
 // `v_vmem` raised the TPU's scratch limit (vmem_limit_bytes = 64 MB). Its
 // counterpart stages the state plane by plane through dynamic shared
@@ -36,21 +50,16 @@
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC -o libytpu_plane_rmw.so plane_rmw.cu
+// tests/_emulated_plane_rmw.py builds the column-put section alone with
+// g++ against tests/cuda_host (a host emulator of CUDA).
 
 #include <climits>
 #include <cstdint>
 #include <cuda_runtime.h>
 
+// ---- column put (g3d, g2d) ---------------------------------------------------------
+
 namespace {
-
-constexpr int THREADS = 256;
-constexpr int MAX_CTAS = 1024;
-constexpr int STAGE_BYTES = THREADS * 16;  // v_vmem: bytes staged per CTA
-
-int grid_for(long long n) {
-  long long b = (n + THREADS - 1) / THREADS;
-  return b < 1 ? 1 : (b > MAX_CTAS ? MAX_CTAS : (int)b);
-}
 
 // V consecutive ints moved as one load and one store
 template <int V>
@@ -59,8 +68,9 @@ template <>
 struct Group<4> {
   int4 v;
   __device__ void load(const int* p) { v = *reinterpret_cast<const int4*>(p); }
+  __device__ void load_nc(const int* __restrict__ p) { v = __ldg(reinterpret_cast<const int4*>(p)); }
   __device__ void store(int* p) const { *reinterpret_cast<int4*>(p) = v; }
-  __device__ void set(int k, int val) {
+  __device__ void set(unsigned k, int val) {
     if (k == 0) v.x = val;
     else if (k == 1) v.y = val;
     else if (k == 2) v.z = val;
@@ -71,12 +81,110 @@ template <>
 struct Group<1> {
   int v;
   __device__ void load(const int* p) { v = *p; }
+  __device__ void load_nc(const int* __restrict__ p) { v = __ldg(p); }
   __device__ void store(int* p) const { *p = v; }
-  __device__ void set(int, int val) { v = val; }
+  __device__ void set(unsigned, int val) { v = val; }
 };
 
 bool vec4(const void* a, const void* b, long long C) {
   return C % 4 == 0 && (uintptr_t)a % 16 == 0 && (uintptr_t)b % 16 == 0;
+}
+
+// i mod C, in 32 bits where the index fits in them
+__device__ inline int column_of(int i, int C) { return (int)((unsigned)i % (unsigned)C); }
+__device__ inline int column_of(long long i, int C) { return (int)(i % C); }
+
+// 16-byte groups a thread loads before it stores, and the CTA size: the
+// best of G in {2, 4, 8} x {128, 256} threads at both the repros' and the
+// main path's shape (PERF.md)
+constexpr int COL_G = 2;
+constexpr int COL_THREADS = 256;
+constexpr long long COL_PER_CTA = (long long)COL_G * COL_THREADS;  // groups a CTA moves
+
+// in place: x[k * C + idx] = fill for every row k < rows; reads nothing
+__global__ void __launch_bounds__(COL_THREADS)
+column_fill(int* x, long long rows, int C, int idx, int fill) {
+  if (idx < 0 || idx >= C) return;
+  const long long k = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (k < rows) x[k * C + idx] = fill;
+}
+
+// out of place: o[i] = (i mod C == idx) ? fill : x[i] over `groups` groups
+// of V ints (C % V == 0, so a group lies in one row). CTA b moves groups
+// [b * COL_PER_CTA, +COL_PER_CTA): a thread takes COL_G of them,
+// COL_THREADS apart, loads them all, then patches and stores them. Index
+// is int unless an index may pass INT_MAX (column_launch decides).
+template <int V, class Index>
+__global__ void __launch_bounds__(COL_THREADS)
+column_put(const int* __restrict__ x, int* __restrict__ o, Index groups, int C, int idx, int fill) {
+  const Index g0 = (Index)blockIdx.x * (Index)COL_PER_CTA + (Index)threadIdx.x;
+  Group<V> v[COL_G];
+#pragma unroll
+  for (int j = 0; j < COL_G; ++j) {
+    const Index g = g0 + (Index)j * COL_THREADS;
+    if (g < groups) v[j].load_nc(x + g * V);
+  }
+#pragma unroll
+  for (int j = 0; j < COL_G; ++j) {
+    const Index g = g0 + (Index)j * COL_THREADS;
+    if (g < groups) {
+      const Index i = g * V;
+      const unsigned k = (unsigned)(idx - column_of(i, C));
+      if (k < (unsigned)V) v[j].set(k, fill);
+      v[j].store(o + i);
+    }
+  }
+}
+
+template <int V, class Index>
+void launch_column_put(const int* x, int* o, long long n, int C, int idx, int fill,
+                       cudaStream_t st) {
+  const long long groups = n / V;
+  const unsigned blocks = (unsigned)((groups + COL_PER_CTA - 1) / COL_PER_CTA);
+  column_put<V, Index><<<blocks, COL_THREADS, 0, st>>>(x, o, (Index)groups, C, idx, fill);
+}
+
+// where(i mod C == idx & idx >= 0, fill, x[i]) over the n ints of x, into
+// o: the column fill when o is x, else the streaming copy
+int column_launch(const void* x, void* o, long long n, int C, int idx, int fill,
+                  cudaStream_t st) {
+  if (n <= 0) return 0;
+  if (C <= 0 || n % C) return (int)cudaErrorInvalidValue;
+  if (x == o) {
+    const long long rows = n / C;
+    column_fill<<<(unsigned)((rows + COL_THREADS - 1) / COL_THREADS), COL_THREADS, 0, st>>>(
+        (int*)o, rows, C, idx, fill);
+    return (int)cudaGetLastError();
+  }
+  const bool wide = n + COL_PER_CTA > INT_MAX;  // groups <= n
+  const bool v4 = vec4(x, o, C);
+  if (v4 && wide) launch_column_put<4, long long>((const int*)x, (int*)o, n, C, idx, fill, st);
+  else if (v4) launch_column_put<4, int>((const int*)x, (int*)o, n, C, idx, fill, st);
+  else if (wide) launch_column_put<1, long long>((const int*)x, (int*)o, n, C, idx, fill, st);
+  else launch_column_put<1, int>((const int*)x, (int*)o, n, C, idx, fill, st);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// g3d ([NC, D, C]) and g2d ([D, NC * C], plane p the lane slice [p * C,
+// (p + 1) * C)): x and o hold n ints, rows of C
+extern "C" int ytpu_column_put(const void* x, void* o, long long n, int C, int idx, int fill,
+                               void* stream) {
+  return column_launch(x, o, n, C, idx, fill, (cudaStream_t)stream);
+}
+
+// ---- end column put ----------------------------------------------------------------
+
+namespace {
+
+constexpr int THREADS = 256;
+constexpr int MAX_CTAS = 1024;
+constexpr int STAGE_BYTES = THREADS * 16;  // v_vmem: bytes staged per CTA
+
+int grid_for(long long n) {
+  long long b = (n + THREADS - 1) / THREADS;
+  return b < 1 ? 1 : (b > MAX_CTAS ? MAX_CTAS : (int)b);
 }
 
 // cases a / a2: plane `plane` gets o[plane, d, c] = val where c == idx
@@ -95,28 +203,6 @@ masked_plane_put(const int* x, int* o, long long groups, long long dc, int C, in
     if (idx >= c0 && idx < c0 + V && i / dc == plane) v.set(idx - c0, val);
     v.store(o + i);
   }
-}
-
-// g3d / g2d: CTA (plane p, chunk; doc block b) takes its share of the DB
-// rows of plane p of doc block b and writes where(c == idx & idx >= 0,
-// fill, x). `row_stride` is the distance between two docs' rows and
-// `plane_stride` between two planes: [NC, D, C] has (C, D * C), the flat
-// [D, NC * C] layout (NC * C, C).
-template <int V>
-__global__ void __launch_bounds__(THREADS)
-masked_block_put(const int* x, int* o, int D, int C, int DB, long long row_stride,
-                 long long plane_stride, int idx, int fill, int chunks) {
-  const int p = blockIdx.x / chunks, chunk = blockIdx.x - p * chunks;
-  const int d0 = blockIdx.y * DB;
-  const int per_row = C / V;
-  const int j = chunk * blockDim.x + threadIdx.x;
-  if (j >= min(DB, D - d0) * per_row) return;
-  const int dd = j / per_row, c0 = (j - dd * per_row) * V;
-  const long long i = p * plane_stride + (long long)(d0 + dd) * row_stride + c0;
-  Group<V> v;
-  v.load(x + i);
-  if (idx >= c0 && idx < c0 + V) v.set(idx - c0, fill);
-  v.store(o + i);
 }
 
 // v_vmem: passthrough of the [NC, D, C] state; CTA (p, b, z) stages rows
@@ -209,36 +295,6 @@ extern "C" int ytpu_plane_masked_put(const void* x, void* o, int NC, int D, int 
         (const int*)x, (int*)o, n, (long long)D * C, C, plane, idx, val);
   }
   return (int)cudaGetLastError();
-}
-
-static int launch_block_put(const void* x, void* o, int NC, int D, int C, int DB,
-                            long long row_stride, long long plane_stride, int idx, int fill,
-                            cudaStream_t st) {
-  if (NC <= 0 || D <= 0 || C <= 0) return 0;
-  if (DB <= 0) return (int)cudaErrorInvalidValue;
-  const int V = vec4(x, o, C) ? 4 : 1;
-  const int chunks = (int)(((long long)DB * (C / V) + THREADS - 1) / THREADS);
-  const dim3 grid(NC * chunks, (D + DB - 1) / DB);
-  if (V == 4) {
-    masked_block_put<4><<<grid, THREADS, 0, st>>>((const int*)x, (int*)o, D, C, DB, row_stride,
-                                                 plane_stride, idx, fill, chunks);
-  } else {
-    masked_block_put<1><<<grid, THREADS, 0, st>>>((const int*)x, (int*)o, D, C, DB, row_stride,
-                                                 plane_stride, idx, fill, chunks);
-  }
-  return (int)cudaGetLastError();
-}
-
-extern "C" int ytpu_plane_g3d(const void* x, void* o, int NC, int D, int C, int DB,
-                              int idx, int fill, void* stream) {
-  return launch_block_put(x, o, NC, D, C, DB, C, (long long)D * C, idx, fill,
-                          (cudaStream_t)stream);
-}
-
-extern "C" int ytpu_plane_g2d(const void* x, void* o, int NC, int D, int C, int DB,
-                              int idx, int fill, void* stream) {
-  return launch_block_put(x, o, NC, D, C, DB, (long long)NC * C, C, idx, fill,
-                          (cudaStream_t)stream);
 }
 
 extern "C" int ytpu_plane_vmem(const void* x, void* o, int NC, int D, int C, int DB,
