@@ -8,7 +8,8 @@ Usage (on a machine with one NVIDIA GPU and the CUDA toolkit):
 
 Phases, one JSON line each: ``build`` (the four CUDA libraries, one nvcc
 each, in parallel; the integrate kernel must use no stack frame and no
-spills), ``kernel_vs_plain`` (small cases: B4 chunks, synthetic streams
+spills, the column put must issue its loads before its first store and
+use no local memory), ``kernel_vs_plain`` (small cases: B4 chunks, synthetic streams
 at three scan plans and a capacity cut, 8 clients typing, clients above
 the client-clock table, a misaligned stream view that must raise),
 ``integrate_profile`` (cycles per step per phase of the profiling build
@@ -23,9 +24,10 @@ capacity),
 ``mosaic_ladder``
 (rungs 0-10), ``plane_rmw`` (the three repros), ``diag_kernels`` (each
 diagnostic kernel against its plain version, then timed beside its
-library call in the same mode; g3d and g2d also in place on a live slot
-and at the main path's width); then the
-card's name and power limit, the ``kernels`` line and, last,
+library call in the same mode and beside an empty kernel at its grid, the
+launch floor; the column puts a, a2, g3d and g2d also in place on a live
+slot and at the main path's width, v_vmem at that width); then
+the card's name and power limit, the ``kernels`` line and, last,
 ``{"ok": true, "device": {...}}``. Launch counts are set to 0 just
 before each program runs and read just after it. Any failure exits
 non-zero without the last line. It imports neither JAX nor the JAX
@@ -105,9 +107,46 @@ def _ptxas(log: str, kernel: str) -> dict:
     return out
 
 
+def _sass_summary(lib_path: str, kernel: str) -> dict:
+    """Per instantiation of `kernel` in a built library, from ``cuobjdump
+    -sass``: its global loads and stores, how many loads come before the
+    first store, and its local-memory instructions (a spill or a stack
+    array)."""
+    import re
+
+    from ytpu_torch.ops import _build
+
+    tool = os.path.join(os.path.dirname(_build.nvcc_path()), "cuobjdump")
+    out = subprocess.run([tool, "-sass", lib_path], capture_output=True, text=True, timeout=120)
+    if out.returncode != 0:
+        raise RuntimeError(f"cuobjdump failed: {out.stderr.strip()[:500]}")
+    summary, fn = {}, None
+    for line in out.stdout.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = summary[m.group(1)] = {"ldg": 0, "stg": 0, "ldg_before_first_stg": None, "local": 0} \
+                if kernel in m.group(1) else None
+            continue
+        m = re.search(r"/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9]*)", line)
+        if fn is None or m is None:
+            continue
+        op = m.group(1)
+        if op == "LDG":
+            fn["ldg"] += 1
+        elif op == "STG":
+            if fn["stg"] == 0:
+                fn["ldg_before_first_stg"] = fn["ldg"]
+            fn["stg"] += 1
+        elif op in ("LDL", "STL"):
+            fn["local"] += 1
+    return {k: v for k, v in summary.items() if v is not None}
+
+
 def phase_build(gpu):
     """Every library, one nvcc each in parallel; the integrate kernel's
-    ptxas report must show no stack frame and no spills."""
+    ptxas report must show no stack frame and no spills, and every
+    instantiation of the column put must load all its groups before its
+    first store and use no local memory (`_sass_summary`)."""
     from ytpu_torch.ops import _build
 
     t0 = time.perf_counter()
@@ -118,11 +157,18 @@ def phase_build(gpu):
         _build.load(name)
     ptxas = {name: _ptxas(_build.build_log(name), "integrate_kernel")
              for name in ("integrate", "integrate_profile")}
+    column_put_sass = _sass_summary(libs["plane_rmw"], "column_put")
     emit({"phase": "build", "seconds": build_s, "load_seconds": time.perf_counter() - t0 - build_s,
-          "libraries": sorted(libs), "integrate_ptxas": ptxas, "gpu": gpu})
+          "libraries": sorted(libs), "integrate_ptxas": ptxas, "column_put_sass": column_put_sass,
+          "gpu": gpu})
     main = ptxas["integrate"]
     if main["stack_frame_bytes"] or main["spill_store_bytes"] or main["spill_load_bytes"]:
         raise RuntimeError(f"integrate_kernel uses local memory: {main}")
+    # the column put's streaming copy issues every load before its first
+    # store and keeps its groups in registers
+    if not column_put_sass or any(f["local"] or f["ldg_before_first_stg"] != f["ldg"]
+                                  for f in column_put_sass.values()):
+        raise RuntimeError(f"column_put stores before its last load or uses local memory: {column_put_sass}")
     return main
 
 
@@ -495,7 +541,7 @@ def phase_plane_rmw(gpu, dev="cuda"):
     bad = [f"{prog}.{name}" for prog, r in results.items()
            for name, c in r["cases"].items() if c["status"] != "ok"]
     emit({"phase": "plane_rmw", "results": results, "launches": launches,
-          "staged_smem_limit_bytes": plane_rmw_repro3.staged_smem_limit(), "gpu": gpu})
+          "gpu": gpu})
     if bad:
         raise RuntimeError(f"plane_rmw: cases failed: {bad}")
     if results["plane_rmw_repro3"]["cases"]["v_body"]["meta"] != [[0, 0, 2, 0, 0, 0, 0, 0]] * 8:
@@ -511,8 +557,9 @@ def phase_plane_rmw(gpu, dev="cuda"):
 SENTINEL = -123456789
 # the diagnostic kernels that can write a separate output (``out=``)
 OUT_OF_PLACE = ("a_static3d_allfalse", "a2_static3d_slot0", "g3d", "g2d_flat", "v_vmem", "v_multi")
-# the two entry points of the column put, also timed in place and at full width
-COLUMN_PUTS = ("g3d", "g2d_flat")
+# the entry points of the column put (a and a2 restricted to one plane),
+# also timed in place on a live slot and at the main path's width
+COLUMN_PUTS = ("a_static3d_allfalse", "a2_static3d_slot0", "g3d", "g2d_flat")
 
 
 def _variants(case, args, seed: int):
@@ -520,7 +567,7 @@ def _variants(case, args, seed: int):
     as ``[(inputs, kwargs maker)]``: the program's own; a seeded variant
     where the kernel decides on data; for the kernels in OUT_OF_PLACE the
     program's inputs written into an output filled with SENTINEL; and for
-    g3d and g2d a seeded state with a live slot (`_live_slot`), in place
+    the column puts a seeded state with a live slot (`_live_slot`), in place
     and into a SENTINEL-filled output."""
     import torch
 
@@ -540,15 +587,15 @@ def _variants(case, args, seed: int):
 
 
 def _slots(name: str, x) -> int:
-    """The plane width C of g3d's ``[NC, D, C]`` or g2d's ``[D, NC * C]``."""
+    """The plane width C of an ``[NC, D, C]`` state or of g2d's ``[D, NC * C]``."""
     from ytpu_torch.benches.plane_rmw_repro2 import NC
 
-    return x.shape[-1] if name == "g3d" else x.shape[1] // NC
+    return x.shape[1] // NC if name == "g2d_flat" else x.shape[-1]
 
 
 def _live_slot(name: str, like, seed: int):
     """A seeded int32 state of `like`'s shape and device, and a live slot
-    (``idx`` in ``[0, C)``, fill 12,345) for g3d or g2d."""
+    (``idx`` in ``[0, C)``, fill 12,345) for a column put."""
     import numpy as np
     import torch
 
@@ -611,28 +658,62 @@ def _abs_err(got, want) -> int:
     return err
 
 
+def _full_width(name: str, like, seed: int):
+    """The main path's ``[26, 256, 65,536]`` int32 state (g2d: ``[256, 26 *
+    65,536]``), made on `like`'s card from a seeded generator."""
+    import torch
+
+    from ytpu_torch.benches.plane_rmw_repro2 import NC
+
+    shape = (N_DOCS, NC * CAPACITY) if name == "g2d_flat" else (NC, N_DOCS, CAPACITY)
+    gen = torch.Generator(device=like.device)
+    gen.manual_seed(seed)
+    return torch.empty(shape, dtype=torch.int32, device=like.device).random_(-(2**31), 2**31, generator=gen)
+
+
+def _launch_floor(fn) -> dict:
+    """The grid and block of the one kernel `fn` launches (read back from
+    a CUDA graph that captured a call) and the time of an empty kernel
+    node at that grid in a CUDA graph (`graph_ms`): the least a launch of
+    that shape costs."""
+    import torch
+
+    from ytpu_torch.benches._kernels import empty_launch, graph_ms, graph_nodes
+
+    nodes = graph_nodes(fn)
+    if [n["type"] for n in nodes] != ["kernel"]:
+        raise RuntimeError(f"expected one kernel node, got {nodes}")
+    k = nodes[0]
+    floor = graph_ms(empty_launch(k["grid"], k["block"], torch.device("cuda")))
+    return {"launch_floor_ms": floor["mean"], "launch_floor_spread": floor, "grid": k["grid"],
+            "block": k["block"]}
+
+
 def _column_put_pairs(case, like, seed: int):
-    """g3d or g2d beside the one PyTorch call that computes the same
-    function, in the same mode, on the same input: in place on
-    `_live_slot`'s input at the program's shape, beside the fill of that
-    column; then at the main path's width, ``[26, 256, 65,536]`` (g2d:
-    ``[256, 26 * 65,536]``), on an input made on the card from a seeded
-    generator: out of place (held on the live slot and at the program's
-    idx -1, timed at idx -1) beside ``copy_``, in
-    place on a live slot beside the column fill, and in place at idx -1
-    (no library call: nothing changes). Every kernel result is held
-    against the plain version's, and each library call's against the
-    kernel's. Returns the fields and the max abs error."""
+    """A column put (a, a2, g3d, g2d) beside the one PyTorch call that
+    computes the same function, in the same mode, on the same input: in
+    place on `_live_slot`'s input at the program's shape, beside the fill
+    of that column (a, a2: of their plane only); then at the main path's width
+    (`_full_width`): out of place (held on the live slot and at the
+    program's idx, timed at the program's idx) beside ``copy_``, in place
+    on a live slot beside the column fill, and in place at the program's
+    idx (no library call). Every kernel result is held against the plain
+    version's, and each library call's against the kernel's. Returns the
+    fields and the max abs error."""
     import numpy as np
     import torch
 
     from ytpu_torch.benches._kernels import graph_ms
+    from ytpu_torch.benches.plane_rmw_repro import PLANE
     from ytpu_torch.benches.plane_rmw_repro2 import NC
 
     fn, name = case.fn, case.name
 
     def column_fill(x, idx, fill):
-        planes = x if name == "g3d" else x.view(x.shape[0], NC, -1)
+        if name == "g2d_flat":
+            planes = x.view(x.shape[0], NC, -1)
+        else:
+            planes = x if name == "g3d" else x[PLANE]
         return lambda: planes.select(-1, idx).fill_(fill)
 
     x, live = _live_slot(name, like, seed)
@@ -643,13 +724,11 @@ def _column_put_pairs(case, like, seed: int):
     err = max(_abs_err(xk, want), _abs_err(xl, want))
     del x, xk, xl, want
 
-    shape = (NC, N_DOCS, CAPACITY) if name == "g3d" else (N_DOCS, NC * CAPACITY)
-    gen = torch.Generator(device=like.device)
-    gen.manual_seed(seed)
-    x = torch.empty(shape, dtype=torch.int32, device=like.device).random_(-(2**31), 2**31, generator=gen)
+    x = _full_width(name, like, seed)
+    shape = tuple(x.shape)
     live = {"idx": int(np.random.default_rng(seed).integers(CAPACITY)), "fill": 12345}
     # out of place into SENTINEL, the input left as it was: on the live
-    # slot, then at idx -1
+    # slot, then at the program's idx
     x0, o = x.clone(), torch.full_like(x, SENTINEL)
     fn(x, out=o, **live)
     want = case.plain(x, out=torch.empty_like(x), **live)
@@ -659,25 +738,33 @@ def _column_put_pairs(case, like, seed: int):
     fn(x, out=o)
     want = case.plain(x, out=torch.empty_like(x))
     err = max(err, _abs_err(o, want), _abs_err(x, x0))
-    del x0, want
+    del x0
     copy_out = torch.empty_like(x)
     wide = {"shape": list(shape), "out_of_place_ms": graph_ms(lambda: fn(x, out=o)),
-            "library_ms": graph_ms(lambda: copy_out.copy_(x))}
-    err = max(err, _abs_err(copy_out, o))
-    del copy_out
+            "library_ms": graph_ms(lambda: copy_out.copy_(x)),
+            "launch_floor": _launch_floor(lambda: fn(x, out=o))}
+    # copy_ computes the function where the program's idx changes nothing
+    err = max(err, _abs_err(o, want))
+    if torch.equal(want, x):
+        err = max(err, _abs_err(copy_out, o))
+    del copy_out, want
     # in place, live slot: the kernel on `o`, the plain version and the
     # column fill on copies of `x`
     o.copy_(x)
     fn(o, **live)
     want = case.plain(x.clone(), **live)
     err = max(err, _abs_err(o, want))
-    del want
     wide["in_place_live_ms"] = graph_ms(lambda: fn(o, **live))
     wide["in_place_library_ms"] = graph_ms(column_fill(x, **live))
     err = max(err, _abs_err(x, o))
+    # in place at the program's idx, on the state the live slot made
+    fn(o)
+    err = max(err, _abs_err(o, case.plain(want)))
+    del want
     wide["in_place_ms"] = graph_ms(lambda: fn(o))
-    err = max(err, _abs_err(x, o))
     rows = x.numel() // _slots(name, x)
+    if name in ("a_static3d_allfalse", "a2_static3d_slot0"):
+        rows //= NC  # one plane's column
     wide["full_width_bound_ms"] = {"out_of_place": 2 * 4 * x.numel() / HBM_BYTES_PER_S * 1e3,
                                    "in_place": 4 * rows / HBM_BYTES_PER_S * 1e3}
     wide["live"] = live
@@ -685,6 +772,35 @@ def _column_put_pairs(case, like, seed: int):
     torch.cuda.empty_cache()
     fields["full_width"] = wide
     return fields, err
+
+
+def _passthrough_pairs(case, like, seed: int):
+    """v_vmem (the column put at idx -1) at the main path's width
+    (`_full_width`): out of place into SENTINEL, held against the plain
+    version and timed beside ``copy_`` (in a graph and issued eagerly),
+    with its launch floor; then in place. Returns the fields and the max
+    abs error."""
+    import torch
+
+    from ytpu_torch.benches._kernels import graph_ms
+
+    x = _full_width(case.name, like, seed)
+    x0 = x.clone()
+    o = torch.full_like(x, SENTINEL)
+    case.fn(x, out=o)
+    err = _abs_err(o, case.plain(x, out=torch.empty_like(x)))
+    copy_out = torch.empty_like(x)
+    wide = {"shape": list(x.shape), "out_of_place_ms": graph_ms(lambda: case.fn(x, out=o)),
+            "library_ms": graph_ms(lambda: copy_out.copy_(x)),
+            "launch_floor": _launch_floor(lambda: case.fn(x, out=o)),
+            "library_host_issued_ms": _time_ms(lambda: copy_out.copy_(x), 20)}
+    err = max(err, _abs_err(copy_out, x), _abs_err(o, x))
+    wide["in_place_ms"] = graph_ms(lambda: case.fn(x))
+    err = max(err, _abs_err(x, x0))
+    wide["full_width_bound_ms"] = 2 * 4 * x.numel() / HBM_BYTES_PER_S * 1e3
+    del x, x0, o, copy_out
+    torch.cuda.empty_cache()
+    return {"full_width": wide}, err
 
 
 def phase_diag_kernels(gpu, launches, dev="cuda"):
@@ -696,13 +812,18 @@ def phase_diag_kernels(gpu, launches, dev="cuda"):
     launches from the host; the plain version with CUDA events. The
     kernels in OUT_OF_PLACE are timed out of place, the mode of their
     library call (``copy_``, ``torch.where``), with the in-place call
-    beside it (``in_place_ms``); g3d and g2d also get `_column_put_pairs`.
-    These launches are not counted: the counts come from the programs' own
+    beside it (``in_place_ms``); the column puts also get
+    `_column_put_pairs`, v_vmem `_passthrough_pairs`. Each entry carries
+    the launch floor at its kernel's grid (`_launch_floor`); the floor of
+    one CTA and the node a ``copy_`` of the program's state makes in a
+    CUDA graph (a memcpy or a kernel) are in the phase's line. These
+    launches are not counted: the counts come from the programs' own
     runs."""
     import torch
 
-    from ytpu_torch.benches._kernels import graph_ms
+    from ytpu_torch.benches._kernels import empty_launch, graph_ms, graph_nodes
 
+    one_cta = graph_ms(empty_launch([1], [32], torch.device(dev)))
     entries = []
     for case in _diag_cases():
         args = case.inputs(dev)
@@ -718,6 +839,10 @@ def phase_diag_kernels(gpu, launches, dev="cuda"):
         extra = {}
         if case.name in COLUMN_PUTS:
             pairs, pair_err = _column_put_pairs(case, args[0], 11)
+            err = max(err, pair_err)
+            extra.update(pairs)
+        elif case.name == "v_vmem":
+            pairs, pair_err = _passthrough_pairs(case, args[0], 11)
             err = max(err, pair_err)
             extra.update(pairs)
         if err != 0:
@@ -738,15 +863,20 @@ def phase_diag_kernels(gpu, launches, dev="cuda"):
             library = graph_ms(lib_call)
             library_stream_ms = _time_ms(lib_call, 200)
         bound_b = case.bound_bytes(args)
+        extra["launch_floor"] = _launch_floor(lambda: case.fn(*run_args, **kw))
         entries.append({
             "name": case.name, "route": "cuda", "source": case.source, "replaces": case.replaces,
             "launches": launches[case.fn.__name__], "max_abs_err": err, "ms": timed["mean"],
             "plain_ms": plain_ms, "bound_ms": bound_b / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
             "library_ms": library and library["mean"], "ms_spread": timed, "library_spread": library,
             "host_issued_ms": stream_ms, "library_host_issued_ms": library_stream_ms, "bound_bytes": bound_b,
-            "variants_compared": len(variants), "shapes": [list(a.shape) for a in args], **extra,
+            "variants_compared": len(variants), "shapes": [list(a.shape) for a in args],
+            "launch_floor_ms": extra["launch_floor"]["launch_floor_ms"], **extra,
         })
-    emit({"phase": "diag_kernels", "kernels": entries, "gpu": gpu})
+    state = next(c for c in _diag_cases() if c.name == "v_vmem").inputs(dev)[0]
+    copy_out = torch.empty_like(state)
+    emit({"phase": "diag_kernels", "kernels": entries, "launch_floor_one_cta_ms": one_cta,
+          "copy_nodes": graph_nodes(lambda: copy_out.copy_(state)), "gpu": gpu})
     return entries
 
 

@@ -367,9 +367,9 @@ def test_out_overlapping_x_raises(name):
         case.plain(*args, out=buf[1:].view(target.shape))
 
 
-@pytest.mark.parametrize("fn", [t2.g3d, t2.g2d_flat])
+@pytest.mark.parametrize("fn", [t2.g3d, t2.g2d_flat, t1.a_static3d_allfalse, t1.a2_static3d_slot0])
 def test_out_at_the_address_of_x_is_the_in_place_call(fn):
-    x = _t(x3()) if fn is t2.g3d else _t(x2())
+    x = _t(x3()) if fn is not t2.g2d_flat else _t(x2())
     want = fn(x.clone(), idx=9, fill=-5)
     same = x.view(x.shape)
     assert fn(x, out=same, idx=9, fill=-5) is same
@@ -391,6 +391,45 @@ def test_masked_write_of_a_live_slot(fn):
     np.testing.assert_array_equal(x.numpy(), x3d)
     assert fn(x, idx=17, fill=4242) is x
     np.testing.assert_array_equal(x.numpy(), want)
+
+
+@pytest.mark.parametrize("plane", range(NC))
+def test_masked_put_of_a_live_slot_in_each_plane(plane):
+    """Cases a and a2 with their plane, slot and fill given: only that
+    plane's slot changes in every doc, in place and into a separate
+    output; every other element is copied. The program's own call (a:
+    idx -1, a2: slot 0 of plane 7, 555) is the default."""
+    rng = np.random.default_rng(100 + plane)
+    x3d = rng.integers(-(2**31), 2**31, size=(NC, D, C), dtype=np.int64).astype(np.int32)
+    idx = int(rng.integers(C))
+    want = x3d.copy()
+    want[plane, :, idx] = -77
+    for fn, plain in ((t1.a_static3d_allfalse, t1.a_static3d_allfalse_plain),
+                      (t1.a2_static3d_slot0, t1.a2_static3d_slot0_plain)):
+        x = _t(x3d)
+        out = fn(x, out=torch.full_like(x, SENTINEL), plane=plane, idx=idx, fill=-77)
+        np.testing.assert_array_equal(out.numpy(), want)
+        np.testing.assert_array_equal(x.numpy(), x3d)
+        assert fn(x, plane=plane, idx=idx, fill=-77) is x
+        np.testing.assert_array_equal(x.numpy(), want)
+        np.testing.assert_array_equal(plain(_t(x3d), plane=plane, idx=idx, fill=-77).numpy(), want)
+    np.testing.assert_array_equal(t1.a_static3d_allfalse(_t(x3d)).numpy(), x3d)
+    want = x3d.copy()
+    want[7, :, 0] = 555
+    np.testing.assert_array_equal(t1.a2_static3d_slot0(_t(x3d)).numpy(), want)
+
+
+@pytest.mark.parametrize("plane", [-1, NC])
+def test_masked_put_refuses_a_plane_outside_the_state(plane):
+    with pytest.raises(ValueError, match="writes plane"):
+        t1.a2_static3d_slot0(_t(x3()), plane=plane)
+
+
+@pytest.mark.parametrize("idx", [-1, C])
+def test_masked_put_of_no_slot_copies_every_element(idx):
+    x = _t(x3())
+    out = t1.a2_static3d_slot0(x, out=torch.full_like(x, SENTINEL), idx=idx)
+    np.testing.assert_array_equal(out.numpy(), x3())
 
 
 def test_g2d_and_vmem_match():

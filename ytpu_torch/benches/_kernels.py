@@ -102,3 +102,65 @@ def graph_ms(fn, reps: int = 200, rounds: int = 5) -> dict:
         per_round.append(start.elapsed_time(stop) / reps)
     del graph
     return {"min": min(per_round), "mean": sum(per_round) / rounds, "max": max(per_round)}
+
+
+def empty_launch(grid, block, device):
+    """A call that launches the empty kernel of ``csrc/plane_rmw.cu`` at
+    `grid` x `block` (up to 3 dims each) on `device`'s current stream:
+    the launch floor, timed with `graph_ms` beside a kernel of that grid."""
+    from ytpu_torch.benches.plane_rmw_repro import plane_lib
+    from ytpu_torch.ops import _build
+
+    lib = plane_lib()
+    g = (list(grid) + [1, 1])[:3]
+    b = (list(block) + [1, 1])[:3]
+
+    def call():  # the stream is read at each call: a graph capture switches it
+        err = lib.ytpu_empty_launch(*g, *b, torch.cuda.current_stream(device).cuda_stream)
+        _build.check(lib, err, "empty_launch")
+
+    return call
+
+
+# CUgraphNodeType of the driver API
+_NODE_TYPES = {0: "kernel", 1: "memcpy", 2: "memset", 3: "host", 4: "graph", 5: "empty"}
+
+
+def graph_nodes(fn) -> list:
+    """The nodes of a CUDA graph that captured one call of `fn`, read back
+    through the driver API: ``{"type", "grid", "block"}`` each (``type``
+    ``kernel``, ``memcpy``, ``memset``...; grid and block only for
+    kernels), in the driver's order."""
+    import ctypes
+
+    fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(g):
+        fn()
+    cuda = ctypes.CDLL("libcuda.so.1")
+    graph = ctypes.c_void_p(g.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+
+    def check(err, what):
+        if err:
+            raise RuntimeError(f"{what} failed: CUresult {err}")
+
+    check(cuda.cuGraphGetNodes(graph, None, ctypes.byref(n)), "cuGraphGetNodes")
+    nodes = (ctypes.c_void_p * n.value)()
+    check(cuda.cuGraphGetNodes(graph, nodes, ctypes.byref(n)), "cuGraphGetNodes")
+    out = []
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        check(cuda.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind)), "cuGraphNodeGetType")
+        entry = {"type": _NODE_TYPES.get(kind.value, str(kind.value)), "grid": None, "block": None}
+        if kind.value == 0:
+            # CUDA_KERNEL_NODE_PARAMS: a function handle, then grid x/y/z and
+            # block x/y/z as unsigned ints (the buffer covers the v2 layout)
+            params = (ctypes.c_uint32 * 32)()
+            check(cuda.cuGraphKernelNodeGetParams_v2(ctypes.c_void_p(node), params),
+                  "cuGraphKernelNodeGetParams")
+            entry["grid"], entry["block"] = list(params[2:5]), list(params[5:8])
+        out.append(entry)
+    del g
+    return out

@@ -32,6 +32,7 @@ from ytpu_torch.core.device import resolve_device
 __all__ = ["CASES", "a_static3d_allfalse", "a2_static3d_slot0", "main", "plane_lib"]
 
 NC, DB, C = 26, 8, 512
+PLANE = 7  # the plane cases a and a2 write
 SOURCE = "ytpu_torch/csrc/plane_rmw.cu"
 
 
@@ -45,9 +46,9 @@ def plane_lib():
         {
             "ytpu_plane_masked_put": [p, p, i, i, i, i, i, i, p],
             "ytpu_column_put": [p, p, q, i, i, i, p],
-            "ytpu_plane_vmem": [p, p, i, i, i, i, p],
             "ytpu_plane_v_multi": [p, p, i, i, p],
             "ytpu_plane_v_body": [p, p, p, p, i, i, i, i, i, i, p],
+            "ytpu_empty_launch": [i, i, i, i, i, i, p],
         },
         "ytpu_plane_error_string",
     )
@@ -73,21 +74,21 @@ def masked_put_plain(x, plane: int, idx: int, val: int, out=None):
 
 
 def _masked_put(name: str, plane: int, idx: int, val: int):
-    def plain(x, out=None):
-        return masked_put_plain(x, plane, idx, val, out)
+    def plain(x, out=None, plane: int = plane, idx: int = idx, fill: int = val):
+        return masked_put_plain(x, plane, idx, fill, out)
 
-    def wrapper(x, out=None):
+    def wrapper(x, out=None, plane: int = plane, idx: int = idx, fill: int = val):
         check_i32("x", x, ndim=3)
         o = out_for(x, out)
-        if kernel_device(x).type == "cpu":
-            return plain(x, out)
-        from ytpu_torch.ops import _build
-
-        lib = plane_lib()
         n_planes, D, C_ = x.shape
         if not 0 <= plane < n_planes:
             raise ValueError(f"{name} writes plane {plane} of a {n_planes}-plane state")
-        err = lib.ytpu_plane_masked_put(x.data_ptr(), o.data_ptr(), n_planes, D, C_, plane, idx, val,
+        if kernel_device(x).type == "cpu":
+            return plain(x, out, plane, idx, fill)
+        from ytpu_torch.ops import _build
+
+        lib = plane_lib()
+        err = lib.ytpu_plane_masked_put(x.data_ptr(), o.data_ptr(), n_planes, D, C_, plane, idx, fill,
                                         stream_of(x))
         _build.check(lib, err, name)
         wrapper.launches += 1
@@ -95,15 +96,15 @@ def _masked_put(name: str, plane: int, idx: int, val: int):
 
     wrapper.launches = 0
     wrapper.__name__ = name
-    wrapper.__doc__ = (f"On a [NC, D, C] int32 state, in place unless `out` is given: plane {plane} "
-                       f"gets {val} at slot {idx} of every doc (no slot when {idx} < 0), the other "
-                       f"planes are copied.")
+    wrapper.__doc__ = (f"On a [NC, D, C] int32 state, in place unless `out` is given: plane `plane` "
+                       f"(default {plane}) gets `fill` (default {val}) at slot `idx` (default {idx}) "
+                       f"of every doc, no slot when idx < 0; every other element is copied.")
     plain.__name__ = f"{name}_plain"
     return wrapper, plain
 
 
-a_static3d_allfalse, a_static3d_allfalse_plain = _masked_put("a_static3d_allfalse", 7, -1, 0)
-a2_static3d_slot0, a2_static3d_slot0_plain = _masked_put("a2_static3d_slot0", 7, 0, 555)
+a_static3d_allfalse, a_static3d_allfalse_plain = _masked_put("a_static3d_allfalse", PLANE, -1, 0)
+a2_static3d_slot0, a2_static3d_slot0_plain = _masked_put("a2_static3d_slot0", PLANE, 0, 555)
 
 
 def _slot0_library(x):

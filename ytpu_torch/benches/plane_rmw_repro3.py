@@ -5,8 +5,8 @@ The integrate kernel's call context, layered in around a state that the
 kernel never changes:
 
   v_vmem : an in-place passthrough of the [NC, D, C] state under a raised
-           scratch limit (each plane of a doc block staged through dynamic
-           shared memory, the limit raised to the card's opt-in maximum)
+           scratch limit (on the card the flat copy: the column put at
+           idx -1)
   v_multi: the five operands of the integrate call (rows, dels, rank,
            cols, meta) with cols and meta updated in place; cols is never
            written and meta is copied through
@@ -15,7 +15,7 @@ kernel never changes:
            the doc's live slots of that client) and ``meta[:, 2] |= 2``
            where it falls short of the row's clock
 
-The kernels are ``ytpu_plane_vmem`` / ``ytpu_plane_v_multi`` /
+The kernels are ``ytpu_column_put`` / ``ytpu_plane_v_multi`` /
 ``ytpu_plane_v_body`` of ``csrc/plane_rmw.cu``; beside them are their
 plain PyTorch versions. `main` returns each case's ``status`` / ``n_bad``
 / ``first_bad`` over cols, as the JAX script records them, and the meta
@@ -41,9 +41,9 @@ from ytpu_torch.benches.plane_rmw_repro import SOURCE, plane_lib
 from ytpu_torch.benches.plane_rmw_repro2 import first_bad
 from ytpu_torch.core.device import resolve_device
 
-__all__ = ["CASES", "main", "staged_smem_limit", "v_body", "v_multi", "v_vmem"]
+__all__ = ["CASES", "main", "v_body", "v_multi", "v_vmem"]
 
-NC, D, C, DB = 26, 8, 512, 8
+NC, D, C = 26, 8, 512
 S, U, W = 1, 4, 23
 M_PAD = 8
 
@@ -70,9 +70,9 @@ def v_vmem_plain(x, out=None):
 
 def v_vmem(x, out=None):
     """Passthrough of a ``[NC, D, C]`` int32 state, in place unless `out` is
-    given, staged plane by plane through shared memory; the CUDA kernel on
-    CUDA tensors (counted in ``v_vmem.launches``), `v_vmem_plain` on CPU
-    ones."""
+    given; the CUDA kernel on CUDA tensors (counted in ``v_vmem.launches``):
+    the column put at idx -1, a flat copy (in place its threads return at
+    once); `v_vmem_plain` on CPU ones."""
     check_i32("x", x, ndim=3)
     o = out_for(x, out)
     if kernel_device(x).type == "cpu":
@@ -80,21 +80,13 @@ def v_vmem(x, out=None):
     from ytpu_torch.ops import _build
 
     lib = plane_lib()
-    n_planes, n_docs, width = x.shape
-    err = lib.ytpu_plane_vmem(x.data_ptr(), o.data_ptr(), n_planes, n_docs, width, DB, stream_of(x))
+    err = lib.ytpu_column_put(x.data_ptr(), o.data_ptr(), x.numel(), x.shape[2], -1, 0, stream_of(x))
     _build.check(lib, err, "v_vmem")
     v_vmem.launches += 1
     return o
 
 
 v_vmem.launches = 0
-
-
-def staged_smem_limit() -> int:
-    """The dynamic shared memory limit v_vmem raised (bytes; -1 before its
-    first launch)."""
-    lib = plane_lib()
-    return int(lib.ytpu_plane_staged_smem_limit())
 
 
 def _check_multi(rows, dels, rank, cols, meta):
