@@ -8,10 +8,11 @@ Usage (on a machine with one NVIDIA GPU and the CUDA toolkit):
 
 Phases, one JSON line each: ``build`` (the four CUDA libraries, one nvcc
 each, in parallel; the integrate kernel must use no stack frame and no
-spills, the column put must issue its loads before its first store and
-use no local memory), ``kernel_vs_plain`` (small cases: B4 chunks, synthetic streams
-at three scan plans and a capacity cut, 8 clients typing, clients above
-the client-clock table, a misaligned stream view that must raise),
+spills, the column put and the map put must issue their loads before
+their first store and use no local memory), ``kernel_vs_plain`` (small
+cases: B4 chunks, synthetic streams at three scan plans and a capacity
+cut, 8 clients typing, clients above the client-clock table, a
+misaligned stream view that must raise),
 ``integrate_profile`` (cycles per step per phase of the profiling build
 on one late B4 chunk), ``kernel_vs_plain_full_width`` (that chunk at the
 main path's capacity and chunk size), ``b4_replay`` (`FusedReplay.run`
@@ -145,8 +146,9 @@ def _sass_summary(lib_path: str, kernel: str) -> dict:
 def phase_build(gpu):
     """Every library, one nvcc each in parallel; the integrate kernel's
     ptxas report must show no stack frame and no spills, and every
-    instantiation of the column put must load all its groups before its
-    first store and use no local memory (`_sass_summary`)."""
+    instantiation of the column put and of the map put (rungs 0 and 7)
+    must load all its groups before its first store and use no local
+    memory (`_sass_summary`)."""
     from ytpu_torch.ops import _build
 
     t0 = time.perf_counter()
@@ -157,18 +159,18 @@ def phase_build(gpu):
         _build.load(name)
     ptxas = {name: _ptxas(_build.build_log(name), "integrate_kernel")
              for name in ("integrate", "integrate_profile")}
-    column_put_sass = _sass_summary(libs["plane_rmw"], "column_put")
+    sass = {"column_put_sass": _sass_summary(libs["plane_rmw"], "column_put"),
+            "map_put_sass": _sass_summary(libs["mosaic_ladder"], "map_put")}
     emit({"phase": "build", "seconds": build_s, "load_seconds": time.perf_counter() - t0 - build_s,
-          "libraries": sorted(libs), "integrate_ptxas": ptxas, "column_put_sass": column_put_sass,
-          "gpu": gpu})
+          "libraries": sorted(libs), "integrate_ptxas": ptxas, **sass, "gpu": gpu})
     main = ptxas["integrate"]
     if main["stack_frame_bytes"] or main["spill_store_bytes"] or main["spill_load_bytes"]:
         raise RuntimeError(f"integrate_kernel uses local memory: {main}")
-    # the column put's streaming copy issues every load before its first
-    # store and keeps its groups in registers
-    if not column_put_sass or any(f["local"] or f["ldg_before_first_stg"] != f["ldg"]
-                                  for f in column_put_sass.values()):
-        raise RuntimeError(f"column_put stores before its last load or uses local memory: {column_put_sass}")
+    # the column put's streaming copy and the map put issue every load
+    # before their first store and keep their groups in registers
+    for name, summary in sass.items():
+        if not summary or any(f["local"] or f["ldg_before_first_stg"] != f["ldg"] for f in summary.values()):
+            raise RuntimeError(f"{name}: a kernel stores before its last load or uses local memory: {summary}")
     return main
 
 
@@ -557,6 +559,9 @@ def phase_plane_rmw(gpu, dev="cuda"):
 SENTINEL = -123456789
 # the diagnostic kernels that can write a separate output (``out=``)
 OUT_OF_PLACE = ("a_static3d_allfalse", "a2_static3d_slot0", "g3d", "g2d_flat", "v_vmem", "v_multi")
+# the entry points of the map put (rungs 0 and 7), also held against their
+# plain versions on a view one int off a 16-byte boundary (the one-int path)
+MAP_PUTS = ("rung0_copy", "rung7_big_tile")
 # the entry points of the column put (a and a2 restricted to one plane),
 # also timed in place on a live slot and at the main path's width
 COLUMN_PUTS = ("a_static3d_allfalse", "a2_static3d_slot0", "g3d", "g2d_flat")
@@ -566,9 +571,10 @@ def _variants(case, args, seed: int):
     """The inputs a diagnostic kernel is held against its plain version on,
     as ``[(inputs, kwargs maker)]``: the program's own; a seeded variant
     where the kernel decides on data; for the kernels in OUT_OF_PLACE the
-    program's inputs written into an output filled with SENTINEL; and for
-    the column puts a seeded state with a live slot (`_live_slot`), in place
-    and into a SENTINEL-filled output."""
+    program's inputs written into an output filled with SENTINEL; for the
+    map puts the seeded input at a view one int off a 16-byte boundary; and
+    for the column puts a seeded state with a live slot (`_live_slot`), in
+    place and into a SENTINEL-filled output."""
     import torch
 
     out = [(args, dict)]
@@ -579,11 +585,23 @@ def _variants(case, args, seed: int):
         target = args[-1]  # x, or meta for v_multi
 
         out.append((args, lambda: {"out": torch.full_like(target, SENTINEL)}))
+    if case.name in MAP_PUTS:
+        out.append(((_at_offset(seeded[0], 4),), dict))
     if case.name in COLUMN_PUTS:
         x, live = _live_slot(case.name, args[0], seed)
         out.append(((x,), lambda: dict(live)))
         out.append(((x,), lambda: {"out": torch.full_like(x, SENTINEL), **live}))
     return out
+
+
+def _at_offset(x, offset: int):
+    """A copy of `x` that starts `offset` bytes past a 16-byte boundary."""
+    import torch
+
+    size = x.element_size()
+    buf = torch.empty(x.numel() + 32 // size, dtype=x.dtype, device=x.device)
+    start = ((-buf.data_ptr()) % 16 + offset) // size
+    return buf[start : start + x.numel()].view(x.shape).copy_(x)
 
 
 def _slots(name: str, x) -> int:
@@ -815,22 +833,24 @@ def phase_diag_kernels(gpu, launches, dev="cuda"):
     beside it (``in_place_ms``); the column puts also get
     `_column_put_pairs`, v_vmem `_passthrough_pairs`. Each entry carries
     the launch floor at its kernel's grid (`_launch_floor`); the floor of
-    one CTA and the node a ``copy_`` of the program's state makes in a
-    CUDA graph (a memcpy or a kernel) are in the phase's line. These
-    launches are not counted: the counts come from the programs' own
-    runs."""
+    one CTA of 32, 64, 128 and 256 threads and the node a ``copy_`` of the
+    program's state makes in a CUDA graph (a memcpy or a kernel) are in the
+    phase's line. These launches are not counted: the counts come from the
+    programs' own runs."""
     import torch
 
     from ytpu_torch.benches._kernels import empty_launch, graph_ms, graph_nodes
 
-    one_cta = graph_ms(empty_launch([1], [32], torch.device(dev)))
+    one_cta = {t: graph_ms(empty_launch([1], [t], torch.device(dev))) for t in (32, 64, 128, 256)}
     entries = []
     for case in _diag_cases():
         args = case.inputs(dev)
         err = 0
         variants = _variants(case, args, 11)
         for inputs, make_kw in variants:
-            k_inputs, kw = tuple(a.clone() for a in inputs), make_kw()
+            # the kernel's copies keep their inputs' offset from a 16-byte boundary
+            k_inputs = tuple(_at_offset(a, a.data_ptr() % 16) for a in inputs)
+            kw = make_kw()
             got = case.fn(*k_inputs, **kw)
             want = case.plain(*(a.clone() for a in inputs), **make_kw())
             err = max(err, _abs_err(got, want))

@@ -1,8 +1,9 @@
-// Host stand-in for the CUDA pieces ytpu_torch/csrc/integrate.cu and the
-// column put of ytpu_torch/csrc/plane_rmw.cu use, so that g++ can compile
-// the kernel source and run its logic on the CPU
-// (tests/test_torch_integrate_emulated.py,
-// tests/test_torch_plane_rmw_emulated.py). It is an emulator, not a GPU:
+// Host stand-in for the CUDA pieces ytpu_torch/csrc/integrate.cu, the
+// column put of ytpu_torch/csrc/plane_rmw.cu and the map put of
+// ytpu_torch/csrc/mosaic_ladder.cu use, so that g++ can compile the kernel
+// source and run its logic on the CPU (tests/test_torch_integrate_emulated.py,
+// tests/test_torch_plane_rmw_emulated.py, tests/test_torch_ladder_emulated.py).
+// It is an emulator, not a GPU:
 //
 //   * every CUDA thread is a std::thread; the CTAs of a launch run one
 //     after another;

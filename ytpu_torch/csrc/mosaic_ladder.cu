@@ -10,11 +10,25 @@
 // What bounds them on this card: nothing but the launch. The ladder's
 // shapes are [8, 256] i32 (8 KB) and, for rung 7, [25, 8, 2048] i32
 // (1.6 MB); their bytes over 3.35 TB/s take 5 ns and 1 us, well under the
-// few microseconds a launch costs. The design therefore keeps every rung
-// to one launch on PyTorch's current stream, with no host synchronization
-// and a grid sized to the output (one thread per element, at most 1,024
-// CTAs of 256 threads, grid-stride past that). The elementwise rungs move
-// 16 bytes per thread when the tensors are 16-byte aligned. Rungs whose
+// microsecond or more a launch costs. The design therefore keeps every rung
+// to one launch on PyTorch's current stream, with no host synchronization.
+//
+// Rungs 0 and 7, the elementwise maps, are one kernel, the map put: a
+// thread loads its MAP_G 16-byte groups (non-coherent) into registers
+// before its first store, then maps and stores them; the grid is sized to
+// the element count and covers the tensor once, with no grid-stride loop.
+// Since the launch is most of the time, the shape is what a sweep of G x
+// threads at both rungs' shapes chose (PERF.md §6): one group a thread in
+// CTAs of 256, so rung 0's 512 groups take 2 CTAs and rung 7's 102,400
+// groups 400. Fewer, fuller CTAs lost: one CTA of rung 0 moves its 16 KB
+// through one SM, and rung 7 in 100-200 CTAs saves less launch time than
+// a thread's further groups cost. A grid-stride loop at the same grid
+// cost 0.1-0.2 us (its trip count is a 64-bit division). A count that is
+// not a multiple of 4, or a tensor that is not 16-byte aligned, takes the
+// same kernel one int a group.
+//
+// The other rungs take a grid sized to the output (one thread per element,
+// at most 1,024 CTAs of 256 threads, grid-stride past that). Rungs whose
 // output is one value broadcast over the tile (3, 4, 5, 6) recompute that
 // value in every CTA (at most 128 loads) rather than pay a second launch.
 // Rung 4 keeps the Pallas loop's block-wide condition: every row steps
@@ -29,9 +43,92 @@
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC -o libytpu_mosaic_ladder.so mosaic_ladder.cu
+// tests/_emulated_ladder.py builds the map section alone with g++ against
+// tests/cuda_host (a host emulator of CUDA).
 
 #include <cstdint>
 #include <cuda_runtime.h>
+
+// ---- map put (rungs 0 and 7) -------------------------------------------------------
+
+namespace {
+
+// 16-byte groups a thread loads before it stores, and the CTA size: the
+// best of G in {1, 2, 4} x {32, ..., 512} threads at both rungs' shapes
+// (PERF.md §6)
+constexpr int MAP_G = 1;
+constexpr int MAP_THREADS = 256;
+constexpr long long MAP_PER_CTA = (long long)MAP_G * MAP_THREADS;  // groups a CTA maps
+
+struct AddOne {
+  __device__ int operator()(int v) const { return (int)((unsigned)v + 1u); }
+};
+struct Twice {
+  __device__ int operator()(int v) const { return (int)((unsigned)v * 2u); }
+};
+
+template <class F>
+__device__ __forceinline__ void apply(F f, int& v) { v = f(v); }
+template <class F>
+__device__ __forceinline__ void apply(F f, int4& v) {
+  v.x = f(v.x);
+  v.y = f(v.y);
+  v.z = f(v.z);
+  v.w = f(v.w);
+}
+
+// o[g] = f(x[g]) over `groups` groups T (int4, or int on the one-int
+// path). CTA b maps groups [b * MAP_PER_CTA, +MAP_PER_CTA): a thread takes
+// MAP_G of them, MAP_THREADS apart, loads them all, then maps and stores
+// them. A group past the end loads the last group instead, so that no load
+// waits on a branch and all of them issue before the first store (the
+// predicated form let nvcc put a store between them, PERF.md §6).
+template <class F, class T>
+__global__ void __launch_bounds__(MAP_THREADS)
+map_put(const T* __restrict__ x, T* __restrict__ o, long long groups) {
+  F f;
+  const long long g0 = (long long)blockIdx.x * MAP_PER_CTA + threadIdx.x;
+  T v[MAP_G];
+#pragma unroll
+  for (int j = 0; j < MAP_G; ++j) {
+    const long long g = g0 + (long long)j * MAP_THREADS;
+    v[j] = __ldg(x + (g < groups ? g : groups - 1));
+  }
+#pragma unroll
+  for (int j = 0; j < MAP_G; ++j) {
+    const long long g = g0 + (long long)j * MAP_THREADS;
+    if (g < groups) {
+      apply(f, v[j]);
+      o[g] = v[j];
+    }
+  }
+}
+
+template <class F>
+int launch_map(const int* x, int* o, long long n, cudaStream_t st) {
+  if (n <= 0) return 0;
+  const bool v4 = n % 4 == 0 && (uintptr_t)x % 16 == 0 && (uintptr_t)o % 16 == 0;
+  const long long groups = v4 ? n / 4 : n;
+  const long long blocks = (groups + MAP_PER_CTA - 1) / MAP_PER_CTA;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  if (v4) map_put<F, int4><<<(unsigned)blocks, MAP_THREADS, 0, st>>>((const int4*)x, (int4*)o, groups);
+  else map_put<F, int><<<(unsigned)blocks, MAP_THREADS, 0, st>>>(x, o, groups);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// elementwise rungs: any shape, flattened to [D, C]
+#define YTPU_MAP_RUNG(NAME, F)                                                 \
+  extern "C" int NAME(const void* x, void* o, int D, int C, void* stream) {    \
+    return launch_map<F>((const int*)x, (int*)o, (long long)D * C,             \
+                         (cudaStream_t)stream);                                \
+  }
+
+YTPU_MAP_RUNG(ytpu_ladder_r0, AddOne)
+YTPU_MAP_RUNG(ytpu_ladder_r7, Twice)
+
+// ---- end map put -------------------------------------------------------------------
 
 namespace {
 
@@ -54,48 +151,6 @@ __device__ __forceinline__ long long first_index() {
 }
 __device__ __forceinline__ long long grid_stride() {
   return (long long)gridDim.x * blockDim.x;
-}
-
-// --- rungs 0 and 7: elementwise maps ---------------------------------------
-
-struct AddOne {
-  __device__ int operator()(int v) const { return (int)((unsigned)v + 1u); }
-};
-struct Twice {
-  __device__ int operator()(int v) const { return (int)((unsigned)v * 2u); }
-};
-
-template <class F>
-__global__ void __launch_bounds__(THREADS)
-map_vec4(const int4* __restrict__ x, int4* __restrict__ o, long long n4) {
-  F f;
-  for (long long i = first_index(); i < n4; i += grid_stride()) {
-    int4 v = x[i];
-    v.x = f(v.x);
-    v.y = f(v.y);
-    v.z = f(v.z);
-    v.w = f(v.w);
-    o[i] = v;
-  }
-}
-
-template <class F>
-__global__ void __launch_bounds__(THREADS)
-map_scalar(const int* __restrict__ x, int* __restrict__ o, long long n) {
-  F f;
-  for (long long i = first_index(); i < n; i += grid_stride()) o[i] = f(x[i]);
-}
-
-template <class F>
-int launch_map(const int* x, int* o, int D, int C, cudaStream_t st) {
-  const long long n = (long long)D * C;
-  if (n <= 0) return 0;
-  if (n % 4 == 0 && (uintptr_t)x % 16 == 0 && (uintptr_t)o % 16 == 0) {
-    map_vec4<F><<<grid_for(n / 4), THREADS, 0, st>>>((const int4*)x, (int4*)o, n / 4);
-  } else {
-    map_scalar<F><<<grid_for(n), THREADS, 0, st>>>(x, o, n);
-  }
-  return (int)cudaGetLastError();
 }
 
 // --- rungs 1 and 2: per-row masks ------------------------------------------
@@ -205,12 +260,6 @@ guarded_write(const int* __restrict__ x, int* __restrict__ o, int D, int C) {
 
 }  // namespace
 
-// elementwise rungs: any shape, flattened to [D, C]
-#define YTPU_MAP_RUNG(NAME, F)                                                 \
-  extern "C" int NAME(const void* x, void* o, int D, int C, void* stream) {    \
-    return launch_map<F>((const int*)x, (int*)o, D, C, (cudaStream_t)stream);  \
-  }
-
 // row rungs: one thread per output element of the [D, C] tile
 #define YTPU_ROW_RUNG(NAME, KERNEL, MAX_D)                                     \
   extern "C" int NAME(const void* x, void* o, int D, int C, void* stream) {    \
@@ -222,14 +271,12 @@ guarded_write(const int* __restrict__ x, int* __restrict__ o, int D, int C) {
     return (int)cudaGetLastError();                                            \
   }
 
-YTPU_MAP_RUNG(ytpu_ladder_r0, AddOne)
 YTPU_ROW_RUNG(ytpu_ladder_r1, onehot_put, 0x7fffffff)
 YTPU_ROW_RUNG(ytpu_ladder_r2, mrow_mask, 0x7fffffff)
 YTPU_ROW_RUNG(ytpu_ladder_r3, fori_carry, 0x7fffffff)
 YTPU_ROW_RUNG(ytpu_ladder_r4, while_scan, THREADS)
 YTPU_ROW_RUNG(ytpu_ladder_r5, nested_fori, 0x7fffffff)
 YTPU_ROW_RUNG(ytpu_ladder_r6, guarded_write, 0x7fffffff)
-YTPU_MAP_RUNG(ytpu_ladder_r7, Twice)
 
 extern "C" const char* ytpu_ladder_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
