@@ -8,8 +8,9 @@ Usage (on a machine with one NVIDIA GPU and the CUDA toolkit):
 
 Phases, one JSON line each: ``build`` (the four CUDA libraries, one nvcc
 each, in parallel; the integrate kernel must use no stack frame and no
-spills, the column put and the map put must issue their loads before
-their first store and use no local memory), ``kernel_vs_plain`` (small
+spills, the column put, the map put and v_multi's sized copy must issue
+their loads before their first store and use no local memory, v_body's
+one-pass kernel must use no local memory), ``kernel_vs_plain`` (small
 cases: B4 chunks, synthetic streams at three scan plans and a capacity
 cut, 8 clients typing, clients above the client-clock table, a
 misaligned stream view that must raise),
@@ -27,7 +28,7 @@ capacity),
 diagnostic kernel against its plain version, then timed beside its
 library call in the same mode and beside an empty kernel at its grid, the
 launch floor; the column puts a, a2, g3d and g2d also in place on a live
-slot and at the main path's width, v_vmem at that width); then
+slot and at the main path's width, v_vmem and v_body at that width); then
 the card's name and power limit, the ``kernels`` line and, last,
 ``{"ok": true, "device": {...}}``. Launch counts are set to 0 just
 before each program runs and read just after it. Any failure exits
@@ -145,9 +146,10 @@ def _sass_summary(lib_path: str, kernel: str) -> dict:
 
 def phase_build(gpu):
     """Every library, one nvcc each in parallel; the integrate kernel's
-    ptxas report must show no stack frame and no spills, and every
-    instantiation of the column put and of the map put (rungs 0 and 7)
-    must load all its groups before its first store and use no local
+    ptxas report must show no stack frame and no spills, every
+    instantiation of the column put, of the map put (rungs 0 and 7) and of
+    v_multi's sized copy must load all its groups before its first store
+    and use no local memory, and v_body's one-pass kernel must use no local
     memory (`_sass_summary`)."""
     from ytpu_torch.ops import _build
 
@@ -161,8 +163,11 @@ def phase_build(gpu):
              for name in ("integrate", "integrate_profile")}
     sass = {"column_put_sass": _sass_summary(libs["plane_rmw"], "column_put"),
             "map_put_sass": _sass_summary(libs["mosaic_ladder"], "map_put")}
+    copy_sass = _sass_summary(libs["plane_rmw"], "sized_copy")
+    body_sass = _sass_summary(libs["plane_rmw"], "client_clock_pass")
+    multi = {**copy_sass, **body_sass}
     emit({"phase": "build", "seconds": build_s, "load_seconds": time.perf_counter() - t0 - build_s,
-          "libraries": sorted(libs), "integrate_ptxas": ptxas, **sass, "gpu": gpu})
+          "libraries": sorted(libs), "integrate_ptxas": ptxas, **sass, "multi_call_sass": multi, "gpu": gpu})
     main = ptxas["integrate"]
     if main["stack_frame_bytes"] or main["spill_store_bytes"] or main["spill_load_bytes"]:
         raise RuntimeError(f"integrate_kernel uses local memory: {main}")
@@ -171,6 +176,12 @@ def phase_build(gpu):
     for name, summary in sass.items():
         if not summary or any(f["local"] or f["ldg_before_first_stg"] != f["ldg"] for f in summary.values()):
             raise RuntimeError(f"{name}: a kernel stores before its last load or uses local memory: {summary}")
+    # v_multi's copy likewise; v_body's pass loops over tiles, so only its
+    # local memory is checked
+    if not copy_sass or not body_sass or any(f["local"] for f in multi.values()) or any(
+            f["ldg_before_first_stg"] != f["ldg"] for f in copy_sass.values()):
+        raise RuntimeError(f"multi_call_sass: v_multi's copy stores before its last load, or a multi call "
+                           f"kernel uses local memory: {multi}")
     return main
 
 
@@ -572,7 +583,8 @@ def _variants(case, args, seed: int):
     as ``[(inputs, kwargs maker)]``: the program's own; a seeded variant
     where the kernel decides on data; for the kernels in OUT_OF_PLACE the
     program's inputs written into an output filled with SENTINEL; for the
-    map puts the seeded input at a view one int off a 16-byte boundary; and
+    map puts, and v_multi's meta, the seeded input at a view one int off a
+    16-byte boundary; and
     for the column puts a seeded state with a live slot (`_live_slot`), in
     place and into a SENTINEL-filled output."""
     import torch
@@ -587,6 +599,8 @@ def _variants(case, args, seed: int):
         out.append((args, lambda: {"out": torch.full_like(target, SENTINEL)}))
     if case.name in MAP_PUTS:
         out.append(((_at_offset(seeded[0], 4),), dict))
+    if case.name == "v_multi":  # in place on the one-int path
+        out.append((seeded[:4] + (_at_offset(seeded[4], 4),), dict))
     if case.name in COLUMN_PUTS:
         x, live = _live_slot(case.name, args[0], seed)
         out.append(((x,), lambda: dict(live)))
@@ -626,9 +640,9 @@ def _live_slot(name: str, like, seed: int):
 def _seeded_inputs(case, args, seed: int):
     """A seeded variant of a case's inputs that reaches the data-dependent
     branches (wrapping sums, out-of-range one-hot indices, rows breaking at
-    different steps, a firing guard, live slots for the client clock), or
-    None for the plane passthroughs (their seeded variants are in
-    `_variants`)."""
+    different steps, a firing guard, live slots for the client clock; for
+    v_multi a meta of random words), or None for the plane passthroughs
+    (their seeded variants are in `_variants`)."""
     import numpy as np
     import torch
 
@@ -645,6 +659,9 @@ def _seeded_inputs(case, args, seed: int):
             full[:, 0] = rng.integers(-50, 100, size=x.shape[0])
             full[3, 0] = 101
         return (torch.from_numpy(full).to(x.device),)
+    if case.name == "v_multi":
+        meta = rng.integers(-(2**31), 2**31, size=tuple(args[4].shape), dtype=np.int64).astype(np.int32)
+        return args[:4] + (torch.from_numpy(meta).to(args[4].device),)
     if case.name == "v_body":
         rows, dels, rank, cols, meta = (a.clone() for a in args)
         D, C = cols.shape[1], cols.shape[2]
@@ -821,6 +838,70 @@ def _passthrough_pairs(case, like, seed: int):
     return {"full_width": wide}, err
 
 
+def _body_full_width(args, seed: int):
+    """v_body's inputs at the main path's width: the ``[26, 256, 65,536]``
+    state of `_full_width` with planes 0-2 seeded as `_seeded_inputs` seeds
+    them at the program's shape (clients 0-3, clocks 0-49, lengths 1-3)
+    and every slot live (``meta[:, 1] = 65,536``; ``meta[:, 2]`` 0 or 1);
+    the program's 4 rows with seeded clients 0-4 and clocks 0-59, row 1
+    invalid. Row 3 asks client 2 for clock 59, past every seeded slot's,
+    and one random slot in a random half of the docs meets it, so that
+    ``mo[:, 2]`` varies by doc."""
+    import numpy as np
+    import torch
+
+    rows, dels, rank = (a.clone() for a in args[:3])
+    dev = rows.device
+    cols = _full_width("v_body", rows, seed)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 1)
+    cols[0].random_(0, 4, generator=gen)
+    cols[1].random_(0, 50, generator=gen)
+    cols[2].random_(1, 4, generator=gen)
+    rng = np.random.default_rng(seed)
+    t = lambda a: torch.from_numpy(np.asarray(a, dtype=np.int32)).to(dev)  # noqa: E731
+    rows[0, :, 0] = t(rng.integers(0, 5, size=rows.shape[1]))
+    rows[0, :, 1] = t(rng.integers(0, 60, size=rows.shape[1]))
+    rows[0, 1, 14] = 0
+    rows[0, 3, 0], rows[0, 3, 1] = 2, 59
+    docs = torch.from_numpy(rng.choice(N_DOCS, N_DOCS // 2, replace=False)).to(dev)
+    slots = torch.from_numpy(rng.integers(0, CAPACITY, size=N_DOCS // 2)).to(dev)
+    cols[0, docs, slots], cols[1, docs, slots], cols[2, docs, slots] = 2, 58, 1
+    meta = torch.zeros((N_DOCS, args[4].shape[1]), dtype=torch.int32, device=dev)
+    meta[:, 1] = CAPACITY
+    meta[:, 2] = t(rng.integers(0, 2, size=N_DOCS))
+    return rows, dels, rank, cols, meta
+
+
+def _body_pairs(case, args, seed: int):
+    """v_body at the main path's width (`_body_full_width`): held against
+    the plain version (meta in place; cols must come back as it was),
+    timed in a graph (in place, so every launch after the first meets a
+    meta it already flagged: the result is the same), with its launch
+    floor and its bound. No PyTorch call computes it. Returns the fields
+    and the max abs error."""
+    import torch
+
+    from ytpu_torch.benches._kernels import graph_ms
+
+    wide_args = _body_full_width(args, seed)
+    rows, dels, rank, cols, meta = wide_args
+    cols0 = cols.clone()
+    plain_args = (rows, dels, rank, cols, meta.clone())
+    plain_ms = _time_ms(lambda: case.plain(*plain_args))
+    want = plain_args[4]
+    case.fn(*wide_args)
+    err = max(_abs_err(meta, want), _abs_err(cols, cols0))
+    wide = {"shape": list(cols.shape), "ms": graph_ms(lambda: case.fn(*wide_args)),
+            "plain_ms": plain_ms, "launch_floor": _launch_floor(lambda: case.fn(*wide_args)),
+            "full_width_bound_ms": case.bound_bytes(wide_args) / HBM_BYTES_PER_S * 1e3,
+            "docs_flagged": int(((want[:, 2] & 2) != 0).sum())}
+    err = max(err, _abs_err(meta, want), _abs_err(cols, cols0))
+    del wide_args, rows, cols, cols0, meta, plain_args, want
+    torch.cuda.empty_cache()
+    return {"full_width": wide}, err
+
+
 def phase_diag_kernels(gpu, launches, dev="cuda"):
     """Every diagnostic kernel at its program's shapes: held against its
     plain version on the inputs of `_variants`, then timed beside the one
@@ -831,11 +912,12 @@ def phase_diag_kernels(gpu, launches, dev="cuda"):
     kernels in OUT_OF_PLACE are timed out of place, the mode of their
     library call (``copy_``, ``torch.where``), with the in-place call
     beside it (``in_place_ms``); the column puts also get
-    `_column_put_pairs`, v_vmem `_passthrough_pairs`. Each entry carries
+    `_column_put_pairs`, v_vmem `_passthrough_pairs`, v_body `_body_pairs`
+    (its main path's width). Each entry carries
     the launch floor at its kernel's grid (`_launch_floor`); the floor of
-    one CTA of 32, 64, 128 and 256 threads and the node a ``copy_`` of the
-    program's state makes in a CUDA graph (a memcpy or a kernel) are in the
-    phase's line. These launches are not counted: the counts come from the
+    one CTA of 32, 64, 128 and 256 threads and the nodes a ``copy_`` of the
+    program's state and of v_multi's meta make in a CUDA graph (a memcpy or
+    a kernel) are in the phase's line. These launches are not counted: the counts come from the
     programs' own runs."""
     import torch
 
@@ -863,6 +945,10 @@ def phase_diag_kernels(gpu, launches, dev="cuda"):
             extra.update(pairs)
         elif case.name == "v_vmem":
             pairs, pair_err = _passthrough_pairs(case, args[0], 11)
+            err = max(err, pair_err)
+            extra.update(pairs)
+        elif case.name == "v_body":
+            pairs, pair_err = _body_pairs(case, args, 11)
             err = max(err, pair_err)
             extra.update(pairs)
         if err != 0:
@@ -895,8 +981,11 @@ def phase_diag_kernels(gpu, launches, dev="cuda"):
         })
     state = next(c for c in _diag_cases() if c.name == "v_vmem").inputs(dev)[0]
     copy_out = torch.empty_like(state)
+    meta = next(c for c in _diag_cases() if c.name == "v_multi").inputs(dev)[4]
+    meta_out = torch.empty_like(meta)
     emit({"phase": "diag_kernels", "kernels": entries, "launch_floor_one_cta_ms": one_cta,
-          "copy_nodes": graph_nodes(lambda: copy_out.copy_(state)), "gpu": gpu})
+          "copy_nodes": graph_nodes(lambda: copy_out.copy_(state)),
+          "meta_copy_nodes": graph_nodes(lambda: meta_out.copy_(meta)), "gpu": gpu})
     return entries
 
 

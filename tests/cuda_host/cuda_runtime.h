@@ -1,16 +1,17 @@
 // Host stand-in for the CUDA pieces ytpu_torch/csrc/integrate.cu, the
-// column put of ytpu_torch/csrc/plane_rmw.cu and the map put of
-// ytpu_torch/csrc/mosaic_ladder.cu use, so that g++ can compile the kernel
-// source and run its logic on the CPU (tests/test_torch_integrate_emulated.py,
+// column put and the multi call of ytpu_torch/csrc/plane_rmw.cu and the
+// map put of ytpu_torch/csrc/mosaic_ladder.cu use, so that g++ can compile
+// the kernel source and run its logic on the CPU
+// (tests/test_torch_integrate_emulated.py,
 // tests/test_torch_plane_rmw_emulated.py, tests/test_torch_ladder_emulated.py).
 // It is an emulator, not a GPU:
 //
 //   * every CUDA thread is a std::thread; the CTAs of a launch run one
 //     after another;
 //   * warp collectives (__ballot_sync, __shfl_sync, __any_sync,
-//     __reduce_max_sync, __syncwarp) meet at a per-warp barrier, and the
-//     lanes of a warp run freely in between, so code that leans on lanes
-//     running in lockstep without a __syncwarp fails here;
+//     __reduce_max_sync, __reduce_or_sync, __syncwarp) meet at a per-warp
+//     barrier, and the lanes of a warp run freely in between, so code that
+//     leans on lanes running in lockstep without a __syncwarp fails here;
 //   * mbarriers are counters under one mutex; a bulk copy is a memcpy that
 //     completes its bytes on the barrier at once;
 //   * integrate.cu's inline-PTX helpers (mbar_*, bulk_copy) are replaced by
@@ -115,6 +116,13 @@ inline int emu_reduce_max(int x, int line) {
     return (int)r;
   });
 }
+inline unsigned emu_reduce_or(unsigned x, int line) {
+  return emu_collective(x, line, [](const unsigned long long* v) {
+    unsigned r = 0;
+    for (int i = 0; i < 32; ++i) r |= (unsigned)v[i];
+    return r;
+  });
+}
 inline void emu_syncwarp(int line) {
   emu_line[threadIdx.x] = line;
   emu_warp().bar.arrive_and_wait();
@@ -123,6 +131,7 @@ inline void emu_syncwarp(int line) {
 #define __shfl_sync(m, x, s) emu_shfl(x, s, __LINE__)
 #define __any_sync(m, p) (emu_ballot(p, __LINE__) != 0)
 #define __reduce_max_sync(m, x) emu_reduce_max(x, __LINE__)
+#define __reduce_or_sync(m, x) emu_reduce_or(x, __LINE__)
 #define __syncwarp() emu_syncwarp(__LINE__)
 inline void __syncthreads() { emu_cta->bar.arrive_and_wait(); }
 

@@ -286,13 +286,16 @@ def jax_multi(body, rows, dels, rank, x, meta):  # plane_rmw_repro3.py:112-140
     return np.asarray(out), np.asarray(mo)
 
 
-def multi_inputs(seeded: bool):
-    """The repro's (rows, dels, rank, cols, meta), or a seeded set whose
-    docs hold live slots of the rows' clients (so the masked max and the
-    missing-dependency flag both vary by doc)."""
+def multi_inputs(seeded):
+    """The repro's (rows, dels, rank, cols, meta) (`seeded` False), or a
+    seeded set whose docs hold live slots of the rows' clients, so the
+    masked max and the missing-dependency flag both vary by doc (True:
+    seed 5). An int `seeded` is the seed of such a set that also holds a
+    row at clock <= 0 and live slots whose clock + length wraps past 2^31
+    (besides the invalid row every seeded set has)."""
     rows, dels, rank, cols, meta = (a.numpy().copy() for a in t3.inputs("cpu"))
-    if seeded:
-        rng = np.random.default_rng(5)
+    if seeded is not False:
+        rng = np.random.default_rng(5 if seeded is True else seeded)
         cols[0] = rng.integers(0, 4, size=(D, C))
         cols[1] = rng.integers(0, 50, size=(D, C))
         cols[2] = rng.integers(1, 4, size=(D, C))
@@ -301,6 +304,11 @@ def multi_inputs(seeded: bool):
         rows[0, :, 0] = rng.integers(0, 5, size=U)
         rows[0, :, 1] = rng.integers(0, 60, size=U)
         rows[0, 1, 14] = 0
+    if seeded is not True and seeded is not False:
+        rows[0, 2, 1] = -int(rng.integers(0, 4))
+        near = rng.random((D, C)) < 0.3
+        cols[1][near] = rng.integers(2**31 - 3, 2**31, size=int(near.sum()))
+        meta[0, 1] = C
     return rows, dels, rank, cols, meta
 
 
@@ -439,10 +447,14 @@ def test_g2d_and_vmem_match():
     np.testing.assert_array_equal(t3.v_vmem(x).numpy(), jax_vmem(x3()))
 
 
-@pytest.mark.parametrize("seeded", [False, True])
+@pytest.mark.parametrize("seeded", [False, True, 7, 19])
 @pytest.mark.parametrize("case", ["v_multi", "v_body"])
 def test_multi_call_matches(case, seeded):
     args = multi_inputs(seeded)
+    if not isinstance(seeded, bool):  # the seeds reach what they are for
+        live = np.arange(C)[None, :] < args[4][:, 1:2]
+        wrapped = (args[3][1].astype(np.int64) + args[3][2]) > 2**31 - 1
+        assert args[0][0, 1, 14] != 1 and args[0][0, 2, 1] <= 0 and (live & wrapped).any()
     body = _body_noop() if case == "v_multi" else _body_full_fixed()
     want_cols, want_meta = jax_multi(body, *args)
     fn = t3.v_multi if case == "v_multi" else t3.v_body
@@ -497,3 +509,23 @@ def test_cases_list_every_site_with_its_bound():
         for w, g in zip(want if isinstance(want, tuple) else (want,),
                         got if isinstance(got, tuple) else (got,)):
             assert torch.equal(w, g), case.name
+
+
+def test_chip_smoke_body_full_width_inputs(monkeypatch):
+    """`chip_smoke._body_full_width` (v_body at the main path's width, cut
+    here to 16 docs x 1,024 slots): every slot live, row 1 invalid, row 3
+    asking client 2 for clock 59, and a missing-dependency flag that the
+    plain version sets in some docs and not in others."""
+    import chip_smoke
+
+    monkeypatch.setattr(chip_smoke, "N_DOCS", 16)
+    monkeypatch.setattr(chip_smoke, "CAPACITY", 1024)
+    rows, dels, rank, cols, meta = chip_smoke._body_full_width(t3.inputs("cpu"), 11)
+    assert tuple(cols.shape) == (NC, 16, 1024) and tuple(meta.shape) == (16, M_PAD)
+    assert (meta[:, 1] == 1024).all() and rows[0, 1, 14] == 0
+    assert rows[0, 3, :2].tolist() == [2, 59] and rows[0, 3, 14] == 1
+    assert int(cols[0].min()) >= 0 and int(cols[0].max()) <= 3 and int(cols[2].min()) >= 1
+    before = meta[:, 2].clone()
+    t3.v_body_plain(rows, dels, rank, cols, meta)
+    flagged = ((meta[:, 2] & 2) != 0) & ((before & 2) == 0)
+    assert 0 < int(flagged.sum()) < 16

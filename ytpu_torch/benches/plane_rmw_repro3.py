@@ -111,8 +111,8 @@ def v_multi_plain(rows, dels, rank, cols, meta, out=None):
 def v_multi(rows, dels, rank, cols, meta, out=None):
     """The five-operand call with ``{cols, meta}`` updated in place: meta is
     copied through (into `out` when given), cols never written; the CUDA
-    kernel on CUDA tensors (counted in ``v_multi.launches``),
-    `v_multi_plain` on CPU ones."""
+    kernel on CUDA tensors (a copy sized to meta's 16-byte groups, counted
+    in ``v_multi.launches``), `v_multi_plain` on CPU ones."""
     mo = out_for(meta, out)
     if _check_multi(rows, dels, rank, cols, meta).type == "cpu":
         return v_multi_plain(rows, dels, rank, cols, meta, out)
@@ -147,8 +147,9 @@ def v_body_plain(rows, dels, rank, cols, meta):
 
 def v_body(rows, dels, rank, cols, meta):
     """`v_multi` plus the client-clock body, meta updated in place; the
-    CUDA kernel on CUDA tensors (counted in ``v_body.launches``),
-    `v_body_plain` on CPU ones."""
+    CUDA kernel on CUDA tensors (one CTA per doc deciding every valid row
+    in one pass over the doc's live slots, counted in
+    ``v_body.launches``), `v_body_plain` on CPU ones."""
     if _check_multi(rows, dels, rank, cols, meta).type == "cpu":
         return v_body_plain(rows, dels, rank, cols, meta)
     from ytpu_torch.ops import _build

@@ -41,17 +41,22 @@
 // through shared memory was measured for it and lost at both shapes
 // (PERF.md).
 //
-// The other kernels are bound by the launch too: their state is [26, 8,
-// 512] i32 (426 KB), read once and written once in 0.25 us at 3.35 TB/s,
-// far under a launch. They keep one launch per call, a grid of about a
-// hundred CTAs (one CTA per SM's worth of work, so the call costs one
-// memory round trip) and one 16-byte group per thread where the rows
-// allow it.
+// The multi call's two bodies (section `multi call`): v_multi copies
+// meta ([8, 8], 256 B) through. Its bound is the launch; the column put at
+// idx -1 lost to `copy_` there (a CTA of 256 threads for 16 groups, PERF.md
+// §6), so it is a copy sized to its groups: one CTA of 32 threads, one
+// int4 a lane. v_body decides every valid row's client clock at every
+// doc. At the program's shape (no live slot) it is launch-bound; at the
+// main path's width ([26, 256, 65,536], every slot live) it must read
+// planes 0-2 of the live slots, 201 MB, 0.060 ms at 3.35 TB/s, so it reads
+// them once, in one pass per doc, with each thread's 16-byte loads issued
+// before it compares anything (client_clock_pass).
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC -o libytpu_plane_rmw.so plane_rmw.cu
-// tests/_emulated_plane_rmw.py builds the column-put section alone with
-// g++ against tests/cuda_host (a host emulator of CUDA).
+// tests/_emulated_plane_rmw.py builds the column-put section and the
+// multi-call section, each alone, with g++ against tests/cuda_host (a
+// host emulator of CUDA).
 
 #include <climits>
 #include <cstdint>
@@ -196,79 +201,188 @@ extern "C" int ytpu_plane_masked_put(const void* x, void* o, int NC, int D, int 
 
 // ---- end column put ----------------------------------------------------------------
 
+// ---- multi call (v_multi, v_body) --------------------------------------------------
+
 namespace {
 
-constexpr int THREADS = 256;
-constexpr int MAX_CTAS = 1024;
+// v_multi: o = x over n ints, one 16-byte group (or one int) a lane, in
+// CTAs of the smallest multiple of 32 threads that covers the groups (at
+// most COPY_THREADS): meta's [8, 8] is 16 groups, one CTA of 32 threads.
+// A lane past the end loads the last group, so that its load issues
+// before any store (as in the map put). In place (o is x) each lane
+// writes back the group it read.
+constexpr int COPY_THREADS = 256;
 
-int grid_for(long long n) {
-  long long b = (n + THREADS - 1) / THREADS;
-  return b < 1 ? 1 : (b > MAX_CTAS ? MAX_CTAS : (int)b);
+template <class T>
+__global__ void __launch_bounds__(COPY_THREADS)
+sized_copy(const T* x, T* o, int groups) {
+  const int g = blockIdx.x * blockDim.x + threadIdx.x;
+  const T v = __ldg(x + (g < groups ? g : groups - 1));
+  if (g < groups) o[g] = v;
 }
 
-// multi_call body v_multi: meta' = meta; cols is never touched
-__global__ void __launch_bounds__(THREADS)
-copy_meta(const int* meta, int* mo, int n) {
-  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n; i += gridDim.x * blockDim.x)
-    mo[i] = meta[i];
+int copy_launch(const void* x, void* o, int n, cudaStream_t st) {
+  if (n <= 0) return 0;
+  const bool v4 = n % 4 == 0 && (uintptr_t)x % 16 == 0 && (uintptr_t)o % 16 == 0;
+  const int groups = v4 ? n / 4 : n;
+  const int threads = groups < COPY_THREADS ? (groups + 31) / 32 * 32 : COPY_THREADS;
+  const int blocks = (groups + threads - 1) / threads;
+  if (v4) sized_copy<int4><<<blocks, threads, 0, st>>>((const int4*)x, (int4*)o, groups);
+  else sized_copy<int><<<blocks, threads, 0, st>>>((const int*)x, (int*)o, groups);
+  return (int)cudaGetLastError();
 }
 
-// multi_call body v_body, one CTA per doc: meta' = meta; then for every
-// valid row (rows[s, u, 14] == 1), in order, the client clock
-//   local = max_c (c < meta'[d, 1] & x[0, d, c] == client ? x[1] + x[2] : 0)
-// and meta'[d, 2] |= 2 where local < the row's clock. cols is only read.
-__global__ void __launch_bounds__(THREADS)
-client_clock_body(const int* __restrict__ rows, const int* cols, const int* meta,
-                  int* mo, int S, int U, int W, int D, int C, int MP) {
-  __shared__ int part[THREADS / 32];
-  const int d = blockIdx.x;
-  const int tid = threadIdx.x;
-  if (tid < MP) mo[(long long)d * MP + tid] = meta[(long long)d * MP + tid];
-  __syncthreads();
-  const int nb = mo[(long long)d * MP + 1];
-  const int* cl = cols + (long long)d * C;
-  const int* ck = cols + ((long long)D + d) * C;
-  const int* ln = cols + (2LL * D + d) * C;
-  for (int s = 0; s < S; ++s) {
-    for (int u = 0; u < U; ++u) {
-      const int* r = rows + ((long long)s * U + u) * W;
-      if (r[14] != 1) continue;
-      const int client = r[0];
-      int best = INT_MIN;
-      for (int c = tid; c < C; c += blockDim.x) {
-        const bool m = c < nb && cl[c] == client;
-        best = max(best, m ? (int)((unsigned)ck[c] + (unsigned)ln[c]) : 0);
+// v_body: the CTA size and the V-slot groups of planes 0-2 a thread loads
+// before it compares: the best of a sweep of G x threads at both the
+// program's and the main path's shape (PERF.md §6)
+constexpr int BODY_G = 2;
+constexpr int BODY_THREADS = 512;
+
+// v[0, V) = p[c, c + V): one 16-byte load, or one int
+template <int V>
+__device__ __forceinline__ void load_slots(const int* __restrict__ p, int c, int (&v)[V]) {
+  if constexpr (V == 4) {
+    const int4 t = __ldg(reinterpret_cast<const int4*>(p + c));
+    v[0] = t.x;
+    v[1] = t.y;
+    v[2] = t.z;
+    v[3] = t.w;
+  } else {
+    v[0] = __ldg(p + c);
+  }
+}
+
+// row j of [R, W] rows as (valid, client, clock), or not valid past R
+struct Row {
+  bool valid;
+  int client, clock;
+};
+__device__ __forceinline__ Row load_row(const int* __restrict__ rows, int j, int R, int W) {
+  if (j >= R) return {false, 0, 0};
+  const int* r = rows + (long long)j * W;
+  return {__ldg(r + 14) == 1, __ldg(r), __ldg(r + 1)};
+}
+
+// multi_call body v_body, one CTA per doc d: mo[d, :] = meta[d, :], with
+// mo[d, 2] |= 2 where some valid row (rows[j, 14] == 1) is unsatisfied.
+// The JAX body walks the rows in order, but its result is order-free:
+// meta[:, 1] is never written (nb = meta[d, 1]) and the |= commutes. Row
+// j (client, clock) is satisfied at d iff some slot c in [0, C) has
+//   v_c = (c < nb && x[0, d, c] == client ? x[1, d, c] + x[2, d, c] : 0) >= clock
+// (the sum wraps mod 2^32): a slot past nb has v_c = 0, so with nb < C a
+// row of clock <= 0 is satisfied without a load. So the CTA reads planes
+// 0-2 of the live slots once per 32 rows: every warp loads the pass's rows
+// itself (row base + k in lane k, handed round by __shfl_sync, so no
+// barrier stands before the compares); every thread loads its G groups of
+// the three planes (clamped to the last live group, so all loads issue
+// before the first compare) and keeps a 32-bit mask of the rows its slots
+// satisfy; each warp ORs its masks (__reduce_or_sync) into its word of
+// shared memory, and after the one barrier of the pass warp 0 ORs the
+// words (two sets, alternating by pass, so that a pass never overwrites a
+// word warp 0 still reads). Warp 0's first MP lanes then store mo[d, :].
+// meta is read before any store (mo may be meta); cols is only read.
+template <int V, int G, int T>
+__global__ void __launch_bounds__(T)
+client_clock_pass(const int* __restrict__ rows, const int* __restrict__ cols, const int* meta, int* mo,
+                  int R, int W, int D, int C, int MP) {
+  __shared__ unsigned s_sat[2][T / 32];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const long long d = blockIdx.x, m0 = d * MP;
+  const int keep = tid < MP ? meta[m0 + tid] : 0;
+  const int nb = min(max(meta[m0 + 1], 0), C);
+  const int groups = (nb + V - 1) / V;  // groups holding a live slot
+  const int* cl = cols + d * C;
+  const int* ck = cols + (D + d) * C;
+  const int* ln = cols + (2 * D + d) * C;
+  // the first pass's rows load beside meta, before anything waits on nb
+  Row row = load_row(rows, lane, R, W);
+  // a doc with no live slot reads no plane and needs no combine: warp 0
+  // decides it alone, with no barrier
+  if (groups == 0 && warp != 0) return;
+  bool missing = false;
+  for (int base = 0, p = 0; base < R; base += 32, p ^= 1) {
+    if (base) row = load_row(rows, base + lane, R, W);
+    const int client = row.client, clock = row.clock;
+    const unsigned pass_rows = __ballot_sync(0xffffffffu, row.valid);
+    unsigned sat = __ballot_sync(0xffffffffu, row.valid && nb < C && clock <= 0);
+    if (groups == 0) {
+      missing |= sat != pass_rows;
+      continue;
+    }
+    for (int q0 = pass_rows ? 0 : groups; q0 < groups; q0 += G * T) {
+      // a warp whose first group is past the live ones would load only
+      // copies of the last one: it sits this tile and the later ones out
+      if (q0 + warp * 32 >= groups) break;
+      int c[G][V], w[G][V], l[G][V];
+#pragma unroll
+      for (int g = 0; g < G; ++g) {
+        const int q = min(q0 + g * T + tid, groups - 1);
+        load_slots<V>(cl, q * V, c[g]);
+        load_slots<V>(ck, q * V, w[g]);
+        load_slots<V>(ln, q * V, l[g]);
       }
-      for (int k = 16; k > 0; k >>= 1) best = max(best, __shfl_down_sync(0xffffffffu, best, k));
-      if ((tid & 31) == 0) part[tid >> 5] = best;
-      __syncthreads();
-      if (tid == 0) {
-        int local = part[0];
-        for (int w = 1; w < (int)(blockDim.x >> 5); ++w) local = max(local, part[w]);
-        if (!(local >= r[1])) mo[(long long)d * MP + 2] |= 2;
+      // A live slot offers its wrapped clock + length to its client and 0
+      // to the others. A slot past nb offers INT_MIN to its client (met
+      // only by clock INT_MIN, which any slot meets; the rows of clock <= 0
+      // that such a slot meets were set above) and 0 to the others; so
+      // does a copy of the last live group loaded by the clamp, which is
+      // right because the slot it copies offers 0 to the others too.
+#pragma unroll
+      for (int g = 0; g < G; ++g)
+#pragma unroll
+        for (int k = 0; k < V; ++k)
+          w[g][k] = (q0 + g * T + tid) * V + k < nb ? (int)((unsigned)w[g][k] + (unsigned)l[g][k]) : INT_MIN;
+      for (unsigned m = pass_rows; m; m &= m - 1) {
+        const int k = __ffs(m) - 1;
+        const int row_client = __shfl_sync(0xffffffffu, client, k);
+        const int row_clock = __shfl_sync(0xffffffffu, clock, k);
+        bool hit = false;
+#pragma unroll
+        for (int g = 0; g < G; ++g)
+#pragma unroll
+          for (int i = 0; i < V; ++i) hit |= (c[g][i] == row_client ? w[g][i] : 0) >= row_clock;
+        sat |= (unsigned)hit << k;
       }
-      __syncthreads();
+    }
+    sat = __reduce_or_sync(0xffffffffu, sat);
+    if (lane == 0) s_sat[p][warp] = sat;
+    __syncthreads();
+    if (warp == 0) {
+      const unsigned all = __reduce_or_sync(0xffffffffu, lane < T / 32 ? s_sat[p][lane] : 0u);
+      missing |= all != pass_rows;
     }
   }
+  if (tid < MP) mo[m0 + tid] = (tid == 2 && missing) ? (keep | 2) : keep;
+}
+
+template <int G, int T>
+int client_clock_launch(const int* rows, const int* cols, const int* meta, int* mo, int R, int W, int D, int C,
+                        int MP, cudaStream_t st) {
+  if (D <= 0) return 0;
+  if (MP < 3 || MP > 32 || W < 15 || C <= 0 || C > (1 << 30) || R < 0) return (int)cudaErrorInvalidValue;
+  if (C % 4 == 0 && (uintptr_t)cols % 16 == 0)
+    client_clock_pass<4, G, T><<<D, T, 0, st>>>(rows, cols, meta, mo, R, W, D, C, MP);
+  else
+    client_clock_pass<1, G, T><<<D, T, 0, st>>>(rows, cols, meta, mo, R, W, D, C, MP);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
+// v_multi: mo = meta ([D, MP]); cols is never touched
 extern "C" int ytpu_plane_v_multi(const void* meta, void* mo, int D, int MP, void* stream) {
-  const int n = D * MP;
-  if (n <= 0) return 0;
-  copy_meta<<<grid_for(n), THREADS, 0, (cudaStream_t)stream>>>((const int*)meta, (int*)mo, n);
-  return (int)cudaGetLastError();
+  return copy_launch(meta, mo, D * MP, (cudaStream_t)stream);
 }
 
-extern "C" int ytpu_plane_v_body(const void* rows, const void* cols, const void* meta, void* mo,
-                                 int S, int U, int W, int D, int C, int MP, void* stream) {
-  if (D <= 0) return 0;
-  if (MP > THREADS || W < 15) return (int)cudaErrorInvalidValue;
-  client_clock_body<<<D, THREADS, 0, (cudaStream_t)stream>>>(
-      (const int*)rows, (const int*)cols, (const int*)meta, (int*)mo, S, U, W, D, C, MP);
-  return (int)cudaGetLastError();
+// v_body over rows [S, U, W], cols [NC >= 3, D, C], meta [D, MP] into mo
+// (meta itself, or a separate [D, MP])
+extern "C" int ytpu_plane_v_body(const void* rows, const void* cols, const void* meta, void* mo, int S, int U,
+                                 int W, int D, int C, int MP, void* stream) {
+  return client_clock_launch<BODY_G, BODY_THREADS>((const int*)rows, (const int*)cols, (const int*)meta,
+                                                   (int*)mo, S * U, W, D, C, MP, (cudaStream_t)stream);
 }
+
+// ---- end multi call ----------------------------------------------------------------
 
 // the launch floor: a kernel that does nothing, at any grid (timed beside
 // the diagnostic kernels in a CUDA graph)
