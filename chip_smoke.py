@@ -8,9 +8,10 @@ Usage (on a machine with one NVIDIA GPU and the CUDA toolkit):
 
 Phases, one JSON line each: ``build`` (the four CUDA libraries, one nvcc
 each, in parallel; the integrate kernel must use no stack frame and no
-spills, the column put, the map put and v_multi's sized copy must issue
-their loads before their first store and use no local memory, v_body's
-one-pass kernel must use no local memory), ``kernel_vs_plain`` (small
+spills, the column put, the map put, rungs 4 and 5 and v_multi's sized
+copy must issue their loads before their first store and use no local
+memory, v_body's one-pass kernel must use no local memory),
+``kernel_vs_plain`` (small
 cases: B4 chunks, synthetic streams at three scan plans and a capacity
 cut, 8 clients typing, clients above the client-clock table, a
 misaligned stream view that must raise),
@@ -28,7 +29,8 @@ capacity),
 diagnostic kernel against its plain version, then timed beside its
 library call in the same mode and beside an empty kernel at its grid, the
 launch floor; the column puts a, a2, g3d and g2d also in place on a live
-slot and at the main path's width, v_vmem and v_body at that width); then
+slot and at the main path's width, v_vmem and v_body at that width, rungs
+4 and 5 at ``[256, 65,536]`` beside ``fill_``); then
 the card's name and power limit, the ``kernels`` line and, last,
 ``{"ok": true, "device": {...}}``. Launch counts are set to 0 just
 before each program runs and read just after it. Any failure exits
@@ -147,10 +149,11 @@ def _sass_summary(lib_path: str, kernel: str) -> dict:
 def phase_build(gpu):
     """Every library, one nvcc each in parallel; the integrate kernel's
     ptxas report must show no stack frame and no spills, every
-    instantiation of the column put, of the map put (rungs 0 and 7) and of
-    v_multi's sized copy must load all its groups before its first store
-    and use no local memory, and v_body's one-pass kernel must use no local
-    memory (`_sass_summary`)."""
+    instantiation of the column put, of the map put (rungs 0 and 7), of
+    rung 4's scan put and rung 5's sum put and of v_multi's sized copy must
+    issue all its loads before its first store and use no local memory,
+    and v_body's one-pass kernel must use no local memory
+    (`_sass_summary`)."""
     from ytpu_torch.ops import _build
 
     t0 = time.perf_counter()
@@ -162,7 +165,9 @@ def phase_build(gpu):
     ptxas = {name: _ptxas(_build.build_log(name), "integrate_kernel")
              for name in ("integrate", "integrate_profile")}
     sass = {"column_put_sass": _sass_summary(libs["plane_rmw"], "column_put"),
-            "map_put_sass": _sass_summary(libs["mosaic_ladder"], "map_put")}
+            "map_put_sass": _sass_summary(libs["mosaic_ladder"], "map_put"),
+            "scan_put_sass": _sass_summary(libs["mosaic_ladder"], "scan_put"),
+            "sum_put_sass": _sass_summary(libs["mosaic_ladder"], "sum_put")}
     copy_sass = _sass_summary(libs["plane_rmw"], "sized_copy")
     body_sass = _sass_summary(libs["plane_rmw"], "client_clock_pass")
     multi = {**copy_sass, **body_sass}
@@ -171,8 +176,8 @@ def phase_build(gpu):
     main = ptxas["integrate"]
     if main["stack_frame_bytes"] or main["spill_store_bytes"] or main["spill_load_bytes"]:
         raise RuntimeError(f"integrate_kernel uses local memory: {main}")
-    # the column put's streaming copy and the map put issue every load
-    # before their first store and keep their groups in registers
+    # the column put's streaming copy, the map put and rungs 4 and 5 issue
+    # every load before their first store and keep their values in registers
     for name, summary in sass.items():
         if not summary or any(f["local"] or f["ldg_before_first_stg"] != f["ldg"] for f in summary.values()):
             raise RuntimeError(f"{name}: a kernel stores before its last load or uses local memory: {summary}")
@@ -573,6 +578,10 @@ OUT_OF_PLACE = ("a_static3d_allfalse", "a2_static3d_slot0", "g3d", "g2d_flat", "
 # the entry points of the map put (rungs 0 and 7), also held against their
 # plain versions on a view one int off a 16-byte boundary (the one-int path)
 MAP_PUTS = ("rung0_copy", "rung7_big_tile")
+# rungs 4 and 5 (the scan put and the sum put), also held against their
+# plain versions on narrow tiles and on a view one int off a 16-byte
+# boundary, and timed at the main path's width
+SCAN_SUMS = ("rung4_while_scan", "rung5_nested_fori")
 # the entry points of the column put (a and a2 restricted to one plane),
 # also timed in place on a live slot and at the main path's width
 COLUMN_PUTS = ("a_static3d_allfalse", "a2_static3d_slot0", "g3d", "g2d_flat")
@@ -583,8 +592,9 @@ def _variants(case, args, seed: int):
     as ``[(inputs, kwargs maker)]``: the program's own; a seeded variant
     where the kernel decides on data; for the kernels in OUT_OF_PLACE the
     program's inputs written into an output filled with SENTINEL; for the
-    map puts, and v_multi's meta, the seeded input at a view one int off a
-    16-byte boundary; and
+    map puts, rungs 4 and 5, and v_multi's meta, the seeded input at a view
+    one int off a 16-byte boundary; for rungs 4 and 5 the full-range and
+    narrow tiles of `_scan_sum_inputs`; and
     for the column puts a seeded state with a live slot (`_live_slot`), in
     place and into a SENTINEL-filled output."""
     import torch
@@ -597,8 +607,10 @@ def _variants(case, args, seed: int):
         target = args[-1]  # x, or meta for v_multi
 
         out.append((args, lambda: {"out": torch.full_like(target, SENTINEL)}))
-    if case.name in MAP_PUTS:
+    if case.name in MAP_PUTS + SCAN_SUMS:
         out.append(((_at_offset(seeded[0], 4),), dict))
+    if case.name in SCAN_SUMS:
+        out.extend(((x,), dict) for x in _scan_sum_inputs(case.name, args[0], seed))
     if case.name == "v_multi":  # in place on the one-int path
         out.append((seeded[:4] + (_at_offset(seeded[4], 4),), dict))
     if case.name in COLUMN_PUTS:
@@ -616,6 +628,25 @@ def _at_offset(x, offset: int):
     buf = torch.empty(x.numel() + 32 // size, dtype=x.dtype, device=x.device)
     start = ((-buf.data_ptr()) % 16 + offset) // size
     return buf[start : start + x.numel()].view(x.shape).copy_(x)
+
+
+def _scan_sum_inputs(name: str, like, seed: int):
+    """Further seeded inputs of rung 4 or 5 on `like`'s device: for rung 4 the
+    program's shape over the full int32 range (sums wrap past 2^31), and
+    11 columns (fewer than its 12 steps, not a multiple of 4) of values in
+    [0, 12) and of the full range; for rung 5 3 x 11 and 5 x 31 ints (fewer
+    than its 32 terms: the index wraps mod C; an odd count, so the one-int
+    path) and 8 x 31 (the 16-byte path)."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed + 1)
+    full = lambda shape: rng.integers(-(2**31), 2**31, size=shape, dtype=np.int64)  # noqa: E731
+    if name == "rung4_while_scan":
+        arrays = [full(tuple(like.shape)), rng.integers(0, 12, size=(8, 11)), full((8, 11))]
+    else:
+        arrays = [full((3, 11)), full((5, 31)), full((8, 31))]
+    return [torch.from_numpy(a.astype(np.int32)).to(like.device) for a in arrays]
 
 
 def _slots(name: str, x) -> int:
@@ -642,7 +673,8 @@ def _seeded_inputs(case, args, seed: int):
     branches (wrapping sums, out-of-range one-hot indices, rows breaking at
     different steps, a firing guard, live slots for the client clock; for
     v_multi a meta of random words), or None for the plane passthroughs
-    (their seeded variants are in `_variants`)."""
+    (their seeded variants are in `_variants`, as are rung 4's over the
+    full range, `_scan_sum_inputs`)."""
     import numpy as np
     import torch
 
@@ -902,6 +934,42 @@ def _body_pairs(case, args, seed: int):
     return {"full_width": wide}, err
 
 
+def _scan_sum_pairs(case, like, seed: int):
+    """Rung 4 or 5 at the main path's width, ``[256, 65,536]`` int32 made on
+    `like`'s card from a seeded generator (rung 4: values in [0, 12), so
+    that rows break at different steps; rung 5: the full range): held
+    against the plain version, timed in a graph beside ``fill_`` of an
+    output of the same shape (the least a pass that writes the tile costs:
+    a yardstick, not a call that computes the function), with the launch
+    floor at its grid and the bound of this input (the tile written once,
+    plus what the function reads). Returns the fields and the max abs
+    error."""
+    import torch
+
+    from ytpu_torch.benches._kernels import graph_ms
+
+    gen = torch.Generator(device=like.device)
+    gen.manual_seed(seed)
+    x = torch.empty((N_DOCS, CAPACITY), dtype=torch.int32, device=like.device)
+    if case.name == "rung4_while_scan":
+        x.random_(0, 12, generator=gen)
+    else:
+        x.random_(-(2**31), 2**31, generator=gen)
+    want = case.plain(x)
+    got = case.fn(x)
+    err = _abs_err(got, want)
+    fill_out = torch.empty_like(x)
+    value = int(want[0, 0])
+    wide = {"shape": list(x.shape), "ms": graph_ms(lambda: case.fn(x)),
+            "fill_ms": graph_ms(lambda: fill_out.fill_(value)),
+            "plain_ms": _time_ms(lambda: case.plain(x)),
+            "launch_floor": _launch_floor(lambda: case.fn(x)),
+            "full_width_bound_ms": case.bound_bytes((x,)) / HBM_BYTES_PER_S * 1e3}
+    del x, want, got, fill_out
+    torch.cuda.empty_cache()
+    return {"full_width": wide}, err
+
+
 def phase_diag_kernels(gpu, launches, dev="cuda"):
     """Every diagnostic kernel at its program's shapes: held against its
     plain version on the inputs of `_variants`, then timed beside the one
@@ -913,7 +981,8 @@ def phase_diag_kernels(gpu, launches, dev="cuda"):
     library call (``copy_``, ``torch.where``), with the in-place call
     beside it (``in_place_ms``); the column puts also get
     `_column_put_pairs`, v_vmem `_passthrough_pairs`, v_body `_body_pairs`
-    (its main path's width). Each entry carries
+    (its main path's width), rungs 4 and 5 `_scan_sum_pairs` (the main
+    path's width, beside ``fill_``). Each entry carries
     the launch floor at its kernel's grid (`_launch_floor`); the floor of
     one CTA of 32, 64, 128 and 256 threads and the nodes a ``copy_`` of the
     program's state and of v_multi's meta make in a CUDA graph (a memcpy or
@@ -949,6 +1018,10 @@ def phase_diag_kernels(gpu, launches, dev="cuda"):
             extra.update(pairs)
         elif case.name == "v_body":
             pairs, pair_err = _body_pairs(case, args, 11)
+            err = max(err, pair_err)
+            extra.update(pairs)
+        elif case.name in SCAN_SUMS:
+            pairs, pair_err = _scan_sum_pairs(case, args[0], 11)
             err = max(err, pair_err)
             extra.update(pairs)
         if err != 0:

@@ -1,11 +1,13 @@
-"""Child process of tests/test_torch_ladder_emulated.py: builds the map-put
-section of ``ytpu_torch/csrc/mosaic_ladder.cu`` (the kernel of rungs 0 and
-7) for the host through tests/cuda_host (a CUDA emulator), runs each case
-through both rungs' C entry points beside their plain versions
-(`copy_plain`, `big_tile_plain`) and prints one JSON object: rung -> case
--> max abs difference, whether the input and the memory around the
-output were left as they were, whether the 16-byte path ran, its groups,
-and the groups a CTA maps.
+"""Child process of tests/test_torch_ladder_emulated.py: builds two
+sections of ``ytpu_torch/csrc/mosaic_ladder.cu``, each alone, for the host
+through tests/cuda_host (a CUDA emulator): the map put (the kernel of rungs
+0 and 7) and the scan and nested sum (rungs 4 and 5). It runs each case
+through the rungs' C entry points beside their plain versions
+(`copy_plain`, `big_tile_plain`, `while_scan_plain`, `nested_fori_plain`)
+and prints one JSON object: rung -> case -> max abs difference, whether
+the input and the memory around the output were left as they were,
+whether the 16-byte path ran, its groups (per row for rung 4), and the
+groups a CTA stores at most.
 
 Usage: python tests/_emulated_ladder.py BUILD_DIR
 """
@@ -24,50 +26,79 @@ import torch
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
-from ytpu_torch.benches.mosaic_ladder import big_tile_plain, copy_plain  # noqa: E402
+from ytpu_torch.benches.mosaic_ladder import (  # noqa: E402
+    big_tile_plain, copy_plain, nested_fori_plain, while_scan_plain,
+)
 
 torch.set_num_threads(1)
 SENTINEL = -123456789
 I32_MIN, I32_MAX = -(2**31), 2**31 - 1
 
-# host-only: the groups a CTA maps
-HOST_ENTRIES = """
+# host-only: the groups a CTA maps (map put) or stores at most (rungs 4, 5)
+MAP_ENTRIES = """
 extern "C" long long emu_map_per_cta() { return MAP_PER_CTA; }
 """
+SCAN_ENTRIES = """
+extern "C" long long emu_scan_per_cta() { return (long long)SCAN_G * SCAN_THREADS; }
+extern "C" long long emu_sum_per_cta() { return (long long)SUM_G * SUM_THREADS; }
+"""
 
-RUNGS = {"r0": ("ytpu_ladder_r0", copy_plain), "r7": ("ytpu_ladder_r7", big_tile_plain)}
+# section -> (start marker, end marker, launches in it, host-only entries)
+SECTIONS = {
+    "map_put": ("// ---- map put", "// ---- end map put", 2, MAP_ENTRIES),
+    "scan_sum": ("// ---- scan and nested sum", "// ---- end scan and nested sum", 4, SCAN_ENTRIES),
+}
+
+# the map put's rungs, and those of the scan and nested sum: rung ->
+# (section, C entry point, plain version, host entry of the groups a CTA stores)
+RUNGS = {"r0": ("map_put", "ytpu_ladder_r0", copy_plain, "emu_map_per_cta"),
+         "r7": ("map_put", "ytpu_ladder_r7", big_tile_plain, "emu_map_per_cta")}
+SCAN_RUNGS = {"r4": ("scan_sum", "ytpu_ladder_r4", while_scan_plain, "emu_scan_per_cta"),
+              "r5": ("scan_sum", "ytpu_ladder_r5", nested_fori_plain, "emu_sum_per_cta")}
 
 
-def host_source(src: str) -> str:
-    """The includes and the map-put section of mosaic_ladder.cu with its
-    launches replaced by the emulator's, and `HOST_ENTRIES` inside the
-    section's namespace."""
+def host_source(src: str, section: str) -> str:
+    """The includes and one section of mosaic_ladder.cu with its launches
+    replaced by the emulator's, and the section's host-only entries inside
+    its namespace."""
+    start, end, launches, entries = SECTIONS[section]
     includes = "".join(line + "\n" for line in src.splitlines() if line.startswith("#include"))
-    m = re.search(r"// ---- map put.*?// ---- end map put", src, flags=re.S)
+    m = re.search(re.escape(start) + r".*?" + re.escape(end), src, flags=re.S)
     if m is None:
-        raise RuntimeError("mosaic_ladder.cu has no map-put section")
+        raise RuntimeError(f"mosaic_ladder.cu has no section {start!r}")
     body, n = re.subn(r"(\w+(?:<[^<>]*>)?)<<<([^,]+),\s*([^,]+),\s*0,\s*st>>>\(",
                       r"EMU_LAUNCH(\2, \3, 0, (\1), ", m.group(0))
-    if n != 2:
-        raise RuntimeError(f"the map-put section no longer has the launches the emulator rewrites: {n}")
+    if n != launches:
+        raise RuntimeError(f"the {section} section no longer has the {launches} launches the emulator "
+                           f"rewrites: {n}")
     head, tail = body.split("}  // namespace", 1)
-    return includes + "\n" + head + HOST_ENTRIES + "}  // namespace" + tail
+    return includes + "\n" + head + entries + "}  // namespace" + tail
 
 
-def load(build_dir: Path) -> ctypes.CDLL:
-    src = build_dir / "ladder_host.cpp"
-    src.write_text(host_source((ROOT / "ytpu_torch" / "csrc" / "mosaic_ladder.cu").read_text()))
-    lib_path = build_dir / "libladder_host.so"
-    subprocess.run(["g++", "-std=c++20", "-O1", "-shared", "-fPIC", "-pthread", "-Wno-unknown-pragmas",
-                    "-I", str(ROOT / "tests" / "cuda_host"), "-o", str(lib_path), str(src)],
-                   check=True, capture_output=True, text=True)
-    lib = ctypes.CDLL(str(lib_path))
+def load(build_dir: Path) -> dict:
+    """Both sections' host libraries, compiled by two g++ at once."""
+    src = (ROOT / "ytpu_torch" / "csrc" / "mosaic_ladder.cu").read_text()
+    jobs = {}
+    for section in SECTIONS:
+        path = build_dir / f"{section}_host.cpp"
+        path.write_text(host_source(src, section))
+        lib_path = build_dir / f"lib{section}_host.so"
+        jobs[section] = (lib_path, subprocess.Popen(
+            ["g++", "-std=c++20", "-O1", "-shared", "-fPIC", "-pthread", "-Wno-unknown-pragmas",
+             "-I", str(ROOT / "tests" / "cuda_host"), "-o", str(lib_path), str(path)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    libs = {}
+    for section, (lib_path, job) in jobs.items():
+        out, _ = job.communicate()
+        if job.returncode:
+            raise RuntimeError(f"g++ failed on the {section} section:\n{out[-4000:]}")
+        libs[section] = ctypes.CDLL(str(lib_path))
     p, i = ctypes.c_void_p, ctypes.c_int
-    for fn, _ in RUNGS.values():
-        getattr(lib, fn).restype = i
-        getattr(lib, fn).argtypes = [p, p, i, i, p]
-    lib.emu_map_per_cta.restype = ctypes.c_longlong
-    return lib
+    for section, fn, _, per_cta in (RUNGS | SCAN_RUNGS).values():
+        getattr(libs[section], fn).restype = i
+        getattr(libs[section], fn).argtypes = [p, p, i, i, p]
+        getattr(libs[section], per_cta).restype = ctypes.c_longlong
+    return libs
 
 
 def seeded(shape, seed: int) -> torch.Tensor:
@@ -114,9 +145,85 @@ CASES = {
 }
 
 
-def run(lib, rung: str, name: str) -> dict:
-    symbol, plain = RUNGS[rung]
-    make, misaligned = CASES[name]
+def uniform(shape, lo: int, hi: int, seed: int) -> torch.Tensor:
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.integers(lo, hi, size=shape, dtype=np.int64).astype(np.int32))
+
+
+# the value rung 4 gives each row of `break_steps`
+BREAK_VALUES = [41, 50, 12, 2**30 + 10, I32_MIN + 39, 41]
+
+
+def break_steps() -> torch.Tensor:
+    """Six rows of 16 columns, columns past each row's end of scan 1,000:
+    row 0 breaks at step 0 (41); row 1 at step 11 (eleven 0s, then 50); row
+    2 never breaks and sums 12 columns of 1; row 3 crosses 40 only after
+    its sum wraps (INT_MIN + 10, then -2^30: 2^30 + 10); row 4 wraps the
+    other way (40, then INT_MAX: INT_MIN + 39, negative, so no break, then
+    0s); row 5 sits at 40, not above it, then breaks at step 1 (41)."""
+    x = np.full((6, 16), 1000, dtype=np.int64)
+    x[0, 0] = 41
+    x[1, :11], x[1, 11] = 0, 50
+    x[2, :12] = 1
+    x[3, 0], x[3, 1] = I32_MIN + 10, -(2**30)
+    x[4, 0], x[4, 1], x[4, 2:12] = 40, I32_MAX, 0
+    x[5, 0], x[5, 1] = 40, 1
+    return torch.from_numpy(x.astype(np.int32))
+
+
+# rung 4's cases, as CASES: its 16-byte path takes a row of C % 4 == 0
+# columns with the input and the output 16-byte aligned
+R4_CASES = {
+    # the JAX rung's input (x[d, c] = c) and seeded ones at the program's shape
+    "vec4_jax_input": (lambda: torch.arange(256, dtype=torch.int32)[None, :].repeat(8, 1), None),
+    "vec4_seeded_0_12": (lambda: uniform((8, 256), 0, 12, 21), None),
+    "vec4_full_range": (lambda: seeded((8, 256), 22), None),
+    "vec4_break_steps": (break_steps, None),
+    # fewer than 12 columns: on the 16-byte path (the third group clamped),
+    # and on the one-int path
+    "vec4_narrow_C8": (lambda: uniform((8, 8), 0, 12, 23), None),
+    "scalar_C5": (lambda: uniform((8, 5), 0, 12, 24), None),
+    "scalar_C11": (lambda: uniform((8, 11), 0, 12, 25), None),
+    "scalar_C11_full_range": (lambda: seeded((8, 11), 26), None),
+    "scalar_misaligned_x": (lambda: uniform((16, 256), 0, 12, 27), "x"),
+    "scalar_misaligned_out": (lambda: uniform((16, 256), 0, 12, 28), "out"),
+    "vec4_D1": (lambda: uniform((1, 256), 0, 12, 29), None),
+    "vec4_D256": (lambda: uniform((256, 16), 0, 12, 30), None),
+    # rows of more groups than a CTA stores: several CTAs a row, the last
+    # partly empty
+    "vec4_row_tiles": (lambda: uniform((2, 8200), 0, 12, 31), None),
+    "scalar_row_tiles": (lambda: uniform((2, 2051), 0, 12, 32), None),
+    "wrap_vec4": (lambda: at_wrap((8, 256)), None),
+}
+
+# rung 5's cases: its 16-byte path takes D * C % 4 == 0 ints with the output
+# 16-byte aligned (it loads x[0, 0:32] one int a lane)
+R5_CASES = {
+    "vec4_jax_input": (lambda: torch.ones((8, 256), dtype=torch.int32), None),
+    "vec4_full_range": (lambda: seeded((8, 256), 41), None),
+    "vec4_D1": (lambda: seeded((1, 256), 42), None),
+    "vec4_D256": (lambda: seeded((256, 16), 43), None),
+    # fewer than 32 columns: the index wraps mod C
+    "scalar_C5": (lambda: seeded((3, 5), 44), None),
+    "scalar_C11": (lambda: seeded((3, 11), 45), None),
+    "scalar_C31": (lambda: seeded((1, 31), 46), None),
+    "vec4_C31": (lambda: seeded((4, 31), 47), None),
+    # 33 columns, past one warp's terms; 132 ints, so the 16-byte path
+    "vec4_C33": (lambda: seeded((4, 33), 48), None),
+    "vec4_x_off_16_bytes": (lambda: seeded((16, 256), 49), "x"),
+    "scalar_misaligned_out": (lambda: seeded((16, 256), 50), "out"),
+    "vec4_ragged_last_cta": (lambda: seeded((25, 528), 51), None),
+    "wrap_vec4": (lambda: at_wrap((8, 256)), None),
+    "wrap_scalar": (lambda: at_wrap((5, 7)), None),
+}
+
+CASES_OF = {"r0": CASES, "r7": CASES, "r4": R4_CASES, "r5": R5_CASES}
+
+
+def run(libs, rung: str, name: str) -> dict:
+    section, symbol, plain, per_cta = (RUNGS | SCAN_RUNGS)[rung]
+    lib = libs[section]
+    make, misaligned = CASES_OF[rung][name]
     x = make()
     x_k = offset_by_one(x) if misaligned == "x" else x.clone()
     # the output inside a SENTINEL-filled buffer, 16-byte aligned or one int
@@ -128,20 +235,26 @@ def run(lib, rung: str, name: str) -> dict:
     err = getattr(lib, symbol)(x_k.data_ptr(), o.data_ptr(), x.numel() // cols, cols, None)
     if err:
         raise RuntimeError(f"{rung} {name}: emulated launch returned {err}")
-    vec4 = x.numel() % 4 == 0 and x_k.data_ptr() % 16 == 0 and o.data_ptr() % 16 == 0
+    x_al, o_al = x_k.data_ptr() % 16 == 0, o.data_ptr() % 16 == 0
+    if rung == "r4":  # a row's groups
+        vec4 = cols % 4 == 0 and x_al and o_al
+        groups = cols // 4 if vec4 else cols
+    else:
+        vec4 = x.numel() % 4 == 0 and o_al and (x_al or rung == "r5")
+        groups = x.numel() // 4 if vec4 else x.numel()
     return {
         "max_abs_err": int((o.long() - plain(x).long()).abs().max()),
         "input_kept": bool(torch.equal(x_k, x)),
         "outside_kept": bool((buf[:off] == SENTINEL).all() and (buf[off + x.numel():] == SENTINEL).all()),
         "vec4": vec4,
-        "groups": x.numel() // 4 if vec4 else x.numel(),
-        "per_cta": lib.emu_map_per_cta(),
+        "groups": groups,
+        "per_cta": getattr(lib, per_cta)(),
     }
 
 
 def main() -> int:
-    lib = load(Path(sys.argv[1]))
-    out = {rung: {name: run(lib, rung, name) for name in CASES} for rung in RUNGS}
+    libs = load(Path(sys.argv[1]))
+    out = {rung: {name: run(libs, rung, name) for name in CASES_OF[rung]} for rung in CASES_OF}
     print(json.dumps(out), flush=True)
     return 0
 

@@ -1,15 +1,17 @@
 // Host stand-in for the CUDA pieces ytpu_torch/csrc/integrate.cu, the
 // column put and the multi call of ytpu_torch/csrc/plane_rmw.cu and the
-// map put of ytpu_torch/csrc/mosaic_ladder.cu use, so that g++ can compile
+// map put and the scan and nested sum of ytpu_torch/csrc/mosaic_ladder.cu
+// use, so that g++ can compile
 // the kernel source and run its logic on the CPU
 // (tests/test_torch_integrate_emulated.py,
 // tests/test_torch_plane_rmw_emulated.py, tests/test_torch_ladder_emulated.py).
 // It is an emulator, not a GPU:
 //
-//   * every CUDA thread is a std::thread; the CTAs of a launch run one
-//     after another;
+//   * every CUDA thread is a std::thread; the CTAs of a launch (a 1-D or
+//     2-D grid) run one after another;
 //   * warp collectives (__ballot_sync, __shfl_sync, __any_sync,
-//     __reduce_max_sync, __reduce_or_sync, __syncwarp) meet at a per-warp
+//     __reduce_max_sync, __reduce_or_sync, __reduce_add_sync, __syncwarp)
+//     meet at a per-warp
 //     barrier, and the lanes of a warp run freely in between, so code that
 //     leans on lanes running in lockstep without a __syncwarp fails here;
 //   * mbarriers are counters under one mutex; a bulk copy is a memcpy that
@@ -50,7 +52,11 @@ struct ulonglong2 {
 };
 inline ulonglong2 make_ulonglong2(unsigned long long a, unsigned long long b) { return {a, b}; }
 struct EmuIndex {
-  int x;
+  int x, y;
+};
+struct dim3 {
+  unsigned x, y, z;
+  dim3(unsigned x_ = 1, unsigned y_ = 1, unsigned z_ = 1) : x(x_), y(y_), z(z_) {}
 };
 inline thread_local EmuIndex blockIdx, threadIdx, gridDim, blockDim;
 struct int4 {
@@ -123,6 +129,13 @@ inline unsigned emu_reduce_or(unsigned x, int line) {
     return r;
   });
 }
+inline unsigned emu_reduce_add(unsigned x, int line) {
+  return emu_collective(x, line, [](const unsigned long long* v) {
+    unsigned r = 0;
+    for (int i = 0; i < 32; ++i) r += (unsigned)v[i];
+    return r;
+  });
+}
 inline void emu_syncwarp(int line) {
   emu_line[threadIdx.x] = line;
   emu_warp().bar.arrive_and_wait();
@@ -132,6 +145,7 @@ inline void emu_syncwarp(int line) {
 #define __any_sync(m, p) (emu_ballot(p, __LINE__) != 0)
 #define __reduce_max_sync(m, x) emu_reduce_max(x, __LINE__)
 #define __reduce_or_sync(m, x) emu_reduce_or(x, __LINE__)
+#define __reduce_add_sync(m, x) emu_reduce_add(x, __LINE__)
 #define __syncwarp() emu_syncwarp(__LINE__)
 inline void __syncthreads() { emu_cta->bar.arrive_and_wait(); }
 
@@ -236,8 +250,8 @@ inline unsigned char* emu_dyn_smem() {
   return (unsigned char*)((p + 15) & ~(uintptr_t)15);
 }
 
-inline void emu_launch(int grid, int threads, size_t smem, std::function<void()> body) {
-  for (int b = 0; b < grid; ++b) {
+inline void emu_launch(dim3 grid, int threads, size_t smem, std::function<void()> body) {
+  for (int b = 0; b < (int)(grid.x * grid.y); ++b) {
     EmuCta cta(threads, smem);
     std::mutex watch_mu;
     std::condition_variable watch_cv;
@@ -252,9 +266,11 @@ inline void emu_launch(int grid, int threads, size_t smem, std::function<void()>
     std::vector<std::thread> ts;
     for (int t = 0; t < threads; ++t)
       ts.emplace_back([&, b, t] {
-        blockIdx.x = b;
+        blockIdx.x = b % grid.x;
+        blockIdx.y = b / grid.x;
         threadIdx.x = t;
-        gridDim.x = grid;
+        gridDim.x = grid.x;
+        gridDim.y = grid.y;
         blockDim.x = threads;
         emu_cta = &cta;
         body();

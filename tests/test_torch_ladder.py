@@ -272,6 +272,32 @@ def test_wrappers_check_their_arguments():
         tml.rung7_big_tile(torch.zeros((DB, C), dtype=torch.int32))
 
 
+@pytest.mark.parametrize("name", ["rung4_while_scan", "rung5_nested_fori"])
+def test_chip_smoke_scan_sum_variants(name):
+    """`chip_smoke._variants` for rungs 4 and 5, made here on the CPU: the
+    program's input, the seeded one, the seeded one one int off 16 bytes,
+    then (rung 4) the full range and 11 columns, or (rung 5) 3 x 11, 5 x 31
+    and 8 x 31; each runs through the wrapper as the plain version does."""
+    import chip_smoke
+
+    case = next(c for c in tml.CASES if c.name == name)
+    variants = chip_smoke._variants(case, case.inputs("cpu"), 11)
+    xs = [inputs[0] for inputs, make_kw in variants]
+    assert all(make_kw() == {} for _, make_kw in variants)
+    assert [x.data_ptr() % 16 for x in xs[:3]] == [0, 0, 4]
+    assert torch.equal(xs[1], xs[2])
+    if name == "rung4_while_scan":
+        assert [tuple(x.shape) for x in xs] == [(DB, C)] * 4 + [(DB, 11)] * 2
+        assert 0 <= int(xs[1].min()) and int(xs[1].max()) < 12 and 0 <= int(xs[4].min())
+        assert int(xs[3].min()) < -(2**30) and int(xs[3].max()) > 2**30
+        # rows of the seeded input break at different steps
+        assert len(set(tml.while_scan_plain(xs[1])[:, 0].tolist())) > 1
+    else:
+        assert [tuple(x.shape) for x in xs] == [(DB, C)] * 3 + [(3, 11), (5, 31), (DB, 31)]
+    for x in xs:
+        assert torch.equal(case.fn(x.clone()), case.plain(x.clone()))
+
+
 # --- the committed logs of rungs 8-10 ---------------------------------------------------
 
 

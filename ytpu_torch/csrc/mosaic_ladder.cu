@@ -27,12 +27,18 @@
 // not a multiple of 4, or a tensor that is not 16-byte aligned, takes the
 // same kernel one int a group.
 //
-// The other rungs take a grid sized to the output (one thread per element,
-// at most 1,024 CTAs of 256 threads, grid-stride past that). Rungs whose
-// output is one value broadcast over the tile (3, 4, 5, 6) recompute that
-// value in every CTA (at most 128 loads) rather than pay a second launch.
-// Rung 4 keeps the Pallas loop's block-wide condition: every row steps
-// `o` together while any row is still live (`__syncthreads_or`).
+// Rungs 4 and 5 write one value per row (4) or per tile (5) that a thread
+// can compute from at most 32 loads, so each is one pass that stores the
+// tile in 16-byte groups with no barrier, no shared memory and no division
+// per element (section "scan and nested sum" below: the closed forms and
+// the grids). They are also timed at the main path's width, [256, 65,536]
+// (PERF.md §6), where the 67 MB tile written once bounds them: 0.0200 ms.
+//
+// The other rungs (1, 2, 3, 6) take a grid sized to the output (one thread
+// per element, at most 1,024 CTAs of 256 threads, grid-stride past that).
+// Rungs whose output is one value broadcast over the tile (3, 6) recompute
+// that value in every CTA (at most 128 loads) rather than pay a second
+// launch.
 //
 // Integer arithmetic wraps mod 2^32 as it does in XLA (done in unsigned).
 //
@@ -43,8 +49,9 @@
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC -o libytpu_mosaic_ladder.so mosaic_ladder.cu
-// tests/_emulated_ladder.py builds the map section alone with g++ against
-// tests/cuda_host (a host emulator of CUDA).
+// tests/_emulated_ladder.py builds the map-put section and the scan and
+// nested-sum section, each alone, with g++ against tests/cuda_host (a host
+// emulator of CUDA).
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -130,15 +137,186 @@ YTPU_MAP_RUNG(ytpu_ladder_r7, Twice)
 
 // ---- end map put -------------------------------------------------------------------
 
+// ---- scan and nested sum (rungs 4 and 5) -----------------------------------------
+
+// Both rungs write a value that a thread computes alone from the head of a
+// row, so the Pallas loops become closed forms folded in registers:
+//
+//   rung 4, the conflict-scan `while`: row d steps o = 0, 1, ... while
+//   o < 12 and it has not broken, adding x[d, o] and breaking once its sum
+//   exceeds 40; the block-wide `any` condition only decides when every row
+//   has stopped, so o[d, :] = S_k with S_j = x[d, 0] + ... + x[d, j], where
+//     - the sum wraps mod 2^32 (taken in unsigned, as XLA's does),
+//     - columns >= C add 0 (a row of C < 12 columns keeps S_{C-1}),
+//     - k is the first j < 12 with (int32) S_j > 40 (a signed compare of
+//       the wrapped sum), or 11 if there is none: a row that never breaks
+//       sums 12 columns;
+//   rung 5, fori(8) around fori(4): o = sum_{j < 32} x[0, j mod C], mod 2^32
+//   (the index wraps mod C when C < 32).
+//
+// Rung 4: a 2-D grid, blockIdx.y the row and blockIdx.x a tile of the row's
+// 16-byte groups, so that a CTA reads one row and no index is divided. Every
+// thread issues the loads of x[d, 0:12] (three int4, or twelve ints on the
+// one-int path; an index past the row is clamped to its last group or int
+// and adds 0), folds the scan with its break in registers, then stores
+// SCAN_G groups SCAN_THREADS apart (fewer threads when a row has fewer
+// groups). Rung 5: a warp has lane j load x[0, j mod C] (the modulo only
+// when C < 32), sums the 32 lanes with one __reduce_add_sync, then every
+// thread stores SUM_G groups of the tile flattened, SUM_THREADS apart, as
+// the map put does. A count of columns that is not a multiple of 4, or an
+// input or output that is not 16-byte aligned, takes the same kernels one
+// int a group. The G x threads of each are what a sweep at both shapes
+// chose (PERF.md §6, the sweep of rungs 4 and 5).
+
+namespace {
+
+constexpr int R4_LIMIT = 12;       // scan while o < 12 ...
+constexpr int R4_BREAK = 40;       // ... and break a row once its sum > 40
+constexpr int R4_MAX_ROWS = 256;   // the rows a launch takes (the wrapper's limit)
+constexpr int R5_TERMS = 32;       // fori(8) around fori(4): one warp's lanes
+
+// 16-byte groups a thread stores, and the CTA size: the best of G in {1, 2,
+// 4} x {64, ..., 512} threads at [8, 256] and [256, 65,536] (PERF.md §6):
+// 2 x 128 was best for both at the wide shape, where rung 4 at G = 1
+// lost 5-84 % (a thread pays the row's loads and fold for one store, and
+// an empty launch of 16,384 CTAs alone takes 10.6 us on an H100 80GB HBM3
+// at 700 W); at [8, 256] the shapes lay within 0.03 us (rung 4) and
+// 0.12 us (rung 5) of each other
+constexpr int SCAN_G = 2;
+constexpr int SCAN_THREADS = 128;
+constexpr int SUM_G = 2;
+constexpr int SUM_THREADS = 128;
+
+template <class T>
+__device__ __forceinline__ T splat(int v);
+template <>
+__device__ __forceinline__ int splat<int>(int v) { return v; }
+template <>
+__device__ __forceinline__ int4 splat<int4>(int v) {
+  int4 r;
+  r.x = r.y = r.z = r.w = v;
+  return r;
+}
+
+// x[d, 0:12] of the row at `row` (C columns) into v; an index past the row
+// loads its last group (int4) or int instead, so that every load issues
+// before the fold, and the fold masks it
+__device__ __forceinline__ void load_head(const int* __restrict__ row, int C, int (&v)[R4_LIMIT], int4) {
+  const int4* r = (const int4*)row;
+  const int last = C / 4 - 1;
+  int4 q[R4_LIMIT / 4];
+#pragma unroll
+  for (int j = 0; j < R4_LIMIT / 4; ++j) q[j] = __ldg(r + (j < last ? j : last));
+#pragma unroll
+  for (int j = 0; j < R4_LIMIT / 4; ++j) {
+    v[4 * j] = q[j].x;
+    v[4 * j + 1] = q[j].y;
+    v[4 * j + 2] = q[j].z;
+    v[4 * j + 3] = q[j].w;
+  }
+}
+__device__ __forceinline__ void load_head(const int* __restrict__ row, int C, int (&v)[R4_LIMIT], int) {
+#pragma unroll
+  for (int j = 0; j < R4_LIMIT; ++j) v[j] = __ldg(row + (j < C ? j : C - 1));
+}
+
+// the scan of one row: S_k of the closed form above
+__device__ __forceinline__ int scan_fold(const int (&v)[R4_LIMIT], int C) {
+  unsigned s = 0;
+  bool brk = false;
+#pragma unroll
+  for (int j = 0; j < R4_LIMIT; ++j) {
+    const unsigned add = j < C ? (unsigned)v[j] : 0u;
+    s = brk ? s : s + add;
+    brk = brk || (int)s > R4_BREAK;
+  }
+  return (int)s;
+}
+
+// o[d, :] = the scan of row d, over groups T (int4, or int on the one-int
+// path): CTA (bx, d) stores groups [bx * G * blockDim.x, +G * blockDim.x)
+// of row d's `gpr`
+template <class T, int G, int NT>
+__global__ void __launch_bounds__(NT)
+scan_put(const int* __restrict__ x, T* __restrict__ o, int C, int gpr) {
+  const int d = blockIdx.y;
+  int v[R4_LIMIT];
+  load_head(x + (long long)d * C, C, v, T());
+  const T val = splat<T>(scan_fold(v, C));
+  T* row = o + (long long)d * gpr;
+  const int g0 = blockIdx.x * G * blockDim.x + threadIdx.x;
+#pragma unroll
+  for (int j = 0; j < G; ++j) {
+    const int g = g0 + j * blockDim.x;
+    if (g < gpr) row[g] = val;
+  }
+}
+
+// o = full(sum_{j < 32} x[0, j mod C]) over `groups` groups T: lane j of
+// every warp loads term j, one warp reduce sums them, then a thread stores
+// its G groups NT apart
+template <class T, int G, int NT>
+__global__ void __launch_bounds__(NT)
+sum_put(const int* __restrict__ x, T* __restrict__ o, int C, long long groups) {
+  int j = threadIdx.x % R5_TERMS;
+  if (C < R5_TERMS) j %= C;
+  const T val = splat<T>((int)__reduce_add_sync(0xffffffffu, (unsigned)__ldg(x + j)));
+  const long long g0 = (long long)blockIdx.x * G * NT + threadIdx.x;
+#pragma unroll
+  for (int k = 0; k < G; ++k) {
+    const long long g = g0 + (long long)k * NT;
+    if (g < groups) o[g] = val;
+  }
+}
+
+bool aligned16(const void* p) { return (uintptr_t)p % 16 == 0; }
+
+template <int G, int NT>
+int launch_scan(const int* x, int* o, int D, int C, cudaStream_t st) {
+  if (D <= 0 || C <= 0) return 0;
+  if (D > R4_MAX_ROWS) return (int)cudaErrorInvalidValue;
+  const bool v4 = C % 4 == 0 && aligned16(x) && aligned16(o);
+  const int gpr = v4 ? C / 4 : C;
+  // a row of fewer groups than a CTA's takes fewer threads (whole warps)
+  const int per_thread = (gpr + G - 1) / G;
+  const int threads = per_thread < NT ? (per_thread + 31) / 32 * 32 : NT;
+  if ((long long)gpr + (long long)G * threads > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  const dim3 grid((unsigned)((gpr + G * threads - 1) / (G * threads)), (unsigned)D);
+  if (v4) scan_put<int4, G, NT><<<grid, threads, 0, st>>>(x, (int4*)o, C, gpr);
+  else scan_put<int, G, NT><<<grid, threads, 0, st>>>(x, o, C, gpr);
+  return (int)cudaGetLastError();
+}
+
+template <int G, int NT>
+int launch_sum(const int* x, int* o, int D, int C, cudaStream_t st) {
+  const long long n = (long long)D * C;
+  if (D <= 0 || C <= 0) return 0;
+  const bool v4 = n % 4 == 0 && aligned16(o);
+  const long long groups = v4 ? n / 4 : n;
+  const long long blocks = (groups + (long long)G * NT - 1) / ((long long)G * NT);
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  if (v4) sum_put<int4, G, NT><<<(unsigned)blocks, NT, 0, st>>>(x, (int4*)o, C, groups);
+  else sum_put<int, G, NT><<<(unsigned)blocks, NT, 0, st>>>(x, o, C, groups);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" int ytpu_ladder_r4(const void* x, void* o, int D, int C, void* stream) {
+  return launch_scan<SCAN_G, SCAN_THREADS>((const int*)x, (int*)o, D, C, (cudaStream_t)stream);
+}
+
+extern "C" int ytpu_ladder_r5(const void* x, void* o, int D, int C, void* stream) {
+  return launch_sum<SUM_G, SUM_THREADS>((const int*)x, (int*)o, D, C, (cudaStream_t)stream);
+}
+
+// ---- end scan and nested sum -------------------------------------------------------
+
 namespace {
 
 constexpr int THREADS = 256;
 constexpr int MAX_CTAS = 1024;
 constexpr int R3_COLS = 16;    // rung 3: fori over the first 16 columns
-constexpr int R4_LIMIT = 12;   // rung 4: scan while o < 12 ...
-constexpr int R4_BREAK = 40;   // ... and break a row once acc > 40
-constexpr int R5_OUTER = 8;    // rung 5: fori(8) around fori(4)
-constexpr int R5_INNER = 4;
 constexpr int R6_GUARD = 100;  // rung 6: write x + 1 if any x[:, 0] > 100
 
 int grid_for(long long n) {
@@ -177,7 +355,7 @@ mrow_mask(const int* __restrict__ x, int* __restrict__ o, int D, int C) {
   }
 }
 
-// --- rungs 3-6: one value (or one flag) per tile, then a tile write ----------
+// --- rungs 3 and 6: one value (or one flag) per tile, then a tile write -------
 
 __device__ __forceinline__ unsigned block_sum(unsigned v, unsigned* part) {
   for (int k = 16; k > 0; k >>= 1) v += __shfl_down_sync(0xffffffffu, v, k);
@@ -208,46 +386,6 @@ fori_carry(const int* __restrict__ x, int* __restrict__ o, int D, int C) {
   fill(o, (long long)D * C, (int)block_sum(acc, part));
 }
 
-// The conflict-scan shape: every row steps o together while any row has
-// o < 12 and has not broken; a live row adds x[d, o] and breaks once its
-// sum exceeds 40; o = tile(acc). One thread per row (D <= THREADS).
-__global__ void __launch_bounds__(THREADS)
-while_scan(const int* __restrict__ x, int* __restrict__ o, int D, int C) {
-  __shared__ int acc_s[THREADS];
-  const int d = threadIdx.x;
-  const bool row = d < D;
-  int pos = 0, brk = 0;
-  unsigned acc = 0;
-  int go = __syncthreads_or(row && pos < R4_LIMIT && brk == 0);
-  while (go) {
-    if (row) {
-      if (brk == 0 && pos >= 0 && pos < C) acc += (unsigned)x[(long long)d * C + pos];
-      brk |= (int)acc > R4_BREAK;
-      pos += 1;
-    }
-    go = __syncthreads_or(row && pos < R4_LIMIT && brk == 0);
-  }
-  if (row) acc_s[d] = (int)acc;
-  __syncthreads();
-  const long long n = (long long)D * C;
-  for (long long i = first_index(); i < n; i += grid_stride()) o[i] = acc_s[i / C];
-}
-
-// o = full(sum_{s < 8, u < 4} x[0, (4 s + u) % C]), the loops nested as in
-// the Pallas kernel (one thread walks them)
-__global__ void __launch_bounds__(THREADS)
-nested_fori(const int* __restrict__ x, int* __restrict__ o, int D, int C) {
-  __shared__ unsigned total;
-  if (threadIdx.x == 0) {
-    unsigned acc = 0;
-    for (int s = 0; s < R5_OUTER; ++s)
-      for (int u = 0; u < R5_INNER; ++u) acc += (unsigned)x[(s * R5_INNER + u) % C];
-    total = acc;
-  }
-  __syncthreads();
-  fill(o, (long long)D * C, (int)total);
-}
-
 // o = x, then x + 1 where any(x[:, 0] > 100) (a block-wide guard)
 __global__ void __launch_bounds__(THREADS)
 guarded_write(const int* __restrict__ x, int* __restrict__ o, int D, int C) {
@@ -274,8 +412,6 @@ guarded_write(const int* __restrict__ x, int* __restrict__ o, int D, int C) {
 YTPU_ROW_RUNG(ytpu_ladder_r1, onehot_put, 0x7fffffff)
 YTPU_ROW_RUNG(ytpu_ladder_r2, mrow_mask, 0x7fffffff)
 YTPU_ROW_RUNG(ytpu_ladder_r3, fori_carry, 0x7fffffff)
-YTPU_ROW_RUNG(ytpu_ladder_r4, while_scan, THREADS)
-YTPU_ROW_RUNG(ytpu_ladder_r5, nested_fori, 0x7fffffff)
 YTPU_ROW_RUNG(ytpu_ladder_r6, guarded_write, 0x7fffffff)
 
 extern "C" const char* ytpu_ladder_error_string(int err) {
