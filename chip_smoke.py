@@ -8,9 +8,9 @@ Usage (on a machine with one NVIDIA GPU and the CUDA toolkit):
 
 Phases, one JSON line each: ``build`` (the four CUDA libraries, one nvcc
 each, in parallel; the integrate kernel must use no stack frame and no
-spills, the column put, the map put, rungs 4 and 5 and v_multi's sized
-copy must issue their loads before their first store and use no local
-memory, v_body's one-pass kernel must use no local memory),
+spills, the column put, the map put, rungs 1, 3, 4 and 5 and v_multi's
+sized copy must issue their loads before their first store and use no
+local memory, v_body's one-pass kernel must use no local memory),
 ``kernel_vs_plain`` (small
 cases: B4 chunks, synthetic streams at three scan plans and a capacity
 cut, 8 clients typing, clients above the client-clock table, a
@@ -30,7 +30,8 @@ diagnostic kernel against its plain version, then timed beside its
 library call in the same mode and beside an empty kernel at its grid, the
 launch floor; the column puts a, a2, g3d and g2d also in place on a live
 slot and at the main path's width, v_vmem and v_body at that width, rungs
-4 and 5 at ``[256, 65,536]`` beside ``fill_``); then
+1, 3, 4 and 5 at ``[256, 65,536]``, rung 1 beside ``torch.add(x, 1)``, the
+others beside ``fill_``); then
 the card's name and power limit, the ``kernels`` line and, last,
 ``{"ok": true, "device": {...}}``. Launch counts are set to 0 just
 before each program runs and read just after it. Any failure exits
@@ -150,10 +151,10 @@ def phase_build(gpu):
     """Every library, one nvcc each in parallel; the integrate kernel's
     ptxas report must show no stack frame and no spills, every
     instantiation of the column put, of the map put (rungs 0 and 7), of
-    rung 4's scan put and rung 5's sum put and of v_multi's sized copy must
-    issue all its loads before its first store and use no local memory,
-    and v_body's one-pass kernel must use no local memory
-    (`_sass_summary`)."""
+    rung 1's row put, rung 3's carry put, rung 4's scan put and rung 5's
+    sum put and of v_multi's sized copy must issue all its loads before its
+    first store and use no local memory, and v_body's one-pass kernel must
+    use no local memory (`_sass_summary`)."""
     from ytpu_torch.ops import _build
 
     t0 = time.perf_counter()
@@ -166,6 +167,8 @@ def phase_build(gpu):
              for name in ("integrate", "integrate_profile")}
     sass = {"column_put_sass": _sass_summary(libs["plane_rmw"], "column_put"),
             "map_put_sass": _sass_summary(libs["mosaic_ladder"], "map_put"),
+            "row_put_sass": _sass_summary(libs["mosaic_ladder"], "row_put"),
+            "carry_put_sass": _sass_summary(libs["mosaic_ladder"], "carry_put"),
             "scan_put_sass": _sass_summary(libs["mosaic_ladder"], "scan_put"),
             "sum_put_sass": _sass_summary(libs["mosaic_ladder"], "sum_put")}
     copy_sass = _sass_summary(libs["plane_rmw"], "sized_copy")
@@ -176,8 +179,9 @@ def phase_build(gpu):
     main = ptxas["integrate"]
     if main["stack_frame_bytes"] or main["spill_store_bytes"] or main["spill_load_bytes"]:
         raise RuntimeError(f"integrate_kernel uses local memory: {main}")
-    # the column put's streaming copy, the map put and rungs 4 and 5 issue
-    # every load before their first store and keep their values in registers
+    # the column put's streaming copy, the map put and rungs 1, 3, 4 and 5
+    # issue every load before their first store and keep their values in
+    # registers
     for name, summary in sass.items():
         if not summary or any(f["local"] or f["ldg_before_first_stg"] != f["ldg"] for f in summary.values()):
             raise RuntimeError(f"{name}: a kernel stores before its last load or uses local memory: {summary}")
@@ -578,10 +582,10 @@ OUT_OF_PLACE = ("a_static3d_allfalse", "a2_static3d_slot0", "g3d", "g2d_flat", "
 # the entry points of the map put (rungs 0 and 7), also held against their
 # plain versions on a view one int off a 16-byte boundary (the one-int path)
 MAP_PUTS = ("rung0_copy", "rung7_big_tile")
-# rungs 4 and 5 (the scan put and the sum put), also held against their
-# plain versions on narrow tiles and on a view one int off a 16-byte
-# boundary, and timed at the main path's width
-SCAN_SUMS = ("rung4_while_scan", "rung5_nested_fori")
+# rungs 1, 3, 4 and 5 (the row put, the carry put, the scan put and the
+# sum put), also held against their plain versions on narrow tiles and on a
+# view one int off a 16-byte boundary, and timed at the main path's width
+TILE_RUNGS = ("rung1_onehot_put", "rung3_fori_carry", "rung4_while_scan", "rung5_nested_fori")
 # the entry points of the column put (a and a2 restricted to one plane),
 # also timed in place on a live slot and at the main path's width
 COLUMN_PUTS = ("a_static3d_allfalse", "a2_static3d_slot0", "g3d", "g2d_flat")
@@ -592,9 +596,9 @@ def _variants(case, args, seed: int):
     as ``[(inputs, kwargs maker)]``: the program's own; a seeded variant
     where the kernel decides on data; for the kernels in OUT_OF_PLACE the
     program's inputs written into an output filled with SENTINEL; for the
-    map puts, rungs 4 and 5, and v_multi's meta, the seeded input at a view
-    one int off a 16-byte boundary; for rungs 4 and 5 the full-range and
-    narrow tiles of `_scan_sum_inputs`; and
+    map puts, rungs 1, 3, 4 and 5, and v_multi's meta, the seeded input at
+    a view one int off a 16-byte boundary; for rungs 1, 3, 4 and 5 the
+    full-range, narrow and tall tiles of `_tile_inputs`; and
     for the column puts a seeded state with a live slot (`_live_slot`), in
     place and into a SENTINEL-filled output."""
     import torch
@@ -607,10 +611,10 @@ def _variants(case, args, seed: int):
         target = args[-1]  # x, or meta for v_multi
 
         out.append((args, lambda: {"out": torch.full_like(target, SENTINEL)}))
-    if case.name in MAP_PUTS + SCAN_SUMS:
+    if case.name in MAP_PUTS + TILE_RUNGS:
         out.append(((_at_offset(seeded[0], 4),), dict))
-    if case.name in SCAN_SUMS:
-        out.extend(((x,), dict) for x in _scan_sum_inputs(case.name, args[0], seed))
+    if case.name in TILE_RUNGS:
+        out.extend(((x,), dict) for x in _tile_inputs(case.name, args[0], seed))
     if case.name == "v_multi":  # in place on the one-int path
         out.append((seeded[:4] + (_at_offset(seeded[4], 4),), dict))
     if case.name in COLUMN_PUTS:
@@ -630,19 +634,33 @@ def _at_offset(x, offset: int):
     return buf[start : start + x.numel()].view(x.shape).copy_(x)
 
 
-def _scan_sum_inputs(name: str, like, seed: int):
-    """Further seeded inputs of rung 4 or 5 on `like`'s device: for rung 4 the
-    program's shape over the full int32 range (sums wrap past 2^31), and
-    11 columns (fewer than its 12 steps, not a multiple of 4) of values in
-    [0, 12) and of the full range; for rung 5 3 x 11 and 5 x 31 ints (fewer
-    than its 32 terms: the index wraps mod C; an odd count, so the one-int
-    path) and 8 x 31 (the 16-byte path)."""
+def _tile_inputs(name: str, like, seed: int):
+    """Further seeded inputs of rungs 1, 3, 4 and 5 on `like`'s device: for
+    rung 1 5 and 11 columns (the one-int path; head indices in [-2, C + 2))
+    and 70,000 rows of 4 (more rows than one grid's 65,535: CTAs stride over
+    rows); for rung 3 8 x 16 (the fewest columns it takes), 8 x 17 (its head
+    read one int a group) and 256 x 17 (sixteen head ints a thread), all
+    over the full int32 range (sums wrap past 2^31); for rung 4 the program's
+    shape over the full range, and 11 columns (fewer than its 12 steps, not
+    a multiple of 4) of values in [0, 12) and of the full range; for rung 5
+    3 x 11 and 5 x 31 ints (fewer than its 32 terms: the index wraps mod C;
+    an odd count, so the one-int path) and 8 x 31 (the 16-byte path)."""
     import numpy as np
     import torch
 
     rng = np.random.default_rng(seed + 1)
     full = lambda shape: rng.integers(-(2**31), 2**31, size=shape, dtype=np.int64)  # noqa: E731
-    if name == "rung4_while_scan":
+
+    def heads(shape):
+        a = full(shape)
+        a[:, 0] = rng.integers(-2, shape[1] + 2, size=shape[0])
+        return a
+
+    if name == "rung1_onehot_put":
+        arrays = [heads((8, 5)), heads((8, 11)), heads((70000, 4))]
+    elif name == "rung3_fori_carry":
+        arrays = [full((8, 16)), full((8, 17)), full((256, 17))]
+    elif name == "rung4_while_scan":
         arrays = [full(tuple(like.shape)), rng.integers(0, 12, size=(8, 11)), full((8, 11))]
     else:
         arrays = [full((3, 11)), full((5, 31)), full((8, 31))]
@@ -674,7 +692,7 @@ def _seeded_inputs(case, args, seed: int):
     different steps, a firing guard, live slots for the client clock; for
     v_multi a meta of random words), or None for the plane passthroughs
     (their seeded variants are in `_variants`, as are rung 4's over the
-    full range, `_scan_sum_inputs`)."""
+    full range, `_tile_inputs`)."""
     import numpy as np
     import torch
 
@@ -934,16 +952,17 @@ def _body_pairs(case, args, seed: int):
     return {"full_width": wide}, err
 
 
-def _scan_sum_pairs(case, like, seed: int):
-    """Rung 4 or 5 at the main path's width, ``[256, 65,536]`` int32 made on
-    `like`'s card from a seeded generator (rung 4: values in [0, 12), so
-    that rows break at different steps; rung 5: the full range): held
-    against the plain version, timed in a graph beside ``fill_`` of an
-    output of the same shape (the least a pass that writes the tile costs:
-    a yardstick, not a call that computes the function), with the launch
-    floor at its grid and the bound of this input (the tile written once,
-    plus what the function reads). Returns the fields and the max abs
-    error."""
+def _tile_pairs(case, like, seed: int):
+    """Rung 1, 3, 4 or 5 at the main path's width, ``[256, 65,536]`` int32
+    made on `like`'s card from a seeded generator (rung 4: values in [0,
+    12), so that rows break at different steps; rung 1: the full range with
+    head indices in [-2, C + 2); rungs 3 and 5: the full range): held
+    against the plain version, timed in a graph beside its yardstick into an
+    output of the same shape: for rung 1 ``torch.add(x, 1)``, a pass that
+    reads and writes the tile, for the others ``fill_``, a pass that writes
+    it (neither computes the rung's function), with the launch floor at its
+    grid and the bound of this input (what the function reads, plus the
+    tile written once). Returns the fields and the max abs error."""
     import torch
 
     from ytpu_torch.benches._kernels import graph_ms
@@ -955,17 +974,23 @@ def _scan_sum_pairs(case, like, seed: int):
         x.random_(0, 12, generator=gen)
     else:
         x.random_(-(2**31), 2**31, generator=gen)
+    if case.name == "rung1_onehot_put":
+        x[:, 0] = torch.empty(N_DOCS, dtype=torch.int32, device=like.device).random_(-2, CAPACITY + 2,
+                                                                                     generator=gen)
     want = case.plain(x)
     got = case.fn(x)
     err = _abs_err(got, want)
-    fill_out = torch.empty_like(x)
-    value = int(want[0, 0])
+    yard_out = torch.empty_like(x)
+    if case.name == "rung1_onehot_put":
+        yardstick, yard = "torch.add(x, 1, out=o)", lambda: torch.add(x, 1, out=yard_out)
+    else:
+        yardstick, yard = "o.fill_(v)", lambda: yard_out.fill_(7)
     wide = {"shape": list(x.shape), "ms": graph_ms(lambda: case.fn(x)),
-            "fill_ms": graph_ms(lambda: fill_out.fill_(value)),
+            "yardstick": yardstick, "yardstick_ms": graph_ms(yard),
             "plain_ms": _time_ms(lambda: case.plain(x)),
             "launch_floor": _launch_floor(lambda: case.fn(x)),
             "full_width_bound_ms": case.bound_bytes((x,)) / HBM_BYTES_PER_S * 1e3}
-    del x, want, got, fill_out
+    del x, want, got, yard_out
     torch.cuda.empty_cache()
     return {"full_width": wide}, err
 
@@ -981,8 +1006,8 @@ def phase_diag_kernels(gpu, launches, dev="cuda"):
     library call (``copy_``, ``torch.where``), with the in-place call
     beside it (``in_place_ms``); the column puts also get
     `_column_put_pairs`, v_vmem `_passthrough_pairs`, v_body `_body_pairs`
-    (its main path's width), rungs 4 and 5 `_scan_sum_pairs` (the main
-    path's width, beside ``fill_``). Each entry carries
+    (its main path's width), rungs 1, 3, 4 and 5 `_tile_pairs` (the main
+    path's width, beside ``torch.add`` or ``fill_``). Each entry carries
     the launch floor at its kernel's grid (`_launch_floor`); the floor of
     one CTA of 32, 64, 128 and 256 threads and the nodes a ``copy_`` of the
     program's state and of v_multi's meta make in a CUDA graph (a memcpy or
@@ -1020,8 +1045,8 @@ def phase_diag_kernels(gpu, launches, dev="cuda"):
             pairs, pair_err = _body_pairs(case, args, 11)
             err = max(err, pair_err)
             extra.update(pairs)
-        elif case.name in SCAN_SUMS:
-            pairs, pair_err = _scan_sum_pairs(case, args[0], 11)
+        elif case.name in TILE_RUNGS:
+            pairs, pair_err = _tile_pairs(case, args[0], 11)
             err = max(err, pair_err)
             extra.update(pairs)
         if err != 0:
@@ -1259,7 +1284,8 @@ def main() -> int:
         "cycles_per_step": profile["cycles_per_step"],
         "launch_plan": ik_launch_plan(plan), "ptxas": ptxas,
         "gpu": gpu,
-    }] + [{k: e[k] for k in KERNEL_KEYS} for e in diag]})
+    }] + [{**{k: e[k] for k in KERNEL_KEYS}, **({"full_width": e["full_width"]} if "full_width" in e else {})}
+          for e in diag]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
     return 0

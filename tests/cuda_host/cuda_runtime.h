@@ -1,7 +1,7 @@
 // Host stand-in for the CUDA pieces ytpu_torch/csrc/integrate.cu, the
 // column put and the multi call of ytpu_torch/csrc/plane_rmw.cu and the
-// map put and the scan and nested sum of ytpu_torch/csrc/mosaic_ladder.cu
-// use, so that g++ can compile
+// map put, the scan and nested sum and the row put and carried sum of
+// ytpu_torch/csrc/mosaic_ladder.cu use, so that g++ can compile
 // the kernel source and run its logic on the CPU
 // (tests/test_torch_integrate_emulated.py,
 // tests/test_torch_plane_rmw_emulated.py, tests/test_torch_ladder_emulated.py).

@@ -298,6 +298,36 @@ def test_chip_smoke_scan_sum_variants(name):
         assert torch.equal(case.fn(x.clone()), case.plain(x.clone()))
 
 
+@pytest.mark.parametrize("name", ["rung1_onehot_put", "rung3_fori_carry"])
+def test_chip_smoke_row_carry_variants(name):
+    """`chip_smoke._variants` for rungs 1 and 3, made here on the CPU: the
+    program's input, the seeded one, the seeded one one int off 16 bytes,
+    then (rung 1) 5 and 11 columns and 70,000 rows of 4, head indices in
+    [-2, C + 2), or (rung 3) 8 x 16, 8 x 17 and 256 x 17 over the full
+    range; each runs through the wrapper as the plain version does."""
+    import chip_smoke
+
+    case = next(c for c in tml.CASES if c.name == name)
+    variants = chip_smoke._variants(case, case.inputs("cpu"), 11)
+    xs = [inputs[0] for inputs, make_kw in variants]
+    assert all(make_kw() == {} for _, make_kw in variants)
+    assert [x.data_ptr() % 16 for x in xs[:3]] == [0, 0, 4]
+    assert torch.equal(xs[1], xs[2])
+    if name == "rung1_onehot_put":
+        assert [tuple(x.shape) for x in xs] == [(DB, C)] * 3 + [(DB, 5), (DB, 11), (70000, 4)]
+        for x in xs[1:]:
+            heads = x[:, 0]
+            assert int(heads.min()) >= -2 and int(heads.max()) < x.shape[1] + 2
+        # more rows than one grid's 65,535; heads that put 7 and heads that put nothing
+        assert xs[-1].shape[0] > 65535
+        assert ((xs[-1][:, 0] >= 0) & (xs[-1][:, 0] < 4)).any() and (xs[-1][:, 0] >= 4).any()
+    else:
+        assert [tuple(x.shape) for x in xs] == [(DB, C)] * 3 + [(DB, 16), (DB, 17), (256, 17)]
+        assert int(xs[-1].min()) < -(2**30) and int(xs[-1].max()) > 2**30
+    for x in xs:
+        assert torch.equal(case.fn(x.clone()), case.plain(x.clone()))
+
+
 # --- the committed logs of rungs 8-10 ---------------------------------------------------
 
 

@@ -31,14 +31,16 @@
 // can compute from at most 32 loads, so each is one pass that stores the
 // tile in 16-byte groups with no barrier, no shared memory and no division
 // per element (section "scan and nested sum" below: the closed forms and
-// the grids). They are also timed at the main path's width, [256, 65,536]
-// (PERF.md §6), where the 67 MB tile written once bounds them: 0.0200 ms.
+// the grids). Rung 1 is a map put over row tiles, each thread loading its
+// row's index beside its groups; rung 3 sums its head once per CTA, behind
+// one barrier, then stores as rung 5 does (section "row put and carried
+// sum"). Rungs 1 and 3-5 are also timed at the main path's width, [256,
+// 65,536] (PERF.md §6), where the 67 MB tile bounds them: written once,
+// 0.0200 ms (rungs 3-5), read and written, 0.0401 ms (rung 1).
 //
-// The other rungs (1, 2, 3, 6) take a grid sized to the output (one thread
-// per element, at most 1,024 CTAs of 256 threads, grid-stride past that).
-// Rungs whose output is one value broadcast over the tile (3, 6) recompute
-// that value in every CTA (at most 128 loads) rather than pay a second
-// launch.
+// Rungs 2 and 6 take a grid sized to the output (one thread per element,
+// at most 1,024 CTAs of 256 threads, grid-stride past that); rung 6
+// recomputes its guard in every CTA rather than pay a second launch.
 //
 // Integer arithmetic wraps mod 2^32 as it does in XLA (done in unsigned).
 //
@@ -49,12 +51,35 @@
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC -o libytpu_mosaic_ladder.so mosaic_ladder.cu
-// tests/_emulated_ladder.py builds the map-put section and the scan and
-// nested-sum section, each alone, with g++ against tests/cuda_host (a host
+// tests/_emulated_ladder.py builds the map-put section, the scan and
+// nested-sum section and the row put and carried-sum section, each alone
+// with the shared helpers, with g++ against tests/cuda_host (a host
 // emulator of CUDA).
 
 #include <cstdint>
 #include <cuda_runtime.h>
+
+// ---- shared helpers ----------------------------------------------------------------
+
+namespace {
+
+bool aligned16(const void* p) { return (uintptr_t)p % 16 == 0; }
+
+// v in every int of a group T (int4, or int on the one-int path)
+template <class T>
+__device__ __forceinline__ T splat(int v);
+template <>
+__device__ __forceinline__ int splat<int>(int v) { return v; }
+template <>
+__device__ __forceinline__ int4 splat<int4>(int v) {
+  int4 r;
+  r.x = r.y = r.z = r.w = v;
+  return r;
+}
+
+}  // namespace
+
+// ---- end shared helpers ------------------------------------------------------------
 
 // ---- map put (rungs 0 and 7) -------------------------------------------------------
 
@@ -187,17 +212,6 @@ constexpr int SCAN_THREADS = 128;
 constexpr int SUM_G = 2;
 constexpr int SUM_THREADS = 128;
 
-template <class T>
-__device__ __forceinline__ T splat(int v);
-template <>
-__device__ __forceinline__ int splat<int>(int v) { return v; }
-template <>
-__device__ __forceinline__ int4 splat<int4>(int v) {
-  int4 r;
-  r.x = r.y = r.z = r.w = v;
-  return r;
-}
-
 // x[d, 0:12] of the row at `row` (C columns) into v; an index past the row
 // loads its last group (int4) or int instead, so that every load issues
 // before the fold, and the fold masks it
@@ -269,8 +283,6 @@ sum_put(const int* __restrict__ x, T* __restrict__ o, int C, long long groups) {
   }
 }
 
-bool aligned16(const void* p) { return (uintptr_t)p % 16 == 0; }
-
 template <int G, int NT>
 int launch_scan(const int* x, int* o, int D, int C, cudaStream_t st) {
   if (D <= 0 || C <= 0) return 0;
@@ -312,11 +324,187 @@ extern "C" int ytpu_ladder_r5(const void* x, void* o, int D, int C, void* stream
 
 // ---- end scan and nested sum -------------------------------------------------------
 
+// ---- row put and carried sum (rungs 1 and 3) -----------------------------------------
+
+// Rung 1, the one-hot put: o[d, c] = 7 if c == x[d, 0] else x[d, c]. A map
+// put over row tiles, on rung 4's 2-D grid: blockIdx.y is a row and
+// blockIdx.x a tile of the row's 16-byte groups, so no index is divided. A
+// thread loads x[d, 0] (one address for the whole CTA) and its ROW_G groups
+// (the row's last group in place of one past it, so that every load issues
+// before the first store), puts 7 in the one int, of one group, whose
+// column equals x[d, 0] (none when it lies outside [0, C)), and stores.
+// No barrier, no shared memory, no division. gridDim.y stops at 65,535, so
+// a CTA strides over rows y, y + gridDim.y, ... (one trip below that). A
+// count of columns not a multiple of 4, or an input or output not 16-byte
+// aligned, puts one int a group.
+//
+// Rung 3, the carried sum: o = full(S), S = sum_{d < D, i < 16} x[d, i]
+// mod 2^32 (the JAX fori carries it column by column; under wrap-around
+// the order does not matter). Each CTA sums the head once: its threads
+// share the head's groups (at D = 256, four int4 a thread of 256), each
+// warp reduces its share with one __reduce_add_sync, and the warps'
+// partials meet in shared memory behind one barrier. Then every thread
+// stores CARRY_G groups of the tile flattened, CARRY_THREADS apart, as
+// rung 5's sum put does. The grid covers the tile once, so at the main
+// path's width the 16 KB head is read from L2 by each of 8,192 CTAs; a
+// grid sized to the card (k CTAs an SM storing in a loop) and a per-warp
+// sum without the barrier both lost (PERF.md §6, the sweep of rungs 1 and
+// 3).
+// A count of columns not a multiple of 4, or an input not 16-byte aligned,
+// reads the head one int a group; a tile of a count not a multiple of 4,
+// or an output not 16-byte aligned, stores one int a group.
+//
+// The G x threads of each are what a sweep at [8, 256] and [256, 65,536]
+// chose (PERF.md §6, the sweep of rungs 1 and 3).
+
+namespace {
+
+constexpr int R1_PUT = 7;          // rung 1's value at column x[d, 0]
+constexpr int R3_COLS = 16;        // rung 3 sums the first 16 columns of every row
+constexpr int MAX_GRID_Y = 65535;  // the card's limit on gridDim.y
+
+// rung 1: groups a thread puts, and the CTA size; rung 3: groups a
+// thread stores, and the CTA size
+constexpr int ROW_G = 1;
+constexpr int ROW_THREADS = 256;
+constexpr int CARRY_G = 2;
+constexpr int CARRY_THREADS = 256;
+
+// rung 1: 7 at column idx of a group whose first column is c0
+__device__ __forceinline__ void put_at(int4& v, int c0, int idx) {
+  v.x = c0 == idx ? R1_PUT : v.x;
+  v.y = c0 + 1 == idx ? R1_PUT : v.y;
+  v.z = c0 + 2 == idx ? R1_PUT : v.z;
+  v.w = c0 + 3 == idx ? R1_PUT : v.w;
+}
+__device__ __forceinline__ void put_at(int& v, int c0, int idx) { v = c0 == idx ? R1_PUT : v; }
+
+// rung 1 over groups T (int4, or int on the one-int path), `gpr` a row:
+// CTA (bx, y) puts groups [bx * G * blockDim.x, +G * blockDim.x) of rows
+// y, y + gridDim.y, ...
+template <class T, int G, int NT>
+__global__ void __launch_bounds__(NT)
+row_put(const T* __restrict__ x, T* __restrict__ o, unsigned D, int gpr) {
+  const int g0 = blockIdx.x * G * blockDim.x + threadIdx.x;
+#pragma unroll 1
+  for (unsigned d = blockIdx.y; d < D; d += gridDim.y) {
+    const long long base = (long long)d * gpr;
+    const int idx = __ldg((const int*)(x + base));
+    T v[G];
+#pragma unroll
+    for (int j = 0; j < G; ++j) {
+      const int g = g0 + j * blockDim.x;
+      v[j] = __ldg(x + base + (g < gpr ? g : gpr - 1));
+    }
+#pragma unroll
+    for (int j = 0; j < G; ++j) {
+      const int g = g0 + j * blockDim.x;
+      if (g < gpr) {
+        put_at(v[j], g * (int)(sizeof(T) / sizeof(int)), idx);
+        o[base + g] = v[j];
+      }
+    }
+  }
+}
+
+// rung 3: the ints of head group j, added in unsigned: x[j / 4, 4 (j % 4)
+// : +4] (int4), or x[j / 16, j % 16] (int)
+__device__ __forceinline__ unsigned head_group(const int* __restrict__ x, int C, int j, int4) {
+  const int4 q = __ldg((const int4*)(x + (long long)(j >> 2) * C) + (j & 3));
+  return (unsigned)q.x + (unsigned)q.y + (unsigned)q.z + (unsigned)q.w;
+}
+__device__ __forceinline__ unsigned head_group(const int* __restrict__ x, int C, int j, int) {
+  return (unsigned)__ldg(x + (long long)(j >> 4) * C + (j & 15));
+}
+
+// head groups first, first + step, ... below n, summed
+template <class TI>
+__device__ __forceinline__ unsigned head_sum(const int* __restrict__ x, int C, int n, int first, int step) {
+  unsigned s = 0;
+#pragma unroll 4
+  for (int j = first; j < n; j += step) s += head_group(x, C, j, TI());
+  return s;
+}
+
+// o = full(S) over `groups` groups T (int4, or int); the head in n groups
+// TI: the CTA sums the head, then thread t of CTA b stores groups b * G *
+// NT + t, + NT, ..., G of them
+template <class TI, class T, int G, int NT>
+__global__ void __launch_bounds__(NT)
+carry_put(const int* __restrict__ x, T* __restrict__ o, int C, int n, long long groups) {
+  __shared__ unsigned part[NT / 32];
+  const unsigned s = __reduce_add_sync(0xffffffffu, head_sum<TI>(x, C, n, threadIdx.x, NT));
+  if (threadIdx.x % 32 == 0) part[threadIdx.x / 32] = s;
+  __syncthreads();
+  unsigned total = 0;
+#pragma unroll
+  for (int w = 0; w < NT / 32; ++w) total += part[w];
+  const T val = splat<T>((int)total);
+  const long long g0 = (long long)blockIdx.x * G * NT + threadIdx.x;
+#pragma unroll
+  for (int k = 0; k < G; ++k) {
+    const long long g = g0 + (long long)k * NT;
+    if (g < groups) o[g] = val;
+  }
+}
+
+// max_y: the rows one grid covers (the card's 65,535; the host tests pass
+// fewer, so that CTAs stride over rows)
+template <int G, int NT>
+int launch_row_put(const int* x, int* o, int D, int C, int max_y, cudaStream_t st) {
+  if (D <= 0 || C <= 0) return 0;
+  const bool v4 = C % 4 == 0 && aligned16(x) && aligned16(o);
+  const int gpr = v4 ? C / 4 : C;
+  // a row of fewer groups than a CTA's takes fewer threads (whole warps)
+  const long long per_thread = ((long long)gpr + G - 1) / G;
+  const int threads = per_thread < NT ? (int)(per_thread + 31) / 32 * 32 : NT;
+  const long long tile = (long long)G * threads;
+  if (gpr + tile > 0x7fffffffLL || max_y <= 0) return (int)cudaErrorInvalidValue;
+  const dim3 grid((unsigned)((gpr + tile - 1) / tile), (unsigned)(D < max_y ? D : max_y));
+  if (v4) row_put<int4, G, NT><<<grid, threads, 0, st>>>((const int4*)x, (int4*)o, D, gpr);
+  else row_put<int, G, NT><<<grid, threads, 0, st>>>(x, o, D, gpr);
+  return (int)cudaGetLastError();
+}
+
+template <class TI, int G, int NT>
+int launch_carry_in(const int* x, int* o, bool v4, int C, int n, long long groups, cudaStream_t st) {
+  const long long blocks = (groups + (long long)G * NT - 1) / ((long long)G * NT);
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  if (v4) carry_put<TI, int4, G, NT><<<(unsigned)blocks, NT, 0, st>>>(x, (int4*)o, C, n, groups);
+  else carry_put<TI, int, G, NT><<<(unsigned)blocks, NT, 0, st>>>(x, o, C, n, groups);
+  return (int)cudaGetLastError();
+}
+
+template <int G, int NT>
+int launch_carry(const int* x, int* o, int D, int C, cudaStream_t st) {
+  if (D <= 0 || C <= 0) return 0;
+  if (C < R3_COLS || (long long)D * R3_COLS > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  const long long ints = (long long)D * C;
+  const bool vo = ints % 4 == 0 && aligned16(o);
+  const long long groups = vo ? ints / 4 : ints;
+  if (C % 4 == 0 && aligned16(x)) {
+    return launch_carry_in<int4, G, NT>(x, o, vo, C, D * (R3_COLS / 4), groups, st);
+  }
+  return launch_carry_in<int, G, NT>(x, o, vo, C, D * R3_COLS, groups, st);
+}
+
+}  // namespace
+
+extern "C" int ytpu_ladder_r1(const void* x, void* o, int D, int C, void* stream) {
+  return launch_row_put<ROW_G, ROW_THREADS>((const int*)x, (int*)o, D, C, MAX_GRID_Y,
+                                            (cudaStream_t)stream);
+}
+
+extern "C" int ytpu_ladder_r3(const void* x, void* o, int D, int C, void* stream) {
+  return launch_carry<CARRY_G, CARRY_THREADS>((const int*)x, (int*)o, D, C, (cudaStream_t)stream);
+}
+
+// ---- end row put and carried sum ---------------------------------------------------
+
 namespace {
 
 constexpr int THREADS = 256;
 constexpr int MAX_CTAS = 1024;
-constexpr int R3_COLS = 16;    // rung 3: fori over the first 16 columns
 constexpr int R6_GUARD = 100;  // rung 6: write x + 1 if any x[:, 0] > 100
 
 int grid_for(long long n) {
@@ -331,18 +519,7 @@ __device__ __forceinline__ long long grid_stride() {
   return (long long)gridDim.x * blockDim.x;
 }
 
-// --- rungs 1 and 2: per-row masks ------------------------------------------
-
-// o[d, c] = 7 if c == x[d, 0] else x[d, c]
-__global__ void __launch_bounds__(THREADS)
-onehot_put(const int* __restrict__ x, int* __restrict__ o, int D, int C) {
-  const long long n = (long long)D * C;
-  for (long long i = first_index(); i < n; i += grid_stride()) {
-    const long long d = i / C;
-    const int c = (int)(i - d * C);
-    o[i] = c == x[d * C] ? 7 : x[i];
-  }
-}
+// --- rung 2: a per-row mask -------------------------------------------------
 
 // o[d, :] = x[d, :] if x[d, 0] > 2 else -x[d, :]
 __global__ void __launch_bounds__(THREADS)
@@ -355,36 +532,7 @@ mrow_mask(const int* __restrict__ x, int* __restrict__ o, int D, int C) {
   }
 }
 
-// --- rungs 3 and 6: one value (or one flag) per tile, then a tile write -------
-
-__device__ __forceinline__ unsigned block_sum(unsigned v, unsigned* part) {
-  for (int k = 16; k > 0; k >>= 1) v += __shfl_down_sync(0xffffffffu, v, k);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  if (lane == 0) part[warp] = v;
-  __syncthreads();
-  if (warp == 0) {
-    v = lane < (int)(blockDim.x >> 5) ? part[lane] : 0u;
-    for (int k = 16; k > 0; k >>= 1) v += __shfl_down_sync(0xffffffffu, v, k);
-    if (lane == 0) part[0] = v;
-  }
-  __syncthreads();
-  return part[0];
-}
-
-__device__ __forceinline__ void fill(int* __restrict__ o, long long n, int v) {
-  for (long long i = first_index(); i < n; i += grid_stride()) o[i] = v;
-}
-
-// o = full(sum_{i < 16} sum_d x[d, i])
-__global__ void __launch_bounds__(THREADS)
-fori_carry(const int* __restrict__ x, int* __restrict__ o, int D, int C) {
-  __shared__ unsigned part[THREADS / 32];
-  unsigned acc = 0;
-  for (int j = threadIdx.x; j < D * R3_COLS; j += blockDim.x) {
-    acc += (unsigned)x[(long long)(j / R3_COLS) * C + j % R3_COLS];
-  }
-  fill(o, (long long)D * C, (int)block_sum(acc, part));
-}
+// --- rung 6: one flag per tile, then a tile write ----------------------------
 
 // o = x, then x + 1 where any(x[:, 0] > 100) (a block-wide guard)
 __global__ void __launch_bounds__(THREADS)
@@ -409,9 +557,7 @@ guarded_write(const int* __restrict__ x, int* __restrict__ o, int D, int C) {
     return (int)cudaGetLastError();                                            \
   }
 
-YTPU_ROW_RUNG(ytpu_ladder_r1, onehot_put, 0x7fffffff)
 YTPU_ROW_RUNG(ytpu_ladder_r2, mrow_mask, 0x7fffffff)
-YTPU_ROW_RUNG(ytpu_ladder_r3, fori_carry, 0x7fffffff)
 YTPU_ROW_RUNG(ytpu_ladder_r6, guarded_write, 0x7fffffff)
 
 extern "C" const char* ytpu_ladder_error_string(int err) {
