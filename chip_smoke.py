@@ -19,7 +19,15 @@ misaligned stream view that must raise),
 on one late B4 chunk), ``kernel_vs_plain_full_width`` (that chunk at the
 main path's capacity and chunk size), ``b4_replay`` (`FusedReplay.run`
 over the whole log at 256 docs, then the same run under
-`torch.profiler`), ``stream_replay_full_width`` (the whole log decoded
+`torch.profiler`), ``sync_step`` (the write path: one
+`apply_update_batch` per step through the integrate kernel's per-doc
+entry at 1,024 docs x 8,192 slots over the first 2,048 B4 updates, each
+doc lagging by (doc mod 8) x 64 updates, held against stream replays of
+each prefix; the per-doc kernel against its plain version; the read path
+at BASELINE config 5's width, 10,240 docs x 64 clients: `state_vectors`,
+`encode_diff_batch`, the finisher and `DiffPipeline`, a sample held
+against the CPU finisher; and `encode_diff_batch` on the B4 replay's final
+state), ``stream_replay_full_width`` (the whole log decoded
 into one stream and replayed through `replay_stream_fused` at 256 docs,
 again under `torch.profiler` for the time of each launch, then the
 kernel against its plain version on one late window at the grown
@@ -148,8 +156,9 @@ def _sass_summary(lib_path: str, kernel: str) -> dict:
 
 
 def phase_build(gpu):
-    """Every library, one nvcc each in parallel; the integrate kernel's
-    ptxas report must show no stack frame and no spills, every
+    """Every library, one nvcc each in parallel; the ptxas report of both
+    integrate kernels (the stream entry's and the per-doc entry's) must
+    show no stack frame and no spills, every
     instantiation of the column put, of the map put (rungs 0 and 7), of
     rung 1's row put, rung 3's carry put, rung 4's scan put and rung 5's
     sum put and of v_multi's sized copy must issue all its loads before its
@@ -165,6 +174,7 @@ def phase_build(gpu):
         _build.load(name)
     ptxas = {name: _ptxas(_build.build_log(name), "integrate_kernel")
              for name in ("integrate", "integrate_profile")}
+    ptxas["integrate_batch"] = _ptxas(_build.build_log("integrate"), "integrate_batch_kernel")
     sass = {"column_put_sass": _sass_summary(libs["plane_rmw"], "column_put"),
             "map_put_sass": _sass_summary(libs["mosaic_ladder"], "map_put"),
             "row_put_sass": _sass_summary(libs["mosaic_ladder"], "row_put"),
@@ -176,9 +186,10 @@ def phase_build(gpu):
     multi = {**copy_sass, **body_sass}
     emit({"phase": "build", "seconds": build_s, "load_seconds": time.perf_counter() - t0 - build_s,
           "libraries": sorted(libs), "integrate_ptxas": ptxas, **sass, "multi_call_sass": multi, "gpu": gpu})
-    main = ptxas["integrate"]
-    if main["stack_frame_bytes"] or main["spill_store_bytes"] or main["spill_load_bytes"]:
-        raise RuntimeError(f"integrate_kernel uses local memory: {main}")
+    for name in ("integrate", "integrate_batch"):
+        k = ptxas[name]
+        if k["stack_frame_bytes"] or k["spill_store_bytes"] or k["spill_load_bytes"]:
+            raise RuntimeError(f"{name} kernel uses local memory: {k}")
     # the column put's streaming copy, the map put and rungs 1, 3, 4 and 5
     # issue every load before their first store and keep their values in
     # registers
@@ -191,7 +202,7 @@ def phase_build(gpu):
             f["ldg_before_first_stg"] != f["ldg"] for f in copy_sass.values()):
         raise RuntimeError(f"multi_call_sass: v_multi's copy stores before its last load, or a multi call "
                            f"kernel uses local memory: {multi}")
-    return main
+    return ptxas
 
 
 def _time_ms(fn, reps: int = 1):
@@ -377,15 +388,16 @@ def phase_full_width_vs_plain(gpu, log, plan):
     return max_err, k_ms, p_ms, profile
 
 
-def _trace_breakdown(prof, wall_s: float):
+def _trace_breakdown(prof, wall_s: float, kernel: str = "integrate_kernel"):
     """From the raw events of a `torch.profiler` trace: device and host
     seconds per phase span (``ytpu_torch.*``; device work launched outside
-    any span is ``other``), the device time of every integrate kernel, and
-    the device's idle share of the traced wall time. A device event is
-    placed by the host time of the runtime call that launched it (the CPU
-    event of the same CUPTI correlation id). Returns the breakdown, the
-    integrate kernels as ``(launch host ns, device ms)`` in launch order,
-    and the spans as ``(start ns, end ns, name)``."""
+    any span is ``other``), the device time of every `kernel` (by default
+    the stream integrate), and the device's idle share of the traced wall
+    time. A device event is placed by the host time of the runtime call
+    that launched it (the CPU event of the same CUPTI correlation id).
+    Returns the breakdown, the `kernel` launches as ``(launch host ns,
+    device ms)`` in launch order, and the spans as ``(start ns, end ns,
+    name)``."""
     from torch.autograd import DeviceType
 
     events = prof.profiler.kineto_results.events()
@@ -409,7 +421,7 @@ def _trace_breakdown(prof, wall_s: float):
             continue
         busy.append((e.start_ns(), e.end_ns()))
         t = launched_at.get(e.correlation_id())
-        if "integrate_kernel" in e.name():
+        if kernel in e.name():
             integrate_ms.append((t, e.duration_ns() / 1e6))
         i = bisect.bisect_right(span_starts, t) - 1 if t is not None else -1
         name = spans[i][2] if i >= 0 and t <= spans[i][1] else "other"
@@ -462,7 +474,7 @@ def _replay(plan, log, expect, traced: bool):
         raise RuntimeError("b4_replay: replayed text differs from the log's expected text")
     if launches != st.chunks:
         raise RuntimeError(f"b4_replay: {launches} kernel launches for {st.chunks} chunks")
-    return st, wall, launches, err, readout, prof
+    return st, wall, launches, err, readout, prof, rep
 
 
 def _launch_bound_bytes(plan, launches: int, rows_read: int, rows_added: int) -> float:
@@ -481,12 +493,13 @@ def _launch_bound_bytes(plan, launches: int, rows_read: int, rows_added: int) ->
 def phase_b4_replay(gpu, log, expect, plan, plan_s: float):
     """The main path: `FusedReplay.run` over the whole log (its wall clock
     gives updates/s), then the same run again under `torch.profiler` for
-    the device time per phase, per integrate launch and the idle share."""
+    the device time per phase, per integrate launch and the idle share.
+    Returns the second run's replay (its final state feeds `sync_step`)."""
     import torch
 
-    st, wall, launches, err, readout, _ = _replay(plan, log, expect, traced=False)
+    st, wall, launches, err, readout, _, _ = _replay(plan, log, expect, traced=False)
     torch.cuda.empty_cache()
-    st_t, wall_t, launches_t, _, _, prof = _replay(plan, log, expect, traced=True)
+    st_t, wall_t, launches_t, _, _, prof, rep = _replay(plan, log, expect, traced=True)
     trace, integrate, _ = _trace_breakdown(prof, wall_t)
     integrate_ms = [ms for _, ms in integrate]
     if len(integrate_ms) != launches_t:
@@ -508,7 +521,367 @@ def phase_b4_replay(gpu, log, expect, plan, plan_s: float):
         "gpu": gpu,
     }
     emit(line)
-    return launches, sum(integrate_ms) / len(integrate_ms), bound_ms
+    return launches, sum(integrate_ms) / len(integrate_ms), bound_ms, rep
+
+
+# --- the sync step -----------------------------------------------------------------
+
+# write path: BASELINE config 2's width, the first updates of the B4 log,
+# doc d lagging (d mod LAG_GROUPS) * LAG_STEP updates behind
+WRITE_DOCS, WRITE_CAPACITY, WRITE_UPDATES = 1024, 8192, 2048
+LAG_GROUPS, LAG_STEP = 8, 64
+# the steps timed piece by piece from a snapshot of the write path's state
+WRITE_TIMED_FROM, WRITE_TIMED_STEPS = 1536, 64
+# kernel vs plain on per-doc synthetic streams
+BATCH_PLAIN_DOCS, BATCH_PLAIN_CAPACITY, BATCH_PLAIN_STEPS = 8, 1024, 16
+# read path: BASELINE config 5's width
+READ_DOCS, READ_CLIENTS, READ_CAPACITY, READ_SAMPLE = 10240, 64, 1024, 64
+# the B4 read: the state vector of this many updates
+B4_MID_UPDATES = 130_000
+
+
+def _event_ms(fn):
+    """``(result, device ms)`` of `fn` between two CUDA events; waits for
+    the second."""
+    import torch
+
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    stop.record()
+    stop.synchronize()
+    return out, start.elapsed_time(stop)
+
+
+def _states_equal(a, b, docs_a, docs_b) -> bool:
+    """Every `DocStateBatch` field of docs `docs_a` of `a` equals that of
+    docs `docs_b` of `b`."""
+    import torch
+
+    fields = list(a.blocks) + [a.start, a.n_blocks, a.error]
+    other = list(b.blocks) + [b.start, b.n_blocks, b.error]
+    return all(torch.equal(x[docs_a], y[docs_b]) for x, y in zip(fields, other))
+
+
+def _write_path(gpu, log, plan, dev):
+    """(a) One `apply_update_batch` per step at 1,024 docs x 8,192 slots over
+    the first 2,048 B4 updates with per-doc lags; checks equal cols within a
+    lag group, the lag-0 docs against one `apply_update_stream` launch of
+    the prefix, and each group's text against the stream replay of its
+    prefix. Then the pieces of a call timed with CUDA events on 64 steps
+    replayed from a snapshot of the state at step 1,536."""
+    import torch
+
+    from ytpu_torch.benches.sync_step import batch_bound_bytes, lagged_batch
+    from ytpu_torch.models import batch_doc as bd
+    from ytpu_torch.ops import integrate_kernel as ik
+    from ytpu_torch.ops.decode_kernel import (
+        FLAG_ERRORS, RawPayloadView, decode_updates_v1, identity_rank, pack_updates,
+    )
+
+    prefix = log[:WRITE_UPDATES]
+    buf_np, lens_np = pack_updates(prefix)
+    stream, flags = decode_updates_v1(
+        torch.from_numpy(buf_np).to(dev), torch.from_numpy(lens_np).to(dev), max_rows=plan.max_rows,
+        max_dels=plan.max_dels, n_steps=plan.max_steps, max_sections=plan.max_sections)
+    if int(((flags & FLAG_ERRORS) != 0).sum()):
+        raise RuntimeError("sync_step: decode flagged the write path's updates")
+    view = RawPayloadView(buf_np)
+    rank = identity_rank(256, dev)
+    lag = (torch.arange(WRITE_DOCS, device=dev) % LAG_GROUPS) * LAG_STEP
+    state = bd.init_state(WRITE_DOCS, WRITE_CAPACITY, dev)
+    snapshot = None
+    torch.cuda.synchronize()
+    _reset_counts([ik.integrate_batch, ik.integrate_stream])
+    t0 = time.perf_counter()
+    for t in range(WRITE_UPDATES):
+        if t == WRITE_TIMED_FROM:
+            snapshot = state
+        state = bd.apply_update_batch(state, lagged_batch(stream, t, lag), rank)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"batch": ik.integrate_batch.launches, "stream": ik.integrate_stream.launches}
+    if launches != {"batch": WRITE_UPDATES, "stream": 0}:
+        raise RuntimeError(f"sync_step: the write path made launches {launches}")
+    err = int(state.error.max())
+    groups_equal = all(
+        _states_equal(state, state, slice(g, None, LAG_GROUPS), torch.full(
+            (WRITE_DOCS // LAG_GROUPS,), g, device=dev))
+        for g in range(LAG_GROUPS))
+    texts_ok, lag0_equal = [], None
+    for g in range(LAG_GROUPS):
+        n = WRITE_UPDATES - g * LAG_STEP
+        ref = bd.apply_update_stream(bd.init_state(1, WRITE_CAPACITY, dev),
+                                     type(stream)(*(f[:n] for f in stream)), rank)
+        if g == 0:
+            lag0_equal = _states_equal(state, ref, slice(0, None, LAG_GROUPS),
+                                       torch.zeros(WRITE_DOCS // LAG_GROUPS, dtype=torch.long, device=dev))
+        texts_ok.append(bd.get_string(state, g, view) == bd.get_string(ref, 0, view))
+    if err or not groups_equal or not lag0_equal or not all(texts_ok):
+        raise RuntimeError(f"sync_step write path: error {err}, groups equal {groups_equal}, lag-0 "
+                           f"equal to the stream replay {lag0_equal}, texts {texts_ok}")
+
+    # the pieces of a call from the snapshot, each in a profiler span: the
+    # device time of each, free of the host's allocation latency (these
+    # launches are not counted)
+    pieces = ("pack_state", "pack_stream", "integrate_batch", "unpack_state")
+    record = torch.profiler.record_function
+    rows_read = rows_added = 0
+    st = snapshot
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for t in range(WRITE_TIMED_FROM, WRITE_TIMED_FROM + WRITE_TIMED_STEPS):
+            batch = lagged_batch(stream, t, lag)
+            with record("ytpu_torch.pack_state"):
+                cols, meta = ik.pack_state(st)
+            with record("ytpu_torch.pack_stream"):
+                rows, dels = ik.pack_stream(batch)
+            nb0 = int(meta[:, ik.M_NBLOCKS].sum())
+            with record("ytpu_torch.integrate_batch"):
+                ik.integrate_batch(cols, meta, rows, dels, rank)
+            rows_read, rows_added = rows_read + nb0, rows_added + int(meta[:, ik.M_NBLOCKS].sum()) - nb0
+            with record("ytpu_torch.unpack_state"):
+                st = ik.unpack_state(cols, meta)
+        torch.cuda.synchronize()
+        traced_s = time.perf_counter() - t0
+    trace, kernels, _ = _trace_breakdown(prof, traced_s, kernel="integrate_batch_kernel")
+    if len(kernels) != WRITE_TIMED_STEPS:
+        raise RuntimeError(f"sync_step: the trace holds {len(kernels)} per-doc kernels for "
+                           f"{WRITE_TIMED_STEPS} launches")
+    per = {k: trace["device_s"].get(k, 0.0) * 1e3 / WRITE_TIMED_STEPS for k in pieces}
+    kernel_ms = [ms for _, ms in kernels]
+    # the plain version on one step at full width, from the snapshot
+    cols_k, meta_k = ik.pack_state(snapshot)
+    batch = lagged_batch(stream, WRITE_TIMED_FROM, lag)
+    rows, dels = ik.pack_stream(batch)
+    cols_p, meta_p = cols_k.clone(), meta_k.clone()
+    ik.integrate_batch(cols_k, meta_k, rows, dels, rank)
+    plain_ms = _time_ms(lambda: ik.integrate_batch_reference(cols_p, meta_p, rows, dels, rank))
+    full_err = _compare("integrate_batch at the write path's width", cols_k, meta_k, cols_p, meta_p)
+    del cols_k, meta_k, cols_p, meta_p
+    bound_b = batch_bound_bytes(WRITE_DOCS, rows.shape[1], dels.shape[1], rank.shape[0],
+                                rows_read // WRITE_TIMED_STEPS, rows_added // WRITE_TIMED_STEPS)
+    plan_b = ik.batch_launch_plan(WRITE_DOCS, WRITE_CAPACITY)
+    del snapshot, st, cols, meta
+    return {
+        "docs": WRITE_DOCS, "capacity": WRITE_CAPACITY, "updates": WRITE_UPDATES,
+        "lag": f"(doc mod {LAG_GROUPS}) * {LAG_STEP}", "U": int(stream.client.shape[1]),
+        "R": int(stream.del_client.shape[1]), "launches": launches, "wall_s": wall,
+        "ms_per_apply_update_batch": wall * 1e3 / WRITE_UPDATES,
+        "timed_steps": f"{WRITE_TIMED_FROM}..{WRITE_TIMED_FROM + WRITE_TIMED_STEPS}",
+        "device_ms_per_call": per, "kernel_ms": sum(kernel_ms) / len(kernel_ms),
+        "kernel_ms_min": min(kernel_ms), "kernel_ms_max": max(kernel_ms),
+        "plain_ms_full_width_step": plain_ms, "max_abs_err_full_width_step": full_err,
+        "bound_bytes_per_launch": bound_b, "bound_ms": bound_b / HBM_BYTES_PER_S * 1e3,
+        "rows_read_per_launch": rows_read / WRITE_TIMED_STEPS,
+        "rows_added_per_launch": rows_added / WRITE_TIMED_STEPS,
+        "final_blocks_max": int(state.n_blocks.max()), "sticky_error": err, "groups_equal": True,
+        "lag0_equals_stream": True, "texts_ok": texts_ok, "launch_plan": plan_b,
+    }
+
+
+def _batch_vs_plain(dev):
+    """(b) The per-doc kernel against `integrate_batch_reference` on the
+    card: 8 docs x 1,024 slots, 16 steps, doc d's rows step t of its own
+    synthetic stream (string, GC, deleted, format, nested, map and move
+    rows, gaps, duplicates, same-origin storms). Every plane and meta word
+    is compared after each step."""
+    import numpy as np
+    import torch
+
+    from ytpu_torch.benches.streams import anchored_state, synthetic_stream
+    from ytpu_torch.ops import integrate_kernel as ik
+
+    rank = torch.from_numpy(np.random.default_rng(11).permutation(256).astype(np.int32)).to(dev)
+    streams = [synthetic_stream(300 + d, BATCH_PLAIN_STEPS) for d in range(BATCH_PLAIN_DOCS)]
+    rows = torch.from_numpy(np.stack([r for r, _ in streams], 1)).to(dev)
+    dels = torch.from_numpy(np.stack([d for _, d in streams], 1)).to(dev)
+    cols_k, meta_k = anchored_state(BATCH_PLAIN_DOCS, BATCH_PLAIN_CAPACITY, dev)
+    cols_p, meta_p = cols_k.clone(), meta_k.clone()
+    ik.integrate_batch(cols_k.clone(), meta_k.clone(), rows[0], dels[0], rank)  # module load
+    k_ms = p_ms = 0.0
+    max_err = 0
+    for t in range(BATCH_PLAIN_STEPS):
+        k_ms += _time_ms(lambda: ik.integrate_batch(cols_k, meta_k, rows[t], dels[t], rank))
+        p_ms += _time_ms(lambda: ik.integrate_batch_reference(cols_p, meta_p, rows[t], dels[t], rank))
+        max_err = max(max_err, _compare(f"integrate_batch step {t}", cols_k, meta_k, cols_p, meta_p))
+    live = torch.arange(BATCH_PLAIN_CAPACITY, device=dev)[None, :] < meta_k[:, ik.M_NBLOCKS][:, None]
+    return {
+        "case": f"{BATCH_PLAIN_DOCS} docs, C={BATCH_PLAIN_CAPACITY}, {BATCH_PLAIN_STEPS} steps of "
+                f"per-doc synthetic streams", "max_abs_err": max_err,
+        "kernel_ms_per_launch": k_ms / BATCH_PLAIN_STEPS, "plain_ms_per_launch": p_ms / BATCH_PLAIN_STEPS,
+        "max_blocks": int(meta_k[:, ik.M_NBLOCKS].max()), "error_max": int(meta_k[:, ik.M_ERROR].max()),
+        "map_rows": int(((cols_k[ik.KEY] >= 0) & live).sum()),
+        "move_rows": int(((cols_k[ik.KD] == 11) & live).sum()),
+        "nested_rows": int(((cols_k[ik.PA] >= 0) & live).sum()),
+    }
+
+
+def _finish_check(state, docs, ship, off, dele, tables, got):
+    """`got` (the card's bytes of `docs`) against `finish_encode_diff_batch`
+    of the same docs on a CPU copy of their rows; each must parse as a v1
+    update."""
+    import torch
+
+    from ytpu_torch.encoding.lib0 import update_columns
+    from ytpu_torch.models import batch_doc as bd
+
+    idx = torch.as_tensor(docs, device=state.start.device)
+    cpu = bd.DocStateBatch(bd.BlockCols(*(a[idx].cpu() for a in state.blocks)),
+                           *(a[idx].cpu() for a in (state.start, state.n_blocks, state.error)))
+    want = bd.finish_encode_diff_batch(cpu, range(len(docs)), ship[idx].cpu(), off[idx].cpu(),
+                                       dele[idx].cpu(), tables)
+    if got != want:
+        bad = [d for d, g, w in zip(docs, got, want) if g != w][:5]
+        raise RuntimeError(f"sync_step: the card's diff bytes differ from the CPU finisher's for docs {bad}")
+    if any(update_columns(b).error for b in got):
+        raise RuntimeError("sync_step: a diff does not parse as a v1 update")
+    return want
+
+
+def _read_path(gpu, dev):
+    """(c) BASELINE config 5: the 64 one-insert updates applied as one
+    stream to 10,240 docs x 1,024 slots, remote state vectors from
+    ``default_rng(5).integers(0, 12)``, then `state_vectors`,
+    `encode_diff_batch`, the serial finisher and `DiffPipeline` over every
+    doc; a sample of 64 docs is held against the CPU finisher."""
+    import numpy as np
+    import torch
+
+    from ytpu_torch.benches.sync_step import config5_updates, encode_diff_bound_bytes
+    from ytpu_torch.models import batch_doc as bd
+    from ytpu_torch.ops import integrate_kernel as ik
+    from ytpu_torch.ops.decode_kernel import (
+        FLAG_ERRORS, RawPayloadView, decode_updates_v1, identity_rank, pack_updates,
+    )
+
+    updates = config5_updates(READ_CLIENTS)
+    buf_np, lens_np = pack_updates(updates)
+    stream, flags = decode_updates_v1(torch.from_numpy(buf_np).to(dev), torch.from_numpy(lens_np).to(dev),
+                                      max_rows=1, max_dels=1)
+    if int(((flags & FLAG_ERRORS) != 0).sum()):
+        raise RuntimeError("sync_step: decode flagged a config-5 update")
+    n = READ_CLIENTS + 1  # clients 1..64 at their raw ids
+    tables = bd.EncoderTables.identity(n, RawPayloadView(buf_np))
+    _reset_counts([ik.integrate_stream])
+    state = bd.apply_update_stream(bd.init_state(READ_DOCS, READ_CAPACITY, dev), stream,
+                                   identity_rank(256, dev))
+    torch.cuda.synchronize()
+    if ik.integrate_stream.launches != 1 or int(state.error.max()):
+        raise RuntimeError(f"sync_step: the seed took {ik.integrate_stream.launches} launches, "
+                           f"error {int(state.error.max())}")
+    remote = np.zeros((READ_DOCS, n), dtype=np.int32)
+    remote[:, 1:] = np.random.default_rng(5).integers(0, 12, size=(READ_DOCS, READ_CLIENTS))
+    remote_t = torch.from_numpy(remote).to(dev)
+    local_sv, sv_ms = _event_ms(lambda: bd.state_vectors(state, n))
+    want_sv = torch.tensor([0] + [len(f"client-{c} ") for c in range(READ_CLIENTS)], dtype=torch.int32,
+                           device=dev)
+    if not bool((local_sv == want_sv).all()):
+        raise RuntimeError("sync_step: the config-5 state vectors are not every client's insert")
+    bd.encode_diff_batch(state, remote_t, n)  # warm the allocator
+    enc_ms = []
+    for _ in range(5):
+        (ship, off, _, dele), m = _event_ms(lambda: bd.encode_diff_batch(state, remote_t, n))
+        enc_ms.append(m)
+    docs = list(range(READ_DOCS))
+    t0 = time.perf_counter()
+    serial = bd.finish_encode_diff_batch(state, docs, ship, off, dele, tables)
+    finisher_s = time.perf_counter() - t0
+    pipe = bd.DiffPipeline(sub_batch=512, depth=2)
+    t0 = time.perf_counter()
+    piped = pipe.run(state, docs, ship, off, dele, tables)
+    pipeline_s = time.perf_counter() - t0
+    if piped != serial:
+        raise RuntimeError("sync_step: DiffPipeline's bytes differ from the serial finisher's")
+    sample = sorted(np.random.default_rng(7).choice(READ_DOCS, READ_SAMPLE, replace=False).tolist())
+    _finish_check(state, sample, ship, off, dele, tables, [serial[d] for d in sample])
+    bound_b = encode_diff_bound_bytes(READ_DOCS, READ_CAPACITY, n)
+    st = pipe.stats
+    out = {
+        "docs": READ_DOCS, "clients": READ_CLIENTS, "capacity": READ_CAPACITY,
+        "state_gb": sum(a.numel() * a.element_size() for a in state.blocks) / 1e9,
+        "state_vectors_ms": sv_ms, "encode_diff_batch_ms": enc_ms,
+        "encode_diff_batch_ms_min": min(enc_ms), "encode_diff_bound_bytes": bound_b,
+        "encode_diff_bound_ms": bound_b / HBM_BYTES_PER_S * 1e3,
+        "shipped_rows": int(ship.sum()), "bytes_out": sum(len(b) for b in serial),
+        "finisher_s": finisher_s, "pipeline_s": pipeline_s,
+        "pipeline": {"sub": st.sub, "n_sub": st.n_sub, "depth": st.depth, "R": st.R,
+                     "select_s": st.select_s, "stall_s": st.stall_s, "finish_s": st.finish_s,
+                     "d2h_bytes": st.d2h_bytes, "syncs": st.syncs},
+        "sample_equal_cpu": READ_SAMPLE,
+    }
+    del state
+    return out, min(enc_ms), bound_b / HBM_BYTES_PER_S * 1e3
+
+
+def _b4_read(gpu, rep, log, plan, dev):
+    """(d) `encode_diff_batch` on the B4 replay's final state (256 docs x
+    65,536 slots) against an empty state vector and against the state
+    vector of the first 130,000 updates' rows; docs 0 and 255 finished
+    through the unit arena must be equal (same history) and equal to the
+    CPU finisher's bytes."""
+    import numpy as np
+    import torch
+
+    from ytpu_torch.benches.sync_step import encode_diff_bound_bytes, stream_state_vector
+    from ytpu_torch.models import batch_doc as bd
+    from ytpu_torch.ops import integrate_kernel as ik
+    from ytpu_torch.ops.decode_kernel import decode_updates_v1, pack_updates
+
+    state = ik.unpack_state(rep.cols, rep.meta)
+    tables = bd.EncoderTables.from_replay(rep)
+    n = len(tables.interner)
+    D, B = state.blocks.client.shape
+    buf_np, lens_np = pack_updates(log[:B4_MID_UPDATES])
+    stream, _ = decode_updates_v1(torch.from_numpy(buf_np).to(dev), torch.from_numpy(lens_np).to(dev),
+                                  max_rows=plan.max_rows, max_dels=plan.max_dels,
+                                  n_steps=plan.max_steps, max_sections=plan.max_sections)
+    mid = stream_state_vector(stream, B4_MID_UPDATES, n)
+    del stream
+    bd.state_vectors(state, n)
+    _, sv_ms = _event_ms(lambda: bd.state_vectors(state, n))
+    out = {"docs": D, "capacity": B, "clients": n, "final_blocks_max": int(state.n_blocks.max()),
+           "state_vectors_ms": sv_ms}
+    for name, sv in (("empty", torch.zeros((D, n), dtype=torch.int32, device=dev)),
+                     ("after_130000", mid.expand(D, n).contiguous())):
+        bd.encode_diff_batch(state, sv, n)
+        (ship, off, local_sv, dele), ms = _event_ms(lambda: bd.encode_diff_batch(state, sv, n))
+        t0 = time.perf_counter()
+        got = bd.finish_encode_diff_batch(state, [0, D - 1], ship, off, dele, tables)
+        fin_s = time.perf_counter() - t0
+        if got[0] != got[1]:
+            raise RuntimeError(f"sync_step: B4 docs 0 and {D - 1} diff differently ({name})")
+        _finish_check(state, [0, D - 1], ship, off, dele, tables, got)
+        out[name] = {"encode_diff_batch_ms": ms, "shipped_rows_doc0": int(ship[0].sum()),
+                     "deleted_rows_doc0": int(dele[0].sum()), "bytes": len(got[0]),
+                     "finisher_s_2docs": fin_s}
+    if out["after_130000"]["shipped_rows_doc0"] >= out["empty"]["shipped_rows_doc0"]:
+        raise RuntimeError("sync_step: the mid-history state vector did not cut the diff")
+    bound_b = encode_diff_bound_bytes(D, B, n)
+    out["encode_diff_bound_ms"] = bound_b / HBM_BYTES_PER_S * 1e3
+    return out
+
+
+def phase_sync_step(gpu, log, plan, rep):
+    """The sync step: (a) the write path at BASELINE config 2's width, (b)
+    the per-doc kernel against its plain version, (c) the read path at
+    config 5's width, (d) the read path on the B4 replay's final state
+    `rep`. Returns the phase line."""
+    import torch
+
+    dev = torch.device("cuda")
+    write = _write_path(gpu, log, plan, dev)
+    torch.cuda.empty_cache()
+    vs_plain = _batch_vs_plain(dev)
+    read, enc_ms, enc_bound_ms = _read_path(gpu, dev)
+    torch.cuda.empty_cache()
+    b4 = _b4_read(gpu, rep, log, plan, dev)
+    line = {"phase": "sync_step", "write": write, "kernel_vs_plain": vs_plain, "read": read,
+            "b4_read": b4, "gpu": gpu}
+    emit(line)
+    return line
 
 
 def _diag_cases():
@@ -1256,7 +1629,10 @@ def main() -> int:
     plan_s = time.perf_counter() - t0
     max_err = phase_kernel_vs_plain(gpu, log, plan)
     err_full, full_kernel_ms, full_plain_ms, profile = phase_full_width_vs_plain(gpu, log, plan)
-    launches, ms, bound_ms = phase_b4_replay(gpu, log, expect, plan, plan_s)
+    launches, ms, bound_ms, rep = phase_b4_replay(gpu, log, expect, plan, plan_s)
+    torch.cuda.empty_cache()
+    sync = phase_sync_step(gpu, log, plan, rep)
+    del rep
     torch.cuda.empty_cache()
     stream_launches, stream_vs_plain, stream_launch_ms = phase_stream_replay_full_width(
         gpu, log, expect, plan)
@@ -1274,6 +1650,7 @@ def main() -> int:
         "library_ms": None,
         "launches_by_path": {"b4_replay": launches, "stream_replay_full_width": stream_launches,
                              "mosaic_ladder": ladder_integrate},
+        "launches_by_entry": {"stream": launches, "batch": sync["write"]["launches"]["batch"]},
         "plain_vs_kernel_case": {
             "shape": f"one B4 chunk, 2 docs, C={CAPACITY}, S={CHUNK}",
             "kernel_ms": full_kernel_ms, "plain_ms": full_plain_ms,
@@ -1282,8 +1659,20 @@ def main() -> int:
         "stream_replay_launch_ms": {cap: {k: v[k] for k in ("launches", "ms_mean", "ms_max")}
                                     for cap, v in stream_launch_ms.items()},
         "cycles_per_step": profile["cycles_per_step"],
-        "launch_plan": ik_launch_plan(plan), "ptxas": ptxas,
+        "launch_plan": ik_launch_plan(plan), "ptxas": ptxas["integrate"],
         "gpu": gpu,
+    }, {
+        "name": "integrate_batch", "route": "cuda", "source": "ytpu_torch/csrc/integrate.cu",
+        "replaces": INTEGRATE_REPLACES, "launches": sync["write"]["launches"]["batch"],
+        "max_abs_err": max(sync["kernel_vs_plain"]["max_abs_err"],
+                           sync["write"]["max_abs_err_full_width_step"]),
+        "ms": sync["write"]["kernel_ms"], "plain_ms": sync["write"]["plain_ms_full_width_step"],
+        "bound_ms": sync["write"]["bound_ms"], "bound_by": "bytes", "library_ms": None,
+        "entry": "ytpu_integrate_batch (integrate_batch_kernel), the port of apply_update_batch's "
+                 "vmapped _apply_update_one_doc (ytpu/models/batch_doc.py:1379, :1462)",
+        "shape": f"{WRITE_DOCS} docs, C={WRITE_CAPACITY}, one update per doc per launch",
+        "launch_plan": sync["write"]["launch_plan"], "ptxas": ptxas["integrate_batch"],
+        "plain_vs_kernel_case": sync["kernel_vs_plain"], "gpu": gpu,
     }] + [{**{k: e[k] for k in KERNEL_KEYS}, **({"full_width": e["full_width"]} if "full_width" in e else {})}
           for e in diag]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,6 +1,8 @@
 """The CUDA integrate kernel's own source, run on the CPU through a host
 emulator of the CUDA pieces it uses (tests/cuda_host/cuda_runtime.h), held
-exactly against its plain version.
+exactly against its plain version: the stream entry against
+`integrate_stream_reference`, the per-doc entry against
+`integrate_batch_reference` after every launch (docs whose rows differ).
 
 The kernel itself is compiled and run only on the card (`chip_smoke.py`).
 Here g++ compiles the same ``csrc/integrate.cu`` with every CUDA thread a
@@ -24,6 +26,7 @@ from pathlib import Path
 import pytest
 
 HERE = Path(__file__).resolve().parent
+BATCH_CASES = ["batch_synthetic_D4", "batch_typing_D3"]
 CASES = [
     "synthetic_plan32_8_C256",
     "synthetic_plan4_1_C256",
@@ -55,3 +58,16 @@ def test_kernel_source_matches_plain_version(emulated, case):
         assert r["error"] & 1  # the capacity cut overflows
     else:
         assert r["blocks"] > 90
+
+
+@pytest.mark.parametrize("case", BATCH_CASES)
+def test_per_doc_entry_matches_plain_version(emulated, case):
+    r = emulated[case]
+    assert r["max_abs_err"] == 0, r
+    assert r["blocks"] > 20 and r["error"] & 1 == 0
+
+
+def test_a_doc_reading_its_neighbours_rows_fails(emulated):
+    """The same case through a mutant of the source in which each doc
+    reads its neighbour's rows: the comparison must catch it."""
+    assert emulated["batch_neighbour_rows_mutant"]["max_abs_err"] > 0

@@ -213,3 +213,26 @@ def test_ragged_tile_of_the_chip_case(host_lib):
     assert (p["ctas"], p["tile_steps"], p["tiles"], p["last_tile_steps"]) == (3, 256, 4, 233)
     assert p["last_tile_ragged_words"] == 3
     assert p["tiles"] > 2 * p["ring_stages"] - 1
+
+
+def test_batch_plan_of_the_write_path(host_lib):
+    """The per-doc entry at BASELINE config 2's width: one step, no ring,
+    so the shared memory is the barriers and the client-clock tables."""
+    p = ik.batch_launch_plan(1024, 8192, host_lib)
+    assert (p["docs_per_cta"], p["ctas"], p["threads"], p["ring_stages"]) == (2, 512, 96, 0)
+    assert (p["tile_steps"], p["tiles"], p["last_tile_steps"], p["last_tile_ragged_words"]) == (1, 1, 1, 0)
+    assert p["smem_bytes"] == 128 + 2 * 1024 * 4 == 8320
+    assert ik.batch_launch_plan(5, 64, host_lib)["ctas"] == 3
+
+
+@pytest.mark.parametrize("U", [400, 2000])
+def test_a_plan_past_the_shared_memory_limit_is_refused(host_lib, U):
+    """A stream step of ``U`` rows leaves the ring its smallest tile, whose
+    two stages still take more than the 227 KB a block may have: the entry
+    refuses the launch (cudaErrorInvalidValue) instead of clamping it."""
+    D, C = 2, 64
+    assert ik.launch_plan(8, U, 1, D, C, host_lib)["smem_bytes"] > 232448
+    hb, hs = ik.scratch_entries(C)
+    err = host_lib.ytpu_integrate_stream(0, 0, 0, 0, 0, 8, U, 1, 256, D, C, 32, 8,
+                                         0, hb, 0, hs, 0, 0, None, None)
+    assert err == 1

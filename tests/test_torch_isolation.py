@@ -28,7 +28,9 @@ def test_import_leaves_jax_and_ytpu_unloaded():
         "import ytpu_torch.models.batch_doc, ytpu_torch.encoding.lib0, ytpu_torch.ops._build\n"
         "import ytpu_torch.core.device, ytpu_torch.benches.mosaic_ladder\n"
         "import ytpu_torch.benches.plane_rmw_repro, ytpu_torch.benches.plane_rmw_repro2\n"
-        "import ytpu_torch.benches.plane_rmw_repro3\n"
+        "import ytpu_torch.benches.plane_rmw_repro3, ytpu_torch.benches.sync_step\n"
+        "import ytpu_torch.encoding.codec, ytpu_torch.core.ids, ytpu_torch.core.id_set\n"
+        "import ytpu_torch.ops.state_vector\n"
         "print(json.dumps(sorted(m for m in sys.modules\n"
         "    if m == 'jax' or m.startswith('jax.') or m == 'ytpu' or m.startswith('ytpu.'))))\n"
     )

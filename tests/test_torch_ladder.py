@@ -388,12 +388,23 @@ def test_fused_apply_matches_jax_interpret(name):
 
 
 def test_refresh_cache_is_not_ported_yet():
-    log, _ = tml.load_ladder_logs()["8_kernel_s1"]
+    """(The name predates `recompute_origin_slot` in the port.)
+    ``refresh_cache=True`` returns the state with its origin-slot plane
+    rebuilt: not marked stale, and equal field by field to the stale
+    state after `ensure_origin_slot`."""
+    from ytpu_torch.models.batch_doc import ensure_origin_slot, origin_slot_is_stale
+
+    log, _ = tml.load_ladder_logs()["9_kernel_quick"]
     buf_np, lens_np = tdk.pack_updates(log)
     stream, _ = tdk.decode_updates_v1(torch.from_numpy(buf_np), torch.from_numpy(lens_np), 4, 8)
-    with pytest.raises(NotImplementedError, match="A.7"):
-        tik.apply_update_stream_fused(init_state(8, 64, "cpu"), stream, tdk.identity_rank(256, "cpu"),
-                                      refresh_cache=True)
+    args = (init_state(2, 512, "cpu"), stream, tdk.identity_rank(256, "cpu"))
+    stale = tik.apply_update_stream_fused(*args)
+    fresh = tik.apply_update_stream_fused(*args, refresh_cache=True)
+    assert origin_slot_is_stale(stale) and not origin_slot_is_stale(fresh)
+    rebuilt = ensure_origin_slot(stale)
+    for a, b in zip(list(fresh.blocks) + list(fresh[1:]), list(rebuilt.blocks) + list(rebuilt[1:])):
+        assert torch.equal(a, b)
+    assert int((fresh.blocks.origin_slot >= 0).sum()) > 10
 
 
 def test_run_ladder_names_each_rung_before_it_runs():

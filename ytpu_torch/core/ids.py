@@ -1,0 +1,17 @@
+"""Block identifiers (copy of `ytpu.core.ids`): a block is addressed by a
+Lamport-style ``(client, clock)`` pair and covers ``clock .. clock+len-1``
+(yrs block.rs:75-93)."""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+__all__ = ["ID"]
+
+
+class ID(NamedTuple):
+    client: int
+    clock: int
+
+    def __repr__(self) -> str:
+        return f"<{self.client}#{self.clock}>"

@@ -63,6 +63,15 @@
 //     move-recompute searches stay sweeps over the live slots (they run
 //     only for map, named-root and move rows).
 //
+// Two entries share the body (`integrate_body`). `ytpu_integrate_stream`
+// replays one [S, U, 23] / [S, R, 4] stream into every doc through the
+// ring. `ytpu_integrate_batch` (`integrate_batch_kernel`, the port of
+// `apply_update_batch`'s vmapped `_apply_update_one_doc`) integrates one
+// step of each doc's own [U, 23] rows and [R, 4] deletes: the warp reads
+// them straight from device memory, since one step is read once and a ring
+// of DOCS_PER_CTA blocks would only copy them first; its plan needs no
+// ring, so its shared memory is the same for every U and R.
+//
 // Semantics follow `_kernel` exactly, including its edge cases: gather of
 // idx < 0 yields the fill, of idx >= C yields 0; put drops idx < 0 and
 // idx >= C; a split on a full doc sets ERR_CAPACITY without splitting; the
@@ -115,6 +124,8 @@ constexpr int MAP_BASE = LEVELS * LVL_G, MAP_G = 32 - MAP_BASE;
 
 // shared memory the ring may take, and the longest tile, in steps
 constexpr int RING_BUDGET = 64 * 1024, MAX_TILE = 256;
+// the dynamic shared memory a block may take on sm_90 (227 KB)
+constexpr size_t SMEM_LIMIT = 232448;
 
 // The launch for an [S, U, 23] / [S, R, 4] stream into D docs. The tile T
 // is a multiple of 4 steps, so that every tile but the last starts 16-byte
@@ -139,6 +150,21 @@ void launch_plan(int S, int U, int R, int D, int* p) {
   p[P_LAST] = last;
   p[P_RAGGED] = (last * U * ROW_W) % 4;
   p[P_SMEM] = BAR_BYTES + DOCS_PER_CTA * YTPU_KC * 4 + STAGES * T * step_b;
+}
+
+// The per-doc launch: one step, no ring (each warp reads its doc's rows
+// from device memory), so the shared memory is the barriers and the
+// client-clock tables whatever U and R are.
+void batch_plan(int D, int* p) {
+  p[P_DOCS_PER_CTA] = DOCS_PER_CTA;
+  p[P_CTAS] = (D + DOCS_PER_CTA - 1) / DOCS_PER_CTA;
+  p[P_THREADS] = THREADS;
+  p[P_STAGES] = 0;
+  p[P_TILE] = 1;
+  p[P_TILES] = 1;
+  p[P_LAST] = 1;
+  p[P_RAGGED] = 0;
+  p[P_SMEM] = BAR_BYTES + DOCS_PER_CTA * YTPU_KC * 4;
 }
 
 // ---- per-phase cycle counters (built only with -DYTPU_INTEGRATE_PROFILE) ---
@@ -1096,13 +1122,33 @@ __device__ __forceinline__ void bit_set_atomic(ulonglong2* tab, uint32_t mask, i
   }
 }
 
-__global__ void __launch_bounds__(THREADS, 1)
-integrate_kernel(int* __restrict__ cols, int* __restrict__ meta,
-                 const int* __restrict__ rows, const int* __restrict__ dels,
-                 const int* __restrict__ rank, int S, int U, int R, int K,
-                 int D, int C, int cheap, int unroll, int T,
-                 ulonglong2* bidx, int HB, ulonglong2* sidx, int HS,
-                 int* bstamp, int* cstamp, long long* prof) {
+// one step of the doc: its rows, then its delete ranges, then the
+// move-ownership recompute
+__device__ __forceinline__ void integrate_step(Doc& d, const int* rows, const int* dels,
+                                               int U, int R) {
+  PROF_COUNT(d, CNT_STEPS);
+  for (int u = 0; u < U; ++u) {
+    const int* r = rows + (size_t)u * ROW_W;
+    if (r[14] == 1) integrate_row(d, r);
+  }
+  for (int q = 0; q < R; ++q) {
+    const int* r = dels + (size_t)q * DEL_W;
+    if (r[3] == 1) delete_range(d, r);
+  }
+  recompute_moves(d);
+}
+
+// The body of both kernels. PER_DOC false: one [S, U, 23] / [S, R, 4]
+// stream shared by every doc, staged through the ring. PER_DOC true: S = 1
+// and each doc has its own rows and deletes ([D, U, 23] / [D, R, 4]); a
+// warp reads its doc's block straight from device memory (one step, read
+// once), so the producer warp only helps phase 1 and no ring is planned.
+template <bool PER_DOC>
+__device__ __forceinline__ void integrate_body(
+    int* __restrict__ cols, int* __restrict__ meta, const int* __restrict__ rows,
+    const int* __restrict__ dels, const int* __restrict__ rank, int S, int U, int R,
+    int K, int D, int C, int cheap, int unroll, int T, ulonglong2* bidx, int HB,
+    ulonglong2* sidx, int HS, int* bstamp, int* cstamp, long long* prof) {
   extern __shared__ __align__(128) unsigned char smem[];
   uint64_t* full = reinterpret_cast<uint64_t*>(smem);
   uint64_t* empty = full + STAGES;
@@ -1113,18 +1159,20 @@ integrate_kernel(int* __restrict__ cols, int* __restrict__ meta,
   const int n_act = min(DOCS_PER_CTA, D - doc0);
   const int n_tiles = (S + T - 1) / T;
 
-  if (tid == 0) {
-    for (int s = 0; s < STAGES; ++s) {
-      mbar_init(&full[s], 1);
-      mbar_init(&empty[s], n_act);  // one arrival per live consumer warp
+  if (!PER_DOC) {
+    if (tid == 0) {
+      for (int s = 0; s < STAGES; ++s) {
+        mbar_init(&full[s], 1);
+        mbar_init(&empty[s], n_act);  // one arrival per live consumer warp
+      }
+      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
     }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    __syncthreads();
+    // the first tiles stream in while the CTA builds the index
+    if (warp == DOCS_PER_CTA && lane == 0)
+      for (int t = 0; t < min(STAGES, n_tiles); ++t)
+        issue_tile(t, ring, full, rows, dels, S, U, R, T);
   }
-  __syncthreads();
-  // the first tiles stream in while the CTA builds the index
-  if (warp == DOCS_PER_CTA && lane == 0)
-    for (int t = 0; t < min(STAGES, n_tiles); ++t)
-      issue_tile(t, ring, full, rows, dels, S, U, R, T);
 
   // ---- phase 1 (whole CTA): clear scratch, index the live slots ---------
   const uint32_t bmask = (uint32_t)(HB - 1), smask = (uint32_t)(HS - 1);
@@ -1158,7 +1206,7 @@ integrate_kernel(int* __restrict__ cols, int* __restrict__ meta,
   __syncthreads();
 
   if (warp == DOCS_PER_CTA) {  // the producer: refill each stage once freed
-    if (lane == 0)
+    if (!PER_DOC && lane == 0)
       for (int t = STAGES; t < n_tiles; ++t) {
         mbar_wait(&empty[t % STAGES], (uint32_t)((t / STAGES - 1) & 1));
         issue_tile(t, ring, full, rows, dels, S, U, R, T);
@@ -1209,30 +1257,24 @@ integrate_kernel(int* __restrict__ cols, int* __restrict__ meta,
   d.prof.cur = PH_OTHER;
   d.prof.t = clock64();
 #endif
-  const size_t stage_b = (size_t)T * (U * ROW_W + R * DEL_W) * 4;
-  for (int t = 0; t < n_tiles; ++t) {
-    const int stg = t % STAGES;
-    {
-      PROF_SCOPE(d, PH_STREAM);
-      mbar_wait(&full[stg], (uint32_t)((t / STAGES) & 1));
-    }
-    const int* trows = reinterpret_cast<const int*>(ring + stg * stage_b);
-    const int* tdels = trows + (size_t)T * U * ROW_W;
-    const int n = min(T, S - t * T);
-    for (int sl = 0; sl < n; ++sl) {
-      PROF_COUNT(d, CNT_STEPS);
-      for (int u = 0; u < U; ++u) {
-        const int* r = trows + ((size_t)sl * U + u) * ROW_W;
-        if (r[14] == 1) integrate_row(d, r);
+  if (PER_DOC) {
+    integrate_step(d, rows + doc * U * ROW_W, dels + doc * R * DEL_W, U, R);
+  } else {
+    const size_t stage_b = (size_t)T * (U * ROW_W + R * DEL_W) * 4;
+    for (int t = 0; t < n_tiles; ++t) {
+      const int stg = t % STAGES;
+      {
+        PROF_SCOPE(d, PH_STREAM);
+        mbar_wait(&full[stg], (uint32_t)((t / STAGES) & 1));
       }
-      for (int q = 0; q < R; ++q) {
-        const int* r = tdels + ((size_t)sl * R + q) * DEL_W;
-        if (r[3] == 1) delete_range(d, r);
-      }
-      recompute_moves(d);
+      const int* trows = reinterpret_cast<const int*>(ring + stg * stage_b);
+      const int* tdels = trows + (size_t)T * U * ROW_W;
+      const int n = min(T, S - t * T);
+      for (int sl = 0; sl < n; ++sl)
+        integrate_step(d, trows + (size_t)sl * U * ROW_W, tdels + (size_t)sl * R * DEL_W, U, R);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[stg]);
     }
-    __syncwarp();
-    if (lane == 0) mbar_arrive(&empty[stg]);
   }
   if (lane == 0) {
     m[M_START] = d.start;
@@ -1249,25 +1291,48 @@ integrate_kernel(int* __restrict__ cols, int* __restrict__ meta,
 #endif
 }
 
-}  // namespace
+// the shared stream into every doc
+__global__ void __launch_bounds__(THREADS, 1)
+integrate_kernel(int* __restrict__ cols, int* __restrict__ meta,
+                 const int* __restrict__ rows, const int* __restrict__ dels,
+                 const int* __restrict__ rank, int S, int U, int R, int K,
+                 int D, int C, int cheap, int unroll, int T,
+                 ulonglong2* bidx, int HB, ulonglong2* sidx, int HS,
+                 int* bstamp, int* cstamp, long long* prof) {
+  integrate_body<false>(cols, meta, rows, dels, rank, S, U, R, K, D, C, cheap, unroll, T,
+                        bidx, HB, sidx, HS, bstamp, cstamp, prof);
+}
 
-extern "C" int ytpu_integrate_stream(
-    void* cols, void* meta, const void* rows, const void* dels,
-    const void* rank, int S, int U, int R, int K, int D, int C, int cheap,
-    int unroll, void* bidx, int HB, void* sidx, int HS, void* bstamp,
-    void* cstamp, void* prof, void* stream) {
+// one step of per-doc rows into each doc (S = 1, T = 1)
+__global__ void __launch_bounds__(THREADS, 1)
+integrate_batch_kernel(int* __restrict__ cols, int* __restrict__ meta,
+                       const int* __restrict__ rows, const int* __restrict__ dels,
+                       const int* __restrict__ rank, int S, int U, int R, int K,
+                       int D, int C, int cheap, int unroll, int T,
+                       ulonglong2* bidx, int HB, ulonglong2* sidx, int HS,
+                       int* bstamp, int* cstamp, long long* prof) {
+  integrate_body<true>(cols, meta, rows, dels, rank, S, U, R, K, D, C, cheap, unroll, T,
+                       bidx, HB, sidx, HS, bstamp, cstamp, prof);
+}
+
+using Kernel = decltype(&integrate_kernel);
+
+// one launch of `kern` by plan `p`; a plan whose shared memory does not
+// fit a block is refused, not clamped
+int launch(Kernel kern, const int* p, void* cols, void* meta, const void* rows,
+           const void* dels, const void* rank, int S, int U, int R, int K, int D,
+           int C, int cheap, int unroll, void* bidx, int HB, void* sidx, int HS,
+           void* bstamp, void* cstamp, void* prof, void* stream) {
   if (D <= 0) return 0;
   if (HB <= 0 || (HB & (HB - 1)) || HS <= 0 || (HS & (HS - 1)))
     return (int)cudaErrorInvalidValue;
-  if (((uintptr_t)rows | (uintptr_t)dels | (uintptr_t)bidx | (uintptr_t)sidx) & 15)
-    return (int)cudaErrorMisalignedAddress;
-  int p[PLAN_WORDS];
-  launch_plan(S, U, R, D, p);
+  if (((uintptr_t)bidx | (uintptr_t)sidx) & 15) return (int)cudaErrorMisalignedAddress;
   const size_t smem = p[P_SMEM];
-  cudaError_t e = cudaFuncSetAttribute(
-      integrate_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (smem > SMEM_LIMIT) return (int)cudaErrorInvalidValue;
+  cudaError_t e =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
-  integrate_kernel<<<p[P_CTAS], THREADS, smem, (cudaStream_t)stream>>>(
+  kern<<<p[P_CTAS], THREADS, smem, (cudaStream_t)stream>>>(
       (int*)cols, (int*)meta, (const int*)rows, (const int*)dels,
       (const int*)rank, S, U, R, K, D, C, cheap, unroll, p[P_TILE],
       (ulonglong2*)bidx, HB, (ulonglong2*)sidx, HS, (int*)bstamp, (int*)cstamp,
@@ -1275,10 +1340,42 @@ extern "C" int ytpu_integrate_stream(
   return (int)cudaGetLastError();
 }
 
+}  // namespace
+
+extern "C" int ytpu_integrate_stream(
+    void* cols, void* meta, const void* rows, const void* dels,
+    const void* rank, int S, int U, int R, int K, int D, int C, int cheap,
+    int unroll, void* bidx, int HB, void* sidx, int HS, void* bstamp,
+    void* cstamp, void* prof, void* stream) {
+  // the ring's bulk copies read 16-byte-aligned sources
+  if (((uintptr_t)rows | (uintptr_t)dels) & 15) return (int)cudaErrorMisalignedAddress;
+  int p[PLAN_WORDS];
+  launch_plan(S, U, R, D, p);
+  return launch(integrate_kernel, p, cols, meta, rows, dels, rank, S, U, R, K, D, C, cheap,
+                unroll, bidx, HB, sidx, HS, bstamp, cstamp, prof, stream);
+}
+
+// rows [D, U, 23] and dels [D, R, 4]: one step of each doc's own update
+extern "C" int ytpu_integrate_batch(
+    void* cols, void* meta, const void* rows, const void* dels,
+    const void* rank, int U, int R, int K, int D, int C, int cheap, int unroll,
+    void* bidx, int HB, void* sidx, int HS, void* bstamp, void* cstamp, void* stream) {
+  int p[PLAN_WORDS];
+  batch_plan(D, p);
+  return launch(integrate_batch_kernel, p, cols, meta, rows, dels, rank, 1, U, R, K, D, C,
+                cheap, unroll, bidx, HB, sidx, HS, bstamp, cstamp, nullptr, stream);
+}
+
 // the launch `ytpu_integrate_stream` makes, as PLAN_WORDS ints in PlanWord
 // order
 extern "C" int ytpu_integrate_plan(int S, int U, int R, int D, int* out) {
   launch_plan(S, U, R, D, out);
+  return PLAN_WORDS;
+}
+
+// the launch `ytpu_integrate_batch` makes
+extern "C" int ytpu_integrate_batch_plan(int D, int* out) {
+  batch_plan(D, out);
   return PLAN_WORDS;
 }
 

@@ -1,5 +1,6 @@
-"""lib0 v1 reading: the cursor half of `ytpu.encoding.lib0` plus a small
-update walker.
+"""lib0 v1 encoding: the cursor and the writer of `ytpu.encoding.lib0`
+(with `write_any`, which the diff finisher needs) plus a small update
+walker.
 
 `update_columns` walks one v1 update and yields what the replay planner
 reads: per block its kind, client, clock, length and content span, and the
@@ -12,7 +13,10 @@ but counted, Skip and GC carriers stay in them.
 
 from __future__ import annotations
 
+import json
+import math
 import struct
+from typing import Any as PyAny
 from typing import List
 
 import numpy as np
@@ -32,7 +36,18 @@ from ytpu_torch.core.content import (
     CONTENT_TYPE,
 )
 
-__all__ = ["Cursor", "EncodingError", "UpdateColumns", "update_columns", "utf16_units"]
+__all__ = [
+    "BigInt",
+    "Cursor",
+    "EncodingError",
+    "Undefined",
+    "UpdateColumns",
+    "Writer",
+    "any_to_json",
+    "update_columns",
+    "utf16_units",
+    "write_any",
+]
 
 HAS_ORIGIN = 0x80
 HAS_RIGHT_ORIGIN = 0x40
@@ -42,8 +57,36 @@ TYPE_XML_HOOK = 5
 TYPE_WEAK = 7
 
 
+F64_MAX_SAFE_INTEGER = 2**53 - 1
+F64_MIN_SAFE_INTEGER = -F64_MAX_SAFE_INTEGER
+
+
 class EncodingError(Exception):
     """Malformed lib0 input (truncated buffer, bad varint, bad tag)."""
+
+
+class _UndefinedType:
+    """JS `undefined` sentinel (distinct from None, which maps to JS null)."""
+
+    _instance = None
+
+    def __new__(cls):
+        if cls._instance is None:
+            cls._instance = super().__new__(cls)
+        return cls._instance
+
+    def __repr__(self) -> str:
+        return "Undefined"
+
+    def __bool__(self) -> bool:
+        return False
+
+
+Undefined = _UndefinedType()
+
+
+class BigInt(int):
+    """Marker for values that must encode with the BigInt tag (122)."""
 
 
 class Cursor:
@@ -157,6 +200,135 @@ class Cursor:
                 return tokens
         self.skip_any()
         return 1
+
+
+class Writer:
+    """Append-only byte writer."""
+
+    __slots__ = ("buf",)
+
+    def __init__(self):
+        self.buf = bytearray()
+
+    def to_bytes(self) -> bytes:
+        return bytes(self.buf)
+
+    def __len__(self) -> int:
+        return len(self.buf)
+
+    def write_u8(self, value: int) -> None:
+        self.buf.append(value & 0xFF)
+
+    def write_raw(self, data: bytes) -> None:
+        self.buf.extend(data)
+
+    def write_var_uint(self, value: int) -> None:
+        if value < 0:
+            raise ValueError(f"negative value for var_uint: {value}")
+        while value >= 0x80:
+            self.buf.append(0x80 | (value & 0x7F))
+            value >>= 7
+        self.buf.append(value)
+
+    def write_var_int(self, value: int, force_negative: bool = False) -> None:
+        negative = value < 0 or force_negative
+        if value < 0:
+            value = -value
+        first = (0x3F & value) | (0x40 if negative else 0)
+        value >>= 6
+        if value > 0:
+            first |= 0x80
+        self.buf.append(first)
+        while value > 0:
+            b = value & 0x7F
+            value >>= 7
+            if value > 0:
+                b |= 0x80
+            self.buf.append(b)
+
+    def write_buf(self, data: bytes) -> None:
+        self.write_var_uint(len(data))
+        self.buf.extend(data)
+
+    def write_string(self, s: str) -> None:
+        self.write_buf(s.encode("utf-8", errors="surrogatepass"))
+
+    def write_f32(self, value: float) -> None:
+        self.buf.extend(struct.pack(">f", value))
+
+    def write_f64(self, value: float) -> None:
+        self.buf.extend(struct.pack(">d", value))
+
+    def write_i64(self, value: int) -> None:
+        self.buf.extend(struct.pack(">q", value))
+
+
+# Any type tags descend from 127 (any.rs:93-116)
+_TAG_UNDEFINED, _TAG_NULL, _TAG_INTEGER, _TAG_FLOAT32, _TAG_FLOAT64 = 127, 126, 125, 124, 123
+_TAG_BIGINT, _TAG_FALSE, _TAG_TRUE, _TAG_STRING, _TAG_MAP = 122, 121, 120, 119, 118
+_TAG_ARRAY, _TAG_BUFFER = 117, 116
+
+
+def write_any(w: Writer, value: PyAny) -> None:
+    """One lib0 Any value (any.rs:37-183)."""
+    if value is Undefined:
+        w.write_u8(_TAG_UNDEFINED)
+    elif value is None:
+        w.write_u8(_TAG_NULL)
+    elif value is True:
+        w.write_u8(_TAG_TRUE)
+    elif value is False:
+        w.write_u8(_TAG_FALSE)
+    elif isinstance(value, str):
+        w.write_u8(_TAG_STRING)
+        w.write_string(value)
+    elif isinstance(value, BigInt):
+        w.write_u8(_TAG_BIGINT)
+        w.write_i64(value)
+    elif isinstance(value, int):
+        if F64_MIN_SAFE_INTEGER <= value <= F64_MAX_SAFE_INTEGER:
+            w.write_u8(_TAG_INTEGER)
+            w.write_var_int(value)
+        else:
+            w.write_u8(_TAG_BIGINT)
+            w.write_i64(value)
+    elif isinstance(value, float):
+        if value.is_integer() and F64_MIN_SAFE_INTEGER <= value <= F64_MAX_SAFE_INTEGER:
+            w.write_u8(_TAG_INTEGER)
+            w.write_var_int(int(value))
+        elif (
+            not math.isnan(value)
+            and abs(value) <= 3.4028234663852886e38
+            and struct.unpack(">f", struct.pack(">f", value))[0] == value
+        ):
+            w.write_u8(_TAG_FLOAT32)
+            w.write_f32(value)
+        else:
+            w.write_u8(_TAG_FLOAT64)
+            w.write_f64(value)
+    elif isinstance(value, (bytes, bytearray, memoryview)):
+        w.write_u8(_TAG_BUFFER)
+        w.write_buf(bytes(value))
+    elif isinstance(value, dict):
+        w.write_u8(_TAG_MAP)
+        w.write_var_uint(len(value))
+        for key, item in value.items():
+            w.write_string(str(key))
+            write_any(w, item)
+    elif isinstance(value, (list, tuple)):
+        w.write_u8(_TAG_ARRAY)
+        w.write_var_uint(len(value))
+        for item in value:
+            write_any(w, item)
+    else:
+        raise TypeError(f"cannot encode {type(value)!r} as Any")
+
+
+def any_to_json(value: PyAny) -> str:
+    """JSON string form of the v1 codec's Embed / Format payloads."""
+    if value is Undefined:
+        return "undefined"
+    return json.dumps(value, separators=(",", ":"), ensure_ascii=False)
 
 
 def utf16_units(data: bytes) -> int:

@@ -1,12 +1,24 @@
-"""Batched block-state layout and host read-out (PyTorch port of
-`ytpu.models.batch_doc`).
+"""Batched block-state layout, the sync step and host read-out (PyTorch
+port of `ytpu.models.batch_doc`).
 
 The layout part mirrors the JAX module name for name: `BlockCols` /
 `DocStateBatch` / `UpdateBatch` are NamedTuples of tensors, `init_state`
 allocates an empty doc batch on an explicit device, and the scan-record
-and commitment helpers are the same functions over torch tensors. The
-read-out part (`get_string`, `_visible_walk`, `_move_bounds`) runs on the
-host over numpy copies of the columns.
+and commitment helpers are the same functions over torch tensors.
+
+The sync step: the write path `apply_update_batch` (one update per doc)
+and `apply_update_stream` run the CUDA integrate kernel
+(`ops.integrate_kernel`); the origin-slot cache they leave stale is
+rebuilt by `recompute_origin_slot`. The read path is `state_vectors` and
+`encode_diff_batch` (torch ops on the device), the row compaction
+`compact_finisher_rows` (device), and the host finisher that writes the v1
+wire bytes (`finish_encode_diff`, `finish_encode_diff_batch`, and
+`DiffPipeline`, which overlaps the device half of sub-batch k+1 with the
+finisher of sub-batch k). The interners and the payload store are the
+host tables of ytpu's `BatchEncoder` that the finisher reads
+(`EncoderTables`); its planning from host `Update` objects is not ported.
+The read-out part (`get_string`, `_visible_walk`, `_move_bounds`) runs on
+the host over numpy copies of the columns.
 
 uint32 arithmetic (the commitment fold) is emulated in int64 with
 ``& 0xFFFFFFFF`` masks: torch has no general uint32 arithmetic.
@@ -15,12 +27,27 @@ uint32 arithmetic (the commitment fold) is emulated in int64 with
 from __future__ import annotations
 
 import os
-from typing import Dict, List, NamedTuple, Tuple
+import time
+from collections import deque
+from dataclasses import dataclass
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
-from ytpu_torch.core.content import CONTENT_MOVE, CONTENT_STRING
+from ytpu_torch.core.content import (
+    BLOCK_GC,
+    BLOCK_ROOT_ANCHOR,
+    CONTENT_ANY,
+    CONTENT_BINARY,
+    CONTENT_DELETED,
+    CONTENT_EMBED,
+    CONTENT_FORMAT,
+    CONTENT_JSON,
+    CONTENT_MOVE,
+    CONTENT_STRING,
+    CONTENT_TYPE,
+)
 from ytpu_torch.core.device import resolve_device
 
 __all__ = [
@@ -31,6 +58,26 @@ __all__ = [
     "init_state",
     "mark_origin_slot_stale",
     "origin_slot_is_stale",
+    "recompute_origin_slot",
+    "ensure_origin_slot",
+    "apply_update_batch",
+    "apply_update_stream",
+    "apply_update_stream_fused",
+    "apply_update_stream_raw",
+    "state_vectors",
+    "encode_diff_batch",
+    "state_capacity_ledger",
+    "ClientInterner",
+    "KeyInterner",
+    "PayloadStore",
+    "EncoderTables",
+    "finish_encode_diff",
+    "compact_finisher_rows",
+    "finish_encode_diff_batch",
+    "DiffPlan",
+    "plan_diff_pipeline",
+    "DiffStats",
+    "DiffPipeline",
     "CompactionPolicy",
     "DEFAULT_COMPACTION_POLICY",
     "stream_worst_case_adds",
@@ -179,12 +226,11 @@ def init_state(n_docs: int, capacity: int, device=None) -> DocStateBatch:
 
 
 # --- lazy origin_slot refresh ---------------------------------------------------
-# The fused integrate passes the origin_slot plane through without
-# maintaining it, so its output marks the plane STALE: a host-side flag
-# keyed on the plane tensor's identity, retired by `weakref.finalize` when
-# the tensor dies so a recycled id never reads as stale. The port has no
-# reader of the plane yet (the XLA-lane applies that rebuild it are not
-# ported), so nothing refreshes it.
+# The integrate kernel passes the origin_slot plane through without
+# maintaining it, so every apply marks its output's plane STALE: a
+# host-side flag keyed on the plane tensor's identity, retired by
+# `weakref.finalize` when the tensor dies so a recycled id never reads as
+# stale. A reader of the plane refreshes it through `ensure_origin_slot`.
 
 _STALE_ORIGIN_SLOT: set = set()
 
@@ -203,6 +249,162 @@ def mark_origin_slot_stale(state: DocStateBatch) -> None:
 def origin_slot_is_stale(state: DocStateBatch) -> bool:
     """One set lookup."""
     return id(state.blocks.origin_slot) in _STALE_ORIGIN_SLOT
+
+
+def _id_key(client: torch.Tensor, clock: torch.Tensor) -> torch.Tensor:
+    """int64 key ordering ids by (client, clock) for clients >= 0."""
+    return (client.to(torch.int64) << 32) + (clock.to(torch.int64) + (1 << 31))
+
+
+def recompute_origin_slot(state: DocStateBatch) -> DocStateBatch:
+    """Rebuild the `origin_slot` cache plane: for every live row with an
+    origin, the slot whose clock range covers (origin_client,
+    origin_clock), else -1; -1 for rows past ``n_blocks`` and rows without
+    an origin.
+
+    The JAX version compares every row with every row of its doc
+    (O(D·B²)). Here each doc's live rows of positive length are sorted by
+    (client, clock) and each origin is looked up with one `searchsorted`:
+    the last block of that client starting at or before the origin clock
+    covers it or nothing does. Blocks of one client never overlap in clock
+    (the integrate appends only past a client's clock; splits and
+    compaction keep the partition), so the covering slot is unique and
+    equals the JAX version's first match."""
+    bl = state.blocks
+    slots = torch.arange(bl.client.shape[1], device=bl.client.device)
+    live = slots[None, :] < state.n_blocks[:, None]
+    covers = live & (bl.client >= 0) & (bl.length > 0)
+    key = torch.where(covers, _id_key(bl.client, bl.clock), torch.iinfo(torch.int64).max)
+    sorted_key, order = torch.sort(key, dim=1, stable=True)
+    oc, ok = bl.origin_client, bl.origin_clock
+    pos = torch.searchsorted(sorted_key, _id_key(oc, ok).contiguous(), right=True) - 1
+    cand = order.gather(1, pos.clamp(min=0))
+    c_clock = bl.clock.gather(1, cand)
+    hit = (
+        (pos >= 0)
+        & covers.gather(1, cand)
+        & (bl.client.gather(1, cand) == oc)
+        & (c_clock <= ok)
+        & (ok < c_clock + bl.length.gather(1, cand))
+    )
+    os_col = torch.where(live & (oc >= 0) & hit, cand.to(I32), torch.full_like(oc, -1))
+    return state._replace(blocks=state.blocks._replace(origin_slot=os_col))
+
+
+def ensure_origin_slot(state: DocStateBatch) -> DocStateBatch:
+    """Recompute the cache iff this state was marked stale, so chained
+    applies pay the rebuild at most once, on first read."""
+    if origin_slot_is_stale(state):
+        return recompute_origin_slot(state)
+    return state
+
+
+# --- the write path ------------------------------------------------------------
+
+
+def _rank_table(client_rank, device) -> torch.Tensor:
+    return torch.as_tensor(client_rank, dtype=I32, device=device).reshape(-1).contiguous()
+
+
+def apply_update_batch(state: DocStateBatch, batch: UpdateBatch, client_rank) -> DocStateBatch:
+    """Integrate one decoded update per doc (``batch`` fields ``[D, U]`` /
+    ``[D, R]``, doc d gets row d): `pack_state` -> `integrate_batch` (the
+    CUDA kernel's per-doc entry on the GPU, its plain version on the CPU)
+    -> `unpack_state`. `client_rank` is the ``[K]`` interned-client rank
+    table shared by all docs; the conflict-scan plan is `scan_tier_plan()`,
+    read per call. The input state is left as it was. The returned state's
+    origin_slot plane is marked stale (the kernel does not maintain it;
+    `ensure_origin_slot` refreshes it)."""
+    from ytpu_torch.ops import integrate_kernel as ik
+
+    cols, meta = ik.pack_state(state)
+    rows, dels = ik.pack_stream(batch)
+    ik.integrate_batch(cols, meta, rows, dels, _rank_table(client_rank, cols.device))
+    out = ik.unpack_state(cols, meta)
+    mark_origin_slot_stale(out)
+    return out
+
+
+def apply_update_stream_raw(
+    state: DocStateBatch, stream: UpdateBatch, client_rank, scan_plan=None
+):
+    """Integrate a stacked ``[S, ...]`` stream (each step's update
+    broadcast to every doc) in one kernel launch; returns ``(state,
+    scan_hist)``, scan_hist the per-doc ``[D, SCAN_REC_WORDS]``
+    conflict-scan record of this stream (the kernel's meta words, which
+    `pack_state` starts at 0). The state's origin_slot plane is marked
+    stale."""
+    from ytpu_torch.ops import integrate_kernel as ik
+
+    cols, meta = ik.pack_state(state)
+    rows, dels = ik.pack_stream(stream)
+    ik.integrate_stream(cols, meta, rows, dels, _rank_table(client_rank, cols.device), scan_plan)
+    out = ik.unpack_state(cols, meta)
+    mark_origin_slot_stale(out)
+    return out, meta[:, ik.M_HIST0 : ik.M_SCAN_END]
+
+
+def apply_update_stream(
+    state: DocStateBatch, stream: UpdateBatch, client_rank
+) -> DocStateBatch:
+    """`apply_update_stream_raw` without the scan record."""
+    return apply_update_stream_raw(state, stream, client_rank)[0]
+
+
+def apply_update_stream_fused(
+    state: DocStateBatch, stream: UpdateBatch, client_rank, refresh_cache: bool = False
+) -> DocStateBatch:
+    """`apply_update_stream` (sequence, map, nested-branch and move rows all
+    integrate in the one launch); ``refresh_cache=True`` rebuilds the stale
+    origin_slot plane here (`recompute_origin_slot`) instead of leaving it
+    to the readers' `ensure_origin_slot`."""
+    out = apply_update_stream(state, stream, client_rank)
+    return recompute_origin_slot(out) if refresh_cache else out
+
+
+# --- the read path ---------------------------------------------------------------
+
+
+def state_vectors(state: DocStateBatch, n_clients: int) -> torch.Tensor:
+    """``[D, n_clients]`` dense state vectors from the block columns."""
+    from ytpu_torch.ops.state_vector import sv_from_blocks
+
+    bl = state.blocks
+    return sv_from_blocks(bl.client, bl.clock, bl.length, n_clients)
+
+
+def _valid_rows(state: DocStateBatch) -> torch.Tensor:
+    bl = state.blocks
+    slots = torch.arange(bl.client.shape[-1], device=bl.client.device)
+    return (slots[None, :] < state.n_blocks[:, None]) & (bl.client >= 0)
+
+
+def encode_diff_batch(state: DocStateBatch, remote_sv: torch.Tensor, n_clients: int):
+    """Device half of the batched sync step 2: for every (doc, block),
+    should it ship to a remote whose state vector is ``remote_sv[d]``
+    (``[D, n_clients]`` int32 over interned clients), and from which clock
+    offset (`Store::write_blocks_from` / `diff_state_vectors`, store.rs:
+    204-248). Returns ``(ship [D, B] bool, offsets [D, B] int32, local_sv
+    [D, n_clients] int32, deleted [D, B] bool)``; the host finisher turns
+    the selected rows into wire bytes."""
+    from ytpu_torch.ops.state_vector import sv_from_blocks
+
+    bl = state.blocks
+    valid = _valid_rows(state)
+    safe_client = bl.client.clamp(0, n_clients - 1).long()
+    remote_clock = torch.as_tensor(remote_sv, device=bl.client.device).to(I32).gather(1, safe_client)
+    ship = valid & (bl.clock + bl.length > remote_clock)
+    offsets = (remote_clock - bl.clock).clamp(min=0) * ship
+    local_sv = sv_from_blocks(bl.client, bl.clock, bl.length, n_clients)
+    return ship, offsets.to(I32), local_sv, bl.deleted & valid
+
+
+def state_capacity_ledger(state: DocStateBatch):
+    """Per-doc ``([D] live, [D] dead)`` int32 row counts: dead rows are the
+    tombstoned rows `encode_diff_batch` counts as valid, live the rest of
+    the ``n_blocks`` prefix."""
+    dead = (_valid_rows(state) & state.blocks.deleted).sum(dim=1).to(I32)
+    return state.n_blocks.to(I32) - dead, dead
 
 
 class CompactionPolicy(NamedTuple):
@@ -331,6 +533,501 @@ def commit_fold_blocks(client, clock, length, valid) -> torch.Tensor:
     contrib = (((a * inner) & U32_MASK) + ((b * l) & U32_MASK)) & U32_MASK
     contrib = torch.where(valid, contrib, torch.zeros_like(contrib))
     return contrib.sum(dim=-1) & U32_MASK
+
+
+# --- host tables the finisher reads ------------------------------------------------
+
+
+class ClientInterner:
+    """Dense int32 interning of 53-bit client ids."""
+
+    def __init__(self):
+        self.to_idx: Dict[int, int] = {}
+        self.from_idx: List[int] = []
+
+    def intern(self, client: int) -> int:
+        idx = self.to_idx.get(client)
+        if idx is None:
+            idx = len(self.from_idx)
+            self.to_idx[client] = idx
+            self.from_idx.append(client)
+        return idx
+
+    def rank_table(self, pad_to: Optional[int] = None, device=None) -> torch.Tensor:
+        """``[K]`` int32: the rank of each interned client in real-id order,
+        padded to a power of two (at least 8) unless `pad_to` is given."""
+        n = len(self.from_idx)
+        size = pad_to or max(8, 1 << (max(1, n - 1)).bit_length())
+        ranks = np.zeros(size, dtype=np.int32)
+        order = sorted(range(n), key=lambda i: self.from_idx[i])
+        for rank, idx in enumerate(order):
+            ranks[idx] = rank
+        return torch.from_numpy(ranks).to(resolve_device(device))
+
+    def __len__(self) -> int:
+        return len(self.from_idx)
+
+
+class KeyInterner:
+    """Dense interning of map keys (parent_sub strings) to int32 ids."""
+
+    def __init__(self):
+        self.ids: Dict[str, int] = {}
+        self.names: Dict[int, str] = {}
+
+    def intern(self, key: str) -> int:
+        kid = self.ids.get(key)
+        if kid is None:
+            kid = len(self.ids)
+            self.ids[key] = kid
+            self.names[kid] = key
+        return kid
+
+    def __len__(self) -> int:
+        return len(self.ids)
+
+
+class PayloadStore:
+    """Host side-buffers for variable-length content, addressed by int32
+    refs. Strings are stored as UTF-16LE bytes so (offset, len) columns in
+    clock units slice exactly; other payloads store their element lists or
+    content objects (anything with ``encode(enc)``)."""
+
+    def __init__(self):
+        self.items: List[Tuple[int, object]] = []  # (kind, payload)
+
+    def add(self, kind: int, payload) -> int:
+        self.items.append((kind, payload))
+        return len(self.items) - 1
+
+    def slice_text(self, ref: int, off: int, length: int) -> str:
+        _, payload = self.items[ref]
+        # a slice boundary inside a surrogate pair renders the severed half
+        # as U+FFFD (split_str_utf16, block.rs:1852-1860)
+        return payload[2 * off : 2 * (off + length)].decode("utf-16-le", errors="replace")
+
+    def slice_values(self, ref: int, off: int, length: int) -> list:
+        return self.items[ref][1][off : off + length]
+
+    def json_raw(self, ref: int, off: int, length: int) -> list:
+        return self.items[ref][1].raw[off : off + length]
+
+    def embed_value(self, ref: int):
+        return self.items[ref][1].value
+
+    def binary_value(self, ref: int) -> bytes:
+        return self.items[ref][1].data
+
+    def format_kv(self, ref: int):
+        fmt = self.items[ref][1]
+        return fmt.key, fmt.value
+
+
+class EncoderTables:
+    """What the diff finisher reads of a `BatchEncoder`: the client and key
+    interners, the payloads (a `PayloadStore`, or a view with `slice_text`
+    over device-decoded text: `replay.UnitArenaView`,
+    `decode_kernel.RawPayloadView`) and the name of the root branch."""
+
+    def __init__(self, interner=None, keys=None, payloads=None, root_name: str = "text"):
+        self.interner = ClientInterner() if interner is None else interner
+        self.keys = KeyInterner() if keys is None else keys
+        self.payloads = PayloadStore() if payloads is None else payloads
+        self.root_name = root_name
+
+    @classmethod
+    def identity(cls, n_clients: int, payloads=None, root_name: str = "text") -> "EncoderTables":
+        """Tables for rows whose client column holds the raw client id, as
+        the device decoder writes it: client i is interned at index i, for
+        i < `n_clients`."""
+        interner = ClientInterner()
+        for c in range(n_clients):
+            interner.intern(c)
+        return cls(interner, payloads=payloads, root_name=root_name)
+
+    @classmethod
+    def from_replay(cls, replay, root_name: str = "text") -> "EncoderTables":
+        """Tables for a `FusedReplay`'s state: raw client ids up to the
+        plan's largest, text through the replay's unit arena."""
+        from ytpu_torch.models.replay import UnitArenaView
+
+        plan = replay.plan
+        return cls.identity(
+            plan.max_client + 1, UnitArenaView(plan.unit_byte, plan.arena), root_name
+        )
+
+
+# --- the host finisher --------------------------------------------------------------
+
+
+def _encode_device_row(out, bl, r, off, enc) -> None:
+    """One block row of the diff in v1 (block.rs:868-908): row ``r`` of the
+    columns `bl`, its first `off` clock units trimmed."""
+    from ytpu_torch.core.ids import ID
+
+    payloads = enc.payloads
+    kind = int(bl.kind[r])
+    if kind == BLOCK_GC:
+        out.write_info(BLOCK_GC)
+        out.write_len(int(bl.length[r]) - off)
+        return
+    oc, ok = int(bl.origin_client[r]), int(bl.origin_clock[r])
+    rc, rk = int(bl.ror_client[r]), int(bl.ror_clock[r])
+    clock = int(bl.clock[r])
+    if off > 0:
+        oc, ok = int(bl.client[r]), clock + off - 1
+    has_o, has_r = oc >= 0, rc >= 0
+    key = int(bl.key[r])
+    has_sub = key >= 0
+    info = kind | (0x80 if has_o else 0) | (0x40 if has_r else 0) | (0x20 if has_sub else 0)
+    out.write_info(info)
+    if has_o:
+        out.write_left_id(ID(enc.interner.from_idx[oc], ok))
+    if has_r:
+        out.write_right_id(ID(enc.interner.from_idx[rc], rk))
+    if not has_o and not has_r:
+        parent_row = int(bl.parent[r])
+        if parent_row >= 0 and int(bl.kind[parent_row]) == BLOCK_ROOT_ANCHOR:
+            # non-primary named root: the anchor row has no wire identity,
+            # so the root-name form is written with the anchor's name
+            out.write_parent_info(True)
+            out.write_string(enc.keys.names[int(bl.key[parent_row])])
+        elif parent_row >= 0:
+            # nested branch: the parent is the ContentType item's id
+            out.write_parent_info(False)
+            out.write_left_id(
+                ID(enc.interner.from_idx[int(bl.client[parent_row])], int(bl.clock[parent_row]))
+            )
+        else:
+            out.write_parent_info(True)
+            out.write_string(enc.root_name)
+        if has_sub:
+            out.write_string(enc.keys.names[key])
+    ref = int(bl.content_ref[r])
+    c_off = int(bl.content_off[r]) + off
+    length = int(bl.length[r]) - off
+    if kind == CONTENT_STRING:
+        out.write_string(payloads.slice_text(ref, c_off, length))
+    elif kind == CONTENT_ANY:
+        out.write_len(length)
+        for v in payloads.slice_values(ref, c_off, length):
+            out.write_any(v)
+    elif kind == CONTENT_DELETED:
+        out.write_len(length)
+    elif ref < 0 and kind == CONTENT_FORMAT:
+        fkey, fval = payloads.format_kv(ref)
+        out.write_key(fkey)
+        out.write_json(fval)
+    elif ref < 0 and kind == CONTENT_EMBED:
+        out.write_json(payloads.embed_value(ref))
+    elif ref < 0 and kind == CONTENT_BINARY:
+        out.write_buf(payloads.binary_value(ref))
+    elif ref < 0 and kind == CONTENT_JSON:
+        raw = payloads.json_raw(ref, c_off, length)
+        out.write_len(len(raw))
+        for s in raw:
+            out.write_string(s)
+    elif ref < -1 and kind == CONTENT_TYPE:
+        # a retained wire span: its original bytes, verbatim
+        out.write_raw(payloads.type_raw(ref))
+    else:
+        # other payload kinds keep the host content object itself
+        payloads.items[ref][1].encode(out)
+
+
+def _finish_rows(bl, ship, offsets, deleted, enc) -> bytes:
+    """The v1 update of one doc's selected rows: `bl` the doc's columns,
+    `ship` / `offsets` / `deleted` its ``[rows]`` selection. Clients in
+    descending id order, each client's rows by clock, the first one
+    offset-trimmed, then the delete set."""
+    from ytpu_torch.core.id_set import DeleteSet
+    from ytpu_torch.encoding.codec import EncoderV1
+
+    from_idx = enc.interner.from_idx
+    per_client: Dict[int, List[int]] = {}
+    for r in np.nonzero(ship)[0].tolist():
+        per_client.setdefault(int(bl.client[r]), []).append(r)
+    out = EncoderV1()
+    out.write_var(len(per_client))
+    for cidx in sorted(per_client, key=lambda c: -from_idx[c]):
+        slots = sorted(per_client[cidx], key=lambda r: int(bl.clock[r]))
+        out.write_var(len(slots))
+        out.write_client(from_idx[cidx])
+        first_off = int(offsets[slots[0]])
+        out.write_var(int(bl.clock[slots[0]]) + first_off)
+        for pos, r in enumerate(slots):
+            _encode_device_row(out, bl, r, first_off if pos == 0 else 0, enc)
+    ds = DeleteSet()
+    for r in np.nonzero(deleted)[0].tolist():
+        start = int(bl.clock[r])
+        ds.insert_range(from_idx[int(bl.client[r])], start, start + int(bl.length[r]))
+    ds.encode(out)
+    return out.to_bytes()
+
+
+def _host(a) -> np.ndarray:
+    return a.cpu().numpy() if torch.is_tensor(a) else np.asarray(a)
+
+
+def finish_encode_diff(state: DocStateBatch, doc: int, ship, offsets, deleted, enc) -> bytes:
+    """Host finisher of one doc: its selected rows (`encode_diff_batch`'s
+    outputs) -> a v1 update payload, in the host oracle's wire layout.
+    `enc` holds the interners, the payloads and the root name
+    (`EncoderTables`)."""
+    bl = BlockCols(*(a[doc].cpu().numpy() for a in state.blocks))
+    return _finish_rows(bl, _host(ship[doc]), _host(offsets[doc]), _host(deleted[doc]), enc)
+
+
+# the columns of the compacted finisher rows, then ship, offsets, deleted
+_FINISH_COLS = (
+    "client", "clock", "length", "origin_client", "origin_clock", "ror_client",
+    "ror_clock", "kind", "content_ref", "content_off", "key", "parent",
+)
+FINISH_PLANES = len(_FINISH_COLS) + 3
+
+
+class _FinishCols(NamedTuple):
+    client: list
+    clock: list
+    length: list
+    origin_client: list
+    origin_clock: list
+    ror_client: list
+    ror_clock: list
+    kind: list
+    content_ref: list
+    content_off: list
+    key: list
+    parent: list
+
+
+def _finish_compacted(arr: np.ndarray, enc) -> bytes:
+    """`_finish_rows` of one doc's compacted ``[15, R]`` rows."""
+    bl = _FinishCols(*arr[: len(_FINISH_COLS)].tolist())
+    k = len(_FINISH_COLS)
+    return _finish_rows(bl, arr[k] != 0, arr[k + 1], arr[k + 2] != 0, enc)
+
+
+def _next_pow2(n: int, floor: int = 8) -> int:
+    return max(floor, 1 << max(0, int(n - 1).bit_length()))
+
+
+def _finish_include(parent, ship, deleted):
+    """Rows the finisher must see: shipped, deleted, or the parent of a
+    shipped row (the finisher walks one parent hop for rows with neither
+    origin). Returns ``(include [D, B] bool, shipped-with-parent, parent
+    index or 0)``."""
+    pv = ship & (parent >= 0)
+    spar = torch.where(pv, parent, torch.zeros_like(parent)).long()
+    incl = (ship | deleted).to(I32).scatter_reduce(1, spar, pv.to(I32), reduce="amax")
+    return incl > 0, pv, spar
+
+
+def _finish_counts(parent, ship, deleted, idx) -> torch.Tensor:
+    """``[len(idx)]`` rows each selected doc sends to the finisher."""
+    incl, _, _ = _finish_include(parent[idx], ship[idx], deleted[idx])
+    return incl.sum(dim=1)
+
+
+def compact_finisher_rows(bl: BlockCols, ship, offsets, deleted, idx, R: int) -> torch.Tensor:
+    """The finisher's rows of the docs `idx`, compacted on the device into
+    one ``[len(idx), 15, R]`` int32 tensor: the 12 `_FINISH_COLS`, then
+    ship, offsets and deleted, each doc's included rows in slot order in
+    its first columns (`R` at least the largest per-doc count), so that
+    only these rows cross to the host. The parent column is renumbered
+    into the compacted rows for shipped rows and -1 elsewhere."""
+    ship, deleted = ship[idx], deleted[idx]
+    cols = [getattr(bl, n)[idx].to(I32) for n in _FINISH_COLS]
+    incl, pv, spar = _finish_include(cols[-1], ship, deleted)
+    incl_i = incl.to(I32)
+    new_idx = torch.cumsum(incl_i, dim=1, dtype=I32) - incl_i
+    cols[-1] = torch.where(pv, new_idx.gather(1, spar), torch.full_like(new_idx, -1))
+    planes = torch.stack(cols + [ship.to(I32), offsets[idx].to(I32), deleted.to(I32)], dim=1)
+    Ds, P, B = planes.shape
+    # rows left out go to column R, which is cut off
+    tgt = torch.where(incl, new_idx, torch.full_like(new_idx, R)).long()
+    out = torch.zeros((Ds, P, R + 1), dtype=I32, device=planes.device)
+    out.scatter_(2, tgt[:, None, :].expand(Ds, P, B), planes)
+    return out[:, :, :R]
+
+
+def _check_doc_selection(sel: np.ndarray, n_docs: int) -> None:
+    if sel.size and (sel.min() < 0 or sel.max() >= n_docs):
+        raise IndexError(f"doc selection out of range: {sel.min()}..{sel.max()} for {n_docs} docs")
+
+
+def _selection(docs, n_docs: int, width: int, dev) -> torch.Tensor:
+    """``[width]`` doc indices on `dev`: `docs`, then the first selected
+    doc repeated as padding. A fresh host array each call, copied
+    synchronously, so no later call rewrites one a copy still reads."""
+    sel = np.full(width, docs[0] if len(docs) else 0, dtype=np.int64)
+    sel[: len(docs)] = docs
+    return torch.from_numpy(sel).to(dev)
+
+
+def finish_encode_diff_batch(state: DocStateBatch, docs, ship, offsets, deleted, enc) -> List[bytes]:
+    """Wire payloads of many docs, byte-identical to `finish_encode_diff`
+    of each: the device counts each selected doc's rows and compacts them
+    (`compact_finisher_rows`; the width R is the largest count rounded up
+    to a power of two, the doc selection padded to a power of two), one
+    tensor crosses to the host, and the host finisher writes each doc.
+    `docs` may repeat a doc."""
+    docs = [int(d) for d in docs]
+    bl = state.blocks
+    D, B = bl.client.shape
+    _check_doc_selection(np.asarray(docs, dtype=np.int64), D)
+    if not docs:
+        return []
+    dev = bl.client.device
+    idx = _selection(docs, D, _next_pow2(len(docs)), dev)
+    ship, offsets, deleted = (torch.as_tensor(a, device=dev) for a in (ship, offsets, deleted))
+    counts = _finish_counts(bl.parent, ship, deleted, idx).cpu().numpy()
+    R = min(_next_pow2(int(counts.max(initial=1))), B)
+    arr = compact_finisher_rows(bl, ship, offsets, deleted, idx, R).cpu().numpy()
+    return [_finish_compacted(arr[j], enc) for j in range(len(docs))]
+
+
+# --- the pipelined finisher ------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class DiffPlan:
+    """Sub-batch plan of one `DiffPipeline.run`."""
+
+    n_docs: int
+    sub: int  # docs per sub-batch (a power of two)
+    n_sub: int
+    depth: int  # sub-batches in flight at most
+    host_buffers: int  # pinned host buffers of compacted rows, one per in-flight sub-batch
+    buffer_reuses: int  # times a host buffer is filled again
+
+
+def plan_diff_pipeline(n_docs: int, sub_batch: int = 512, depth: int = 2) -> DiffPlan:
+    """Sub-batches of a power-of-two width, never wider than the power-of-two
+    bucket of the selection itself."""
+    n = max(0, int(n_docs))
+    if n == 0:
+        return DiffPlan(0, 0, 0, depth, 0, 0)
+    sub = min(_next_pow2(int(sub_batch), 1), _next_pow2(n, 1))
+    n_sub = -(-n // sub)
+    bufs = min(depth, n_sub)
+    return DiffPlan(n, sub, n_sub, depth, bufs, n_sub - bufs)
+
+
+@dataclass
+class DiffStats:
+    """One `DiffPipeline.run`: time per stage and what crossed to the host."""
+
+    n_docs: int = 0
+    sub: int = 0
+    n_sub: int = 0
+    depth: int = 0
+    R: int = 0  # compacted row width (a power of two)
+    total_rows: int = 0  # rows sent to the finisher over the whole call
+    select_s: float = 0.0  # host time to issue counts, compaction and copies
+    stall_s: float = 0.0  # host time waiting for a sub-batch's rows
+    finish_s: float = 0.0  # host finisher
+    d2h_bytes: int = 0
+    max_inflight: int = 0
+    syncs: int = 0  # blocking waits on the device (the counts, then one per sub-batch)
+    buffer_reuses: int = 0
+
+
+class DiffPipeline:
+    """`finish_encode_diff_batch` in sub-batches that overlap: the device
+    compacts sub-batch k+1 and copies it into a pinned host buffer, on a
+    side CUDA stream, while the host finisher writes sub-batch k. One
+    blocking pull of the per-doc counts sizes R for the whole call, so a
+    run makes ``n_sub + 1`` blocking waits, none per doc. Each in-flight
+    sub-batch has its own host buffer, filled again only after its
+    finisher has returned; the doc selection is a fresh host array per
+    sub-batch, copied synchronously. On CPU tensors the stages run one
+    after another. Byte output equals `finish_encode_diff_batch`'s."""
+
+    def __init__(self, sub_batch: int = 512, depth: int = 2):
+        if depth < 1:
+            raise ValueError(f"depth must be >= 1, got {depth}")
+        if sub_batch < 1:
+            raise ValueError(f"sub_batch must be >= 1, got {sub_batch}")
+        self.sub_batch = sub_batch
+        self.depth = depth
+        self.stats = DiffStats()
+
+    def plan(self, n_docs: int) -> DiffPlan:
+        return plan_diff_pipeline(n_docs, self.sub_batch, self.depth)
+
+    def run(self, state: DocStateBatch, docs, ship, offsets, deleted, enc) -> List[bytes]:
+        docs = [int(d) for d in docs]
+        stats = self.stats = DiffStats(n_docs=len(docs), depth=self.depth)
+        if not docs:
+            return []
+        bl = state.blocks
+        D, B = bl.client.shape
+        _check_doc_selection(np.asarray(docs, dtype=np.int64), D)
+        dev = bl.client.device
+        ship, offsets, deleted = (torch.as_tensor(a, device=dev) for a in (ship, offsets, deleted))
+        plan = self.plan(len(docs))
+        stats.sub, stats.n_sub, stats.buffer_reuses = plan.sub, plan.n_sub, plan.buffer_reuses
+
+        t0 = time.perf_counter()
+        idx = _selection(docs, D, _next_pow2(len(docs)), dev)
+        counts = _finish_counts(bl.parent, ship, deleted, idx).cpu().numpy()[: len(docs)]
+        stats.syncs += 1
+        stats.select_s += time.perf_counter() - t0
+        R = stats.R = min(_next_pow2(int(counts.max(initial=1))), B)
+        stats.total_rows = int(counts.sum())
+
+        cuda = dev.type == "cuda"
+        side = torch.cuda.Stream(dev) if cuda else None
+        if cuda:
+            side.wait_stream(torch.cuda.current_stream(dev))
+        bufs = [
+            torch.empty((plan.sub, FINISH_PLANES, R), dtype=I32, pin_memory=cuda)
+            for _ in range(plan.host_buffers)
+        ]
+        out: List[bytes] = [b""] * len(docs)
+        inflight: deque = deque()
+
+        def produce(k: int):
+            lo, hi = k * plan.sub, min((k + 1) * plan.sub, len(docs))
+            buf = bufs[k % len(bufs)]
+            t0 = time.perf_counter()
+            if cuda:
+                with torch.cuda.stream(side):
+                    sel = _selection(docs[lo:hi], D, plan.sub, dev)
+                    rows = compact_finisher_rows(bl, ship, offsets, deleted, sel, R)
+                    buf.copy_(rows, non_blocking=True)
+                    done = torch.cuda.Event()
+                    done.record(side)
+            else:
+                sel = _selection(docs[lo:hi], D, plan.sub, dev)
+                buf.copy_(compact_finisher_rows(bl, ship, offsets, deleted, sel, R))
+                done = None
+            stats.select_s += time.perf_counter() - t0
+            inflight.append((lo, hi, buf, done))
+            stats.max_inflight = max(stats.max_inflight, len(inflight))
+
+        def consume():
+            lo, hi, buf, done = inflight.popleft()
+            t0 = time.perf_counter()
+            if done is not None:
+                done.synchronize()
+            stats.syncs += 1
+            stats.stall_s += time.perf_counter() - t0
+            t0 = time.perf_counter()
+            arr = buf.numpy()
+            stats.d2h_bytes += arr.nbytes
+            for j in range(hi - lo):
+                out[lo + j] = _finish_compacted(arr[j], enc)
+            stats.finish_s += time.perf_counter() - t0
+
+        for k in range(plan.n_sub):
+            if len(inflight) == len(bufs):
+                consume()  # frees the buffer sub-batch k fills
+            produce(k)
+        while inflight:
+            consume()
+        return out
 
 
 # --- host read-out ---------------------------------------------------------------

@@ -9,7 +9,10 @@ delete stream into every doc, in place. On a CUDA tensor it launches the
 kernel of ``csrc/integrate.cu``; on a CPU tensor it runs
 `integrate_stream_reference`, the plain version of the same function
 written like the Pallas kernel (vectorized over docs with ``[D, C]``
-masks).
+masks). `integrate_batch` integrates one step of each doc's own ``[D, U,
+23]`` rows / ``[D, R, 4]`` deletes (the write path of
+`batch_doc.apply_update_batch`) through the kernel's per-doc entry; its
+plain version is the stream one run on each doc's one-step stream.
 """
 
 from __future__ import annotations
@@ -38,6 +41,7 @@ from ytpu_torch.models.batch_doc import (
     BlockCols,
     DocStateBatch,
     UpdateBatch,
+    apply_update_stream_fused,  # re-exported: ytpu keeps it in ops.integrate_kernel
     commit_fold_blocks,
     scan_tier_plan,
     scan_width_bucket,
@@ -54,7 +58,10 @@ __all__ = [
     "integrate_stream",
     "integrate_stream_profile",
     "integrate_stream_reference",
+    "integrate_batch",
+    "integrate_batch_reference",
     "launch_plan",
+    "batch_launch_plan",
     "apply_update_stream_fused",
     "replay_stream_fused",
     "replay_chunk_program_raw",
@@ -688,7 +695,10 @@ def _check_int32(name, t, ndim, device):
 INTEGRATE_SIGNATURES = {
     "ytpu_integrate_stream": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8
     + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 4,
+    "ytpu_integrate_batch": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
+    + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 3,
     "ytpu_integrate_plan": [ctypes.c_int] * 4 + [ctypes.c_void_p],
+    "ytpu_integrate_batch_plan": [ctypes.c_int, ctypes.c_void_p],
     "ytpu_integrate_prof_words": [],
 }
 #: the words of ``ytpu_integrate_plan``, in the kernel's ``PlanWord`` order
@@ -711,8 +721,20 @@ def launch_plan(S: int, U: int, R: int, D: int, C: int, lib=None) -> dict:
     stage holds, the ragged last tile, the dynamic shared memory; plus the
     per-doc scratch the wrapper allocates."""
     lib = _integrate_lib() if lib is None else lib
+    return _plan(lambda out: lib.ytpu_integrate_plan(S, U, R, D, out), C)
+
+
+def batch_launch_plan(D: int, C: int, lib=None) -> dict:
+    """The launch `integrate_batch` makes into ``D`` docs of ``C`` slots
+    (one step, no ring: the shared memory does not depend on U or R), in
+    `launch_plan`'s words."""
+    lib = _integrate_lib() if lib is None else lib
+    return _plan(lambda out: lib.ytpu_integrate_batch_plan(D, out), C)
+
+
+def _plan(ask, C: int) -> dict:
     out = (ctypes.c_int * len(PLAN_KEYS))()
-    if lib.ytpu_integrate_plan(S, U, R, D, out) != len(PLAN_KEYS):
+    if ask(out) != len(PLAN_KEYS):
         raise RuntimeError("the kernel library plans a launch in other words than PLAN_KEYS")
     hb, hs = scratch_entries(C)
     return {**dict(zip(PLAN_KEYS, out)), "bitmap_entries": hb, "start_map_entries": hs,
@@ -747,6 +769,15 @@ def _check_args(cols, meta, rows, dels, rank, scan_plan):
     return cheap, unroll
 
 
+def _scratch(D: int, C: int, dev):
+    """The kernel's per-doc scratch: the bitmap index and the start map
+    ({key, payload} pairs of int64), the two scan stamps."""
+    hb, hs = scratch_entries(C)
+    return (torch.empty((D, hb, 2), dtype=torch.int64, device=dev), hb,
+            torch.empty((D, hs, 2), dtype=torch.int64, device=dev), hs,
+            torch.empty((D, C), dtype=I32, device=dev), torch.empty((D, C), dtype=I32, device=dev))
+
+
 def _launch(lib, cols, meta, rows, dels, rank, cheap, unroll, prof):
     """One launch of the kernel in `lib` on the current stream; `prof` is
     the [D, words] int64 counter buffer of the profiling build, or None.
@@ -761,13 +792,7 @@ def _launch(lib, cols, meta, rows, dels, rank, cheap, unroll, prof):
     _, D, C = cols.shape
     S, U = rows.shape[0], rows.shape[1]
     R, K = dels.shape[1], rank.shape[0]
-    hb, hs = scratch_entries(C)
-    # per-doc scratch: the bitmap index and the start map ({key, payload}
-    # pairs of int64), the scan stamps
-    bidx = torch.empty((D, hb, 2), dtype=torch.int64, device=dev)
-    sidx = torch.empty((D, hs, 2), dtype=torch.int64, device=dev)
-    bstamp = torch.empty((D, C), dtype=I32, device=dev)
-    cstamp = torch.empty((D, C), dtype=I32, device=dev)
+    bidx, hb, sidx, hs, bstamp, cstamp = _scratch(D, C, dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.ytpu_integrate_stream(
         cols.data_ptr(), meta.data_ptr(), rows.data_ptr(), dels.data_ptr(),
@@ -834,34 +859,55 @@ PROFILE_PHASES = PROFILE_WORDS[:11]
 integrate_stream.launches = 0
 
 
-def apply_update_stream_fused(
-    state: DocStateBatch,
-    stream: UpdateBatch,
-    client_rank,
-    refresh_cache: bool = False,
-) -> DocStateBatch:
-    """One-call integrate of a stacked ``[S, ...]`` stream into every doc:
-    `pack_state` -> `pack_stream` -> `integrate_stream` -> `unpack_state`.
-    Sequence, map, nested-branch and move rows all integrate in the one
-    launch. The input state is left as it was (the packed copy is what the
-    kernel updates in place). The returned state's origin_slot plane is
-    marked stale, as the fused kernel leaves it unmaintained;
-    ``refresh_cache=True`` (an eager rebuild of that plane) needs
-    `recompute_origin_slot`, which is not ported."""
-    from ytpu_torch.models.batch_doc import mark_origin_slot_stale
+def integrate_batch_reference(cols, meta, rows, dels, rank, scan_plan=(32, 8)):
+    """The plain version of the per-doc entry: doc d integrates its own
+    rows ``rows[d]`` / deletes ``dels[d]`` as the one-step stream of
+    `integrate_stream_reference`. Updates ``cols`` / ``meta`` in place and
+    returns them."""
+    for d in range(cols.shape[1]):
+        c, m = cols[:, d : d + 1].clone(), meta[d : d + 1].clone()
+        integrate_stream_reference(c, m, rows[d : d + 1], dels[d : d + 1], rank, scan_plan)
+        cols[:, d : d + 1] = c
+        meta[d : d + 1] = m
+    return cols, meta
 
-    if refresh_cache:
-        raise NotImplementedError(
-            "refresh_cache=True needs recompute_origin_slot, which comes with the "
-            "XLA-lane slice of the port (ROADMAP A.7 / B3)"
-        )
-    cols, meta = pack_state(state)
-    rows, dels = pack_stream(stream)
-    rank = torch.as_tensor(client_rank, dtype=I32, device=cols.device).reshape(-1).contiguous()
-    integrate_stream(cols, meta, rows, dels, rank)
-    out = unpack_state(cols, meta)
-    mark_origin_slot_stale(out)
-    return out
+
+def integrate_batch(cols, meta, rows, dels, rank, scan_plan=None):
+    """Integrate one step of per-doc updates, ``rows`` ``[D, U, 23]`` and
+    ``dels`` ``[D, R, 4]`` (doc d gets ``rows[d]`` / ``dels[d]``), into
+    the packed state IN PLACE and return ``(cols, meta)``; the other
+    arguments are `integrate_stream`'s.
+
+    On CUDA tensors this launches the kernel's per-doc entry
+    (``ytpu_integrate_batch`` of ``csrc/integrate.cu``) on the current
+    stream and counts the launch in ``integrate_batch.launches``; on CPU
+    tensors it runs `integrate_batch_reference`. Any other device
+    raises."""
+    cheap, unroll = _check_args(cols, meta, rows, dels, rank, scan_plan)
+    if rows.shape[0] != cols.shape[1]:
+        raise ValueError(f"rows hold {rows.shape[0]} docs, the state {cols.shape[1]}")
+    dev = cols.device
+    if dev.type == "cpu":
+        return integrate_batch_reference(cols, meta, rows, dels, rank, (cheap, unroll))
+    if dev.type != "cuda":
+        raise ValueError(f"integrate_batch runs on cuda or cpu tensors, not {dev}")
+    from ytpu_torch.ops import _build
+
+    lib = _integrate_lib()
+    _, D, C = cols.shape
+    bidx, hb, sidx, hs, bstamp, cstamp = _scratch(D, C, dev)
+    err = lib.ytpu_integrate_batch(
+        cols.data_ptr(), meta.data_ptr(), rows.data_ptr(), dels.data_ptr(), rank.data_ptr(),
+        rows.shape[1], dels.shape[1], rank.shape[0], D, C, cheap, unroll,
+        bidx.data_ptr(), hb, sidx.data_ptr(), hs, bstamp.data_ptr(), cstamp.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _build.check(lib, err, "integrate batch kernel")
+    integrate_batch.launches += 1
+    return cols, meta
+
+
+integrate_batch.launches = 0
 
 
 # --- readout ----------------------------------------------------------------------
