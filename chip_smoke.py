@@ -23,7 +23,10 @@ over the whole log at 256 docs, then the same run under
 `apply_update_batch` per step through the integrate kernel's per-doc
 entry at 1,024 docs x 8,192 slots over the first 2,048 B4 updates, each
 doc lagging by (doc mod 8) x 64 updates, held against stream replays of
-each prefix; the per-doc kernel against its plain version; the read path
+each prefix, with the per-doc kernel's profile (phase 1 against phase 2,
+its scratch sized from each doc's live rows and, as before, for C), the
+bytes its phase 1 clears and its launch floor; the per-doc kernel against
+its plain version, on synthetic streams and on edge cases; the read path
 at BASELINE config 5's width, 10,240 docs x 64 clients: `state_vectors`,
 `encode_diff_batch`, the finisher and `DiffPipeline`, a sample held
 against the CPU finisher; and `encode_diff_batch` on the B4 replay's final
@@ -156,9 +159,9 @@ def _sass_summary(lib_path: str, kernel: str) -> dict:
 
 
 def phase_build(gpu):
-    """Every library, one nvcc each in parallel; the ptxas report of both
-    integrate kernels (the stream entry's and the per-doc entry's) must
-    show no stack frame and no spills, every
+    """Every library, one nvcc each in parallel; the ptxas report of the
+    integrate kernels (the stream entry's, and the per-doc entry's index
+    and integrate kernels) must show no stack frame and no spills, every
     instantiation of the column put, of the map put (rungs 0 and 7), of
     rung 1's row put, rung 3's carry put, rung 4's scan put and rung 5's
     sum put and of v_multi's sized copy must issue all its loads before its
@@ -175,6 +178,7 @@ def phase_build(gpu):
     ptxas = {name: _ptxas(_build.build_log(name), "integrate_kernel")
              for name in ("integrate", "integrate_profile")}
     ptxas["integrate_batch"] = _ptxas(_build.build_log("integrate"), "integrate_batch_kernel")
+    ptxas["integrate_batch_index"] = _ptxas(_build.build_log("integrate"), "integrate_batch_index_kernel")
     sass = {"column_put_sass": _sass_summary(libs["plane_rmw"], "column_put"),
             "map_put_sass": _sass_summary(libs["mosaic_ladder"], "map_put"),
             "row_put_sass": _sass_summary(libs["mosaic_ladder"], "row_put"),
@@ -186,7 +190,7 @@ def phase_build(gpu):
     multi = {**copy_sass, **body_sass}
     emit({"phase": "build", "seconds": build_s, "load_seconds": time.perf_counter() - t0 - build_s,
           "libraries": sorted(libs), "integrate_ptxas": ptxas, **sass, "multi_call_sass": multi, "gpu": gpu})
-    for name in ("integrate", "integrate_batch"):
+    for name in ("integrate", "integrate_batch", "integrate_batch_index"):
         k = ptxas[name]
         if k["stack_frame_bytes"] or k["spill_store_bytes"] or k["spill_load_bytes"]:
             raise RuntimeError(f"{name} kernel uses local memory: {k}")
@@ -568,10 +572,15 @@ def _write_path(gpu, log, plan, dev):
     the first 2,048 B4 updates with per-doc lags; checks equal cols within a
     lag group, the lag-0 docs against one `apply_update_stream` launch of
     the prefix, and each group's text against the stream replay of its
-    prefix. Then the pieces of a call timed with CUDA events on 64 steps
-    replayed from a snapshot of the state at step 1,536."""
+    prefix. Then the pieces of a call from a `torch.profiler` trace of 64
+    steps replayed from a snapshot of the state at step 1,536, the plain
+    version on that snapshot's step, the per-doc kernel's profile there
+    (phase 1 against phase 2, scratch sized from the live rows and for C)
+    and its launch floor."""
     import torch
 
+    from ytpu_torch.benches._kernels import empty_launch, graph_ms
+    from ytpu_torch.benches.integrate_profile import batch_profile_table
     from ytpu_torch.benches.sync_step import batch_bound_bytes, lagged_batch
     from ytpu_torch.models import batch_doc as bd
     from ytpu_torch.ops import integrate_kernel as ik
@@ -646,12 +655,15 @@ def _write_path(gpu, log, plan, dev):
                 st = ik.unpack_state(cols, meta)
         torch.cuda.synchronize()
         traced_s = time.perf_counter() - t0
-    trace, kernels, _ = _trace_breakdown(prof, traced_s, kernel="integrate_batch_kernel")
-    if len(kernels) != WRITE_TIMED_STEPS:
-        raise RuntimeError(f"sync_step: the trace holds {len(kernels)} per-doc kernels for "
-                           f"{WRITE_TIMED_STEPS} launches")
+    # each call of the per-doc entry launches the index kernel, then the
+    # integrate kernel
+    trace, integrates, _ = _trace_breakdown(prof, traced_s, kernel="integrate_batch_kernel")
+    _, indexes, _ = _trace_breakdown(prof, traced_s, kernel="integrate_batch_index_kernel")
+    if len(integrates) != WRITE_TIMED_STEPS or len(indexes) != WRITE_TIMED_STEPS:
+        raise RuntimeError(f"sync_step: the trace holds {len(indexes)} index and {len(integrates)} integrate "
+                           f"kernels for {WRITE_TIMED_STEPS} calls")
     per = {k: trace["device_s"].get(k, 0.0) * 1e3 / WRITE_TIMED_STEPS for k in pieces}
-    kernel_ms = [ms for _, ms in kernels]
+    kernel_ms = [a + b for (_, a), (_, b) in zip(indexes, integrates)]
     # the plain version on one step at full width, from the snapshot
     cols_k, meta_k = ik.pack_state(snapshot)
     batch = lagged_batch(stream, WRITE_TIMED_FROM, lag)
@@ -663,8 +675,21 @@ def _write_path(gpu, log, plan, dev):
     del cols_k, meta_k, cols_p, meta_p
     bound_b = batch_bound_bytes(WRITE_DOCS, rows.shape[1], dels.shape[1], rank.shape[0],
                                 rows_read // WRITE_TIMED_STEPS, rows_added // WRITE_TIMED_STEPS)
-    plan_b = ik.batch_launch_plan(WRITE_DOCS, WRITE_CAPACITY)
-    del snapshot, st, cols, meta
+    # phase 1 against phase 2 on the snapshot's step, each doc's scratch
+    # sized from its live rows and, the sizing before it, for all C slots;
+    # the bytes phase 1 clears; the launch floor at the entry's grid and at
+    # the grid it had before
+    cols_k, meta_k = ik.pack_state(snapshot)
+    plan_b = ik.batch_launch_plan(WRITE_DOCS, WRITE_CAPACITY, nb0=meta_k[:, ik.M_NBLOCKS].tolist(),
+                                  U=rows.shape[1], R=dels.shape[1])
+    profile = batch_profile_table(cols_k, meta_k, rows, dels, rank)
+    if profile["live_rows"]["cleared_bytes"] != plan_b["cleared_bytes"]:
+        raise RuntimeError(f"sync_step: the kernel cleared {profile['live_rows']['cleared_bytes']} bytes, "
+                           f"its plan says {plan_b['cleared_bytes']}")
+    floor = _launch_floor(lambda: ik.integrate_batch(cols_k, meta_k, rows, dels, rank))
+    if (floor["grid"][0], floor["block"][0]) != (WRITE_DOCS // 2, 96):
+        floor["before_ms"] = graph_ms(empty_launch((WRITE_DOCS // 2,), (96,), dev))["mean"]
+    del snapshot, st, cols, meta, cols_k, meta_k
     return {
         "docs": WRITE_DOCS, "capacity": WRITE_CAPACITY, "updates": WRITE_UPDATES,
         "lag": f"(doc mod {LAG_GROUPS}) * {LAG_STEP}", "U": int(stream.client.shape[1]),
@@ -673,12 +698,15 @@ def _write_path(gpu, log, plan, dev):
         "timed_steps": f"{WRITE_TIMED_FROM}..{WRITE_TIMED_FROM + WRITE_TIMED_STEPS}",
         "device_ms_per_call": per, "kernel_ms": sum(kernel_ms) / len(kernel_ms),
         "kernel_ms_min": min(kernel_ms), "kernel_ms_max": max(kernel_ms),
+        "index_kernel_ms": sum(ms for _, ms in indexes) / len(indexes),
+        "integrate_kernel_ms": sum(ms for _, ms in integrates) / len(integrates),
         "plain_ms_full_width_step": plain_ms, "max_abs_err_full_width_step": full_err,
         "bound_bytes_per_launch": bound_b, "bound_ms": bound_b / HBM_BYTES_PER_S * 1e3,
         "rows_read_per_launch": rows_read / WRITE_TIMED_STEPS,
         "rows_added_per_launch": rows_added / WRITE_TIMED_STEPS,
         "final_blocks_max": int(state.n_blocks.max()), "sticky_error": err, "groups_equal": True,
         "lag0_equals_stream": True, "texts_ok": texts_ok, "launch_plan": plan_b,
+        "cleared_bytes_per_launch": plan_b["cleared_bytes"], "profile": profile, "launch_floor": floor,
     }
 
 
@@ -686,12 +714,18 @@ def _batch_vs_plain(dev):
     """(b) The per-doc kernel against `integrate_batch_reference` on the
     card: 8 docs x 1,024 slots, 16 steps, doc d's rows step t of its own
     synthetic stream (string, GC, deleted, format, nested, map and move
-    rows, gaps, duplicates, same-origin storms). Every plane and meta word
-    is compared after each step."""
+    rows, gaps, duplicates, same-origin storms); then `batch_edge_steps`
+    (an empty doc, a doc whose launches start within their bound of C,
+    splits of both origins and of both ends of delete ranges, moves that
+    split blocks). Every plane and meta word is compared after each
+    step."""
     import numpy as np
     import torch
 
-    from ytpu_torch.benches.streams import anchored_state, synthetic_stream
+    from ytpu_torch.benches.streams import (
+        EDGE_CAPACITY, EDGE_DOCS, anchored_state, batch_edge_steps, synthetic_stream,
+    )
+    from ytpu_torch.models.batch_doc import init_state
     from ytpu_torch.ops import integrate_kernel as ik
 
     rank = torch.from_numpy(np.random.default_rng(11).permutation(256).astype(np.int32)).to(dev)
@@ -708,6 +742,15 @@ def _batch_vs_plain(dev):
         p_ms += _time_ms(lambda: ik.integrate_batch_reference(cols_p, meta_p, rows[t], dels[t], rank))
         max_err = max(max_err, _compare(f"integrate_batch step {t}", cols_k, meta_k, cols_p, meta_p))
     live = torch.arange(BATCH_PLAIN_CAPACITY, device=dev)[None, :] < meta_k[:, ik.M_NBLOCKS][:, None]
+    erows, edels = (torch.from_numpy(a).to(dev) for a in batch_edge_steps())
+    ecols_k, emeta_k = ik.pack_state(init_state(EDGE_DOCS, EDGE_CAPACITY, dev))
+    ecols_p, emeta_p = ecols_k.clone(), emeta_k.clone()
+    edge_err = 0
+    for t in range(erows.shape[0]):
+        ik.integrate_batch(ecols_k, emeta_k, erows[t], edels[t], rank)
+        ik.integrate_batch_reference(ecols_p, emeta_p, erows[t], edels[t], rank)
+        edge_err = max(edge_err, _compare(f"integrate_batch edge step {t}", ecols_k, emeta_k, ecols_p, emeta_p))
+    max_err = max(max_err, edge_err)
     return {
         "case": f"{BATCH_PLAIN_DOCS} docs, C={BATCH_PLAIN_CAPACITY}, {BATCH_PLAIN_STEPS} steps of "
                 f"per-doc synthetic streams", "max_abs_err": max_err,
@@ -716,6 +759,9 @@ def _batch_vs_plain(dev):
         "map_rows": int(((cols_k[ik.KEY] >= 0) & live).sum()),
         "move_rows": int(((cols_k[ik.KD] == 11) & live).sum()),
         "nested_rows": int(((cols_k[ik.PA] >= 0) & live).sum()),
+        "edge_case": {"docs": EDGE_DOCS, "capacity": EDGE_CAPACITY, "steps": int(erows.shape[0]),
+                      "max_abs_err": edge_err, "final_blocks": emeta_k[:, ik.M_NBLOCKS].tolist(),
+                      "errors": emeta_k[:, ik.M_ERROR].tolist()},
     }
 
 
@@ -1130,21 +1176,25 @@ def _full_width(name: str, like, seed: int):
 
 
 def _launch_floor(fn) -> dict:
-    """The grid and block of the one kernel `fn` launches (read back from
-    a CUDA graph that captured a call) and the time of an empty kernel
-    node at that grid in a CUDA graph (`graph_ms`): the least a launch of
-    that shape costs."""
+    """The grid and block of the kernels `fn` launches (read back from a
+    CUDA graph that captured a call) and the time of as many empty kernel
+    nodes at those grids in a CUDA graph (`graph_ms`): the least launches
+    of that shape cost. ``grid`` and ``block`` are the first kernel's,
+    ``nodes`` lists every kernel's where there are more."""
     import torch
 
     from ytpu_torch.benches._kernels import empty_launch, graph_ms, graph_nodes
 
     nodes = graph_nodes(fn)
-    if [n["type"] for n in nodes] != ["kernel"]:
-        raise RuntimeError(f"expected one kernel node, got {nodes}")
-    k = nodes[0]
-    floor = graph_ms(empty_launch(k["grid"], k["block"], torch.device("cuda")))
-    return {"launch_floor_ms": floor["mean"], "launch_floor_spread": floor, "grid": k["grid"],
-            "block": k["block"]}
+    if not nodes or any(n["type"] != "kernel" for n in nodes):
+        raise RuntimeError(f"expected kernel nodes only, got {nodes}")
+    empties = [empty_launch(k["grid"], k["block"], torch.device("cuda")) for k in nodes]
+    floor = graph_ms(lambda: [e() for e in empties])
+    out = {"launch_floor_ms": floor["mean"], "launch_floor_spread": floor, "grid": nodes[0]["grid"],
+           "block": nodes[0]["block"]}
+    if len(nodes) > 1:
+        out["nodes"] = [{"grid": k["grid"], "block": k["block"]} for k in nodes]
+    return out
 
 
 def _column_put_pairs(case, like, seed: int):
@@ -1672,6 +1722,13 @@ def main() -> int:
                  "vmapped _apply_update_one_doc (ytpu/models/batch_doc.py:1379, :1462)",
         "shape": f"{WRITE_DOCS} docs, C={WRITE_CAPACITY}, one update per doc per launch",
         "launch_plan": sync["write"]["launch_plan"], "ptxas": ptxas["integrate_batch"],
+        "index_ptxas": ptxas["integrate_batch_index"],
+        "index_kernel_ms": sync["write"]["index_kernel_ms"],
+        "integrate_kernel_ms": sync["write"]["integrate_kernel_ms"],
+        "cleared_bytes_per_launch": sync["write"]["cleared_bytes_per_launch"],
+        "launch_floor": sync["write"]["launch_floor"],
+        "phase_split": {k: {w: v[w] for w in ("phase1_cycles", "phase2_cycles", "phase1_share", "cleared_bytes")}
+                        for k, v in sync["write"]["profile"].items() if isinstance(v, dict)},
         "plain_vs_kernel_case": sync["kernel_vs_plain"], "gpu": gpu,
     }] + [{**{k: e[k] for k in KERNEL_KEYS}, **({"full_width": e["full_width"]} if "full_width" in e else {})}
           for e in diag]})

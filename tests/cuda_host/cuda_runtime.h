@@ -10,10 +10,12 @@
 //   * every CUDA thread is a std::thread; the CTAs of a launch (a 1-D or
 //     2-D grid) run one after another;
 //   * warp collectives (__ballot_sync, __shfl_sync, __any_sync,
-//     __reduce_max_sync, __reduce_or_sync, __reduce_add_sync, __syncwarp)
-//     meet at a per-warp
-//     barrier, and the lanes of a warp run freely in between, so code that
-//     leans on lanes running in lockstep without a __syncwarp fails here;
+//     __reduce_max_sync, __reduce_or_sync, __reduce_add_sync,
+//     __match_any_sync, __syncwarp) meet at a per-warp barrier, so every
+//     lane of the warp must reach them (__reduce_or_sync reduces over the
+//     lanes of each lane's own mask), and the lanes of a warp run freely
+//     in between, so code that leans on lanes running in lockstep without
+//     a __syncwarp fails here;
 //   * mbarriers are counters under one mutex; a bulk copy is a memcpy that
 //     completes its bytes on the barrier at once;
 //   * integrate.cu's inline-PTX helpers (mbar_*, bulk_copy) are replaced by
@@ -65,6 +67,10 @@ struct int4 {
 template <class T>
 inline T __ldg(const T* p) {
   return *p;
+}
+// a load the atomics of other threads race with: one 8-byte word at a time
+inline ulonglong2 __ldcg(const ulonglong2* p) {
+  return {__atomic_load_n(&p->x, __ATOMIC_RELAXED), __atomic_load_n(&p->y, __ATOMIC_RELAXED)};
 }
 using std::max;
 using std::min;
@@ -122,10 +128,20 @@ inline int emu_reduce_max(int x, int line) {
     return (int)r;
   });
 }
-inline unsigned emu_reduce_or(unsigned x, int line) {
-  return emu_collective(x, line, [](const unsigned long long* v) {
+// over the lanes of `mask` (each lane passes the mask of its own group)
+inline unsigned emu_reduce_or(unsigned mask, unsigned x, int line) {
+  return emu_collective(x, line, [mask](const unsigned long long* v) {
     unsigned r = 0;
-    for (int i = 0; i < 32; ++i) r |= (unsigned)v[i];
+    for (int i = 0; i < 32; ++i)
+      if ((mask >> i) & 1u) r |= (unsigned)v[i];
+    return r;
+  });
+}
+// the lanes whose value equals this lane's
+inline unsigned emu_match_any(unsigned long long x, int line) {
+  return emu_collective(x, line, [x](const unsigned long long* v) {
+    unsigned r = 0;
+    for (int i = 0; i < 32; ++i) r |= (v[i] == x ? 1u : 0u) << i;
     return r;
   });
 }
@@ -144,7 +160,8 @@ inline void emu_syncwarp(int line) {
 #define __shfl_sync(m, x, s) emu_shfl(x, s, __LINE__)
 #define __any_sync(m, p) (emu_ballot(p, __LINE__) != 0)
 #define __reduce_max_sync(m, x) emu_reduce_max(x, __LINE__)
-#define __reduce_or_sync(m, x) emu_reduce_or(x, __LINE__)
+#define __reduce_or_sync(m, x) emu_reduce_or(m, x, __LINE__)
+#define __match_any_sync(m, x) emu_match_any(x, __LINE__)
 #define __reduce_add_sync(m, x) emu_reduce_add(x, __LINE__)
 #define __syncwarp() emu_syncwarp(__LINE__)
 inline void __syncthreads() { emu_cta->bar.arrive_and_wait(); }
@@ -167,6 +184,7 @@ inline int atomicMin(int* p, int v) {
   }
   return o;
 }
+inline int atomicAdd(int* p, int v) { return __atomic_fetch_add(p, v, __ATOMIC_SEQ_CST); }
 inline int atomicMax(int* p, int v) {
   int o = __atomic_load_n(p, __ATOMIC_SEQ_CST);
   while (v > o && !__atomic_compare_exchange_n(p, &o, v, false, __ATOMIC_SEQ_CST, __ATOMIC_SEQ_CST)) {

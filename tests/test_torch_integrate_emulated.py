@@ -2,7 +2,9 @@
 emulator of the CUDA pieces it uses (tests/cuda_host/cuda_runtime.h), held
 exactly against its plain version: the stream entry against
 `integrate_stream_reference`, the per-doc entry against
-`integrate_batch_reference` after every launch (docs whose rows differ).
+`integrate_batch_reference` after every launch (docs whose rows differ),
+every launch on scratch poisoned with keys and epochs it could mistake
+for its own.
 
 The kernel itself is compiled and run only on the card (`chip_smoke.py`).
 Here g++ compiles the same ``csrc/integrate.cu`` with every CUDA thread a
@@ -67,7 +69,26 @@ def test_per_doc_entry_matches_plain_version(emulated, case):
     assert r["blocks"] > 20 and r["error"] & 1 == 0
 
 
+def test_per_doc_entry_matches_plain_version_at_the_edges(emulated):
+    """`batch_edge_steps`: an empty doc launched, a doc whose launches
+    start within their bound of C (its phase 1 sized for all C slots) until
+    it is full, rows that split both origins, delete ranges split at both
+    ends, map rows and moves whose pointers split blocks."""
+    r = emulated["batch_edges_D4"]
+    assert r["max_abs_err"] == 0, r
+    assert r["first_slots_min"] == 0 and r["capped_below_C"] > 0 and r["error"] & 1
+
+
 def test_a_doc_reading_its_neighbours_rows_fails(emulated):
-    """The same case through a mutant of the source in which each doc
+    """The edge case through a mutant of the source in which each doc
     reads its neighbour's rows: the comparison must catch it."""
     assert emulated["batch_neighbour_rows_mutant"]["max_abs_err"] > 0
+
+
+@pytest.mark.parametrize("mutant", ["stamps_to_nb0", "tables_cleared_for_nb0"])
+def test_a_short_clear_fails(emulated, mutant):
+    """The edge case through a mutant whose phase 1 clears the stamps only
+    below the doc's slot count at the launch's start, or clears the tables
+    as if they were sized from that count alone: on poisoned scratch the
+    comparison must catch both."""
+    assert emulated[f"batch_{mutant}_mutant"]["max_abs_err"] > 0

@@ -171,6 +171,7 @@ def test_main_path_plan(host_lib):
     assert (p["docs_per_cta"], p["ctas"], p["threads"], p["ring_stages"]) == (2, 128, 96, 2)
     assert (p["tile_steps"], p["tiles"], p["last_tile_steps"], p["last_tile_ragged_words"]) == (256, 32, 256, 0)
     assert p["smem_bytes"] == 128 + 2 * 1024 * 4 + 2 * 256 * (23 + 4) * 4 == 63616
+    assert (p["index_ctas"], p["index_threads"], p["doc_words"]) == (0, 0, 0)
     assert (p["bitmap_entries"], p["start_map_entries"]) == (1 << 19, 1 << 17)
     assert p["scratch_bytes_per_doc"] == 16 * (1 << 19) + 16 * (1 << 17) + 8 * 65536
 
@@ -216,9 +217,12 @@ def test_ragged_tile_of_the_chip_case(host_lib):
 
 
 def test_batch_plan_of_the_write_path(host_lib):
-    """The per-doc entry at BASELINE config 2's width: one step, no ring,
-    so the shared memory is the barriers and the client-clock tables."""
+    """The per-doc entry at BASELINE config 2's width: the index kernel,
+    one CTA of 128 threads a doc, handing 1,024 client clocks and the slot
+    bound a doc to the integrate kernel; that one takes one step, no ring,
+    so its shared memory is the barriers and the client-clock tables."""
     p = ik.batch_launch_plan(1024, 8192, host_lib)
+    assert (p["index_ctas"], p["index_threads"], p["doc_words"]) == (1024, 128, 1025)
     assert (p["docs_per_cta"], p["ctas"], p["threads"], p["ring_stages"]) == (2, 512, 96, 0)
     assert (p["tile_steps"], p["tiles"], p["last_tile_steps"], p["last_tile_ragged_words"]) == (1, 1, 1, 0)
     assert p["smem_bytes"] == 128 + 2 * 1024 * 4 == 8320
@@ -236,3 +240,33 @@ def test_a_plan_past_the_shared_memory_limit_is_refused(host_lib, U):
     err = host_lib.ytpu_integrate_stream(0, 0, 0, 0, 0, 8, U, 1, 256, D, C, 32, 8,
                                          0, hb, 0, hs, 0, 0, None, None)
     assert err == 1
+
+
+@pytest.mark.parametrize(
+    "nb0,moves,S,U,R,C,bound",
+    [(1305, 0, 1, 1, 1, 8192, 1312), (0, 0, 1, 1, 1, 8192, 7), (100, 10, 1, 4, 2, 256, 144),
+     (8190, 0, 1, 1, 1, 8192, 8192), (17658, 0, 8192, 1, 1, 65536, 65536), (40, 3, 2, 4, 2, 64, 64)],
+)
+def test_scratch_follows_the_live_rows(host_lib, nb0, moves, S, U, R, C, bound):
+    """Phase 1 sizes a doc's tables from the slots the launch can reach,
+    nb0 + S (5U + 2R) + 2 moves, capped at C, at the load factors of
+    `scratch_entries`, and clears their prefixes and that many slots of
+    both stamps: the write path's doc clears 338,176 of the 1,376,256
+    bytes the wrapper allocates; a doc within its bound of C, and the B4
+    chunk, clear everything."""
+    got = ik.scratch_cleared(nb0, C, S, U, R, moves, host_lib)
+    hb, hs = ik.scratch_entries(bound)
+    assert got == {"slots_bound": bound, "bitmap_entries": hb, "start_map_entries": hs,
+                   "cleared_bytes": 16 * (hb + hs) + 8 * bound}
+    full = ik.batch_launch_plan(1, C, host_lib)["scratch_bytes_per_doc"]
+    assert (got["cleared_bytes"] == full) == (bound == C)
+    if (nb0, C) == (1305, 8192):
+        assert got["cleared_bytes"] == 338176 and full == 1376256
+
+
+def test_batch_plan_reports_the_bytes_cleared(host_lib):
+    """`batch_launch_plan` with each doc's slot count: the bytes its
+    launch's phase 1 clears, beside the scratch it allocates."""
+    p = ik.batch_launch_plan(3, 8192, host_lib, nb0=[0, 1305, 8190], U=1, R=1)
+    want = sum(ik.scratch_cleared(n, 8192, lib=host_lib)["cleared_bytes"] for n in (0, 1305, 8190))
+    assert p["cleared_bytes"] == want == 1336 + 338176 + 1376256

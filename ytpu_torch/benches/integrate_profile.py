@@ -10,7 +10,10 @@ Usage (on a machine with an NVIDIA GPU and the CUDA toolkit):
 Prints one JSON object: the cycle table, the event counts, the profiled
 launch's time and the time of the normal build on the same inputs.
 `chip_smoke.py`'s ``integrate_profile`` phase calls `profile_table` on the
-state of its full-width comparison.
+state of its full-width comparison, and its ``sync_step`` phase calls
+`batch_profile_table` (the per-doc entry, phase 1 against phase 2, its
+scratch sized for each doc's live rows and, as the baseline, for C) on
+the write path's state.
 """
 
 from __future__ import annotations
@@ -20,7 +23,7 @@ import json
 import os
 import pickle
 
-__all__ = ["b4_chunks", "late_chunk", "profile_table", "main"]
+__all__ = ["b4_chunks", "batch_profile_table", "late_chunk", "profile_table", "main"]
 
 _ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 B4_LOG = os.path.join(_ROOT, "benches", "data", "b4_log.pkl.gz")
@@ -121,6 +124,55 @@ def profile_table(cols, meta, rows, dels, rank):
         "profiled_ms": prof_ms, "kernel_ms": kernel_ms,
         "kernel_us_per_step": kernel_ms * 1e3 / max(words["steps"] / n_docs, 1),
     }
+
+
+def batch_profile_table(cols, meta, rows, dels, rank):
+    """The per-doc entry's profiling build on copies of the state, once
+    with each doc's scratch sized from its live rows (``live_rows``, the
+    kernel's sizing) and once sized for all C slots (``capacity_sized``,
+    the sizing before it), beside the normal build on another copy; all
+    three results must be equal. Per sizing: mean cycles per doc of each
+    phase, phase 1 (its sizing and clear, then its index build) against
+    phase 2 (the doc's own integrate), the bytes phase 1 clears in the
+    launch, and the profiled call's ms. The ms are CUDA events around one
+    wrapper call each, the allocation of its scratch included: the trace
+    of `chip_smoke.py`'s write path times the kernels alone."""
+    import torch
+
+    from ytpu_torch.ops import integrate_kernel as ik
+
+    D, C = cols.shape[1], cols.shape[2]
+    cols_k, meta_k = cols.clone(), meta.clone()
+    launches = ik.integrate_batch.launches
+    call_ms = _time_ms(lambda: ik.integrate_batch(cols_k, meta_k, rows, dels, rank))
+    ik.integrate_batch.launches = launches  # a measurement, not the main path
+    full = ik.batch_launch_plan(D, C)["scratch_bytes_per_doc"]
+    out = {"docs": D, "capacity": C, "call_ms": call_ms}
+    for name, capacity_sized in (("capacity_sized", True), ("live_rows", False)):
+        cols_p, meta_p = cols.clone(), meta.clone()
+        holder = {}
+        prof_ms = _time_ms(lambda: holder.setdefault("prof", ik.integrate_batch_profile(
+            cols_p, meta_p, rows, dels, rank, capacity_sized=capacity_sized)))
+        if not (torch.equal(cols_p, cols_k) and torch.equal(meta_p, meta_k)):
+            raise RuntimeError(f"batch profile ({name}): the profiling build and the normal build differ")
+        prof = holder["prof"].cpu()
+        words = dict(zip(ik.PROFILE_WORDS, prof.sum(dim=0).tolist()))
+        cycles = {ph: words[ph] / D for ph in ik.PROFILE_PHASES}
+        phase1 = sum(cycles[ph] for ph in ik.PHASE1)
+        total = sum(cycles.values())
+        bounds = prof[:, ik.PROFILE_WORDS.index("slots_bound")].tolist()
+        # a doc bounded at b slots clears what a doc holding b slots clears
+        # before an empty launch
+        per_bound = {b: ik.scratch_cleared(b, C, S=0, U=0, R=0)["cleared_bytes"] for b in set(bounds)}
+        cleared = sum(per_bound[b] for b in bounds)
+        if capacity_sized and cleared != D * full:
+            raise RuntimeError("batch profile: the capacity-sized launch did not clear all its scratch")
+        out[name] = {
+            "cycles_per_doc": cycles, "phase1_cycles": phase1, "phase2_cycles": total - phase1,
+            "phase1_share": phase1 / total if total else 0.0, "slots_bound_mean": sum(bounds) / D,
+            "cleared_bytes": cleared, "profiled_call_ms": prof_ms,
+        }
+    return out
 
 
 def main() -> int:

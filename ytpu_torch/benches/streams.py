@@ -4,14 +4,16 @@ against its plain version (`chip_smoke.py`, the CPU tests): packed
 
 `synthetic_stream` mixes every row kind the kernel handles; `typing_stream`
 is several clients typing and deleting at random positions of one text,
-the traffic the kernel's cursor cache and block index are built for.
+the traffic the kernel's cursor cache and block index are built for;
+`batch_edge_steps` gives the per-doc entry docs of very different sizes
+and the steps that make the most slots.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-__all__ = ["anchored_state", "synthetic_stream", "typing_stream"]
+__all__ = ["anchored_state", "batch_edge_steps", "synthetic_stream", "typing_stream"]
 
 # synthetic_stream: rows and delete ranges per step, and a same-origin
 # storm every STORM_EVERY steps
@@ -156,4 +158,73 @@ def typing_stream(seed: int, steps: int, first_client: int = 1):
         if rng.random() < DEL_P:
             dc, dk = doc[int(rng.integers(len(doc)))]
             dels[s, 0] = [dc, dk, dk + int(rng.integers(1, 4)), 1]
+    return rows, dels
+
+
+# batch_edge_steps: docs, slots, rows and delete ranges a doc and step
+EDGE_DOCS, EDGE_CAPACITY, EDGE_U, EDGE_R = 4, 64, 4, 2
+
+
+def _row(c, k, n, oc=-1, ok=0, rc=-1, rk=0, kind=4, key=-1, mv=(-1, 0, 0, -1, 0, 0, -1)):
+    """One row of the packed stream: root-parented when it has no origin."""
+    ptag = 1 if oc < 0 and rc < 0 else 0
+    return [c, k, n, oc, ok, rc, rk, kind, 0, 0, key, ptag, -1, 0, 1, *mv, -1]
+
+
+def batch_edge_steps(steps: int = 24):
+    """Per-doc steps for `integrate_batch` on ``EDGE_DOCS`` empty docs of
+    ``EDGE_CAPACITY`` slots, ``EDGE_U`` rows and ``EDGE_R`` delete ranges a
+    doc and step: ``(rows [S, D, U, 23], dels [S, D, R, 4])``. Doc 0 is
+    empty until step 2 puts a row behind a same-origin conflict of rows of
+    that launch (its conflict scan reads the stamp of the launch's first
+    new slot), then types slowly; doc 1 types fast and runs into its capacity, so
+    its launches pass through the slot counts within a launch's bound of C;
+    doc 2's rows split both origins, its delete ranges split both ends, and
+    one step puts a row behind a same-origin conflict of rows of the same
+    launch; doc 3 holds map rows and move rows whose pointers split blocks,
+    with moves live when later launches start."""
+    rows = np.zeros((steps, EDGE_DOCS, EDGE_U, 23), dtype=np.int32)
+    dels = np.zeros((steps, EDGE_DOCS, EDGE_R, 4), dtype=np.int32)
+    slow, _ = typing_stream(61, steps)
+    fast, fast_dels = typing_stream(62, steps * EDGE_U, first_client=20)
+    for t in range(steps):
+        if t % 3 == 0 and t > 2:
+            rows[t, 0, 0] = slow[t // 3 - 1, 0]
+        rows[t, 1] = fast[t * EDGE_U : (t + 1) * EDGE_U, 0]
+        dels[t, 1, :] = fast_dels[t * EDGE_U : t * EDGE_U + EDGE_R, 0]
+    # doc 0, still empty: two rows on the same new origin, then a row behind
+    # the second, whose conflict scan reads the stamp of the first new slot
+    rows[2, 0] = [_row(9, 0, 1), _row(9, 1, 1, oc=9, ok=0), _row(10, 0, 1, oc=9, ok=0),
+                  _row(11, 0, 1, oc=10, ok=0)]
+    doc2 = {
+        0: [_row(1, 0, 6)],
+        1: [_row(2, 0, 6, oc=1, ok=5)],
+        # origin inside client 1's block, right origin inside client 2's
+        2: [_row(3, 0, 2, oc=1, ok=2, rc=2, rk=3), _row(3, 2, 1, oc=3, ok=1)],
+        4: [_row(4, 0, 3, oc=2, ok=1, rc=1, rk=1)],
+        # two rows on the same new origin, then a row behind the second
+        6: [_row(9, 0, 1, oc=1, ok=0), _row(9, 1, 1, oc=9, ok=0), _row(10, 0, 1, oc=9, ok=0),
+            _row(11, 0, 1, oc=10, ok=0)],
+        8: [_row(12, 0, 1, oc=4, ok=0), _row(12, 1, 1, oc=12, ok=0), _row(5, 0, 1, oc=12, ok=0),
+            _row(13, 0, 1, oc=5, ok=0)],
+    }
+    doc2_dels = {3: [(2, 4, 5), (1, 4, 6)], 5: [(1, 1, 2)], 7: [(9, 0, 2)]}
+    doc3 = {
+        0: [_row(5, 0, 8)],
+        # a move of [(5, 2), (5, 5)]: the recompute splits at both pointers
+        1: [_row(6, 0, 1, oc=5, ok=7, kind=11, mv=(5, 2, 0, 5, 5, -1, 0))],
+        2: [_row(7, 0, 1, key=0), _row(7, 1, 1, key=1)],
+        3: [_row(7, 2, 1, oc=7, ok=0, key=0)],
+        4: [_row(8, 0, 1, oc=5, ok=3, kind=11, mv=(5, 3, 0, 5, 4, 0, 1))],
+        # an insert inside the moved range, with both moves live
+        5: [_row(5, 8, 2, oc=5, ok=3, rc=5, rk=4)],
+        7: [_row(8, 1, 1, oc=8, ok=0, kind=11, mv=(5, 0, 0, 5, 1, -1, 2))],
+    }
+    doc3_dels = {6: [(6, 0, 1)], 9: [(7, 1, 2)]}
+    for doc, by_step, del_step in ((2, doc2, doc2_dels), (3, doc3, doc3_dels)):
+        for t, rr in by_step.items():
+            rows[t, doc, : len(rr)] = rr
+        for t, dd in del_step.items():
+            for q, (c, a, b) in enumerate(dd):
+                dels[t, doc, q] = [c, a, b, 1]
     return rows, dels

@@ -58,19 +58,34 @@
 //     slot arrays (clearing a set is one counter increment); its two-tier
 //     accounting (min(w, cheap) cheap trips, ceil((w - cheap) / unroll)
 //     wide trips when w > cheap) is reproduced in closed form.
-//   * phase 1 (every warp of the CTA) clears the scratch and indexes the
-//     live slots with atomics; the map-chain head, root-anchor and
+//   * phase 1 clears the scratch and indexes the live slots with atomics
+//     (the lanes of a warp whose starts share a bitmap word combine their
+//     bits into one atomic); the map-chain head, root-anchor and
 //     move-recompute searches stay sweeps over the live slots (they run
 //     only for map, named-root and move rows).
+//   * phase 1's work follows each doc's live rows, not its capacity C: a
+//     doc that holds nb0 slots when the launch starts reaches at most
+//     n = live_bound(...) of them (the bound is proved there), so its
+//     tables are sized from n at the wrapper's load factors (`tables_for`)
+//     and only their prefixes and slots [0, n) of the two stamp arrays are
+//     cleared: every slot a stamp is written or read for lies below nb, and
+//     nb stays below n. The wrapper allocates C-sized scratch and reads
+//     nothing back: each doc sizes its own tables from its meta word.
 //
 // Two entries share the body (`integrate_body`). `ytpu_integrate_stream`
 // replays one [S, U, 23] / [S, R, 4] stream into every doc through the
-// ring. `ytpu_integrate_batch` (`integrate_batch_kernel`, the port of
-// `apply_update_batch`'s vmapped `_apply_update_one_doc`) integrates one
-// step of each doc's own [U, 23] rows and [R, 4] deletes: the warp reads
-// them straight from device memory, since one step is read once and a ring
-// of DOCS_PER_CTA blocks would only copy them first; its plan needs no
-// ring, so its shared memory is the same for every U and R.
+// ring, phase 1 on every warp of its CTA. `ytpu_integrate_batch` (the port
+// of `apply_update_batch`'s vmapped `_apply_update_one_doc`) integrates
+// one step of each doc's own [U, 23] rows and [R, 4] deletes in two
+// launches. Its phase 1 is a kernel of its own,
+// `integrate_batch_index_kernel`: one CTA of INDEX_THREADS a doc and few
+// registers, so a whole wave of docs indexes at once (phase 1 is a chain
+// of dependent atomics a row; on the integrate kernel's 96 threads of 160-
+// odd registers per two docs its index build took most of a 0.42 ms
+// launch at 1,024 docs x 8,192 slots on an H100). Then `integrate_batch_kernel`
+// runs phase 2: its warps read their rows straight from device memory,
+// since one step is read once and a ring of DOCS_PER_CTA blocks would only
+// copy them first, so its shared memory is the same for every U and R.
 //
 // Semantics follow `_kernel` exactly, including its edge cases: gather of
 // idx < 0 yields the fill, of idx >= C yields 0; put drops idx < 0 and
@@ -133,8 +148,13 @@ constexpr size_t SMEM_LIMIT = 232448;
 // the rest, whose rows may end up to three words past a 16-byte boundary.
 enum PlanWord {
   P_DOCS_PER_CTA, P_CTAS, P_THREADS, P_STAGES, P_TILE, P_TILES, P_LAST,
-  P_RAGGED, P_SMEM, PLAN_WORDS
+  P_RAGGED, P_SMEM, P_INDEX_CTAS, P_INDEX_THREADS, P_DOC_WORDS, PLAN_WORDS
 };
+// the per-doc entry's index kernel: one CTA of INDEX_THREADS a doc; it
+// hands each doc's client clocks and slot bound (DOC_WORDS int32) to the
+// integrate kernel
+constexpr int INDEX_THREADS = 128;
+constexpr int DOC_WORDS = YTPU_KC + 1;
 void launch_plan(int S, int U, int R, int D, int* p) {
   const int step_b = 4 * (U * ROW_W + R * DEL_W);
   const int fit = step_b ? RING_BUDGET / (STAGES * step_b) : MAX_TILE;
@@ -150,10 +170,12 @@ void launch_plan(int S, int U, int R, int D, int* p) {
   p[P_LAST] = last;
   p[P_RAGGED] = (last * U * ROW_W) % 4;
   p[P_SMEM] = BAR_BYTES + DOCS_PER_CTA * YTPU_KC * 4 + STAGES * T * step_b;
+  p[P_INDEX_CTAS] = p[P_INDEX_THREADS] = p[P_DOC_WORDS] = 0;  // phase 1 in the kernel
 }
 
-// The per-doc launch: one step, no ring (each warp reads its doc's rows
-// from device memory), so the shared memory is the barriers and the
+// The per-doc launches: the index kernel, one CTA a doc; then the
+// integrate kernel, one step, no ring (each warp reads its doc's rows from
+// device memory), so its shared memory is the barriers and the
 // client-clock tables whatever U and R are.
 void batch_plan(int D, int* p) {
   p[P_DOCS_PER_CTA] = DOCS_PER_CTA;
@@ -165,16 +187,61 @@ void batch_plan(int D, int* p) {
   p[P_LAST] = 1;
   p[P_RAGGED] = 0;
   p[P_SMEM] = BAR_BYTES + DOCS_PER_CTA * YTPU_KC * 4;
+  p[P_INDEX_CTAS] = D;
+  p[P_INDEX_THREADS] = INDEX_THREADS;
+  p[P_DOC_WORDS] = DOC_WORDS;
+}
+
+// ---- phase 1's sizing ----------------------------------------------------------
+
+// The slots a launch of S steps of U rows and R delete ranges can reach in
+// a doc that holds nb0 slots, `moves` of them live move rows, at its start.
+// Every path that adds a slot: `split` (called by clean_end, clean_start
+// and delete_range) and integrate_row's own row. A row makes at most three
+// (clean_end's split of its origin, clean_start's split of its right
+// origin, the row), a delete range at most two (its splits at both ends).
+// The move recompute splits through resolve_move_ptr, once per move
+// pointer whose boundary does not exist yet: a split leaves the boundary
+// in place for the rest of the launch (nothing merges blocks within one),
+// so each of a move row's two pointers splits at most once, and the live
+// move rows of a launch are those live at its start plus at most U new
+// ones a step (DL never goes back to 0). So
+//   nb <= nb0 + S * (3U + 2R) + 2 * (moves + S * U),
+// and nb never passes C.
+__host__ __device__ inline int live_bound(int nb0, int moves, int S, int U, int R, int C) {
+  const long long n = (long long)nb0 + (long long)S * (5LL * U + 2LL * R) + 2LL * moves;
+  return n < C ? (int)n : C;
+}
+
+__host__ __device__ inline uint32_t pow2_at_least(long long n) {
+  uint32_t p = 1;
+  while (p < n && p < (1u << 31)) p <<= 1;
+  return p;
+}
+
+// The entries of a doc's bitmap and start map for n reachable slots: the
+// load factors of the wrapper's `scratch_entries` (every start's five
+// level words at most 5/8 full, every start at most 1/2), capped at what
+// it allocated (HB, HS entries a doc).
+struct Tables {
+  uint32_t hb, hs;
+};
+__host__ __device__ inline Tables tables_for(int n, int HB, int HS) {
+  const uint32_t hb = pow2_at_least(8LL * n), hs = pow2_at_least(2LL * n);
+  return Tables{hb < (uint32_t)HB ? hb : (uint32_t)HB, hs < (uint32_t)HS ? hs : (uint32_t)HS};
 }
 
 // ---- per-phase cycle counters (built only with -DYTPU_INTEGRATE_PROFILE) ---
 // Each doc accumulates clock64() cycles per phase, exclusively (a nested
 // phase pauses the one around it), and a few event counts; lane 0 keeps
-// them in shared memory and the launch writes them out at the end.
+// them in shared memory and the launch writes them out at the end. Phase
+// 1 runs on the whole CTA: its two words (sizing and clear, index build)
+// are the CTA's cycles, given to each of its docs, and CNT_BOUND is the
+// doc's live_bound.
 enum ProfWord {
   PH_OTHER, PH_STREAM, PH_CLOCK, PH_FIND_HIT, PH_FIND_INDEX, PH_SPLIT, PH_SCAN,
-  PH_LINK, PH_INDEX_ADD, PH_DELETE, PH_MOVES,
-  CNT_STEPS, CNT_ROWS, CNT_DELS, CNT_HITS, CNT_LOOKUPS, PROF_WORDS
+  PH_LINK, PH_INDEX_ADD, PH_DELETE, PH_MOVES, PH_CLEAR, PH_INDEX_BUILD,
+  CNT_STEPS, CNT_ROWS, CNT_DELS, CNT_HITS, CNT_LOOKUPS, CNT_BOUND, PROF_WORDS
 };
 #ifdef YTPU_INTEGRATE_PROFILE
 struct Prof {
@@ -1091,34 +1158,101 @@ __device__ __forceinline__ void issue_tile(int t, unsigned char* ring, uint64_t*
 
 // ---- phase 1: the index of the live slots (atomics) --------------------------
 
-__device__ __forceinline__ void start_put_atomic(ulonglong2* tab, uint32_t mask,
-                                                 int c, int k, int slot) {
-  const unsigned long long key = skey(c, k);
+// Each probe loads the entry (from L2, where the atomics are) before it
+// takes an atomic: an entry that holds another key needs none, and a
+// bitmap word that already holds the bit needs none either. A load can
+// only be behind the atomics (a key, once in, stays; bits are only set),
+// and a stale entry merely falls through to the atomic. So the words of
+// the upper levels, which every start of a client shares, take one atomic
+// per bit instead of one per start.
+__device__ __forceinline__ uint32_t claim(ulonglong2* tab, uint32_t mask,
+                                          unsigned long long key, ulonglong2* seen) {
   uint32_t i = hmix(key) & mask;
   while (true) {
-    const unsigned long long prev = atomicCAS(&tab[i].x, EMPTY, key);
-    if (prev == EMPTY || prev == key) {
-      atomicMin(reinterpret_cast<int*>(&tab[i]) + 2, slot);
-      return;
+    *seen = __ldcg(&tab[i]);
+    if (seen->x == key) return i;
+    if (seen->x == EMPTY) {
+      const unsigned long long prev = atomicCAS(&tab[i].x, EMPTY, key);
+      if (prev == EMPTY || prev == key) {
+        seen->y = 0;
+        return i;
+      }
     }
     i = (i + 1) & mask;
   }
 }
 
-__device__ __forceinline__ void bit_set_atomic(ulonglong2* tab, uint32_t mask, int c,
-                                               int k) {
+__device__ __forceinline__ void start_put_atomic(ulonglong2* tab, uint32_t mask,
+                                                 int c, int k, int slot) {
+  ulonglong2 seen;
+  const uint32_t i = claim(tab, mask, skey(c, k), &seen);
+  atomicMin(reinterpret_cast<int*>(&tab[i]) + 2, slot);
+}
+
+// Every start of a level-0 word shares the words above it, so the first
+// insert into a level-0 word (the one that finds it 0) sets the levels
+// above, and any later one stops there. The starts of a warp are indexed
+// together: the lanes whose starts share a level-0 word OR their bits in
+// with one atomic (slots in insertion order put most of a warp's starts in
+// one or two words), and only a lane that found the word 0 goes up.
+__device__ __forceinline__ void bit_set_warp(ulonglong2* tab, uint32_t mask, int c, int k,
+                                             bool start) {
+  const unsigned long long key0 = start ? bkey(c, 0, (uint32_t)k >> 6) : EMPTY;
+  const unsigned peers = __match_any_sync(FULL, key0);
+  const unsigned long long bit = start ? 1ull << ((uint32_t)k & 63) : 0ull;
+  const unsigned long long bits =
+      ((unsigned long long)__reduce_or_sync(peers, (unsigned)(bit >> 32)) << 32) |
+      __reduce_or_sync(peers, (unsigned)bit);
+  if (!start || (int)(threadIdx.x & 31) != __ffs(peers) - 1) return;
   for (int lvl = 0; lvl < LEVELS; ++lvl) {
-    const uint32_t b = (uint32_t)k >> (6 * (lvl + 1));
-    const unsigned long long bit = 1ull << (((uint32_t)k >> (6 * lvl)) & 63);
-    const unsigned long long key = bkey(c, lvl, b);
-    uint32_t i = hmix(key) & mask;
-    while (true) {
-      const unsigned long long prev = atomicCAS(&tab[i].x, EMPTY, key);
-      if (prev == EMPTY || prev == key) break;
-      i = (i + 1) & mask;
+    const unsigned long long b =
+        lvl == 0 ? bits : 1ull << (((uint32_t)k >> (6 * lvl)) & 63);
+    ulonglong2 seen;
+    const uint32_t i = claim(tab, mask, bkey(c, lvl, (uint32_t)k >> (6 * (lvl + 1))), &seen);
+    if ((seen.y & b) == b && lvl > 0) return;  // set by the insert that set that bit
+    if (atomicOr(&tab[i].y, b) != 0) return;
+  }
+}
+
+// Phase 1's three passes over one doc, by `nthreads` threads of which
+// this is `tid` (whole warps): count its live move rows into *moves; clear
+// the prefixes `t` of its tables and n_stamps slots of its stamps; index
+// its first nb0 slots into tables `t` and its client clocks into cclock.
+__device__ __forceinline__ void count_moves(const int* p, size_t dc, int nb0, int tid,
+                                            int nthreads, int* moves) {
+  unsigned k = 0;
+  for (int s = tid; s < nb0; s += nthreads)
+    k += p[KD * dc + s] == CONTENT_MOVE && p[DL * dc + s] == 0;
+  k = __reduce_add_sync(FULL, k);
+  if ((tid & 31) == 0 && k) atomicAdd(moves, (int)k);
+}
+
+__device__ __forceinline__ void clear_scratch(ulonglong2* b, ulonglong2* sm, int* bs, int* cs,
+                                              Tables t, int n_stamps, int tid, int nthreads) {
+  for (uint32_t i = tid; i < t.hb; i += nthreads) b[i] = make_ulonglong2(EMPTY, 0ull);
+  for (uint32_t i = tid; i < t.hs; i += nthreads) sm[i] = make_ulonglong2(EMPTY, 0x7FFFFFFFull);
+  for (int i = tid; i < n_stamps; i += nthreads) {
+    bs[i] = 0;
+    cs[i] = 0;
+  }
+}
+
+__device__ __forceinline__ void index_slots(const int* p, size_t dc, int nb0, ulonglong2* b,
+                                            ulonglong2* sm, Tables t, int* cclock, int tid,
+                                            int nthreads) {
+  // whole warps go round together (bit_set_warp is a warp collective)
+  for (int base = tid & ~31; base < nb0; base += nthreads) {
+    const int s = base + (tid & 31);
+    int c = -1, k = -1, l = 0;
+    if (s < nb0) {
+      c = p[CL * dc + s];
+      k = p[CK * dc + s];
+      l = p[LN * dc + s];
     }
-    const unsigned long long old = atomicOr(&tab[i].y, bit);
-    if (old & bit) return;  // the levels above were set by that insert
+    const bool start = l > 0 && k >= 0;
+    if (start) start_put_atomic(sm, t.hs - 1, c, k, s);
+    bit_set_warp(b, t.hb - 1, c, k, start);
+    if (c >= 0 && c < YTPU_KC) atomicMax(&cclock[c], k + l);
   }
 }
 
@@ -1138,17 +1272,23 @@ __device__ __forceinline__ void integrate_step(Doc& d, const int* rows, const in
   recompute_moves(d);
 }
 
-// The body of both kernels. PER_DOC false: one [S, U, 23] / [S, R, 4]
-// stream shared by every doc, staged through the ring. PER_DOC true: S = 1
-// and each doc has its own rows and deletes ([D, U, 23] / [D, R, 4]); a
-// warp reads its doc's block straight from device memory (one step, read
-// once), so the producer warp only helps phase 1 and no ring is planned.
-template <bool PER_DOC>
+// The body of both integrate kernels. PER_DOC false: one [S, U, 23] /
+// [S, R, 4] stream shared by every doc, staged through the ring, and phase
+// 1 in this kernel (every warp of the CTA). PER_DOC true: S = 1 and each
+// doc has its own rows and deletes ([D, U, 23] / [D, R, 4]); a warp reads
+// its doc's block straight from device memory (one step, read once), so no
+// ring is planned, and phase 1 ran before, in `integrate_batch_index_kernel`:
+// this kernel loads each doc's client clocks and slot bound from
+// doc_words. CAPACITY_SIZED (the profiling build's baseline only) is the
+// per-doc entry as it was before: phase 1 in this kernel, every doc's
+// scratch sized and cleared for C slots.
+template <bool PER_DOC, bool CAPACITY_SIZED = false>
 __device__ __forceinline__ void integrate_body(
     int* __restrict__ cols, int* __restrict__ meta, const int* __restrict__ rows,
     const int* __restrict__ dels, const int* __restrict__ rank, int S, int U, int R,
     int K, int D, int C, int cheap, int unroll, int T, ulonglong2* bidx, int HB,
-    ulonglong2* sidx, int HS, int* bstamp, int* cstamp, long long* prof) {
+    ulonglong2* sidx, int HS, int* bstamp, int* cstamp, int* doc_words, long long* prof) {
+  constexpr bool FUSED = !PER_DOC || CAPACITY_SIZED;  // phase 1 in this kernel
   extern __shared__ __align__(128) unsigned char smem[];
   uint64_t* full = reinterpret_cast<uint64_t*>(smem);
   uint64_t* empty = full + STAGES;
@@ -1174,36 +1314,58 @@ __device__ __forceinline__ void integrate_body(
         issue_tile(t, ring, full, rows, dels, S, U, R, T);
   }
 
-  // ---- phase 1 (whole CTA): clear scratch, index the live slots ---------
-  const uint32_t bmask = (uint32_t)(HB - 1), smask = (uint32_t)(HS - 1);
-  for (int i = tid; i < DOCS_PER_CTA * YTPU_KC; i += THREADS) cclock_all[i] = 0;
-  for (int w = 0; w < n_act; ++w) {
-    const size_t doc = doc0 + w;
-    ulonglong2* b = bidx + doc * HB;
-    ulonglong2* sm = sidx + doc * HS;
-    for (int i = tid; i < HB; i += THREADS) b[i] = make_ulonglong2(EMPTY, 0ull);
-    for (int i = tid; i < HS; i += THREADS) sm[i] = make_ulonglong2(EMPTY, 0x7FFFFFFFull);
-    for (int i = tid; i < C; i += THREADS) {
-      bstamp[doc * C + i] = 0;
-      cstamp[doc * C + i] = 0;
-    }
-  }
-  __syncthreads();
+  // ---- phase 1 (whole CTA): size and clear scratch, index the live slots -
+#ifdef YTPU_INTEGRATE_PROFILE
+  __shared__ long long p1_clock[3];
+  if (tid == 0) p1_clock[0] = clock64();
+#endif
   const size_t dc = (size_t)D * C;
-  for (int w = 0; w < n_act; ++w) {
-    const size_t doc = doc0 + w;
-    const int* p = cols + doc * C;
-    const int nb0 = meta[doc * M_PAD + M_NBLOCKS];
-    for (int s = tid; s < nb0; s += THREADS) {
-      const int c = p[CL * dc + s], k = p[CK * dc + s], l = p[LN * dc + s];
-      if (l > 0 && k >= 0) {
-        start_put_atomic(sidx + doc * HS, smask, c, k, s);
-        bit_set_atomic(bidx + doc * HB, bmask, c, k);
-      }
-      if (c >= 0 && c < YTPU_KC) atomicMax(&cclock_all[w * YTPU_KC + c], k + l);
+  __shared__ int moves[DOCS_PER_CTA];  // live move rows a doc holds
+  if (FUSED) {
+    for (int i = tid; i < DOCS_PER_CTA * YTPU_KC; i += THREADS) cclock_all[i] = 0;
+    if (tid < DOCS_PER_CTA) moves[tid] = 0;
+    __syncthreads();
+    // count a doc's live moves only where its bound can stay below C
+    for (int w = 0; w < n_act && !CAPACITY_SIZED; ++w) {
+      const int nb0 = meta[(doc0 + w) * M_PAD + M_NBLOCKS];
+      if (live_bound(nb0, 0, S, U, R, C) < C)
+        count_moves(cols + (doc0 + w) * C, dc, nb0, tid, THREADS, &moves[w]);
+    }
+    __syncthreads();
+  } else {  // the index kernel's client clocks
+    for (int i = tid; i < DOCS_PER_CTA * YTPU_KC; i += THREADS) {
+      const int w = i / YTPU_KC;
+      cclock_all[i] = w < n_act ? doc_words[(doc0 + w) * DOC_WORDS + i % YTPU_KC] : 0;
+    }
+  }
+  auto bound = [&](int w) {
+    if (!FUSED) return doc_words[(doc0 + w) * DOC_WORDS + YTPU_KC];
+    return CAPACITY_SIZED ? C
+                          : live_bound(meta[(doc0 + w) * M_PAD + M_NBLOCKS], moves[w], S, U, R, C);
+  };
+  if (FUSED) {
+    for (int w = 0; w < n_act; ++w) {
+      const size_t doc = doc0 + w;
+      const int n = bound(w);
+      clear_scratch(bidx + doc * HB, sidx + doc * HS, bstamp + doc * C, cstamp + doc * C,
+                    tables_for(n, HB, HS), n, tid, THREADS);
+    }
+    __syncthreads();
+#ifdef YTPU_INTEGRATE_PROFILE
+    if (tid == 0) p1_clock[1] = clock64();
+#endif
+    for (int w = 0; w < n_act; ++w) {
+      const size_t doc = doc0 + w;
+      index_slots(cols + doc * C, dc, meta[doc * M_PAD + M_NBLOCKS], bidx + doc * HB,
+                  sidx + doc * HS, tables_for(bound(w), HB, HS), cclock_all + w * YTPU_KC, tid,
+                  THREADS);
     }
   }
   __syncthreads();
+#ifdef YTPU_INTEGRATE_PROFILE
+  if (tid == 0) p1_clock[2] = clock64();
+  __syncthreads();
+#endif
 
   if (warp == DOCS_PER_CTA) {  // the producer: refill each stage once freed
     if (!PER_DOC && lane == 0)
@@ -1218,15 +1380,17 @@ __device__ __forceinline__ void integrate_body(
   // ---- phase 2 (one warp per doc): the doc's serial integrate -------------
   const size_t doc = doc0 + warp;
   int* m = meta + doc * M_PAD;
+  const int n_bound = bound(warp);
+  const Tables tab = tables_for(n_bound, HB, HS);
   Doc d;
   d.cols = cols + doc * C;
   d.dc = dc;
   d.C = C;
   d.lane = lane;
   d.bidx = bidx + doc * HB;
-  d.bmask = bmask;
+  d.bmask = tab.hb - 1;
   d.sidx = sidx + doc * HS;
-  d.smask = smask;
+  d.smask = tab.hs - 1;
   d.cclock = cclock_all + warp * YTPU_KC;
   d.bstamp = bstamp + doc * C;
   d.cstamp = cstamp + doc * C;
@@ -1250,8 +1414,15 @@ __device__ __forceinline__ void integrate_body(
   d.index_writes = 0;
 #ifdef YTPU_INTEGRATE_PROFILE
   __shared__ long long prof_acc[DOCS_PER_CTA][PROF_WORDS];
-  if (lane == 0)
+  if (lane == 0) {
     for (int w = 0; w < PROF_WORDS; ++w) prof_acc[warp][w] = 0;
+    // phase 1's words: this CTA's, or those the index kernel left
+    const bool own = FUSED || prof == nullptr;
+    prof_acc[warp][PH_CLEAR] = own ? p1_clock[1] - p1_clock[0] : prof[doc * PROF_WORDS + PH_CLEAR];
+    prof_acc[warp][PH_INDEX_BUILD] =
+        own ? p1_clock[2] - p1_clock[1] : prof[doc * PROF_WORDS + PH_INDEX_BUILD];
+    prof_acc[warp][CNT_BOUND] = n_bound;
+  }
   d.prof.acc = prof_acc[warp];
   d.prof.lane0 = lane == 0;
   d.prof.cur = PH_OTHER;
@@ -1298,9 +1469,9 @@ integrate_kernel(int* __restrict__ cols, int* __restrict__ meta,
                  const int* __restrict__ rank, int S, int U, int R, int K,
                  int D, int C, int cheap, int unroll, int T,
                  ulonglong2* bidx, int HB, ulonglong2* sidx, int HS,
-                 int* bstamp, int* cstamp, long long* prof) {
+                 int* bstamp, int* cstamp, int* doc_words, long long* prof) {
   integrate_body<false>(cols, meta, rows, dels, rank, S, U, R, K, D, C, cheap, unroll, T,
-                        bidx, HB, sidx, HS, bstamp, cstamp, prof);
+                        bidx, HB, sidx, HS, bstamp, cstamp, doc_words, prof);
 }
 
 // one step of per-doc rows into each doc (S = 1, T = 1)
@@ -1310,23 +1481,89 @@ integrate_batch_kernel(int* __restrict__ cols, int* __restrict__ meta,
                        const int* __restrict__ rank, int S, int U, int R, int K,
                        int D, int C, int cheap, int unroll, int T,
                        ulonglong2* bidx, int HB, ulonglong2* sidx, int HS,
-                       int* bstamp, int* cstamp, long long* prof) {
+                       int* bstamp, int* cstamp, int* doc_words, long long* prof) {
   integrate_body<true>(cols, meta, rows, dels, rank, S, U, R, K, D, C, cheap, unroll, T,
-                       bidx, HB, sidx, HS, bstamp, cstamp, prof);
+                       bidx, HB, sidx, HS, bstamp, cstamp, doc_words, prof);
+}
+
+#ifdef YTPU_INTEGRATE_PROFILE
+// the per-doc entry with every doc's scratch sized and cleared for C
+// slots: the profile's baseline for live_bound's sizing
+__global__ void __launch_bounds__(THREADS, 1)
+integrate_batch_capacity_kernel(int* __restrict__ cols, int* __restrict__ meta,
+                                const int* __restrict__ rows, const int* __restrict__ dels,
+                                const int* __restrict__ rank, int S, int U, int R, int K,
+                                int D, int C, int cheap, int unroll, int T,
+                                ulonglong2* bidx, int HB, ulonglong2* sidx, int HS,
+                                int* bstamp, int* cstamp, int* doc_words, long long* prof) {
+  integrate_body<true, true>(cols, meta, rows, dels, rank, S, U, R, K, D, C, cheap, unroll, T,
+                             bidx, HB, sidx, HS, bstamp, cstamp, doc_words, prof);
+}
+#endif
+
+// The per-doc entry's phase 1, one CTA of INDEX_THREADS per doc: its live
+// moves counted, its scratch sized by live_bound and cleared, its slots
+// indexed; it leaves the doc's client clocks and slot bound in doc_words
+// for integrate_batch_kernel. Apart from the integrate kernel it needs few
+// registers, so a whole wave of docs runs at once, each chain of dependent
+// atomics on its own threads.
+__global__ void __launch_bounds__(INDEX_THREADS)
+integrate_batch_index_kernel(const int* __restrict__ cols, const int* __restrict__ meta, int U,
+                             int R, int D, int C, ulonglong2* bidx, int HB, ulonglong2* sidx,
+                             int HS, int* bstamp, int* cstamp, int* doc_words, long long* prof) {
+  __shared__ int cclock[YTPU_KC];
+  __shared__ int moves;
+  const int tid = threadIdx.x;
+  const size_t doc = blockIdx.x, dc = (size_t)D * C;
+#ifdef YTPU_INTEGRATE_PROFILE
+  const long long t0 = clock64();
+#endif
+  const int* p = cols + doc * C;
+  const int nb0 = meta[doc * M_PAD + M_NBLOCKS];
+  for (int i = tid; i < YTPU_KC; i += INDEX_THREADS) cclock[i] = 0;
+  if (tid == 0) moves = 0;
+  __syncthreads();
+  if (live_bound(nb0, 0, 1, U, R, C) < C) count_moves(p, dc, nb0, tid, INDEX_THREADS, &moves);
+  __syncthreads();
+  const int n = live_bound(nb0, moves, 1, U, R, C);
+  const Tables t = tables_for(n, HB, HS);
+  clear_scratch(bidx + doc * HB, sidx + doc * HS, bstamp + doc * C, cstamp + doc * C, t, n,
+                tid, INDEX_THREADS);
+  __syncthreads();
+#ifdef YTPU_INTEGRATE_PROFILE
+  const long long t1 = clock64();
+#endif
+  index_slots(p, dc, nb0, bidx + doc * HB, sidx + doc * HS, t, cclock, tid, INDEX_THREADS);
+  __syncthreads();
+  int* out = doc_words + doc * DOC_WORDS;
+  for (int i = tid; i < YTPU_KC; i += INDEX_THREADS) out[i] = cclock[i];
+  if (tid == 0) out[YTPU_KC] = n;
+#ifdef YTPU_INTEGRATE_PROFILE
+  if (tid == 0 && prof != nullptr) {
+    prof[doc * PROF_WORDS + PH_CLEAR] = t1 - t0;
+    prof[doc * PROF_WORDS + PH_INDEX_BUILD] = clock64() - t1;
+  }
+#endif
 }
 
 using Kernel = decltype(&integrate_kernel);
 
 // one launch of `kern` by plan `p`; a plan whose shared memory does not
 // fit a block is refused, not clamped
-int launch(Kernel kern, const int* p, void* cols, void* meta, const void* rows,
-           const void* dels, const void* rank, int S, int U, int R, int K, int D,
-           int C, int cheap, int unroll, void* bidx, int HB, void* sidx, int HS,
-           void* bstamp, void* cstamp, void* prof, void* stream) {
-  if (D <= 0) return 0;
+// the tables' entries are powers of two, and start 16-byte aligned
+int check_scratch(void* bidx, int HB, void* sidx, int HS) {
   if (HB <= 0 || (HB & (HB - 1)) || HS <= 0 || (HS & (HS - 1)))
     return (int)cudaErrorInvalidValue;
   if (((uintptr_t)bidx | (uintptr_t)sidx) & 15) return (int)cudaErrorMisalignedAddress;
+  return 0;
+}
+
+int launch(Kernel kern, const int* p, void* cols, void* meta, const void* rows,
+           const void* dels, const void* rank, int S, int U, int R, int K, int D,
+           int C, int cheap, int unroll, void* bidx, int HB, void* sidx, int HS,
+           void* bstamp, void* cstamp, void* doc_words, void* prof, void* stream) {
+  if (D <= 0) return 0;
+  if (const int e = check_scratch(bidx, HB, sidx, HS)) return e;
   const size_t smem = p[P_SMEM];
   if (smem > SMEM_LIMIT) return (int)cudaErrorInvalidValue;
   cudaError_t e =
@@ -1336,7 +1573,7 @@ int launch(Kernel kern, const int* p, void* cols, void* meta, const void* rows,
       (int*)cols, (int*)meta, (const int*)rows, (const int*)dels,
       (const int*)rank, S, U, R, K, D, C, cheap, unroll, p[P_TILE],
       (ulonglong2*)bidx, HB, (ulonglong2*)sidx, HS, (int*)bstamp, (int*)cstamp,
-      (long long*)prof);
+      (int*)doc_words, (long long*)prof);
   return (int)cudaGetLastError();
 }
 
@@ -1352,18 +1589,54 @@ extern "C" int ytpu_integrate_stream(
   int p[PLAN_WORDS];
   launch_plan(S, U, R, D, p);
   return launch(integrate_kernel, p, cols, meta, rows, dels, rank, S, U, R, K, D, C, cheap,
-                unroll, bidx, HB, sidx, HS, bstamp, cstamp, prof, stream);
+                unroll, bidx, HB, sidx, HS, bstamp, cstamp, nullptr, prof, stream);
 }
 
-// rows [D, U, 23] and dels [D, R, 4]: one step of each doc's own update
+// rows [D, U, 23] and dels [D, R, 4]: one step of each doc's own update,
+// as two launches: the index kernel, then the integrate kernel. doc_words
+// is [D, DOC_WORDS] int32 scratch. `prof` and `capacity_sized` are the
+// profiling build's (its counters, and its baseline: the entry as it was,
+// one kernel that clears every doc's scratch for C slots); other builds
+// take nullptr and 0.
 extern "C" int ytpu_integrate_batch(
     void* cols, void* meta, const void* rows, const void* dels,
     const void* rank, int U, int R, int K, int D, int C, int cheap, int unroll,
-    void* bidx, int HB, void* sidx, int HS, void* bstamp, void* cstamp, void* stream) {
+    void* bidx, int HB, void* sidx, int HS, void* bstamp, void* cstamp, void* doc_words,
+    void* prof, int capacity_sized, void* stream) {
   int p[PLAN_WORDS];
   batch_plan(D, p);
-  return launch(integrate_batch_kernel, p, cols, meta, rows, dels, rank, 1, U, R, K, D, C,
-                cheap, unroll, bidx, HB, sidx, HS, bstamp, cstamp, nullptr, stream);
+#ifdef YTPU_INTEGRATE_PROFILE
+  if (capacity_sized)
+    return launch(integrate_batch_capacity_kernel, p, cols, meta, rows, dels, rank, 1, U, R, K,
+                  D, C, cheap, unroll, bidx, HB, sidx, HS, bstamp, cstamp, doc_words, prof,
+                  stream);
+#else
+  if (capacity_sized || prof) return (int)cudaErrorInvalidValue;
+#endif
+  if (D <= 0) return 0;
+  if (const int e = check_scratch(bidx, HB, sidx, HS)) return e;
+  integrate_batch_index_kernel<<<p[P_INDEX_CTAS], p[P_INDEX_THREADS], 0, (cudaStream_t)stream>>>(
+      (const int*)cols, (const int*)meta, U, R, D, C, (ulonglong2*)bidx, HB, (ulonglong2*)sidx, HS,
+      (int*)bstamp, (int*)cstamp, (int*)doc_words, (long long*)prof);
+  if (const cudaError_t e = cudaGetLastError()) return (int)e;
+  return launch(integrate_batch_kernel, p, cols, meta, rows, dels, rank, 1, U, R, K, D, C, cheap,
+                unroll, bidx, HB, sidx, HS, bstamp, cstamp, doc_words, prof, stream);
+}
+
+// phase 1's sizing of a doc that holds nb0 slots (`moves` live move rows)
+// before a launch of S steps of U rows and R delete ranges, into out[4]:
+// the slots the launch can reach (live_bound), the bitmap and start-map
+// entries, and the bytes its phase 1 clears (16 per table entry, 8 per
+// slot of the two stamp arrays)
+extern "C" int ytpu_integrate_scratch(int nb0, int moves, int S, int U, int R, int C, int* out) {
+  const int n = live_bound(nb0, moves, S, U, R, C);
+  const int HB = (int)pow2_at_least(8LL * C), HS = (int)pow2_at_least(2LL * C);
+  const Tables tab = tables_for(n, HB, HS);
+  out[0] = n;
+  out[1] = (int)tab.hb;
+  out[2] = (int)tab.hs;
+  out[3] = 16 * (int)(tab.hb + tab.hs) + 8 * n;
+  return 4;
 }
 
 // the launch `ytpu_integrate_stream` makes, as PLAN_WORDS ints in PlanWord

@@ -1,5 +1,6 @@
 """lib0 v1 encoding: the cursor and the writer of `ytpu.encoding.lib0`
-(with `write_any`, which the diff finisher needs) plus a small update
+(with `write_any`, which the diff finisher needs, and `read_any` /
+`any_from_json`, which the wire payload readers need) plus a small update
 walker.
 
 `update_columns` walks one v1 update and yields what the replay planner
@@ -43,7 +44,9 @@ __all__ = [
     "Undefined",
     "UpdateColumns",
     "Writer",
+    "any_from_json",
     "any_to_json",
+    "read_any",
     "update_columns",
     "utf16_units",
     "write_any",
@@ -154,6 +157,9 @@ class Cursor:
 
     def read_f64(self) -> float:
         return struct.unpack(">d", self.read_exact(8))[0]
+
+    def read_i64(self) -> int:
+        return struct.unpack(">q", self.read_exact(8))[0]
 
     def skip_any(self) -> None:
         """Skip one lib0 Any value (any.rs:37-83)."""
@@ -324,11 +330,52 @@ def write_any(w: Writer, value: PyAny) -> None:
         raise TypeError(f"cannot encode {type(value)!r} as Any")
 
 
+def read_any(cur: Cursor) -> PyAny:
+    """One lib0 Any value (any.rs:93-116)."""
+    tag = cur.read_u8()
+    if tag == _TAG_UNDEFINED:
+        return Undefined
+    if tag == _TAG_NULL:
+        return None
+    if tag == _TAG_INTEGER:
+        return cur.read_var_int()
+    if tag == _TAG_FLOAT32:
+        return cur.read_f32()
+    if tag == _TAG_FLOAT64:
+        return cur.read_f64()
+    if tag == _TAG_BIGINT:
+        return cur.read_i64()
+    if tag == _TAG_FALSE:
+        return False
+    if tag == _TAG_TRUE:
+        return True
+    if tag == _TAG_STRING:
+        return cur.read_string()
+    if tag == _TAG_MAP:
+        out = {}
+        for _ in range(cur.read_var_uint()):
+            key = cur.read_string()
+            out[key] = read_any(cur)
+        return out
+    if tag == _TAG_ARRAY:
+        return [read_any(cur) for _ in range(cur.read_var_uint())]
+    if tag == _TAG_BUFFER:
+        return cur.read_buf()
+    raise EncodingError(f"unexpected Any tag {tag}")
+
+
 def any_to_json(value: PyAny) -> str:
     """JSON string form of the v1 codec's Embed / Format payloads."""
     if value is Undefined:
         return "undefined"
     return json.dumps(value, separators=(",", ":"), ensure_ascii=False)
+
+
+def any_from_json(src: str) -> PyAny:
+    """The inverse of `any_to_json`."""
+    if src == "undefined" or src == "":
+        return Undefined
+    return json.loads(src)
 
 
 def utf16_units(data: bytes) -> int:

@@ -169,6 +169,10 @@ class UnitArenaView:
             suffix = "�"
         return prefix + self.arena[b0:b1].decode("utf-8") + suffix
 
+    def slice_values(self, ref: int, off: int, length: int) -> list:
+        """The slice's characters (the arena holds text only)."""
+        return list(self.slice_text(ref, off, length))
+
 
 @dataclass
 class ReplayStats:

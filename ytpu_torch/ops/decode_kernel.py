@@ -2,8 +2,9 @@
 `ytpu.ops.decode_kernel`).
 
 Host half (copied): the flag bits, staging helpers (`pack_updates`,
-`pack_updates_into`, `pack_raw_updates_into`), the decode step budgets and
-the host key/client hashes.
+`pack_updates_into`, `pack_raw_updates_into`), the decode step budgets,
+the host key/client hashes and the wire payload readers behind
+`RawPayloadView`.
 
 Device half (ported as torch ops): `gather_raw_lanes` and the lane-parallel
 varint state machine `decode_updates_v1`. Every iteration decodes one
@@ -18,7 +19,8 @@ explicitly. uint32 arithmetic is emulated in int64 with 32-bit masks.
 
 from __future__ import annotations
 
-from typing import List, Optional, Tuple
+import json
+from typing import List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -37,6 +39,7 @@ from ytpu_torch.core.content import (
     CONTENT_TYPE,
 )
 from ytpu_torch.core.device import resolve_device
+from ytpu_torch.encoding.lib0 import TYPE_XML_ELEMENT, TYPE_XML_HOOK, Cursor, any_from_json, read_any
 from ytpu_torch.models.batch_doc import UpdateBatch
 
 __all__ = [
@@ -56,6 +59,7 @@ __all__ = [
     "decode_updates_v1",
     "identity_rank",
     "RawPayloadView",
+    "WireTypeRef",
     "utf8_slice_u16",
     "default_steps",
     "exact_steps",
@@ -270,17 +274,137 @@ def utf8_slice_u16(buf: np.ndarray, start: int, off: int, length: int) -> str:
     return "".join(out)
 
 
-class RawPayloadView:
-    """Text reader over the padded ``[S, L]`` wire-byte matrix of
-    `pack_updates`: device-decoded string rows address their content by
-    ``ref = s * L + byte_start`` with ``(off, len)`` in UTF-16 units.
-    Only `slice_text` is ported (`get_string` reads nothing else)."""
+def _wire_any_values(flat: np.ndarray, start: int, off: int, length: int) -> list:
+    """ContentAny at wire offset `start`: the count varint, then values
+    ``[off, off + length)`` of its Any values."""
+    cur = Cursor(bytes(flat[start:]))
+    n = cur.read_var_uint()
+    out = []
+    for i in range(min(n, off + length)):
+        v = read_any(cur)
+        if i >= off:
+            out.append(v)
+    return out
 
-    def __init__(self, buf: np.ndarray):
+
+def _wire_any_values_countless(flat: np.ndarray, start: int, off: int, length: int) -> list:
+    """A V2 ContentAny span: its values start AT `start` (V2 keeps the
+    count in the len column, so ``off + length`` bounds the read)."""
+    cur = Cursor(bytes(flat[start:]))
+    out = []
+    for i in range(off + length):
+        v = read_any(cur)
+        if i >= off:
+            out.append(v)
+    return out
+
+
+def _wire_json_values(flat: np.ndarray, start: int, off: int, length: int) -> list:
+    """ContentJson at `start`: the count, then JSON strings, parsed (None
+    where one does not parse, as ``ContentJSON.values``)."""
+    out = []
+    for s in _wire_json_raw(flat, start, off, length):
+        try:
+            out.append(json.loads(s))
+        except (ValueError, TypeError):
+            out.append(None)
+    return out
+
+
+def _wire_json_raw(flat: np.ndarray, start: int, off: int, length: int) -> list:
+    """ContentJson's raw strings (the finisher re-emits them as they came)."""
+    cur = Cursor(bytes(flat[start:]))
+    n = cur.read_var_uint()
+    out = []
+    for i in range(min(n, off + length)):
+        s = cur.read_string()
+        if i >= off:
+            out.append(s)
+    return out
+
+
+def _wire_embed_value(flat: np.ndarray, start: int):
+    return any_from_json(Cursor(bytes(flat[start:])).read_string())
+
+
+def _wire_binary_value(flat: np.ndarray, start: int) -> bytes:
+    return Cursor(bytes(flat[start:])).read_buf()
+
+
+def _wire_format_kv(flat: np.ndarray, start: int):
+    cur = Cursor(bytes(flat[start:]))
+    key = cur.read_string()
+    return key, any_from_json(cur.read_string())
+
+
+class WireTypeRef(NamedTuple):
+    """What a ContentType payload tells a renderer: its TypeRef tag and,
+    for XmlElement and XmlHook, its name (the fields of ytpu's ``Branch``
+    that `_wire_type_branch` fills)."""
+
+    type_ref: int
+    type_name: Optional[str] = None
+
+
+def _wire_type_branch(flat: np.ndarray, start: int) -> WireTypeRef:
+    """ContentType at wire offset `start`: the TypeRef tag byte, and the
+    name of an XmlElement or XmlHook (branch.rs decode_type_ref)."""
+    cur = Cursor(bytes(flat[start:]))
+    tag = cur.read_u8()
+    if tag in (TYPE_XML_ELEMENT, TYPE_XML_HOOK):
+        return WireTypeRef(tag, cur.read_string())
+    return WireTypeRef(tag)
+
+
+def _wire_type_raw(flat: np.ndarray, start: int) -> bytes:
+    """The wire bytes of a ContentType payload, for the finisher to write
+    out again."""
+    cur = Cursor(bytes(flat[start:]))
+    if cur.read_u8() in (TYPE_XML_ELEMENT, TYPE_XML_HOOK):
+        cur.read_buf()  # the name
+    return bytes(flat[start : start + cur.pos])
+
+
+class RawPayloadView:
+    """Payload reader over the padded ``[S, L]`` wire-byte matrix of
+    `pack_updates`. Device-decoded rows address their content by ``ref =
+    s * L + byte_start``: string refs point at the UTF-8 bytes with ``(off,
+    len)`` in UTF-16 units, Any and Json refs at their count varint with
+    ``(off, len)`` in values, Embed, Binary, Format and Type refs at their
+    span. With `v2_any`, Any refs point at the first value (a V2 state)."""
+
+    def __init__(self, buf: np.ndarray, v2_any: bool = False):
         self.buf = np.ascontiguousarray(buf, dtype=np.uint8).reshape(-1)
+        self.v2_any = v2_any
 
     def slice_text(self, ref: int, off: int, length: int) -> str:
         return utf8_slice_u16(self.buf, int(ref), off, length)
+
+    def slice_values(self, ref: int, off: int, length: int) -> list:
+        if self.v2_any:
+            return _wire_any_values_countless(self.buf, int(ref), off, length)
+        return _wire_any_values(self.buf, int(ref), off, length)
+
+    def json_values(self, ref: int, off: int, length: int) -> list:
+        return _wire_json_values(self.buf, int(ref), off, length)
+
+    def json_raw(self, ref: int, off: int, length: int) -> list:
+        return _wire_json_raw(self.buf, int(ref), off, length)
+
+    def embed_value(self, ref: int):
+        return _wire_embed_value(self.buf, int(ref))
+
+    def binary_value(self, ref: int) -> bytes:
+        return _wire_binary_value(self.buf, int(ref))
+
+    def format_kv(self, ref: int):
+        return _wire_format_kv(self.buf, int(ref))
+
+    def type_branch(self, ref: int) -> WireTypeRef:
+        return _wire_type_branch(self.buf, int(ref))
+
+    def type_raw(self, ref: int) -> bytes:
+        return _wire_type_raw(self.buf, int(ref))
 
 
 def default_steps(max_rows: int, max_dels: int) -> int:

@@ -59,9 +59,11 @@ __all__ = [
     "integrate_stream_profile",
     "integrate_stream_reference",
     "integrate_batch",
+    "integrate_batch_profile",
     "integrate_batch_reference",
     "launch_plan",
     "batch_launch_plan",
+    "scratch_cleared",
     "apply_update_stream_fused",
     "replay_stream_fused",
     "replay_chunk_program_raw",
@@ -696,22 +698,45 @@ INTEGRATE_SIGNATURES = {
     "ytpu_integrate_stream": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8
     + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 4,
     "ytpu_integrate_batch": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
-    + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 3,
+    + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 4
+    + [ctypes.c_int, ctypes.c_void_p],
     "ytpu_integrate_plan": [ctypes.c_int] * 4 + [ctypes.c_void_p],
     "ytpu_integrate_batch_plan": [ctypes.c_int, ctypes.c_void_p],
+    "ytpu_integrate_scratch": [ctypes.c_int] * 6 + [ctypes.c_void_p],
     "ytpu_integrate_prof_words": [],
 }
 #: the words of ``ytpu_integrate_plan``, in the kernel's ``PlanWord`` order
 PLAN_KEYS = ("docs_per_cta", "ctas", "threads", "ring_stages", "tile_steps", "tiles",
-             "last_tile_steps", "last_tile_ragged_words", "smem_bytes")
+             "last_tile_steps", "last_tile_ragged_words", "smem_bytes", "index_ctas",
+             "index_threads", "doc_words")
 
 
 def scratch_entries(C: int):
     """Entries per doc of the kernel's two scratch tables for ``C`` slots:
     the 5-level bitmap (every start's five level words at a load of at
     most 5/8) and the start map (every start at a load of at most 1/2),
-    each a power of two of 16-byte entries."""
+    each a power of two of 16-byte entries. The wrapper allocates these;
+    each launch uses and clears only the prefix its doc can reach
+    (`scratch_cleared`)."""
     return _next_pow2(8 * C), _next_pow2(2 * C)
+
+
+#: the words of ``ytpu_integrate_scratch``
+SCRATCH_KEYS = ("slots_bound", "bitmap_entries", "start_map_entries", "cleared_bytes")
+
+
+def scratch_cleared(nb0: int, C: int, S: int = 1, U: int = 1, R: int = 1, moves: int = 0,
+                    lib=None) -> dict:
+    """Phase 1's sizing of a doc of ``C`` slots that holds ``nb0`` of them,
+    ``moves`` live move rows among them, before a launch of ``S`` steps of
+    ``U`` rows and ``R`` delete ranges, as the kernel library `lib`
+    (default: the card's build) computes it: the slots the launch can
+    reach, the table entries it uses and the bytes it clears."""
+    lib = _integrate_lib() if lib is None else lib
+    out = (ctypes.c_int * len(SCRATCH_KEYS))()
+    if lib.ytpu_integrate_scratch(nb0, moves, S, U, R, C, out) != len(SCRATCH_KEYS):
+        raise RuntimeError("the kernel library sizes scratch in other words than SCRATCH_KEYS")
+    return dict(zip(SCRATCH_KEYS, out))
 
 
 def launch_plan(S: int, U: int, R: int, D: int, C: int, lib=None) -> dict:
@@ -724,12 +749,20 @@ def launch_plan(S: int, U: int, R: int, D: int, C: int, lib=None) -> dict:
     return _plan(lambda out: lib.ytpu_integrate_plan(S, U, R, D, out), C)
 
 
-def batch_launch_plan(D: int, C: int, lib=None) -> dict:
-    """The launch `integrate_batch` makes into ``D`` docs of ``C`` slots
-    (one step, no ring: the shared memory does not depend on U or R), in
-    `launch_plan`'s words."""
+def batch_launch_plan(D: int, C: int, lib=None, nb0=None, U: int = 1, R: int = 1) -> dict:
+    """The launches `integrate_batch` makes into ``D`` docs of ``C`` slots,
+    in `launch_plan`'s words: the index kernel (``index_ctas`` of
+    ``index_threads``, handing ``doc_words`` int32 a doc to the next), then
+    the integrate kernel (one step, no ring: its shared memory does not
+    depend on U or R). With ``nb0`` (the slots each doc holds, a
+    sequence; docs without move rows) it adds the bytes the launch's phase
+    1 clears for ``U`` rows and ``R`` delete ranges a doc, beside the
+    allocated ``scratch_bytes_per_doc``."""
     lib = _integrate_lib() if lib is None else lib
-    return _plan(lambda out: lib.ytpu_integrate_batch_plan(D, out), C)
+    out = _plan(lambda out: lib.ytpu_integrate_batch_plan(D, out), C)
+    if nb0 is not None:
+        out["cleared_bytes"] = sum(scratch_cleared(int(n), C, 1, U, R, 0, lib)["cleared_bytes"] for n in nb0)
+    return out
 
 
 def _plan(ask, C: int) -> dict:
@@ -836,24 +869,33 @@ def integrate_stream_profile(cols, meta, rows, dels, rank, scan_plan=None):
     cheap, unroll = _check_args(cols, meta, rows, dels, rank, scan_plan)
     if cols.device.type != "cuda":
         raise ValueError("integrate_stream_profile runs the CUDA kernel only")
-    lib = _integrate_lib("integrate_profile")
-    words = lib.ytpu_integrate_prof_words()
-    if words != len(PROFILE_WORDS):
-        raise RuntimeError(f"the profiling build has {words} counter words, expected {len(PROFILE_WORDS)}")
-    prof = torch.zeros((cols.shape[1], words), dtype=torch.int64, device=cols.device)
+    lib, prof = _profile_lib(cols)
     _launch(lib, cols, meta, rows, dels, rank, cheap, unroll, prof)
     return prof
 
 
+def _profile_lib(cols):
+    """The profiling build and a zeroed ``[D, words]`` counter buffer."""
+    lib = _integrate_lib("integrate_profile")
+    words = lib.ytpu_integrate_prof_words()
+    if words != len(PROFILE_WORDS):
+        raise RuntimeError(f"the profiling build has {words} counter words, expected {len(PROFILE_WORDS)}")
+    return lib, torch.zeros((cols.shape[1], words), dtype=torch.int64, device=cols.device)
+
+
 #: the counter words of the profiling build, in the order of
-#: ``csrc/integrate.cu``'s ``ProfWord``: cycles per phase (exclusive),
-#: then event counts
+#: ``csrc/integrate.cu``'s ``ProfWord``: cycles per phase (exclusive; the
+#: two phase-1 words are the CTA's, given to each of its docs), then event
+#: counts and the doc's slot bound
 PROFILE_WORDS = (
     "other", "stream_fetch", "client_clock", "find_slot_cache_hit", "find_slot_index",
     "split", "conflict_scan", "link_and_writes", "index_add", "delete_mark",
-    "move_recompute", "steps", "rows", "delete_ranges", "cache_hits", "index_lookups",
+    "move_recompute", "phase1_clear", "phase1_index", "steps", "rows", "delete_ranges",
+    "cache_hits", "index_lookups", "slots_bound",
 )
-PROFILE_PHASES = PROFILE_WORDS[:11]
+PROFILE_PHASES = PROFILE_WORDS[:13]
+#: the phases of phase 1 (the whole CTA, before the doc's own integrate)
+PHASE1 = ("phase1_clear", "phase1_index")
 
 
 integrate_stream.launches = 0
@@ -891,20 +933,44 @@ def integrate_batch(cols, meta, rows, dels, rank, scan_plan=None):
         return integrate_batch_reference(cols, meta, rows, dels, rank, (cheap, unroll))
     if dev.type != "cuda":
         raise ValueError(f"integrate_batch runs on cuda or cpu tensors, not {dev}")
+    _launch_batch(_integrate_lib(), cols, meta, rows, dels, rank, cheap, unroll, None, False)
+    integrate_batch.launches += 1
+    return cols, meta
+
+
+def _launch_batch(lib, cols, meta, rows, dels, rank, cheap, unroll, prof, capacity_sized):
     from ytpu_torch.ops import _build
 
-    lib = _integrate_lib()
+    dev = cols.device
     _, D, C = cols.shape
     bidx, hb, sidx, hs, bstamp, cstamp = _scratch(D, C, dev)
+    doc_words = torch.empty((D, batch_launch_plan(D, C, lib)["doc_words"]), dtype=I32, device=dev)
     err = lib.ytpu_integrate_batch(
         cols.data_ptr(), meta.data_ptr(), rows.data_ptr(), dels.data_ptr(), rank.data_ptr(),
         rows.shape[1], dels.shape[1], rank.shape[0], D, C, cheap, unroll,
         bidx.data_ptr(), hb, sidx.data_ptr(), hs, bstamp.data_ptr(), cstamp.data_ptr(),
+        doc_words.data_ptr(), None if prof is None else prof.data_ptr(), int(capacity_sized),
         torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check(lib, err, "integrate batch kernel")
-    integrate_batch.launches += 1
-    return cols, meta
+
+
+def integrate_batch_profile(cols, meta, rows, dels, rank, scan_plan=None, capacity_sized=False):
+    """`integrate_batch` through the profiling build of the kernel, on CUDA
+    tensors only: updates the state in place the same way and returns the
+    ``[D, words]`` int64 per-doc counters (`PROFILE_WORDS`). With
+    ``capacity_sized`` every doc's phase 1 sizes and clears its scratch for
+    all C slots, as the kernel did before it sized them from the doc's live
+    rows: the baseline of the profile. Not counted in
+    ``integrate_batch.launches``."""
+    cheap, unroll = _check_args(cols, meta, rows, dels, rank, scan_plan)
+    if rows.shape[0] != cols.shape[1]:
+        raise ValueError(f"rows hold {rows.shape[0]} docs, the state {cols.shape[1]}")
+    if cols.device.type != "cuda":
+        raise ValueError("integrate_batch_profile runs the CUDA kernel only")
+    lib, prof = _profile_lib(cols)
+    _launch_batch(lib, cols, meta, rows, dels, rank, cheap, unroll, prof, capacity_sized)
+    return prof
 
 
 integrate_batch.launches = 0
