@@ -30,7 +30,15 @@ its plain version, on synthetic streams and on edge cases; the read path
 at BASELINE config 5's width, 10,240 docs x 64 clients: `state_vectors`,
 `encode_diff_batch`, the finisher and `DiffPipeline`, a sample held
 against the CPU finisher; and `encode_diff_batch` on the B4 replay's final
-state), ``stream_replay_full_width`` (the whole log decoded
+state), ``ingest`` (one `BatchIngestor` at 1,024 docs x 8,192 slots, one
+`apply_bytes` call per step over 512 steps of four tenant cohorts: B4 text
+with per-doc lags and, in one doc of eight, swapped update pairs; BASELINE
+config 4's map + XML tenant; config 3's 256-client array; a 53-bit
+client's text; their values held against stream replays and the committed
+logs' values, no error, no stash, no recovery; 16 calls under
+`torch.profiler`; the per-doc kernel against its plain version on one
+step's captured inputs with anchor, map and big-client rows),
+``stream_replay_full_width`` (the whole log decoded
 into one stream and replayed through `replay_stream_fused` at 256 docs,
 again under `torch.profiler` for the time of each launch, then the
 kernel against its plain version on one late window at the grown
@@ -930,6 +938,193 @@ def phase_sync_step(gpu, log, plan, rep):
     return line
 
 
+# ingest: the traced window of calls, and the step whose per-doc kernel
+# inputs are held against the plain version (the config 4 docs' first
+# XML element, the first row that names an anchored root)
+INGEST_TRACED_FROM, INGEST_TRACED_STEPS = 256, 16
+INGEST_SNAPSHOT_STEP = 5
+
+
+def _cohort_equal(state, first: int, n: int) -> bool:
+    """Every plane but content_ref (each doc keeps its own wire bytes), and
+    start / n_blocks / error, of docs ``first .. first + n`` equal doc
+    `first`'s: the docs of a cohort took the same updates."""
+    import torch
+
+    fields = [f for name, f in zip(state.blocks._fields, state.blocks) if name != "content_ref"]
+    fields += [state.start, state.n_blocks, state.error]
+    return all(torch.equal(f[first:first + n], f[first:first + 1].expand_as(f[first:first + n]))
+               for f in fields)
+
+
+def phase_ingest(gpu, log, dev="cuda"):
+    """One `BatchIngestor` at 1,024 docs x 8,192 slots on the card, one
+    `apply_bytes` call per step over `benches/ingest.py`'s four cohorts
+    (B4 text with lags and swapped pairs, config 4's map + XML, config 3's
+    array, a 53-bit client's text). Counts are reset just before the calls
+    and read just after; steps INGEST_TRACED_FROM.. run under
+    `torch.profiler` (left out of the per-call times). Checks: every B4
+    lag group's text equals a stream replay of its prefix on the card (the
+    swapped docs too), each other cohort's docs hold the same columns and
+    the committed values, no error, no stash, no recovery; then the
+    per-doc kernel against its plain version on the captured inputs of step
+    INGEST_SNAPSHOT_STEP."""
+    import statistics
+
+    import torch
+
+    from ytpu_torch.benches import ingest as bench
+    from ytpu_torch.models import batch_doc as bd
+    from ytpu_torch.models import ingest as ingest_mod
+    from ytpu_torch.ops import integrate_kernel as ik
+    from ytpu_torch.ops.decode_kernel import (
+        FLAG_ERRORS, RawPayloadView, decode_updates_v1, identity_rank, pack_updates,
+    )
+
+    dev = torch.device(dev)
+    logs = bench.load_ingest_logs()
+    b4 = log[: bench.INGEST_STEPS]
+    ing = ingest_mod.BatchIngestor(bench.INGEST_DOCS, bench.INGEST_CAPACITY, device=dev)
+    captured = {}
+    real_apply = ingest_mod.apply_update_batch
+
+    def capture(state, batch, rank):
+        cols, meta = ik.pack_state(state)
+        rows, dels = ik.pack_stream(batch)
+        captured.update(cols=cols, meta=meta, rows=rows, dels=dels, rank=rank.clone())
+        return real_apply(state, batch, rank)
+
+    call_ms, traced_ms, lanes = [], [], []
+    prof = None
+    torch.cuda.synchronize()
+    _reset_counts([ik.integrate_batch, ik.integrate_stream])
+    t_all = time.perf_counter()
+    for t in range(bench.INGEST_STEPS):
+        payloads = bench.step_payloads(t, b4, logs)
+        before = (ing.fast_docs, ing.slow_docs, ing.fast_recoveries)
+        traced = INGEST_TRACED_FROM <= t < INGEST_TRACED_FROM + INGEST_TRACED_STEPS
+        if t == INGEST_TRACED_FROM:
+            prof = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                      torch.profiler.ProfilerActivity.CUDA])
+            prof.__enter__()
+            t_traced = time.perf_counter()
+        ingest_mod.apply_update_batch = capture if t == INGEST_SNAPSHOT_STEP else real_apply
+        t0 = time.perf_counter()
+        ing.apply_bytes(payloads)
+        torch.cuda.synchronize()
+        (traced_ms if traced else call_ms).append((time.perf_counter() - t0) * 1e3)
+        lanes.append(tuple(a - b for a, b in zip((ing.fast_docs, ing.slow_docs, ing.fast_recoveries), before)))
+        if t == INGEST_TRACED_FROM + INGEST_TRACED_STEPS - 1:
+            traced_s = time.perf_counter() - t_traced
+            prof.__exit__(None, None, None)
+    ingest_mod.apply_update_batch = real_apply
+    wall = time.perf_counter() - t_all
+    launches = {"batch": ik.integrate_batch.launches, "stream": ik.integrate_stream.launches}
+    if launches != {"batch": bench.INGEST_STEPS, "stream": 0}:
+        raise RuntimeError(f"ingest: the calls made launches {launches}")
+
+    # the checks
+    err = int(ing.state.error.max())
+    stash = [d for d in range(bench.INGEST_DOCS) if ing.pending_update(d) is not None
+             or ing.pending_ds(d) is not None]
+    if err or stash or ing.fast_recoveries:
+        raise RuntimeError(f"ingest: error {err}, docs with a stash {stash[:8]}, "
+                           f"recoveries {ing.fast_recoveries}")
+    buf_np, lens_np = pack_updates(b4)
+    stream, flags = decode_updates_v1(torch.from_numpy(buf_np).to(dev), torch.from_numpy(lens_np).to(dev),
+                                      max_rows=4, max_dels=4)
+    if int(((flags & FLAG_ERRORS) != 0).sum()):
+        raise RuntimeError("ingest: decode flagged a B4 update of the reference replay")
+    view = RawPayloadView(buf_np)
+    rank = identity_rank(256, dev)
+    b4_docs = range(bench.COHORTS[0][1], bench.COHORTS[0][1] + bench.COHORTS[0][2])
+    texts_bad = []
+    for g in range(bench.LAG_GROUPS):
+        n = bench.b4_prefix(g)
+        ref = bd.apply_update_stream(bd.init_state(1, bench.INGEST_CAPACITY, dev),
+                                     type(stream)(*(f[:n] for f in stream)), rank)
+        want = bd.get_string(ref, 0, view)
+        texts_bad += [d for d in b4_docs if d % bench.LAG_GROUPS == g
+                      and bd.get_string(ing.state, d, ing.payloads) != want]
+    if texts_bad:
+        raise RuntimeError(f"ingest: B4 docs {texts_bad[:8]} differ from the stream replay of their prefix")
+    values = {}
+    for name, first, n in bench.COHORTS[1:]:
+        if not _cohort_equal(ing.state, first, n):
+            raise RuntimeError(f"ingest: the {name} docs hold different columns")
+        expect = logs[name]["expect"]
+        for d in (first, first + n - 1):
+            if name == "map_xml":
+                tree = bd.get_tree(ing.state, d, ing.payloads, ing.enc.keys)
+                got = {"m": bench.root_map(tree, ing.primary_roots[d], "m"),
+                       "x": bench.xml_string(ing.state, d, ing.payloads, ing.enc.keys, "x")}
+            elif name == "array":
+                got = bd.get_values(ing.state, d, ing.payloads)
+            else:
+                got = bd.get_string(ing.state, d, ing.payloads)
+            if got != expect:
+                raise RuntimeError(f"ingest: doc {d} of {name} does not hold the committed value")
+        values[name] = {"docs": n, "blocks": int(ing.state.n_blocks[first])}
+
+    # the pieces of a call from the traced window
+    pieces = ("ingest.plan", "ingest.decode", "pack_state", "pack_stream", "integrate_batch", "unpack_state")
+    trace, integrates, _ = _trace_breakdown(prof, traced_s, kernel="integrate_batch_kernel")
+    _, indexes, _ = _trace_breakdown(prof, traced_s, kernel="integrate_batch_index_kernel")
+    if len(integrates) != INGEST_TRACED_STEPS or len(indexes) != INGEST_TRACED_STEPS:
+        raise RuntimeError(f"ingest: the trace holds {len(indexes)} index and {len(integrates)} integrate "
+                           f"kernels for {INGEST_TRACED_STEPS} calls")
+    device_ms = {k: trace["device_s"].get(k, 0.0) * 1e3 / INGEST_TRACED_STEPS for k in pieces + ("other",)}
+    host_ms = {k: trace["host_s"].get(k, 0.0) * 1e3 / INGEST_TRACED_STEPS for k in pieces}
+    index_ms = [ms for _, ms in indexes]
+    kernel_ms = [ms for _, ms in integrates]
+    del prof
+
+    # the per-doc kernel against its plain version on the snapshot step
+    c = captured
+    cols_p, meta_p = c["cols"].clone(), c["meta"].clone()
+    live = torch.arange(bench.INGEST_CAPACITY, device=dev)[None, :] < c["meta"][:, ik.M_NBLOCKS][:, None]
+    valid = c["rows"][..., 14] == 1
+    held = {"anchors": int(((c["cols"][ik.KD] == 12) & live).sum()),
+            "anchor_rows": int((valid & (c["rows"][..., 22] >= 0)).sum()),
+            "map_rows": int((valid & (c["rows"][..., 10] >= 0)).sum()),
+            "big_client_rows": int((valid & torch.isin(c["rows"][..., 0], torch.tensor(
+                [ing.enc.interner.to_idx[x] for x in ing.enc.interner.to_idx if x > 2**31 - 1],
+                dtype=torch.int32, device=dev))).sum())}
+    if not all(held.values()):
+        raise RuntimeError(f"ingest: the snapshot step lacks a row shape: {held}")
+    k_ms = _time_ms(lambda: ik.integrate_batch(c["cols"], c["meta"], c["rows"], c["dels"], c["rank"]))
+    p_ms = _time_ms(lambda: ik.integrate_batch_reference(cols_p, meta_p, c["rows"], c["dels"], c["rank"]))
+    snap_err = _compare("integrate_batch on the ingest snapshot step", c["cols"], c["meta"], cols_p, meta_p)
+    del cols_p, meta_p, captured
+
+    line = {
+        "phase": "ingest", "docs": bench.INGEST_DOCS, "capacity": bench.INGEST_CAPACITY,
+        "steps": bench.INGEST_STEPS,
+        "cohorts": {name: n for name, _, n in bench.COHORTS},
+        "b4_lag": f"(doc mod {bench.LAG_GROUPS}) * {bench.LAG_STEP}", "launches": launches, "wall_s": wall,
+        "ms_per_apply_bytes": statistics.fmean(call_ms), "ms_per_apply_bytes_median": statistics.median(call_ms),
+        "ms_per_apply_bytes_min": min(call_ms), "ms_per_apply_bytes_max": max(call_ms),
+        "ms_per_apply_bytes_traced": statistics.fmean(traced_ms),
+        "traced_steps": f"{INGEST_TRACED_FROM}..{INGEST_TRACED_FROM + INGEST_TRACED_STEPS}",
+        "host_plan_ms_per_call": host_ms["ingest.plan"], "host_ms_per_call": host_ms,
+        "device_ms_per_call": device_ms, "index_kernel_ms": statistics.fmean(index_ms),
+        "integrate_kernel_ms": statistics.fmean(kernel_ms),
+        "device_idle_share_traced": trace["device_idle_share"],
+        "fast_docs_per_call": ing.fast_docs / bench.INGEST_STEPS,
+        "slow_docs_per_call": ing.slow_docs / bench.INGEST_STEPS,
+        "recovery_docs_per_call": ing.fast_recoveries / bench.INGEST_STEPS,
+        "wire_bytes_per_call": ing.wire_bytes / bench.INGEST_STEPS,
+        "retained_wire_bytes": ing.payloads.total_bytes, "interned_clients": len(ing.enc.interner),
+        "keys": len(ing.enc.keys), "final_blocks_max": int(ing.state.n_blocks.max()),
+        "cohort_values": values, "b4_texts_equal_stream_replay": True, "sticky_error": err,
+        "snapshot_step": INGEST_SNAPSHOT_STEP, "snapshot_rows": held, "snapshot_kernel_ms": k_ms,
+        "snapshot_plain_ms": p_ms, "max_abs_err": snap_err, "gpu": gpu,
+    }
+    emit(line)
+    del ing
+    return line
+
+
 def _diag_cases():
     from ytpu_torch.benches import mosaic_ladder, plane_rmw_repro, plane_rmw_repro2, plane_rmw_repro3
 
@@ -1684,6 +1879,8 @@ def main() -> int:
     sync = phase_sync_step(gpu, log, plan, rep)
     del rep
     torch.cuda.empty_cache()
+    ingest = phase_ingest(gpu, log)
+    torch.cuda.empty_cache()
     stream_launches, stream_vs_plain, stream_launch_ms = phase_stream_replay_full_width(
         gpu, log, expect, plan)
     torch.cuda.empty_cache()
@@ -1700,7 +1897,8 @@ def main() -> int:
         "library_ms": None,
         "launches_by_path": {"b4_replay": launches, "stream_replay_full_width": stream_launches,
                              "mosaic_ladder": ladder_integrate},
-        "launches_by_entry": {"stream": launches, "batch": sync["write"]["launches"]["batch"]},
+        "launches_by_entry": {"stream": launches,
+                              "batch": sync["write"]["launches"]["batch"] + ingest["launches"]["batch"]},
         "plain_vs_kernel_case": {
             "shape": f"one B4 chunk, 2 docs, C={CAPACITY}, S={CHUNK}",
             "kernel_ms": full_kernel_ms, "plain_ms": full_plain_ms,
@@ -1713,9 +1911,12 @@ def main() -> int:
         "gpu": gpu,
     }, {
         "name": "integrate_batch", "route": "cuda", "source": "ytpu_torch/csrc/integrate.cu",
-        "replaces": INTEGRATE_REPLACES, "launches": sync["write"]["launches"]["batch"],
+        "replaces": INTEGRATE_REPLACES,
+        "launches": sync["write"]["launches"]["batch"] + ingest["launches"]["batch"],
+        "launches_by_path": {"sync_step": sync["write"]["launches"]["batch"],
+                             "ingest": ingest["launches"]["batch"]},
         "max_abs_err": max(sync["kernel_vs_plain"]["max_abs_err"],
-                           sync["write"]["max_abs_err_full_width_step"]),
+                           sync["write"]["max_abs_err_full_width_step"], ingest["max_abs_err"]),
         "ms": sync["write"]["kernel_ms"], "plain_ms": sync["write"]["plain_ms_full_width_step"],
         "bound_ms": sync["write"]["bound_ms"], "bound_by": "bytes", "library_ms": None,
         "entry": "ytpu_integrate_batch (integrate_batch_kernel), the port of apply_update_batch's "
@@ -1729,7 +1930,12 @@ def main() -> int:
         "launch_floor": sync["write"]["launch_floor"],
         "phase_split": {k: {w: v[w] for w in ("phase1_cycles", "phase2_cycles", "phase1_share", "cleared_bytes")}
                         for k, v in sync["write"]["profile"].items() if isinstance(v, dict)},
-        "plain_vs_kernel_case": sync["kernel_vs_plain"], "gpu": gpu,
+        "plain_vs_kernel_case": sync["kernel_vs_plain"],
+        "plain_vs_kernel_ingest_step": {k: ingest[k] for k in ("snapshot_step", "snapshot_rows",
+                                                               "snapshot_kernel_ms", "snapshot_plain_ms",
+                                                               "max_abs_err")},
+        "ingest_kernel_ms": {"index": ingest["index_kernel_ms"], "integrate": ingest["integrate_kernel_ms"]},
+        "gpu": gpu,
     }] + [{**{k: e[k] for k in KERNEL_KEYS}, **({"full_width": e["full_width"]} if "full_width" in e else {})}
           for e in diag]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

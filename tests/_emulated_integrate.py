@@ -2,11 +2,14 @@
 ``ytpu_torch/csrc/integrate.cu`` for the host through tests/cuda_host (a
 CUDA emulator), runs its stream entry on seeded streams next to
 `integrate_stream_reference` and its per-doc entry on per-doc streams
-next to `integrate_batch_reference`, and three mutants of the source on
-the per-doc cases (each doc reading its neighbour's rows; the stamps
-cleared only below the doc's first slot count; the tables cleared as if
-sized from that count alone), and prints one JSON object, case -> max abs
-difference over all planes and meta words.
+next to `integrate_batch_reference` (among them the rows a
+`BatchIngestor` emits from wire bytes, `benches.streams.ingest_steps`),
+and four mutants of the source on the per-doc cases (each doc reading its
+neighbour's rows; the stamps cleared only below the doc's first slot
+count; the tables cleared as if sized from that count alone, on the edge
+case; a root-anchor lookup that ignores the anchor's key, on the ingest
+rows), and prints one JSON object, case -> max abs difference over all
+planes and meta words.
 
 Before every launch the scratch is poisoned as the card may hand it over:
 the table entries of every key the launch can touch, at the key's hash
@@ -33,7 +36,8 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
 from ytpu_torch.benches.streams import (  # noqa: E402
-    EDGE_CAPACITY, EDGE_DOCS, anchored_state, batch_edge_steps, synthetic_stream, typing_stream,
+    EDGE_CAPACITY, EDGE_DOCS, anchored_state, batch_edge_steps, ingest_steps, synthetic_stream,
+    typing_stream,
 )
 from ytpu_torch.models.batch_doc import init_state  # noqa: E402
 from ytpu_torch.ops import integrate_kernel as ik  # noqa: E402
@@ -68,11 +72,18 @@ MUTANTS = {
         "integrate_step(d, rows + (doc ^ 1) * U * ROW_W, dels + (doc ^ 1) * R * DEL_W, U, R);"),
     "stamps_to_nb0": ("cstamp + doc * C, t, n,", "cstamp + doc * C, t, nb0,"),
     "tables_cleared_for_nb0": ("cstamp + doc * C, t, n,", "cstamp + doc * C, tables_for(nb0, HB, HS), n,"),
+    "anchor_ignores_key": (
+        "return ld(d, KD, s) == BLOCK_ROOT_ANCHOR && ld(d, KEY, s) == r_proot;",
+        "return ld(d, KD, s) == BLOCK_ROOT_ANCHOR;"),
 }
 
 
-# the batch case every mutant runs
+# the batch case each mutant runs
 MUTANT_CASE = "batch_edges_D4"
+MUTANT_CASES = {"anchor_ignores_key": "batch_ingest_rows_D4"}
+INGEST_CASE = "batch_ingest_rows_D4"
+# steps of the ingest case: the map + XML docs anchor their second root at step 5
+INGEST_STEPS = 12
 WALK = "  while (x < end) {"
 GUARDED_WALK = "  for (int walked = 0; x < end && walked <= d.C; ++walked) {"
 
@@ -278,6 +289,27 @@ def cases():
     yield ("typing_clients_above_KC", cols, meta, *typing_stream(4, 150, first_client=1500), rank_k, (32, 8))
 
 
+def run_captured_steps(lib, steps, plan=(32, 8)):
+    """Each captured step ``(cols, meta, rows, dels, rank)`` of a run of the
+    plain version through the per-doc entry and through
+    `integrate_batch_reference`, both from the captured state; the largest
+    difference over all planes and meta words, and what the steps held."""
+    err, anchors, proot_rows, map_rows = 0, 0, 0, 0
+    for t, (cols, meta, rows, dels, rank) in enumerate(steps):
+        ck, mk = cols.clone(), meta.clone()
+        cp, mp = cols.clone(), meta.clone()
+        launch_batch(lib, ck, mk, rows.contiguous(), dels.contiguous(), rank, plan, seed=t)
+        ik.integrate_batch_reference(cp, mp, rows, dels, rank, plan)
+        err = max(err, int((ck.long() - cp.long()).abs().max()), int((mk.long() - mp.long()).abs().max()))
+        proot_rows += int(((rows[..., 22] >= 0) & (rows[..., 14] == 1)).sum())
+        map_rows += int(((rows[..., 10] >= 0) & (rows[..., 14] == 1)).sum())
+    live = torch.arange(cp.shape[2])[None, :] < mp[:, ik.M_NBLOCKS][:, None]
+    anchors = int(((cp[ik.KD] == 12) & live).sum())
+    return {"max_abs_err": err, "steps": len(steps), "blocks": int(mp[:, ik.M_NBLOCKS].min()),
+            "error": int(mp[:, ik.M_ERROR].max()), "anchors": anchors, "proot_rows": proot_rows,
+            "map_rows": map_rows}
+
+
 def main() -> int:
     build_dir = Path(sys.argv[1])
     with ThreadPoolExecutor(len(MUTANTS) + 1) as pool:
@@ -286,9 +318,14 @@ def main() -> int:
     out = {}
     for case in batch_cases():
         out[case[0]] = run_batch_case(lib, *case[1:])
-        if case[0] == MUTANT_CASE:
-            for m in MUTANTS:
+        for m in MUTANTS:
+            if MUTANT_CASES.get(m, MUTANT_CASE) == case[0]:
                 out[f"batch_{m}_mutant"] = run_batch_case(libs[m], *case[1:])
+    steps = ingest_steps(INGEST_STEPS)
+    out[INGEST_CASE] = run_captured_steps(lib, steps)
+    for m in MUTANTS:
+        if MUTANT_CASES.get(m) == INGEST_CASE:
+            out[f"batch_{m}_mutant"] = run_captured_steps(libs[m], steps)
     for i, (name, cols, meta, rows, dels, rank, plan) in enumerate(cases()):
         rows, dels = torch.as_tensor(rows), torch.as_tensor(dels)
         ck, mk = cols.clone(), meta.clone()

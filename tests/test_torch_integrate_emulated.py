@@ -92,3 +92,21 @@ def test_a_short_clear_fails(emulated, mutant):
     as if they were sized from that count alone: on poisoned scratch the
     comparison must catch both."""
     assert emulated[f"batch_{mutant}_mutant"]["max_abs_err"] > 0
+
+
+def test_per_doc_entry_matches_plain_version_on_ingest_rows(emulated):
+    """`benches.streams.ingest_steps`: the rows a `BatchIngestor` emits from
+    the committed ingest logs' wire bytes (root anchors made by
+    `ensure_root_anchor`, map key chains from the key table, 53-bit
+    clients interned through the hash table), each step from the plain
+    version's state."""
+    r = emulated["batch_ingest_rows_D4"]
+    assert r["max_abs_err"] == 0, r
+    assert r["error"] == 0 and r["steps"] == 12
+    assert r["anchors"] == 3 and r["proot_rows"] >= 2 and r["map_rows"] > 5
+
+
+def test_an_anchor_lookup_ignoring_its_key_fails(emulated):
+    """The ingest rows through a mutant whose root-anchor lookup takes the
+    first anchor of any root: the doc that holds two anchors must show it."""
+    assert emulated["batch_anchor_ignores_key_mutant"]["max_abs_err"] > 0

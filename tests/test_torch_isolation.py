@@ -30,7 +30,10 @@ def test_import_leaves_jax_and_ytpu_unloaded():
         "import ytpu_torch.benches.plane_rmw_repro, ytpu_torch.benches.plane_rmw_repro2\n"
         "import ytpu_torch.benches.plane_rmw_repro3, ytpu_torch.benches.sync_step\n"
         "import ytpu_torch.encoding.codec, ytpu_torch.core.ids, ytpu_torch.core.id_set\n"
-        "import ytpu_torch.ops.state_vector\n"
+        "import ytpu_torch.ops.state_vector, ytpu_torch.models.ingest, ytpu_torch.core.update\n"
+        "import ytpu_torch.core.block, ytpu_torch.core.branch, ytpu_torch.core.moving\n"
+        "import ytpu_torch.core.state_vector, ytpu_torch.core.content, ytpu_torch.benches.ingest\n"
+        "import ytpu_torch.benches.streams\n"
         "print(json.dumps(sorted(m for m in sys.modules\n"
         "    if m == 'jax' or m.startswith('jax.') or m == 'ytpu' or m.startswith('ytpu.'))))\n"
     )

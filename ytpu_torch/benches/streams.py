@@ -6,14 +6,16 @@ against its plain version (`chip_smoke.py`, the CPU tests): packed
 is several clients typing and deleting at random positions of one text,
 the traffic the kernel's cursor cache and block index are built for;
 `batch_edge_steps` gives the per-doc entry docs of very different sizes
-and the steps that make the most slots.
+and the steps that make the most slots; `ingest_steps` gives the per-doc
+entry the rows a `BatchIngestor` emits from wire bytes (root anchors,
+map key chains through the key table, interned 53-bit clients).
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-__all__ = ["anchored_state", "batch_edge_steps", "synthetic_stream", "typing_stream"]
+__all__ = ["anchored_state", "batch_edge_steps", "ingest_steps", "synthetic_stream", "typing_stream"]
 
 # synthetic_stream: rows and delete ranges per step, and a same-origin
 # storm every STORM_EVERY steps
@@ -228,3 +230,50 @@ def batch_edge_steps(steps: int = 24):
             for q, (c, a, b) in enumerate(dd):
                 dels[t, doc, q] = [c, a, b, 1]
     return rows, dels
+
+
+# ingest_steps: docs, slots, the committed log each doc takes, and the
+# root each doc anchors before its first update
+INGEST_EMU_DOCS, INGEST_EMU_CAPACITY = 4, 256
+INGEST_EMU_LOGS = ("map_xml", "big_client_text", "array", "map_xml")
+
+
+def ingest_steps(steps: int = 40, device="cpu"):
+    """The per-doc entry's inputs of `steps` `apply_bytes` calls of a
+    `BatchIngestor` (the plain version, on `device`) over the first
+    updates of the committed ingest logs (``data/ingest_logs.json``): doc
+    0 the map + XML tenant (its second root anchored by the ingestor, its
+    map rows on key chains from the key table), doc 1 the text of a 53-bit
+    client (interned through the big-client hash table), doc 2 the
+    256-client array, doc 3 the map + XML tenant again in a doc that holds
+    an anchor of another root before it starts, so that its anchor lookup
+    has two anchors to choose from. Returns a list of ``(cols, meta, rows,
+    dels, rank)``: the packed state before each apply and what the apply
+    gave the kernel."""
+    from ytpu_torch.benches.ingest import load_ingest_logs
+    from ytpu_torch.models import batch_doc as bd
+    from ytpu_torch.models import ingest
+    from ytpu_torch.ops import integrate_kernel as ik
+
+    logs = load_ingest_logs()
+    ing = ingest.BatchIngestor(INGEST_EMU_DOCS, INGEST_EMU_CAPACITY, device=device)
+    other = ing.enc.keys.intern("another root")
+    ing.state = bd.ensure_root_anchor(ing.state, 3, other)
+    captured = []
+
+    def capture(state, batch, rank):
+        cols, meta = ik.pack_state(state)
+        rows, dels = ik.pack_stream(batch)
+        captured.append((cols, meta, rows, dels, rank.clone()))
+        return real(state, batch, rank)
+
+    real = ingest.apply_update_batch
+    ingest.apply_update_batch = capture
+    try:
+        for t in range(steps):
+            ing.apply_bytes([logs[name]["log"][t] for name in INGEST_EMU_LOGS])
+    finally:
+        ingest.apply_update_batch = real
+    if ing.slow_docs or int(ing.state.error.max()):
+        raise RuntimeError("ingest_steps: a doc left the fast lane or set its error")
+    return captured

@@ -1,14 +1,15 @@
-"""Delete sets, the writer half (copy of `ytpu.core.id_set`'s
-`DeleteSet.insert_range` / `encode`; parity target: yrs id_set.rs:440-652).
+"""Delete sets (copy of `ytpu.core.id_set`'s `DeleteSet`: `insert_range`,
+`is_empty`, `ranges`, `decode` and `encode`; parity target: yrs
+id_set.rs:440-652).
 
 A delete set maps each client to half-open clock ranges ``[start, end)``,
-kept unsorted until it is encoded: then each client's ranges are sorted
-and merged, and clients are written in descending id order.
+kept unsorted until read: then each client's ranges are sorted and
+merged, and clients are written in descending id order.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 __all__ = ["DeleteSet"]
 
@@ -34,12 +35,32 @@ def _squash_ranges(ranges: List[Range]) -> List[Range]:
 class DeleteSet:
     __slots__ = ("clients",)
 
-    def __init__(self):
-        self.clients: Dict[int, List[Range]] = {}
+    def __init__(self, clients: Optional[Dict[int, List[Range]]] = None):
+        self.clients: Dict[int, List[Range]] = clients if clients is not None else {}
+
+    def is_empty(self) -> bool:
+        return all(not rs for rs in self.clients.values())
 
     def insert_range(self, client: int, start: int, end: int) -> None:
         if end > start:
             self.clients.setdefault(client, []).append((start, end))
+
+    def ranges(self, client: int) -> List[Range]:
+        return _squash_ranges(self.clients.get(client, []))
+
+    def __eq__(self, other: object) -> bool:
+        if not isinstance(other, DeleteSet):
+            return NotImplemented
+        a = {c: _squash_ranges(rs) for c, rs in self.clients.items() if rs}
+        b = {c: _squash_ranges(rs) for c, rs in other.clients.items() if rs}
+        return a == b
+
+    def __repr__(self) -> str:
+        parts = []
+        for client, rs in sorted(self.clients.items()):
+            rr = ",".join(f"[{s}..{e})" for s, e in _squash_ranges(rs))
+            parts.append(f"{client}:{rr}")
+        return f"DeleteSet({'; '.join(parts)})"
 
     def encode(self, enc) -> None:
         """Clients count, then per client (descending id): id, range
@@ -54,3 +75,19 @@ class DeleteSet:
             for start, end in rs:
                 enc.write_ds_clock(start)
                 enc.write_ds_len(end - start)
+
+    @classmethod
+    def decode(cls, dec) -> "DeleteSet":
+        """The wire form `encode` writes; zero-length ranges are dropped,
+        and a client section with no ranges keeps an empty entry."""
+        out = cls()
+        for _ in range(dec.read_var()):
+            dec.reset_ds_cur_val()
+            client = dec.read_var()
+            rs = out.clients.setdefault(client, [])
+            for _ in range(dec.read_var()):
+                clock = dec.read_ds_clock()
+                length = dec.read_ds_len()
+                if length:
+                    rs.append((clock, clock + length))
+        return out

@@ -207,7 +207,12 @@ void batch_plan(int D, int* p) {
 // move rows of a launch are those live at its start plus at most U new
 // ones a step (DL never goes back to 0). So
 //   nb <= nb0 + S * (3U + 2R) + 2 * (moves + S * U),
-// and nb never passes C.
+// and nb never passes C. Root anchors (BLOCK_ROOT_ANCHOR rows, client -1,
+// length 0) are made on the host before a launch, so they are among nb0;
+// no id names one, so none is split, and phase 1 indexes none (a slot of
+// length 0 starts no block). A map row splits like any row (its origin is
+// the previous tail of its key chain), so rows that all extend one chain
+// make at most the same three slots each.
 __host__ __device__ inline int live_bound(int nb0, int moves, int S, int U, int R, int C) {
   const long long n = (long long)nb0 + (long long)S * (5LL * U + 2LL * R) + 2LL * moves;
   return n < C ? (int)n : C;

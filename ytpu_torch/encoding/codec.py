@@ -1,14 +1,16 @@
-"""The v1 update encoder (PyTorch port of `ytpu.encoding.codec.EncoderV1`,
-the writer half the diff finisher calls; parity target: yrs
-updates/encoder.rs:80-180)."""
+"""The v1 update codec (PyTorch port of `ytpu.encoding.codec`'s
+`EncoderV1`, the writer half the diff finisher calls, and `DecoderV1`, the
+reader half host-lane decode calls; parity target: yrs
+updates/encoder.rs:80-180, updates/decoder.rs:76-190)."""
 
 from __future__ import annotations
 
 from typing import Any as PyAny
+from typing import Tuple
 
-from ytpu_torch.encoding.lib0 import Writer, any_to_json, write_any
+from ytpu_torch.encoding.lib0 import Cursor, Writer, any_from_json, any_to_json, read_any, write_any
 
-__all__ = ["EncoderV1"]
+__all__ = ["DecoderV1", "EncoderV1"]
 
 
 class EncoderV1:
@@ -76,3 +78,66 @@ class EncoderV1:
 
     def write_key(self, key: str) -> None:
         self.w.write_string(key)
+
+
+class DecoderV1:
+    """Plain varint streams: every channel reads from one `Cursor`."""
+
+    __slots__ = ("cur",)
+
+    def __init__(self, data):
+        self.cur = data if isinstance(data, Cursor) else Cursor(data)
+
+    def has_content(self) -> bool:
+        return self.cur.has_content()
+
+    def read_u8(self) -> int:
+        return self.cur.read_u8()
+
+    def read_var(self) -> int:
+        return self.cur.read_var_uint()
+
+    def read_buf(self) -> bytes:
+        return self.cur.read_buf()
+
+    def read_string(self) -> str:
+        return self.cur.read_string()
+
+    def reset_ds_cur_val(self) -> None:
+        pass
+
+    def read_ds_clock(self) -> int:
+        return self.cur.read_var_uint()
+
+    def read_ds_len(self) -> int:
+        return self.cur.read_var_uint()
+
+    def read_id(self) -> Tuple[int, int]:
+        return self.cur.read_var_uint(), self.cur.read_var_uint()
+
+    read_left_id = read_id
+    read_right_id = read_id
+
+    def read_client(self) -> int:
+        return self.cur.read_var_uint()
+
+    def read_info(self) -> int:
+        return self.cur.read_u8()
+
+    def read_parent_info(self) -> bool:
+        return self.cur.read_var_uint() == 1
+
+    def read_type_ref(self) -> int:
+        return self.cur.read_u8()
+
+    def read_len(self) -> int:
+        return self.cur.read_var_uint()
+
+    def read_any(self) -> PyAny:
+        return read_any(self.cur)
+
+    def read_json(self) -> PyAny:
+        return any_from_json(self.cur.read_string())
+
+    def read_key(self) -> str:
+        return self.cur.read_string()

@@ -3,11 +3,14 @@
 `any_from_json`, which the wire payload readers need) plus a small update
 walker.
 
-`update_columns` walks one v1 update and yields what the replay planner
-reads: per block its kind, client, clock, length and content span, and the
-wire-section counts the device decoder's step budget needs
-(`n_client_sections`, `n_dels`, `n_ds_sections`, `n_zero_len_blocks`,
-`n_value_steps`). It follows the grammar of update.rs:433-488 and
+`update_columns` walks one v1 update into the columns of the JAX
+package's native decoder (`ytpu/native/lib0_codec.cpp`): per block its
+client, clock, length, kind, origins, how it names its parent (root name
+span, parent id, parent_sub span) and content span; per delete range its
+client, start and end; and the wire-section counts the device decoder's
+step budget and the ingest fast lane read (`n_client_sections`,
+`n_dels`, `n_ds_sections`, `n_zero_len_blocks`, `n_value_steps`,
+`n_complex_any`). It follows the grammar of update.rs:433-488 and
 block.rs:1786-1835: zero-length item blocks are dropped from the columns
 but counted, Skip and GC carriers stay in them.
 """
@@ -42,6 +45,8 @@ __all__ = [
     "Cursor",
     "EncodingError",
     "Undefined",
+    "BLOCK_COLUMNS",
+    "DEL_COLUMNS",
     "UpdateColumns",
     "Writer",
     "any_from_json",
@@ -183,29 +188,6 @@ class Cursor:
                 self.skip_any()
         else:
             raise EncodingError(f"unknown Any tag {tag}")
-
-    def skip_any_tokens(self) -> int:
-        """Skip one Any value, returning the device decode steps it costs:
-        one per scalar or array header; a depth-1 object costs a header
-        step plus a key and a value step per pair."""
-        if self.pos < len(self.buf):
-            tag = self.buf[self.pos]
-            if tag == 118:
-                self.pos += 1
-                tokens = 1
-                for _ in range(self.read_var_uint()):
-                    self.skip(self.read_var_uint())
-                    tokens += 2
-                    self.skip_any()
-                return tokens
-            if tag == 117:
-                self.pos += 1
-                tokens = 1
-                for _ in range(self.read_var_uint()):
-                    tokens += self.skip_any_tokens()
-                return tokens
-        self.skip_any()
-        return 1
 
 
 class Writer:
@@ -402,10 +384,38 @@ def utf16_units(data: bytes) -> int:
     return units
 
 
+# the per-block columns of `UpdateColumns` (the native column set of
+# ytpu's lib0_codec.cpp, in its order) and its delete-range columns
+BLOCK_COLUMNS = (
+    "client",
+    "clock",
+    "length",
+    "kind",
+    "origin_client",
+    "origin_clock",
+    "ror_client",
+    "ror_clock",
+    "parent_kind",
+    "parent_name_start",
+    "parent_name_len",
+    "parent_id_client",
+    "parent_id_clock",
+    "parent_sub_start",
+    "parent_sub_len",
+    "content_start",
+    "content_len_bytes",
+)
+DEL_COLUMNS = ("del_client", "del_start", "del_end")
+# parent_kind: how an item names its parent on the wire
+PARENT_NONE, PARENT_NAME, PARENT_ID, PARENT_INHERIT = 0, 1, 2, 3
+
+
 class UpdateColumns:
-    """Per-block columns of one walked update (numpy int64 arrays) plus
-    its wire-section counts. ``content_bytes(i)`` is block i's content
-    span in the original payload."""
+    """Per-block columns of one walked update (numpy int64 arrays, one
+    entry per block in `BLOCK_COLUMNS`, one per delete range in
+    `DEL_COLUMNS`) plus its wire-section counts. Absent origins and parent
+    fields read -1; spans (``*_start`` / ``*_len``) index the original
+    payload."""
 
     def __init__(self, payload: bytes):
         self.payload = payload
@@ -414,18 +424,59 @@ class UpdateColumns:
         self.n_ds_sections = 0
         self.n_zero_len_blocks = 0
         self.n_value_steps = 0
+        self.n_complex_any = 0
         self.n_dels = 0
         self.n_blocks = 0
-        self.kind = np.empty(0, dtype=np.int64)
-        self.client = np.empty(0, dtype=np.int64)
-        self.clock = np.empty(0, dtype=np.int64)
-        self.length = np.empty(0, dtype=np.int64)
-        self.content_start = np.empty(0, dtype=np.int64)
-        self.content_len_bytes = np.empty(0, dtype=np.int64)
+        for name in BLOCK_COLUMNS + DEL_COLUMNS:
+            setattr(self, name, np.empty(0, dtype=np.int64))
+
+    def span(self, start: int, length: int) -> bytes:
+        return self.payload[start : start + length]
 
     def content_bytes(self, i: int) -> bytes:
-        s = int(self.content_start[i])
-        return self.payload[s : s + int(self.content_len_bytes[i])]
+        return self.span(int(self.content_start[i]), int(self.content_len_bytes[i]))
+
+    def parent_name(self, i: int) -> str:
+        return self.span(int(self.parent_name_start[i]), int(self.parent_name_len[i])).decode("utf-8")
+
+    def parent_sub(self, i: int):
+        s = int(self.parent_sub_start[i])
+        if s < 0:
+            return None
+        return self.span(s, int(self.parent_sub_len[i])).decode("utf-8")
+
+
+def _skip_any_tokens(cur: Cursor, out: UpdateColumns) -> None:
+    """Skip one Any value of a ContentAny, counting the device decode
+    steps it costs (one per scalar or array header; a depth-1 object a
+    header step plus a key and a value step per pair) into
+    ``out.n_value_steps`` and the values the device cannot parse (an
+    object's non-scalar values, unknown tags) into ``out.n_complex_any``."""
+    if cur.pos < len(cur.buf):
+        tag = cur.buf[cur.pos]
+        if tag < 116:
+            out.n_complex_any += 1
+        elif tag == 118:
+            cur.pos += 1
+            out.n_value_steps += 1
+            for _ in range(cur.read_var_uint()):
+                cur.skip(cur.read_var_uint())
+                out.n_value_steps += 1
+                if cur.pos < len(cur.buf):
+                    vt = cur.buf[cur.pos]
+                    if vt in (117, 118) or vt < 116:
+                        out.n_complex_any += 1
+                out.n_value_steps += 1
+                cur.skip_any()
+            return
+        elif tag == 117:
+            cur.pos += 1
+            out.n_value_steps += 1
+            for _ in range(cur.read_var_uint()):
+                _skip_any_tokens(cur, out)
+            return
+    out.n_value_steps += 1
+    cur.skip_any()
 
 
 def _read_content(cur: Cursor, info: int, out: UpdateColumns) -> int:
@@ -464,7 +515,7 @@ def _read_content(cur: Cursor, info: int, out: UpdateColumns) -> int:
     if ref == CONTENT_ANY:
         n = cur.read_var_uint()
         for _ in range(n):
-            out.n_value_steps += cur.skip_any_tokens()
+            _skip_any_tokens(cur, out)
         return n
     if ref == CONTENT_DOC:
         cur.skip(cur.read_var_uint())
@@ -481,78 +532,82 @@ def _read_content(cur: Cursor, info: int, out: UpdateColumns) -> int:
     raise EncodingError(f"unknown content ref {ref}")
 
 
+_U64 = (1 << 64) - 1
+
+
+def _i64(v: int) -> int:
+    """A varint's value as the int64 the native walker stores (its low 64
+    bits, two's complement)."""
+    v &= _U64
+    return v - (1 << 64) if v >= 1 << 63 else v
+
+
 def update_columns(payload: bytes) -> UpdateColumns:
     """Walk one v1 update into `UpdateColumns` (``error`` set on malformed
-    input; the columns then hold what was read before the fault)."""
+    input; the columns then hold what was read before the fault). This is
+    the port's stand-in for the native column decoder of the JAX package
+    (``ytpu_decode_update_v1``): the same columns and counts."""
     out = UpdateColumns(payload)
     cur = Cursor(payload)
-    kind: List[int] = []
-    client_l: List[int] = []
-    clock_l: List[int] = []
-    length: List[int] = []
-    cstart: List[int] = []
-    clen: List[int] = []
+    blocks: List[tuple] = []  # one tuple per block, in BLOCK_COLUMNS order
+    del_rows: List[tuple] = []
     try:
         n_clients = cur.read_var_uint()
         out.n_client_sections = n_clients
         for _ in range(n_clients):
             n_blocks = cur.read_var_uint()
-            client = cur.read_var_uint()
+            client = _i64(cur.read_var_uint())
             clock = cur.read_var_uint()
             for _ in range(n_blocks):
                 info = cur.read_u8()
                 if info in (BLOCK_SKIP, BLOCK_GC):
                     n = cur.read_var_uint()
-                    kind.append(info)
-                    client_l.append(client)
-                    clock_l.append(clock)
-                    length.append(n)
-                    cstart.append(-1)
-                    clen.append(0)
+                    blocks.append((client, _i64(clock), _i64(n), info, -1, -1, -1, -1, PARENT_NONE,
+                                   -1, -1, -1, -1, -1, -1, -1, 0))
                     clock += n
                     continue
+                oc = ok = rc = rk = -1
                 if info & HAS_ORIGIN:
-                    cur.read_var_uint()
-                    cur.read_var_uint()
+                    oc, ok = _i64(cur.read_var_uint()), _i64(cur.read_var_uint())
                 if info & HAS_RIGHT_ORIGIN:
-                    cur.read_var_uint()
-                    cur.read_var_uint()
+                    rc, rk = _i64(cur.read_var_uint()), _i64(cur.read_var_uint())
+                pk, pns, pnl, pic, pik, pss, psl = PARENT_INHERIT, -1, -1, -1, -1, -1, -1
                 if (info & (HAS_ORIGIN | HAS_RIGHT_ORIGIN)) == 0:
                     if cur.read_var_uint() == 1:
-                        cur.skip(cur.read_var_uint())  # root name
+                        pk, pnl = PARENT_NAME, cur.read_var_uint()
+                        pns = cur.pos
+                        cur.skip(pnl)
                     else:
-                        cur.read_var_uint()  # parent id client
-                        cur.read_var_uint()  # parent id clock
+                        pk = PARENT_ID
+                        pic, pik = _i64(cur.read_var_uint()), _i64(cur.read_var_uint())
                     if info & HAS_PARENT_SUB:
-                        cur.skip(cur.read_var_uint())
+                        psl = cur.read_var_uint()
+                        pss = cur.pos
+                        cur.skip(psl)
                 start = cur.pos
                 n = _read_content(cur, info, out)
                 if n == 0:
                     # historical empty blocks have no effect (update.rs:737-742)
                     out.n_zero_len_blocks += 1
                     continue
-                kind.append(info & 0x0F)
-                client_l.append(client)
-                clock_l.append(clock)
-                length.append(n)
-                cstart.append(start)
-                clen.append(cur.pos - start)
+                blocks.append((client, _i64(clock), _i64(n), info & 0x0F, oc, ok, rc, rk, pk,
+                               pns, pnl, pic, pik, pss, psl, start, cur.pos - start))
                 clock += n
         n_ds = cur.read_var_uint()
         out.n_ds_sections = n_ds
         for _ in range(n_ds):
-            cur.read_var_uint()  # client
+            client = _i64(cur.read_var_uint())
             for _ in range(cur.read_var_uint()):
-                cur.read_var_uint()
-                cur.read_var_uint()
-                out.n_dels += 1
+                start = cur.read_var_uint()
+                del_rows.append((client, _i64(start), _i64(start + cur.read_var_uint())))
     except EncodingError:
         out.error = True
-    out.n_blocks = len(kind)
-    out.kind = np.asarray(kind, dtype=np.int64)
-    out.client = np.asarray(client_l, dtype=np.int64)
-    out.clock = np.asarray(clock_l, dtype=np.int64)
-    out.length = np.asarray(length, dtype=np.int64)
-    out.content_start = np.asarray(cstart, dtype=np.int64)
-    out.content_len_bytes = np.asarray(clen, dtype=np.int64)
+    out.n_blocks = len(blocks)
+    out.n_dels = len(del_rows)
+    cols = np.asarray(blocks, dtype=np.int64).reshape(-1, len(BLOCK_COLUMNS))
+    for j, name in enumerate(BLOCK_COLUMNS):
+        setattr(out, name, np.ascontiguousarray(cols[:, j]))
+    dcols = np.asarray(del_rows, dtype=np.int64).reshape(-1, len(DEL_COLUMNS))
+    for j, name in enumerate(DEL_COLUMNS):
+        setattr(out, name, np.ascontiguousarray(dcols[:, j]))
     return out

@@ -16,9 +16,12 @@ wire bytes (`finish_encode_diff`, `finish_encode_diff_batch`, and
 `DiffPipeline`, which overlaps the device half of sub-batch k+1 with the
 finisher of sub-batch k). The interners and the payload store are the
 host tables of ytpu's `BatchEncoder` that the finisher reads
-(`EncoderTables`); its planning from host `Update` objects is not ported.
-The read-out part (`get_string`, `_visible_walk`, `_move_bounds`) runs on
-the host over numpy copies of the columns.
+(`EncoderTables`); `BatchEncoder` plans host-decoded `Update`s into
+batches over them. Root anchors (`ensure_root_anchor`,
+`ensure_root_anchor_all`) are torch ops on a `DocStateBatch`. The
+read-out part (`get_string`, `get_values`, `get_map`, `get_tree`,
+`_visible_walk`, `_move_bounds`) runs on the host over numpy copies of
+the columns.
 
 uint32 arithmetic (the commitment fold) is emulated in int64 with
 ``& 0xFFFFFFFF`` masks: torch has no general uint32 arithmetic.
@@ -71,6 +74,9 @@ __all__ = [
     "KeyInterner",
     "PayloadStore",
     "EncoderTables",
+    "BatchEncoder",
+    "ensure_root_anchor",
+    "ensure_root_anchor_all",
     "finish_encode_diff",
     "compact_finisher_rows",
     "finish_encode_diff_batch",
@@ -89,6 +95,9 @@ __all__ = [
     "scan_width_quantile",
     "commit_fold_blocks",
     "get_string",
+    "get_values",
+    "get_map",
+    "get_tree",
 ]
 
 I32 = torch.int32
@@ -310,17 +319,23 @@ def apply_update_batch(state: DocStateBatch, batch: UpdateBatch, client_rank) ->
     """Integrate one decoded update per doc (``batch`` fields ``[D, U]`` /
     ``[D, R]``, doc d gets row d): `pack_state` -> `integrate_batch` (the
     CUDA kernel's per-doc entry on the GPU, its plain version on the CPU)
-    -> `unpack_state`. `client_rank` is the ``[K]`` interned-client rank
+    -> `unpack_state`, each in a `torch.profiler.record_function` span of
+    its name (``ytpu_torch.pack_state`` ...). `client_rank` is the ``[K]`` interned-client rank
     table shared by all docs; the conflict-scan plan is `scan_tier_plan()`,
     read per call. The input state is left as it was. The returned state's
     origin_slot plane is marked stale (the kernel does not maintain it;
     `ensure_origin_slot` refreshes it)."""
     from ytpu_torch.ops import integrate_kernel as ik
 
-    cols, meta = ik.pack_state(state)
-    rows, dels = ik.pack_stream(batch)
-    ik.integrate_batch(cols, meta, rows, dels, _rank_table(client_rank, cols.device))
-    out = ik.unpack_state(cols, meta)
+    record = torch.profiler.record_function
+    with record("ytpu_torch.pack_state"):
+        cols, meta = ik.pack_state(state)
+    with record("ytpu_torch.pack_stream"):
+        rows, dels = ik.pack_stream(batch)
+    with record("ytpu_torch.integrate_batch"):
+        ik.integrate_batch(cols, meta, rows, dels, _rank_table(client_rank, cols.device))
+    with record("ytpu_torch.unpack_state"):
+        out = ik.unpack_state(cols, meta)
     mark_origin_slot_stale(out)
     return out
 
@@ -609,6 +624,9 @@ class PayloadStore:
     def slice_values(self, ref: int, off: int, length: int) -> list:
         return self.items[ref][1][off : off + length]
 
+    def json_values(self, ref: int, off: int, length: int) -> list:
+        return self.items[ref][1].values()[off : off + length]
+
     def json_raw(self, ref: int, off: int, length: int) -> list:
         return self.items[ref][1].raw[off : off + length]
 
@@ -655,6 +673,301 @@ class EncoderTables:
         return cls.identity(
             plan.max_client + 1, UnitArenaView(plan.unit_byte, plan.arena), root_name
         )
+
+
+_NO_MOVE = (-1, 0, 0, -1, 0, 0, -1)  # mv_sc .. mv_prio of a row that is no move
+# the row tuple's columns, in `BatchEncoder.rows_from_carriers` order
+_ROW_FIELDS = (
+    "client", "clock", "length", "origin_client", "origin_clock", "ror_client", "ror_clock",
+    "kind", "content_ref", "content_off", "key", "p_tag", "p_client", "p_clock", "p_root",
+    "mv_sc", "mv_sk", "mv_sa", "mv_ec", "mv_ek", "mv_ea", "mv_prio",
+)
+# a padding row: no key, no parent client, the primary root, no move
+_ROW_PAD = np.array([-1 if f in ("key", "p_client", "p_root", "mv_sc", "mv_ec", "mv_prio") else 0
+                     for f in _ROW_FIELDS], dtype=np.int32)
+
+
+class BatchEncoder(EncoderTables):
+    """Plans host-decoded `Update`s into padded `UpdateBatch` tensors (copy
+    of ytpu's `BatchEncoder`): carriers are ordered by their dependencies
+    (`partition_carriers`), turned into row tuples over the client and key
+    interners and the payload store (`rows_from_carriers`), and padded
+    into one ``[D, U]`` / ``[D, R]`` batch (`batch_from_rows`). Being an
+    `EncoderTables`, it is also what the diff finisher reads."""
+
+    def __init__(self, root_name: str = "text"):
+        super().__init__(root_name=root_name)
+        # until a named root has been seen, the FIRST one encountered is
+        # adopted as the batch root; later distinct names are true
+        # multi-root and anchor through BLOCK_ROOT_ANCHOR rows
+        self._root_adopted = False
+        # build_batch slot primaries: doc index -> its first named root
+        self.doc_primaries: Dict[int, str] = {}
+
+    def partition_carriers(self, update, local_sv=None):
+        """``(applicable, leftover)`` carriers: the host half of the
+        reference's integration stack machine (update.rs:169-308, missing()
+        :310-385): clients descending, but a block whose origin, right
+        origin, parent or move bound points into a range not emitted yet
+        waits for it. With `local_sv` (the doc's state-vector mirror) the
+        check is exact: dependencies must be covered by the mirror or by
+        rows emitted before, and each client's rows must continue its
+        clock; the rest is `leftover` (the pending stash,
+        transaction.rs:675-727). Without it, dependencies outside the
+        update are assumed present and everything is emitted."""
+        from ytpu_torch.core.block import Item, SkipRange
+        from ytpu_torch.core.content import ContentMove
+        from ytpu_torch.core.ids import ID
+
+        queues = {
+            c: [x for x in update.blocks[c] if not isinstance(x, SkipRange)]
+            for c in sorted(update.blocks.keys(), reverse=True)
+        }
+        queues = {c: q for c, q in queues.items() if q}
+        if local_sv is None:
+            emitted = {c: q[0].id.clock for c, q in queues.items()}
+        else:
+            emitted = {c: local_sv.get(c) for c in queues}
+        heads = {c: 0 for c in queues}
+
+        def satisfied(dep) -> bool:
+            if dep is None:
+                return True
+            if dep.client not in emitted:
+                if local_sv is None:
+                    return True
+                return dep.clock < local_sv.get(dep.client)
+            return dep.clock < emitted[dep.client]
+
+        out = []
+        progress = True
+        while progress:
+            progress = False
+            for c, q in queues.items():
+                while heads[c] < len(q):
+                    carrier = q[heads[c]]
+                    if local_sv is not None and carrier.id.clock > emitted[c]:
+                        break  # a clock gap within this client: pending
+                    if isinstance(carrier, Item):
+                        deps = [
+                            carrier.origin,
+                            carrier.right_origin,
+                            carrier.parent if isinstance(carrier.parent, ID) else None,
+                        ]
+                        if isinstance(carrier.content, ContentMove):
+                            # a move row depends on its range bounds too
+                            deps.append(carrier.content.move.start.id)
+                            deps.append(carrier.content.move.end.id)
+                        if not all(satisfied(d) for d in deps):
+                            break
+                    out.append(carrier)
+                    emitted[c] = max(emitted[c], carrier.id.clock + carrier.len)
+                    heads[c] += 1
+                    progress = True
+        leftover = []
+        for c, q in queues.items():
+            leftover.extend(q[heads[c] :])
+        if local_sv is None:
+            return out + leftover, []
+        return out, leftover
+
+    def _ordered_carriers(self, update) -> list:
+        ordered, _ = self.partition_carriers(update)
+        return ordered
+
+    def rows_from_update(self, update, primary_root=None) -> Tuple[list, list]:
+        rows = self.rows_from_carriers(self._ordered_carriers(update), primary_root=primary_root)
+        dels = []
+        for client, ranges in update.delete_set.clients.items():
+            c = self.interner.intern(client)
+            for s, e in ranges:
+                dels.append((c, s, e))
+        return rows, dels
+
+    def rows_from_carriers(self, carriers: list, primary_root=None) -> list:
+        """Row tuples (`_ROW_FIELDS`) for already-ordered carriers.
+
+        ``primary_root`` is the root name mapped onto the implicit device
+        branch (``state.start``); other named roots intern into the key
+        table and anchor through per-doc BLOCK_ROOT_ANCHOR rows (doc.rs:
+        156-228). When omitted, the batch root is used, and the first
+        named root ever seen is adopted as it."""
+        from ytpu_torch.core.block import GCRange
+        from ytpu_torch.core.ids import ID
+
+        explicit_primary = primary_root
+        if primary_root is None:
+            primary_root = self.root_name
+        rows = []
+        for carrier in carriers:
+            c = self.interner.intern(carrier.id.client)
+            if isinstance(carrier, GCRange):
+                rows.append((c, carrier.id.clock, carrier.len, -1, 0, -1, 0, BLOCK_GC, -1, 0, -1, 0,
+                             -1, 0, -1) + _NO_MOVE)
+                continue
+            item = carrier
+            kind = item.content.kind
+            if kind == CONTENT_STRING:
+                ref = self.payloads.add(kind, item.content.text.encode("utf-16-le"))
+            elif kind == CONTENT_ANY:
+                ref = self.payloads.add(kind, list(item.content.items))
+            elif kind == CONTENT_DELETED:
+                ref = -1
+            else:
+                # embed / format / type / doc / json / binary / move
+                # payloads: the content object itself
+                ref = self.payloads.add(kind, item.content)
+            oc = self.interner.intern(item.origin.client) if item.origin else -1
+            ok = item.origin.clock if item.origin else 0
+            rc = self.interner.intern(item.right_origin.client) if item.right_origin else -1
+            rk = item.right_origin.clock if item.right_origin else 0
+            key = self.keys.intern(item.parent_sub) if item.parent_sub is not None else -1
+            parent = item.parent
+            p_root = -1
+            if isinstance(parent, ID):
+                p_tag = 2
+                pc, pk = self.interner.intern(parent.client), parent.clock
+            elif parent is not None:  # a named root
+                p_tag, pc, pk = 1, -1, 0
+                if explicit_primary is None and not self._root_adopted:
+                    self.root_name = primary_root = parent
+                    self._root_adopted = True
+                if parent != primary_root:
+                    p_root = self.keys.intern(parent)
+            else:  # omitted on the wire: inherited from the anchors
+                p_tag, pc, pk = 0, -1, 0
+            mv = _NO_MOVE
+            if kind == CONTENT_MOVE:
+                move = item.content.move
+                # a bound with no item id (a branch-scoped sticky index)
+                # reads as the sequence head / tail
+                sc, sk, sa = -1, 0, move.start.assoc
+                if move.start.id is not None:
+                    sc = self.interner.intern(move.start.id.client)
+                    sk = move.start.id.clock
+                ec, ek, ea = -1, 0, move.end.assoc
+                if move.end.id is not None:
+                    ec = self.interner.intern(move.end.id.client)
+                    ek = move.end.id.clock
+                mv = (sc, sk, sa, ec, ek, ea, max(move.priority, 0))
+            rows.append((c, item.id.clock, item.len, oc, ok, rc, rk, kind, ref, 0, key, p_tag, pc,
+                         pk, p_root) + mv)
+        return rows
+
+    def build_batch(self, updates, n_rows=None, n_dels=None, device=None) -> UpdateBatch:
+        """Pad per-doc rows of `updates` (None = no-op slot) into one batch.
+        Each doc slot's primary root is the first named root it ever used
+        (sticky across calls, `doc_primaries`)."""
+
+        def first_root(u):
+            for c in sorted(u.blocks, reverse=True):
+                for b in u.blocks[c]:
+                    p = getattr(b, "parent", None)
+                    if isinstance(p, str):
+                        return p
+            return None
+
+        all_rows, all_dels = [], []
+        for d_i, u in enumerate(updates):
+            if u is None:
+                all_rows.append([])
+                all_dels.append([])
+                continue
+            fr = first_root(u)
+            prim = self.doc_primaries.setdefault(d_i, fr) if fr is not None else self.doc_primaries.get(d_i)
+            r, d = self.rows_from_update(u, primary_root=prim)
+            all_rows.append(r)
+            all_dels.append(d)
+        return self.batch_from_rows(all_rows, all_dels, n_rows, n_dels, device=device)
+
+    def batch_from_rows(self, all_rows, all_dels, n_rows=None, n_dels=None, device=None) -> UpdateBatch:
+        """Pad per-doc row / delete tuple lists into one ``[D, U]`` /
+        ``[D, R]`` batch on `device` (the GPU unless it says otherwise);
+        one host-to-device copy for the rows and one for the deletes."""
+        device = resolve_device(device)
+        U = n_rows or max(1, max(len(r) for r in all_rows))
+        R = n_dels or max(1, max(len(d) for d in all_dels))
+        D = len(all_rows)
+        rows = np.empty((D, U, len(_ROW_FIELDS) + 1), dtype=np.int32)
+        rows[:, :, :-1] = _ROW_PAD
+        rows[:, :, -1] = 0
+        dels = np.zeros((D, R, 4), dtype=np.int32)
+        for d, (rr, dd) in enumerate(zip(all_rows, all_dels)):
+            if rr:
+                rows[d, : len(rr), :-1] = rr
+                rows[d, : len(rr), -1] = 1
+            if dd:
+                dels[d, : len(dd), :3] = dd
+                dels[d, : len(dd), 3] = 1
+        rows_t = torch.from_numpy(rows).to(device)
+        dels_t = torch.from_numpy(dels).to(device)
+        cols = {f: rows_t[:, :, i] for i, f in enumerate(_ROW_FIELDS)}
+        return UpdateBatch(
+            **cols,
+            valid=rows_t[:, :, -1] != 0,
+            del_client=dels_t[:, :, 0],
+            del_start=dels_t[:, :, 1],
+            del_end=dels_t[:, :, 2],
+            del_valid=dels_t[:, :, 3] != 0,
+        )
+
+
+# --- root anchors -------------------------------------------------------------------
+
+
+def _append_root_anchor_masked(state: DocStateBatch, doc_mask: torch.Tensor, key_id: int) -> DocStateBatch:
+    """Append the BLOCK_ROOT_ANCHOR row of root `key_id` in every doc
+    selected by ``doc_mask`` (``[D]`` bool) that has none yet: the shared
+    core of `ensure_root_anchor` and `ensure_root_anchor_all`. A doc at
+    capacity gets ERR_CAPACITY instead. The input state is left as it
+    was.
+
+    Anchors give non-primary named roots (doc.rs:156-228) a per-doc row the
+    integrate path parents through (its `head` is the root's child-sequence
+    head, as a nested ContentType row's is). They have no wire identity:
+    client -1 keeps them out of state vectors, ship masks and delete
+    sets."""
+    bl = state.blocks
+    D, B = bl.client.shape
+    dev = bl.client.device
+    slots = torch.arange(B, device=dev)[None, :]
+    exists = ((slots < state.n_blocks[:, None]) & (bl.kind == BLOCK_ROOT_ANCHOR)
+              & (bl.key == key_id)).any(dim=1)
+    j = state.n_blocks.long()
+    want = doc_mask & ~exists
+    do = want & (j < B)
+    docs = torch.nonzero(do).reshape(-1)
+    at = j[docs]
+    new = {}
+    for name, val in (("kind", BLOCK_ROOT_ANCHOR), ("key", key_id), ("client", -1), ("length", 0),
+                      ("head", -1), ("left", -1), ("right", -1), ("deleted", False),
+                      ("countable", False)):
+        col = getattr(bl, name).clone()
+        col[docs, at] = val
+        new[name] = col
+    return DocStateBatch(
+        blocks=bl._replace(**new),
+        start=state.start,
+        n_blocks=state.n_blocks + do.to(state.n_blocks.dtype),
+        # error is a bitmask: OR the flag in
+        error=state.error | torch.where(want & (j >= B), ERR_CAPACITY, 0).to(state.error.dtype),
+    )
+
+
+def ensure_root_anchor(state: DocStateBatch, doc: int, key_id: int) -> DocStateBatch:
+    """Create doc's anchor row for a non-primary root (a no-op when it
+    exists). Call it before applying rows that carry ``p_root == key_id``:
+    the integrate path resolves anchors, it never creates them."""
+    D = state.blocks.client.shape[0]
+    mask = torch.arange(D, device=state.start.device) == int(doc)
+    return _append_root_anchor_masked(state, mask, int(key_id))
+
+
+def ensure_root_anchor_all(state: DocStateBatch, key_id: int) -> DocStateBatch:
+    """Create the anchor row of root `key_id` in every doc slot."""
+    D = state.blocks.client.shape[0]
+    return _append_root_anchor_masked(state, torch.ones(D, dtype=torch.bool, device=state.start.device),
+                                      int(key_id))
 
 
 # --- the host finisher --------------------------------------------------------------
@@ -1109,3 +1422,156 @@ def get_string(state: DocStateBatch, doc: int, payloads) -> str:
                 )
             )
     return "".join(out)
+
+
+def get_values(state: DocStateBatch, doc: int, payloads) -> list:
+    """A doc's visible sequence values (the Array tenant)."""
+    bl = BlockCols(*(np.asarray(a[doc].cpu()) for a in state.blocks))
+    out: list = []
+    for idx in _visible_walk(bl, int(state.n_blocks[doc]), int(state.start[doc])):
+        if not bl.deleted[idx] and bl.countable[idx]:
+            kind = int(bl.kind[idx])
+            ref = int(bl.content_ref[idx])
+            off = int(bl.content_off[idx])
+            ln = int(bl.length[idx])
+            if kind == CONTENT_STRING:
+                out.extend(payloads.slice_text(ref, off, ln))
+            elif kind == CONTENT_ANY:
+                out.extend(payloads.slice_values(ref, off, ln))
+    return out
+
+
+def get_map(state: DocStateBatch, doc: int, payloads, keys: KeyInterner) -> dict:
+    """The root branch's visible map component: the live value of key k is
+    the tail of k's item chain (the row with key k and right -1; a deleted
+    tail means the key is absent, map.rs:285)."""
+    return get_tree(state, doc, payloads, keys)["map"]
+
+
+def get_tree(state: DocStateBatch, doc: int, payloads, keys: KeyInterner, interner=None) -> dict:
+    """A doc's full branch tree: the root's sequence and map components,
+    nested shared types rendered by their TypeRef (text -> str, map ->
+    dict, array and xml -> list), and the non-primary named roots under
+    ``"roots"``.
+
+    Nested branches live in the same block table: a ContentType row owns a
+    child sequence through its `head` column, and child map chains name it
+    in their `parent` column (the Branch projections of branch.rs:173-215).
+    With the `ClientInterner`, WeakRef branches render as their quoted
+    values (weak.rs:303-372); without it as empty sequences."""
+    from ytpu_torch.core.branch import TYPE_MAP, TYPE_TEXT, TYPE_WEAK, TYPE_XML_TEXT
+    from ytpu_torch.core.moving import ASSOC_BEFORE
+
+    bl = BlockCols(*(np.asarray(a[doc].cpu()) for a in state.blocks))
+    n = int(state.n_blocks[doc])
+
+    def render_type(i: int):
+        ref = int(bl.content_ref[i])
+        tb = getattr(payloads, "type_branch", None)
+        branch = tb(ref) if tb is not None else payloads.items[ref][1].branch
+        tr = branch.type_ref
+        if tr == TYPE_WEAK:
+            # weak branches only come from the host lane (the device
+            # decoder flags WeakRef ContentType)
+            return render_weak(payloads.items[ref][1])
+        seq, mp = render_branch(int(bl.head[i]), i)
+        if tr in (TYPE_TEXT, TYPE_XML_TEXT):
+            return "".join(v for v in seq if isinstance(v, str))
+        if tr == TYPE_MAP:
+            return mp
+        return seq
+
+    def render_weak(content):
+        """Quoted-range values from the columns: whole covering blocks,
+        trimmed where a bound id falls inside one, up to the end id."""
+        src = getattr(content.branch, "link_source", None)
+        if interner is None or src is None or src.quote_start.id is None:
+            return []
+        sc = interner.to_idx.get(src.quote_start.id.client)
+        if sc is None:
+            return []
+        sk = src.quote_start.id.clock
+        m = np.nonzero((bl.client[:n] == sc) & (bl.clock[:n] <= sk) & (sk < bl.clock[:n] + bl.length[:n]))[0]
+        if not len(m):
+            return []
+        i = int(m[0])
+        eid = src.quote_end.id
+        ec = interner.to_idx.get(eid.client) if eid is not None else None
+        out: list = []
+        steps = 0
+        first = True
+        while i >= 0 and steps <= n:
+            steps += 1
+            ck, ln = int(bl.clock[i]), int(bl.length[i])
+            same_client = eid is not None and ec is not None and int(bl.client[i]) == ec
+            contains_end = same_client and ck <= eid.clock < ck + ln
+            if not bl.deleted[i] and bl.countable[i]:
+                vals = render_row_values(i)
+                a = 0
+                if first and int(bl.client[i]) == sc and ck <= sk < ck + ln:
+                    a = sk - ck
+                    if src.quote_start.assoc == ASSOC_BEFORE:
+                        a += 1
+                b = len(vals)
+                if contains_end:
+                    b = eid.clock - ck
+                    if src.quote_end.assoc != ASSOC_BEFORE:
+                        b += 1
+                out.extend(vals[a:b])
+            first = False
+            if contains_end:
+                break
+            i = int(bl.right[i])
+        return out
+
+    def render_row_values(i: int) -> list:
+        kind = int(bl.kind[i])
+        ref = int(bl.content_ref[i])
+        off = int(bl.content_off[i])
+        ln = int(bl.length[i])
+        if kind == CONTENT_STRING:
+            return list(payloads.slice_text(ref, off, ln))
+        if kind == CONTENT_ANY:
+            return payloads.slice_values(ref, off, ln)
+        if kind == CONTENT_TYPE:
+            return [render_type(i)]
+        if kind == CONTENT_JSON:
+            return payloads.json_values(ref, off, ln)
+        if kind == CONTENT_EMBED:
+            return [payloads.embed_value(ref)]
+        if kind == CONTENT_BINARY:
+            return [payloads.binary_value(ref)]
+        if ref >= 0:
+            payload = payloads.items[ref][1]
+            if hasattr(payload, "values"):
+                return list(payload.values())
+        return []
+
+    def render_branch(head: int, parent_row: int):
+        seq: list = []
+        for idx in _visible_walk(bl, n, head):
+            if not bl.deleted[idx] and bl.countable[idx] and bl.key[idx] < 0:
+                seq.extend(render_row_values(idx))
+        mp: dict = {}
+        for i in range(n):
+            if (int(bl.key[i]) >= 0 and int(bl.parent[i]) == parent_row and int(bl.right[i]) == -1
+                    and not bl.deleted[i]):
+                name = keys.names.get(int(bl.key[i]))
+                vals = render_row_values(i)
+                if name is not None and vals:
+                    mp[name] = vals[-1]
+        return seq, mp
+
+    seq, mp = render_branch(int(state.start[doc]), -1)
+    out = {"seq": seq, "map": mp}
+    # non-primary named roots live behind per-doc anchor rows
+    roots: dict = {}
+    for i in range(n):
+        if int(bl.kind[i]) == BLOCK_ROOT_ANCHOR:
+            name = keys.names.get(int(bl.key[i]))
+            r_seq, r_mp = render_branch(int(bl.head[i]), i)
+            if name is not None:
+                roots[name] = {"seq": r_seq, "map": r_mp}
+    if roots:
+        out["roots"] = roots
+    return out

@@ -10,8 +10,13 @@ Device half (ported as torch ops): `gather_raw_lanes` and the lane-parallel
 varint state machine `decode_updates_v1`. Every iteration decodes one
 lib0 varint (or one info byte / one string skip) in every update lane at
 once; the per-lane parse is sequential, all S lanes advance in lockstep
-as ``[S]``-wide tensor ops. Only the arguments the replay passes are
-supported (no client/key/client-hash tables, no primary-root hash).
+as ``[S]``-wide tensor ops. The intern tables (clients, key hashes,
+big-client hashes, primary roots) resolve after the loop, as torch ops
+(`_resolve_and_pack`).
+
+`ChunkedWirePayloads` resolves the payloads of the batch ingestor's rows:
+host-planned rows through a `PayloadStore`, device-decoded rows through
+the wire bytes it retains, step by step.
 
 JAX clamps out-of-range gathers; every gather here clamps its index
 explicitly. uint32 arithmetic is emulated in int64 with 32-bit masks.
@@ -59,6 +64,7 @@ __all__ = [
     "decode_updates_v1",
     "identity_rank",
     "RawPayloadView",
+    "ChunkedWirePayloads",
     "WireTypeRef",
     "utf8_slice_u16",
     "default_steps",
@@ -407,6 +413,101 @@ class RawPayloadView:
         return _wire_type_raw(self.buf, int(ref))
 
 
+class ChunkedWirePayloads:
+    """Payload resolver over a host `PayloadStore` plus the wire-byte
+    chunks the batch ingestor retains from its device-decoded steps.
+
+    Ref space: ``ref >= 0`` -> the PayloadStore (host-planned rows);
+    ``ref <= -2`` -> byte ``-(ref + 2)`` of the concatenated chunks
+    (device-decoded rows: the ingestor rebases each step's ``s * L +
+    start`` refs onto the running total of retained bytes); ``-1`` is no
+    payload."""
+
+    def __init__(self, store):
+        self.store = store
+        self._chunks: List[Tuple[int, np.ndarray]] = []  # (base, flat bytes)
+        self.total_bytes = 0
+
+    @property
+    def items(self):
+        return self.store.items
+
+    def add_chunk(self, buf: np.ndarray) -> int:
+        """Retain a step's bytes; returns the base its refs are rebased by."""
+        flat = np.ascontiguousarray(buf, dtype=np.uint8).reshape(-1)
+        base = self.total_bytes
+        self._chunks.append((base, flat))
+        self.total_bytes += flat.size
+        return base
+
+    def drop_if_unreferenced(self, base: int) -> None:
+        """Release the most recent chunk (its rows never went live); only
+        the latest can be dropped."""
+        if self._chunks and self._chunks[-1][0] == base:
+            self._chunks.pop()
+            self.total_bytes = base
+
+    def _locate(self, ref: int) -> Tuple[np.ndarray, int]:
+        import bisect
+
+        off = -(int(ref) + 2)
+        k = bisect.bisect_right([b for b, _ in self._chunks], off) - 1
+        base, flat = self._chunks[k]
+        return flat, off - base
+
+    def slice_text(self, ref: int, off: int, length: int) -> str:
+        if int(ref) >= 0:
+            return self.store.slice_text(ref, off, length)
+        flat, start = self._locate(ref)
+        return utf8_slice_u16(flat, start, off, length)
+
+    def slice_values(self, ref: int, off: int, length: int) -> list:
+        if int(ref) >= 0:
+            return self.store.slice_values(ref, off, length)
+        flat, start = self._locate(ref)
+        return _wire_any_values(flat, start, off, length)
+
+    def json_values(self, ref: int, off: int, length: int) -> list:
+        if int(ref) >= 0:
+            return self.store.json_values(ref, off, length)
+        flat, start = self._locate(ref)
+        return _wire_json_values(flat, start, off, length)
+
+    def json_raw(self, ref: int, off: int, length: int) -> list:
+        if int(ref) >= 0:
+            return self.store.json_raw(ref, off, length)
+        flat, start = self._locate(ref)
+        return _wire_json_raw(flat, start, off, length)
+
+    def embed_value(self, ref: int):
+        if int(ref) >= 0:
+            return self.store.embed_value(ref)
+        flat, start = self._locate(ref)
+        return _wire_embed_value(flat, start)
+
+    def binary_value(self, ref: int) -> bytes:
+        if int(ref) >= 0:
+            return self.store.binary_value(ref)
+        flat, start = self._locate(ref)
+        return _wire_binary_value(flat, start)
+
+    def format_kv(self, ref: int):
+        if int(ref) >= 0:
+            return self.store.format_kv(ref)
+        flat, start = self._locate(ref)
+        return _wire_format_kv(flat, start)
+
+    def type_branch(self, ref: int):
+        if int(ref) >= 0:
+            return self.store.items[int(ref)][1].branch
+        flat, start = self._locate(ref)
+        return _wire_type_branch(flat, start)
+
+    def type_raw(self, ref: int) -> bytes:
+        flat, start = self._locate(ref)
+        return _wire_type_raw(flat, start)
+
+
 def default_steps(max_rows: int, max_dels: int) -> int:
     """Safe iteration budget for scalar content."""
     return 4 + 13 * max_rows + 4 * max_dels
@@ -483,12 +584,33 @@ def decode_updates_v1(
     max_rows: int,
     max_dels: int,
     n_steps: Optional[int] = None,
+    client_table: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
     max_sections: Optional[int] = None,
+    key_table: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+    client_hash_table: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+    primary_root_hash: Optional[torch.Tensor] = None,
 ) -> Tuple[UpdateBatch, torch.Tensor]:
     """Decode S updates (``buf`` ``[S, L]`` uint8, ``lens`` ``[S]``) into an
     ``[S, U] / [S, R]`` UpdateBatch stream. Returns ``(stream, flags)``;
     lanes with ``flags & FLAG_ERRORS`` decoded incompletely and their rows
-    are marked invalid."""
+    are marked invalid.
+
+    The tables (each a ``(sorted keys, perm)`` pair: ``perm[j]`` is the
+    interned index of ``keys[j]``) are resolved after the loop by
+    `_resolve_and_pack`, with the JAX package's semantics:
+    ``client_table`` maps raw client ids to interned indices (a miss flags
+    FLAG_UNKNOWN_CLIENT); ``client_hash_table`` maps the varint-byte hash
+    of an id beyond i32 (`client_hash_host`) to its interned index
+    (without it such lanes flag FLAG_BIG_CLIENT, a miss flags
+    FLAG_UNKNOWN_CLIENT); ``key_table`` maps a parent_sub key hash
+    (`key_hash_host`) to its key index (a map row with no table or a miss
+    flags FLAG_UNKNOWN_KEY); ``primary_root_hash`` (``[S]``, -1 = single
+    root) maps a named root whose hash is the lane's primary to the
+    implicit branch (``p_root == -1``) and other names through
+    ``key_table`` to their anchor's key id (a miss flags
+    FLAG_UNKNOWN_KEY, a name beyond the hash window FLAG_UNSUPPORTED).
+    Without tables every client id stays raw, map rows flag and
+    ``key`` / ``p_root`` are -1."""
     dev = buf.device
     S, L = buf.shape
     U, R = max_rows, max_dels
@@ -941,22 +1063,127 @@ def decode_updates_v1(
         regs = regs2
 
     flags = regs["flags"] | torch.where(regs["st"] != ST_DONE, FLAG_MALFORMED, 0)
-    return _resolve_and_pack(rows, dels, flags)
+    return _resolve_and_pack(rows, dels, flags, client_table, key_table, client_hash_table,
+                             primary_root_hash)
 
 
-def _resolve_and_pack(rows, dels, flags):
-    """Post-decode pass without intern tables: hashed big-client ids flag
-    FLAG_BIG_CLIENT, map rows flag FLAG_UNKNOWN_KEY, error lanes lose their
-    rows, and the columns pack into an int32 UpdateBatch."""
+_ID_COLUMNS = ("client", "oc", "rc", "pc", "msc", "mec")
+
+
+def _table(t, device):
+    """A ``(sorted keys, perm)`` table as int64 tensors on `device`, or
+    None for no table."""
+    if t is None:
+        return None
+    keys, perm = t
+    return (torch.as_tensor(keys, device=device).to(I64).reshape(-1).contiguous(),
+            torch.as_tensor(perm, device=device).to(I64).reshape(-1))
+
+
+def _lookup(table, arr):
+    """``(j, hit)``: where `arr`'s entries would sit in the table's sorted
+    keys (clamped into it) and whether the key there equals them."""
+    keys = table[0]
+    j = torch.searchsorted(keys, arr.contiguous()).clamp(0, keys.numel() - 1)
+    return j, keys[j] == arr
+
+
+def _resolve_and_pack(rows, dels, flags, client_table=None, key_table=None,
+                      client_hash_table=None, primary_root_hash=None):
+    """Post-decode pass: raw client ids -> interned indices
+    (`client_table`), big-client hash entries -> indices
+    (`client_hash_table`, else FLAG_BIG_CLIENT), parent_sub hashes -> key
+    indices (`key_table`, else FLAG_UNKNOWN_KEY), named roots -> the
+    implicit branch or an anchor's key id (`primary_root_hash`), then
+    error lanes lose their rows and the columns pack into an int32
+    UpdateBatch."""
     S, U = rows["client"].shape
     dev = flags.device
-    bigf = torch.zeros((S,), dtype=torch.bool, device=dev)
-    for name in ("client", "oc", "rc", "pc", "msc", "mec"):
-        bigf = bigf | (rows["valid"] & (rows[name] <= -2)).any(dim=1)
-    bigf = bigf | (dels["valid"] & (dels["client"] <= -2)).any(dim=1)
-    flags = flags | torch.where(bigf, FLAG_BIG_CLIENT, 0)
-    key_miss = rows["valid"] & (rows["keyh"] >= 0)
-    flags = flags | torch.where(key_miss.any(dim=1), FLAG_UNKNOWN_KEY, 0)
+    none = torch.zeros((S,), dtype=torch.bool, device=dev)
+    valid = rows["valid"]
+
+    def where_flag(cond, flag):
+        return torch.where(cond, flag, 0)
+
+    ct = _table(client_table, dev)
+    if ct is not None and ct[0].numel() == 0:
+        # an empty raw table: only lanes using raw (>= 0) ids are unknown;
+        # hashed big-client entries (<= -2) resolve below
+        raw_used = (dels["valid"] & (dels["client"] >= 0)).any(dim=1)
+        for name in _ID_COLUMNS:
+            raw_used = raw_used | (valid & (rows[name] >= 0)).any(dim=1)
+        flags = flags | where_flag(raw_used, FLAG_UNKNOWN_CLIENT)
+        ct = None
+    if ct is not None:
+        perm = ct[1]
+
+        def map_ids(arr, used):
+            j, hit = _lookup(ct, arr)
+            hit = hit & (arr >= 0)
+            out = torch.where(hit, perm[j], torch.where(arr <= -2, arr, -1))
+            return out, (used & (arr >= 0) & ~hit).any(dim=1)
+
+        unk = none
+        for name in _ID_COLUMNS:
+            rows[name], u = map_ids(rows[name], valid)
+            unk = unk | u
+        dels["client"], u = map_ids(dels["client"], dels["valid"])
+        flags = flags | where_flag(unk | u, FLAG_UNKNOWN_CLIENT)
+
+    cht = _table(client_hash_table, dev)
+    if cht is not None and cht[0].numel() == 0:
+        cht = None
+
+    def map_hashed(arr, used):
+        hashed = arr <= -2
+        if cht is None:
+            return arr, (used & hashed).any(dim=1), none
+        j, hit = _lookup(cht, -2 - arr)
+        hit = hit & hashed
+        return torch.where(hit, cht[1][j], arr), none, (used & hashed & ~hit).any(dim=1)
+
+    bigf, unkh = none, none
+    for name, arr, used in [(n, rows[n], valid) for n in _ID_COLUMNS] + [
+            ("del", dels["client"], dels["valid"])]:
+        out, b, m = map_hashed(arr, used)
+        if name == "del":
+            dels["client"] = out
+        else:
+            rows[name] = out
+        bigf, unkh = bigf | b, unkh | m
+    flags = flags | where_flag(bigf, FLAG_BIG_CLIENT) | where_flag(unkh, FLAG_UNKNOWN_CLIENT)
+
+    # parent_sub key hashes -> interned key indices (map rows)
+    has_key = valid & (rows["keyh"] >= 0)
+    key_col = torch.full((S, U), -1, dtype=I64, device=dev)
+    key_miss = has_key
+    kt = _table(key_table, dev)
+    if kt is not None and kt[0].numel() == 0:
+        kt = None
+    if kt is not None:
+        j, hit = _lookup(kt, rows["keyh"])
+        hit = has_key & hit
+        key_col = torch.where(hit, kt[1][j], -1)
+        key_miss = has_key & ~hit
+    flags = flags | where_flag(key_miss.any(dim=1), FLAG_UNKNOWN_KEY)
+
+    # named-root parents of multi-root docs: the lane's primary root maps
+    # to the implicit branch (p_root -1), other names through the key
+    # table to their anchor's key id
+    p_root_col = torch.full((S, U), -1, dtype=I64, device=dev)
+    if primary_root_hash is not None:
+        rooth = rows["rooth"]
+        prim = torch.as_tensor(primary_root_hash, device=dev).to(I64).reshape(-1)[:, None]
+        named = valid & (rows["ptag"] == 1) & (prim >= 0)
+        nonprim = named & (rooth >= 0) & (rooth != prim)
+        root_miss = nonprim
+        if kt is not None:
+            j, hit = _lookup(kt, rooth)
+            hit = nonprim & hit
+            p_root_col = torch.where(hit, kt[1][j], -1)
+            root_miss = nonprim & ~hit
+        flags = (flags | where_flag(root_miss.any(dim=1), FLAG_UNKNOWN_KEY)
+                 | where_flag((named & (rooth == -2)).any(dim=1), FLAG_UNSUPPORTED))
 
     lane_ok = (flags & FLAG_ERRORS) == 0
     valid = rows["valid"] & lane_ok[:, None]
@@ -966,7 +1193,6 @@ def _resolve_and_pack(rows, dels, flags):
         return x.to(I32)
 
     z_u = torch.zeros((S, U), dtype=I32, device=dev)
-    neg_u = torch.full((S, U), -1, dtype=I32, device=dev)
     stream = UpdateBatch(
         client=i32(rows["client"]),
         clock=i32(rows["clock"]),
@@ -978,11 +1204,11 @@ def _resolve_and_pack(rows, dels, flags):
         kind=i32(rows["kind"]),
         content_ref=i32(rows["ref"]),
         content_off=z_u,
-        key=neg_u.clone(),
+        key=i32(key_col),
         p_tag=i32(rows["ptag"]),
         p_client=i32(rows["pc"]),
         p_clock=i32(rows["pk"]),
-        p_root=neg_u.clone(),
+        p_root=i32(p_root_col),
         mv_sc=i32(rows["msc"]),
         mv_sk=i32(rows["msk"]),
         mv_sa=i32(rows["msa"]),
