@@ -38,6 +38,17 @@ client's text; their values held against stream replays and the committed
 logs' values, no error, no stash, no recovery; 16 calls under
 `torch.profiler`; the per-doc kernel against its plain version on one
 step's captured inputs with anchor, map and big-client rows),
+``sync_server`` (one device-authoritative `DeviceSyncServer` at 1,024
+tenants x 8,192 slots, the ingest phase's cohorts, a writer and a reader
+session each: 32 write rounds of Update frames, each followed by one
+`flush_device` step, then each log's rest as one SyncStep2 frame; the
+readers' SyncStep1s, even tenants with an empty state vector, odd ones
+with the middle round's; one `device_encode_diff_many` over every tenant;
+greetings, drained broadcasts, texts, values and every reply held to the
+device state vectors, the writers' frames, stream replays, the committed
+logs and the CPU finisher; a fresh server caught up from the fan-out;
+rebalances; 8 flush steps and 8 replies under `torch.profiler`; the
+per-doc kernel against its plain version on one round's captured inputs),
 ``stream_replay_full_width`` (the whole log decoded
 into one stream and replayed through `replay_stream_fused` at 256 docs,
 again under `torch.profiler` for the time of each launch, then the
@@ -957,6 +968,29 @@ def _cohort_equal(state, first: int, n: int) -> bool:
                for f in fields)
 
 
+def _b4_prefix_texts(b4, prefixes, capacity: int, dev, phase: str) -> dict:
+    """``{n: text}``: the text of B4's first n updates for each n of
+    `prefixes`, by a stream replay on the card (one decode of `b4`, then
+    `apply_update_stream` of each prefix into one doc)."""
+    import torch
+
+    from ytpu_torch.models import batch_doc as bd
+    from ytpu_torch.ops.decode_kernel import FLAG_ERRORS, RawPayloadView, decode_updates_v1, identity_rank, pack_updates
+
+    buf_np, lens_np = pack_updates(b4)
+    stream, flags = decode_updates_v1(torch.from_numpy(buf_np).to(dev), torch.from_numpy(lens_np).to(dev),
+                                      max_rows=4, max_dels=4)
+    if int(((flags & FLAG_ERRORS) != 0).sum()):
+        raise RuntimeError(f"{phase}: decode flagged a B4 update of the reference replay")
+    view = RawPayloadView(buf_np)
+    rank = identity_rank(256, dev)
+    out = {}
+    for n in sorted(set(prefixes)):
+        ref = bd.apply_update_stream(bd.init_state(1, capacity, dev), type(stream)(*(f[:n] for f in stream)), rank)
+        out[n] = bd.get_string(ref, 0, view)
+    return out
+
+
 def phase_ingest(gpu, log, dev="cuda"):
     """One `BatchIngestor` at 1,024 docs x 8,192 slots on the card, one
     `apply_bytes` call per step over `benches/ingest.py`'s four cohorts
@@ -977,9 +1011,6 @@ def phase_ingest(gpu, log, dev="cuda"):
     from ytpu_torch.models import batch_doc as bd
     from ytpu_torch.models import ingest as ingest_mod
     from ytpu_torch.ops import integrate_kernel as ik
-    from ytpu_torch.ops.decode_kernel import (
-        FLAG_ERRORS, RawPayloadView, decode_updates_v1, identity_rank, pack_updates,
-    )
 
     dev = torch.device(dev)
     logs = bench.load_ingest_logs()
@@ -1030,22 +1061,11 @@ def phase_ingest(gpu, log, dev="cuda"):
     if err or stash or ing.fast_recoveries:
         raise RuntimeError(f"ingest: error {err}, docs with a stash {stash[:8]}, "
                            f"recoveries {ing.fast_recoveries}")
-    buf_np, lens_np = pack_updates(b4)
-    stream, flags = decode_updates_v1(torch.from_numpy(buf_np).to(dev), torch.from_numpy(lens_np).to(dev),
-                                      max_rows=4, max_dels=4)
-    if int(((flags & FLAG_ERRORS) != 0).sum()):
-        raise RuntimeError("ingest: decode flagged a B4 update of the reference replay")
-    view = RawPayloadView(buf_np)
-    rank = identity_rank(256, dev)
     b4_docs = range(bench.COHORTS[0][1], bench.COHORTS[0][1] + bench.COHORTS[0][2])
-    texts_bad = []
-    for g in range(bench.LAG_GROUPS):
-        n = bench.b4_prefix(g)
-        ref = bd.apply_update_stream(bd.init_state(1, bench.INGEST_CAPACITY, dev),
-                                     type(stream)(*(f[:n] for f in stream)), rank)
-        want = bd.get_string(ref, 0, view)
-        texts_bad += [d for d in b4_docs if d % bench.LAG_GROUPS == g
-                      and bd.get_string(ing.state, d, ing.payloads) != want]
+    want = _b4_prefix_texts(b4, [bench.b4_prefix(g) for g in range(bench.LAG_GROUPS)], bench.INGEST_CAPACITY,
+                            dev, "ingest")
+    texts_bad = [d for d in b4_docs
+                 if bd.get_string(ing.state, d, ing.payloads) != want[bench.b4_prefix(d % bench.LAG_GROUPS)]]
     if texts_bad:
         raise RuntimeError(f"ingest: B4 docs {texts_bad[:8]} differ from the stream replay of their prefix")
     values = {}
@@ -1122,6 +1142,351 @@ def phase_ingest(gpu, log, dev="cuda"):
     }
     emit(line)
     del ing
+    return line
+
+
+# sync server: the traced window of flush steps (rounds), the traced
+# single-tenant replies, and the round whose per-doc kernel inputs are held
+# against the plain version (fast docs and the swapped B4 docs' host lane)
+SYNC_TRACED_FROM, SYNC_TRACED_STEPS = 20, 8
+SYNC_TRACED_REPLIES = 8
+SYNC_SNAPSHOT_STEP = 5
+# two tenants of each cohort rebalanced in place after the middle round's
+# flush, when a swapped B4 tenant holds a stash (tenant 56: lag 0, swapped);
+# the other cohorts' last two, so each cohort's first tenants keep equal
+# columns. At the end each re-ingest would decode thousands of steps.
+SYNC_REBALANCED = (0, 56, 894, 895, 958, 959, 1022, 1023)
+
+
+def _progress(t0: float, what: str) -> None:
+    print(f"[{time.perf_counter() - t0:8.1f} s] {what}", file=sys.stderr, flush=True)
+
+
+def _cpu_state(state):
+    from ytpu_torch.models import batch_doc as bd
+
+    return bd.DocStateBatch(bd.BlockCols(*(a.cpu() for a in state.blocks)),
+                            *(a.cpu() for a in (state.start, state.n_blocks, state.error)))
+
+
+def _cpu_finisher_replies(server, tenants, clocks):
+    """The SyncStep2 payloads the CPU finisher writes for each tenant
+    against state vector ``clocks[name]``, over a CPU copy of the server's
+    device state: `encode_diff_batch`, then `finish_encode_diff_batch` per
+    wire root name."""
+    import torch
+
+    from ytpu_torch.core.state_vector import StateVector
+    from ytpu_torch.models import batch_doc as bd
+
+    cpu = _cpu_state(server.ingestor.state)
+    remote, n_clients = server._remote_matrix([(server.slot_of(t.name), StateVector(clocks[t.name]))
+                                               for t in tenants])
+    ship, off, _, dele = bd.encode_diff_batch(cpu, remote.cpu(), n_clients)
+    groups = {}
+    for t in tenants:
+        groups.setdefault(server._root_names.get(t.name), []).append(t)
+    out = {}
+    for root, ts in groups.items():
+        got = bd.finish_encode_diff_batch(cpu, [server.slot_of(t.name) for t in ts], ship, off, dele,
+                                          server._tables(root))
+        out.update({t.name: g for t, g in zip(ts, got)})
+    del cpu, ship, off, dele
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_sync_server(gpu, log, dev="cuda"):
+    """One device-authoritative `DeviceSyncServer` at 1,024 tenants x 8,192
+    slots on the card (`benches/sync_server.py`'s `FULL` plan: the ingest
+    phase's four cohorts, a writer and a reader session each), driven
+    through its entry points: `connect_frames`, `receive_frames` with
+    Update, SyncStep2 and SyncStep1 frames, `drain`, `flush_device`,
+    `device_encode_diff_many`, `rebalance_tenant`. Counts are reset just
+    before the write rounds and read after the fan-out; flush steps
+    SYNC_TRACED_FROM.. and SYNC_TRACED_REPLIES replies run under
+    `torch.profiler` (left out of the per-step and per-reply times).
+    After the middle round's flush a rebalance on the full batch must raise
+    and move nothing, and eight in-place rebalances (SYNC_REBALANCED, one
+    of them over a pending stash) must change no value, state vector or
+    stash. Checks: every greeting's state vector is the device's at
+    connection; each reader drained its writer's updates in order; B4
+    texts equal stream replays of their prefix, each other cohort's
+    tenants hold the same columns (the rebalanced ones aside) and the
+    committed values; no error, stash or bad frame; every reply equals the
+    CPU finisher's bytes over the same state, an empty state vector's also
+    the fan-out's; a fresh server fed the fan-out as SyncStep2 frames and
+    flushed once holds the same state vectors and values; the per-doc
+    kernel equals its plain version on round SYNC_SNAPSHOT_STEP's inputs.
+    Progress goes to stderr."""
+    import statistics
+
+    import torch
+
+    from ytpu_torch.benches import ingest as ingest_bench
+    from ytpu_torch.benches import sync_server as bench
+    from ytpu_torch.core.state_vector import StateVector
+    from ytpu_torch.models import ingest as ingest_mod
+    from ytpu_torch.ops import integrate_kernel as ik
+    from ytpu_torch.sync import DeviceSyncServer
+    from ytpu_torch.sync.protocol import Message, SyncMessage
+    from ytpu_torch.sync.server import DeviceBatchFull, TenantAnchor
+
+    dev = torch.device(dev)
+    plan = bench.FULL
+    logs = ingest_bench.load_ingest_logs()
+    tenants = bench.make_tenants(plan, log, logs)
+    ids = {t.name: bench.tenant_client_id(t.index) for t in tenants}
+
+    def new_server():
+        return DeviceSyncServer(n_docs=plan.n_docs, capacity=plan.capacity, device_authoritative=True,
+                                device=dev, doc_factory=lambda name: TenantAnchor(client_id=ids[name]))
+
+    server = new_server()
+    ing = server.ingestor
+    captured = {}
+    real_apply = ingest_mod.apply_update_batch
+
+    def capture(state, batch, rank):
+        cols, meta = ik.pack_state(state)
+        rows, dels = ik.pack_stream(batch)
+        captured.update(cols=cols, meta=meta, rows=rows, dels=dels, rank=rank.clone())
+        return real_apply(state, batch, rank)
+
+    step_ms, traced_ms, lanes, window = [], [], [], {}
+
+    def flush(step):
+        before = (ing.fast_docs, ing.slow_docs, ing.fast_recoveries)
+        traced = SYNC_TRACED_FROM <= step < SYNC_TRACED_FROM + SYNC_TRACED_STEPS
+        if step == SYNC_TRACED_FROM:
+            window["prof"] = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                                torch.profiler.ProfilerActivity.CUDA])
+            window["prof"].__enter__()
+            window["t0"] = time.perf_counter()
+        ingest_mod.apply_update_batch = capture if step == SYNC_SNAPSHOT_STEP else real_apply
+        t0 = time.perf_counter()
+        n = server.flush_device()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        if step == plan.rounds:
+            window["rest_ms"] = ms
+        else:
+            (traced_ms if traced else step_ms).append(ms)
+        ingest_mod.apply_update_batch = real_apply
+        lanes.append(tuple(a - b for a, b in zip((ing.fast_docs, ing.slow_docs, ing.fast_recoveries), before)))
+        if step % 8 == 7:
+            recent = (step_ms + traced_ms)[-8:]
+            _progress(t_all, f"round {step}: {statistics.fmean(recent):.1f} ms a flush step over the last 8, "
+                             f"lanes {lanes[-1]}, round wall {(time.perf_counter() - window['round_t0']) * 1e3:.0f} ms")
+        window["round_t0"] = time.perf_counter()
+        if step == SYNC_TRACED_FROM + SYNC_TRACED_STEPS - 1:
+            window["write_s"] = time.perf_counter() - window["t0"]
+            window["prof"].__exit__(None, None, None)
+            window["write"] = window.pop("prof")
+        return n
+
+    reply_ms, reply_traced_ms = [], []
+
+    def reply(session, frame):
+        k = len(reply_ms) + len(reply_traced_ms)
+        traced = k < SYNC_TRACED_REPLIES
+        if k == 0:
+            window["prof"] = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                                torch.profiler.ProfilerActivity.CUDA])
+            window["prof"].__enter__()
+            window["t0"] = time.perf_counter()
+        t0 = time.perf_counter()
+        out = server.receive_frames(session, frame)
+        torch.cuda.synchronize()
+        (reply_traced_ms if traced else reply_ms).append((time.perf_counter() - t0) * 1e3)
+        if k == SYNC_TRACED_REPLIES - 1:
+            window["read_s"] = time.perf_counter() - window["t0"]
+            window["prof"].__exit__(None, None, None)
+            window["read"] = window.pop("prof")
+        return out
+
+    def tenant_state(t):
+        p = ing.pending_update(t.index)
+        return (server.slot_of(t.name), bench.tenant_value(server, t), server.device_state_vector(t.name),
+                None if p is None else p.encode_v1())
+
+    rebalance = {}
+
+    def after_round(r):
+        if r != plan.rounds // 2:
+            return
+        probe = tenants[SYNC_REBALANCED[0]]
+        before = tenant_state(probe)
+        try:
+            server.rebalance_tenant(probe.name)
+        except DeviceBatchFull:
+            pass
+        else:
+            raise RuntimeError("sync_server: a rebalance found a free slot in a full batch")
+        if tenant_state(probe) != before:
+            raise RuntimeError("sync_server: a refused rebalance changed its tenant")
+        rebalance["stashed"] = [tenants[i].name for i in SYNC_REBALANCED if ing.pending_update(i) is not None]
+        t0 = time.perf_counter()
+        for i in SYNC_REBALANCED:
+            t = tenants[i]
+            before = tenant_state(t)
+            t1 = time.perf_counter()
+            if server.rebalance_tenant(t.name, t.index) != t.index or tenant_state(t) != before:
+                raise RuntimeError(f"sync_server: rebalancing {t.name} changed its value, state vector or stash")
+            _progress(t_all, f"rebalanced {t.name} in {time.perf_counter() - t1:.2f} s")
+        rebalance["s_per_tenant"] = (time.perf_counter() - t0) / len(SYNC_REBALANCED)
+        _progress(t_all, f"rebalanced {len(SYNC_REBALANCED)} tenants after round {r}")
+
+    torch.cuda.synchronize()
+    _reset_counts([ik.integrate_batch, ik.integrate_stream])
+    t_all = window["round_t0"] = time.perf_counter()
+    run = bench.drive_writes(server, plan, tenants, flush=flush, after_round=after_round)
+    write_s = time.perf_counter() - t_all
+    _progress(t_all, f"writes: {plan.rounds} rounds, the rest flush {window['rest_ms']:.0f} ms")
+    t0 = time.perf_counter()
+    bench.drive_reads(server, run, tenants, reply=reply)
+    read_s = time.perf_counter() - t0
+    _progress(t_all, f"reads: {len(tenants)} replies")
+    t0 = time.perf_counter()
+    fanout = server.device_encode_diff_many([(t.name, StateVector()) for t in tenants])
+    fanout_s = time.perf_counter() - t0
+    _progress(t_all, "fan-out")
+    launches = {"batch": ik.integrate_batch.launches, "stream": ik.integrate_stream.launches}
+    want_launches = plan.rounds + 1 + len(SYNC_REBALANCED)
+    if launches != {"batch": want_launches, "stream": 0} or run.flush_steps != [1] * (plan.rounds + 1):
+        raise RuntimeError(f"sync_server: flush steps {run.flush_steps} made launches {launches}")
+    if not rebalance.get("stashed"):
+        raise RuntimeError("sync_server: no rebalanced tenant held a stash")
+
+    # the checks of the write side
+    for t in tenants:
+        w, r = run.greetings[t.name]
+        for g, sv in zip((w, r), run.connect_svs[t.name]):
+            if g[0] != Message.sync(SyncMessage.step1(StateVector(sv))).encode_v1() or len(g) != 2:
+                raise RuntimeError(f"sync_server: {t.name}'s greeting does not carry its device state vector")
+        if run.drained[t.name] != run.sent[t.name] or run.writer_outbox[t.name]:
+            raise RuntimeError(f"sync_server: {t.name}'s reader did not drain what its writer sent")
+    if run.write_replies:
+        raise RuntimeError(f"sync_server: writes got {len(run.write_replies)} replies")
+    err = int(ing.state.error.max())
+    stash = [t.name for t in tenants if ing.pending_update(t.index) is not None or ing.pending_ds(t.index) is not None]
+    if err or stash or ing.fast_recoveries or server.metrics["net.bad_frames"]:
+        raise RuntimeError(f"sync_server: error {err}, tenants with a stash {stash[:8]}, recoveries "
+                           f"{ing.fast_recoveries}, bad frames {server.metrics['net.bad_frames']}")
+    b4_tenants = [t for t in tenants if t.cohort == "b4"]
+    want = _b4_prefix_texts(log[: plan.b4_len], [len(t.log) for t in b4_tenants], plan.capacity, dev, "sync_server")
+    texts_bad = [t.name for t in b4_tenants if server.device_text(t.name) != want[len(t.log)]]
+    if texts_bad:
+        raise RuntimeError(f"sync_server: B4 tenants {texts_bad[:8]} differ from the stream replay of their log")
+    values = {}
+    for name, n in zip(bench.COHORT_NAMES[1:], plan.cohort_docs[1:]):
+        first = [t.index for t in tenants if t.cohort == name][0]
+        moved = [i for i in SYNC_REBALANCED if first <= i < first + n]
+        if not _cohort_equal(ing.state, first, n - len(moved)):
+            raise RuntimeError(f"sync_server: the {name} tenants hold different columns")
+        for i in [first] + moved:
+            if bench.tenant_value(server, tenants[i]) != logs[name]["expect"]:
+                raise RuntimeError(f"sync_server: {tenants[i].name} does not hold the committed value")
+        values[name] = {"tenants": n, "blocks": int(ing.state.n_blocks[first])}
+    _progress(t_all, "write-side checks")
+
+    # the read side: every reply against the CPU finisher, the empty state
+    # vectors' also against the fan-out
+    replies = {t.name: bench.step2_payload(run.step1_replies[t.name]) for t in tenants}
+    clocks = {t.name: ({} if t.index % 2 == 0 else run.mid_svs[t.name]) for t in tenants}
+    cpu_replies = _cpu_finisher_replies(server, tenants, clocks)
+    bad = [t.name for t in tenants if replies[t.name] != cpu_replies[t.name]
+           or (t.index % 2 == 0 and replies[t.name] != fanout[t.index])]
+    if bad:
+        raise RuntimeError(f"sync_server: replies of {bad[:8]} differ from the CPU finisher's or the fan-out's")
+    _progress(t_all, "replies against the CPU finisher")
+
+    # the pieces of a flush step and of a reply, from the traced windows
+    write_pieces = ("sync.dispatch", "ingest.plan", "ingest.decode", "pack_state", "pack_stream",
+                    "integrate_batch", "unpack_state")
+    read_pieces = ("encode_diff_batch", "state_vectors", "finisher")
+    w_trace, integrates, _ = _trace_breakdown(window["write"], window["write_s"], kernel="integrate_batch_kernel")
+    _, indexes, _ = _trace_breakdown(window["write"], window["write_s"], kernel="integrate_batch_index_kernel")
+    if len(integrates) != SYNC_TRACED_STEPS or len(indexes) != SYNC_TRACED_STEPS:
+        raise RuntimeError(f"sync_server: the trace holds {len(indexes)} index and {len(integrates)} integrate "
+                           f"kernels for {SYNC_TRACED_STEPS} flush steps")
+    r_trace, _, _ = _trace_breakdown(window["read"], window["read_s"])
+    _progress(t_all, "trace breakdowns")
+    write_device_ms = {k: w_trace["device_s"].get(k, 0.0) * 1e3 / SYNC_TRACED_STEPS for k in write_pieces + ("other",)}
+    write_host_ms = {k: w_trace["host_s"].get(k, 0.0) * 1e3 / SYNC_TRACED_STEPS for k in write_pieces}
+    read_device_ms = {k: r_trace["device_s"].get(k, 0.0) * 1e3 / SYNC_TRACED_REPLIES for k in read_pieces + ("other",)}
+    read_host_ms = {k: r_trace["host_s"].get(k, 0.0) * 1e3 / SYNC_TRACED_REPLIES for k in read_pieces}
+    del window["write"], window["read"]
+
+    # a fresh replica catches up from the fan-out
+    t0 = time.perf_counter()
+    fresh = new_server()
+    catch_up_steps = bench.catch_up(fresh, tenants, {t.name: fanout[t.index] for t in tenants})
+    torch.cuda.synchronize()
+    catch_up_s = time.perf_counter() - t0
+    _progress(t_all, f"catch-up flush: {catch_up_s:.1f} s, lanes fast {fresh.ingestor.fast_docs} "
+                     f"slow {fresh.ingestor.slow_docs}")
+    # every state vector and text; the values of each cohort's first and
+    # last tenant (the config 4 XML render walks every row per element)
+    bad = [t.name for t in tenants if fresh.device_state_vector(t.name) != server.device_state_vector(t.name)
+           or fresh.device_text(t.name) != server.device_text(t.name)]
+    for name in bench.COHORT_NAMES:
+        ts = [t for t in tenants if t.cohort == name]
+        bad += [t.name for t in (ts[0], ts[-1]) if bench.tenant_value(fresh, t) != bench.tenant_value(server, t)]
+    if catch_up_steps != 1 or bad or int(fresh.ingestor.state.error.max()):
+        raise RuntimeError(f"sync_server: the catch-up took {catch_up_steps} steps; tenants {bad[:8]} differ")
+    _progress(t_all, "catch-up")
+    del fresh
+    torch.cuda.empty_cache()
+
+    # the per-doc kernel against its plain version on the snapshot round
+    c = captured
+    snap_lanes = lanes[SYNC_SNAPSHOT_STEP]
+    if not (snap_lanes[0] and snap_lanes[1]):
+        raise RuntimeError(f"sync_server: round {SYNC_SNAPSHOT_STEP} had fast / slow / recovered docs {snap_lanes}")
+    cols_p, meta_p = c["cols"].clone(), c["meta"].clone()
+    k_ms = _time_ms(lambda: ik.integrate_batch(c["cols"], c["meta"], c["rows"], c["dels"], c["rank"]))
+    p_ms = _time_ms(lambda: ik.integrate_batch_reference(cols_p, meta_p, c["rows"], c["dels"], c["rank"]))
+    snap_err = _compare("integrate_batch on the sync_server snapshot round", c["cols"], c["meta"], cols_p, meta_p)
+    del cols_p, meta_p, captured
+
+    n_steps = plan.rounds
+    lanes_rest = lanes.pop()
+    line = {
+        "phase": "sync_server", "tenants": plan.n_docs, "capacity": plan.capacity, "rounds": plan.rounds,
+        "cohorts": dict(zip(bench.COHORT_NAMES, plan.cohort_docs)),
+        "b4_lag": f"(tenant mod {plan.lag_groups}) * {plan.lag_step} rounds", "launches": launches,
+        "write_s": write_s, "read_s": read_s,
+        "ms_per_flush_step": statistics.fmean(step_ms), "ms_per_flush_step_median": statistics.median(step_ms),
+        "ms_per_flush_step_min": min(step_ms), "ms_per_flush_step_max": max(step_ms),
+        "ms_rest_flush_step": window["rest_ms"], "ms_per_flush_step_traced": statistics.fmean(traced_ms),
+        "traced_steps": f"{SYNC_TRACED_FROM}..{SYNC_TRACED_FROM + SYNC_TRACED_STEPS}",
+        "ms_per_reply": statistics.fmean(reply_ms), "ms_per_reply_median": statistics.median(reply_ms),
+        "ms_per_reply_min": min(reply_ms), "ms_per_reply_max": max(reply_ms),
+        "ms_per_reply_traced": statistics.fmean(reply_traced_ms),
+        "fanout_s": fanout_s,
+        "reply_bytes": sum(len(v) for v in replies.values()),
+        "frames_broadcast": sum(len(v) for v in run.drained.values()),
+        "updates_applied": server.metrics["sync.updates_applied"],
+        "fast_docs_per_step": sum(f for f, _, _ in lanes) / n_steps,
+        "slow_docs_per_step": sum(s_ for _, s_, _ in lanes) / n_steps,
+        "recovery_docs_per_step": sum(r for _, _, r in lanes) / n_steps,
+        "lanes_rest_step": lanes_rest, "wire_bytes": ing.wire_bytes,
+        "write_host_ms_per_step": write_host_ms, "write_device_ms_per_step": write_device_ms,
+        "index_kernel_ms": statistics.fmean(ms for _, ms in indexes),
+        "integrate_kernel_ms": statistics.fmean(ms for _, ms in integrates),
+        "write_device_idle_share_traced": w_trace["device_idle_share"],
+        "read_host_ms_per_reply": read_host_ms, "read_device_ms_per_reply": read_device_ms,
+        "read_device_idle_share_traced": r_trace["device_idle_share"],
+        "catch_up_s": catch_up_s, "rebalanced": [tenants[i].name for i in SYNC_REBALANCED],
+        "rebalanced_with_stash": rebalance["stashed"], "rebalance_s_per_tenant": rebalance["s_per_tenant"],
+        "cohort_values": values, "b4_texts_equal_stream_replay": True, "replies_equal_cpu_finisher": True,
+        "catch_up_equal": True, "sticky_error": err,
+        "snapshot_step": SYNC_SNAPSHOT_STEP, "snapshot_lanes": snap_lanes, "snapshot_kernel_ms": k_ms,
+        "snapshot_plain_ms": p_ms, "max_abs_err": snap_err, "gpu": gpu,
+    }
+    emit(line)
+    del server, ing
     return line
 
 
@@ -1881,6 +2246,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     ingest = phase_ingest(gpu, log)
     torch.cuda.empty_cache()
+    sync_server = phase_sync_server(gpu, log)
+    torch.cuda.empty_cache()
     stream_launches, stream_vs_plain, stream_launch_ms = phase_stream_replay_full_width(
         gpu, log, expect, plan)
     torch.cuda.empty_cache()
@@ -1898,7 +2265,8 @@ def main() -> int:
         "launches_by_path": {"b4_replay": launches, "stream_replay_full_width": stream_launches,
                              "mosaic_ladder": ladder_integrate},
         "launches_by_entry": {"stream": launches,
-                              "batch": sync["write"]["launches"]["batch"] + ingest["launches"]["batch"]},
+                              "batch": sync["write"]["launches"]["batch"] + ingest["launches"]["batch"]
+                              + sync_server["launches"]["batch"]},
         "plain_vs_kernel_case": {
             "shape": f"one B4 chunk, 2 docs, C={CAPACITY}, S={CHUNK}",
             "kernel_ms": full_kernel_ms, "plain_ms": full_plain_ms,
@@ -1912,11 +2280,14 @@ def main() -> int:
     }, {
         "name": "integrate_batch", "route": "cuda", "source": "ytpu_torch/csrc/integrate.cu",
         "replaces": INTEGRATE_REPLACES,
-        "launches": sync["write"]["launches"]["batch"] + ingest["launches"]["batch"],
+        "launches": sync["write"]["launches"]["batch"] + ingest["launches"]["batch"]
+        + sync_server["launches"]["batch"],
         "launches_by_path": {"sync_step": sync["write"]["launches"]["batch"],
-                             "ingest": ingest["launches"]["batch"]},
+                             "ingest": ingest["launches"]["batch"],
+                             "sync_server": sync_server["launches"]["batch"]},
         "max_abs_err": max(sync["kernel_vs_plain"]["max_abs_err"],
-                           sync["write"]["max_abs_err_full_width_step"], ingest["max_abs_err"]),
+                           sync["write"]["max_abs_err_full_width_step"], ingest["max_abs_err"],
+                           sync_server["max_abs_err"]),
         "ms": sync["write"]["kernel_ms"], "plain_ms": sync["write"]["plain_ms_full_width_step"],
         "bound_ms": sync["write"]["bound_ms"], "bound_by": "bytes", "library_ms": None,
         "entry": "ytpu_integrate_batch (integrate_batch_kernel), the port of apply_update_batch's "
@@ -1935,6 +2306,10 @@ def main() -> int:
                                                                "snapshot_kernel_ms", "snapshot_plain_ms",
                                                                "max_abs_err")},
         "ingest_kernel_ms": {"index": ingest["index_kernel_ms"], "integrate": ingest["integrate_kernel_ms"]},
+        "plain_vs_kernel_sync_server_round": {k: sync_server[k] for k in (
+            "snapshot_step", "snapshot_lanes", "snapshot_kernel_ms", "snapshot_plain_ms", "max_abs_err")},
+        "sync_server_kernel_ms": {"index": sync_server["index_kernel_ms"],
+                                  "integrate": sync_server["integrate_kernel_ms"]},
         "gpu": gpu,
     }] + [{**{k: e[k] for k in KERNEL_KEYS}, **({"full_width": e["full_width"]} if "full_width" in e else {})}
           for e in diag]})

@@ -33,7 +33,10 @@ def test_import_leaves_jax_and_ytpu_unloaded():
         "import ytpu_torch.ops.state_vector, ytpu_torch.models.ingest, ytpu_torch.core.update\n"
         "import ytpu_torch.core.block, ytpu_torch.core.branch, ytpu_torch.core.moving\n"
         "import ytpu_torch.core.state_vector, ytpu_torch.core.content, ytpu_torch.benches.ingest\n"
-        "import ytpu_torch.benches.streams\n"
+        "import ytpu_torch.benches.streams, ytpu_torch.benches.sync_server\n"
+        "import ytpu_torch.sync, ytpu_torch.sync.awareness, ytpu_torch.sync.protocol\n"
+        "import ytpu_torch.sync.server, ytpu_torch.sync.device_server\n"
+        "from ytpu_torch.sync import DeviceSyncServer\n"
         "print(json.dumps(sorted(m for m in sys.modules\n"
         "    if m == 'jax' or m.startswith('jax.') or m == 'ytpu' or m.startswith('ytpu.'))))\n"
     )
@@ -65,6 +68,14 @@ def _foreign_imports(path):
 @pytest.mark.parametrize("path", port_sources(), ids=lambda p: os.path.relpath(p, ROOT))
 def test_source_imports_no_jax_or_ytpu(path):
     assert _foreign_imports(path) == []
+
+
+@pytest.mark.parametrize("rel", ["ytpu_torch/sync/__init__.py", "ytpu_torch/sync/awareness.py",
+                                 "ytpu_torch/sync/protocol.py", "ytpu_torch/sync/server.py",
+                                 "ytpu_torch/sync/device_server.py", "ytpu_torch/benches/sync_server.py"])
+def test_sync_slice_is_scanned(rel):
+    """The sync slice's modules exist and are among the scanned sources."""
+    assert os.path.join(ROOT, rel) in port_sources()
 
 
 def test_scan_catches_a_foreign_import(tmp_path):

@@ -4,17 +4,18 @@ parity target: yrs block.rs:1507-1928, wire ref-numbers at :28-61).
 
 Each content kind knows its CRDT length (UTF-16 code units for strings,
 element count for sequences: what advances the Lamport clock), whether
-it is countable, its user-facing values and its v1 wire encoding. The
-port keeps only what the batch ingestor and the diff finisher reach:
-no split, merge or copy (the host CRDT is not ported). `ContentDoc`
-keeps the sub-document's guid and options as plain values.
+it is countable, its user-facing values, its v1 wire encoding, and for
+the kinds that can be longer than one unit a copy and a split at a clock
+offset (`splice`), which the doc-less update merge needs. Squashing neighbours is
+the host CRDT's and is not ported. `ContentDoc` keeps the
+sub-document's guid and options as plain values.
 """
 
 from __future__ import annotations
 
 import json
 from typing import Any as PyAny
-from typing import List
+from typing import List, Tuple
 
 BLOCK_GC = 0
 CONTENT_DELETED = 1
@@ -39,6 +40,23 @@ def utf16_len(s: str) -> int:
     return len(s) + sum(1 for ch in s if ord(ch) > 0xFFFF)
 
 
+def split_str_utf16(s: str, offset: int) -> Tuple[str, str]:
+    """Split at a UTF-16 code-unit offset. An offset inside a surrogate
+    pair gives each half a U+FFFD for its severed half, so the halves'
+    UTF-16 lengths stay those of the clock split (block.rs:1852-1860)."""
+    if offset <= 0:
+        return "", s
+    units = 0
+    for i, ch in enumerate(s):
+        if units == offset:
+            return s[:i], s[i:]
+        width = 2 if ord(ch) > 0xFFFF else 1
+        if units + width > offset:
+            return s[:i] + "\ufffd", "\ufffd" + s[i + 1 :]
+        units += width
+    return s, ""
+
+
 class Content:
     """Base class for item content."""
 
@@ -51,6 +69,13 @@ class Content:
     def values(self) -> List[PyAny]:
         """User-facing element values (for countable sequence content)."""
         return []
+
+    def splice(self, offset: int) -> "Content":
+        """Split in place at `offset` (clock units); returns the right part."""
+        raise NotImplementedError(f"{type(self).__name__} is not splittable")
+
+    def copy(self) -> "Content":
+        raise NotImplementedError
 
 
 class ContentDeleted(Content):
@@ -66,6 +91,14 @@ class ContentDeleted(Content):
     def encode(self, enc) -> None:
         enc.write_len(self.len)
 
+    def splice(self, offset: int) -> "ContentDeleted":
+        right = ContentDeleted(self.len - offset)
+        self.len = offset
+        return right
+
+    def copy(self) -> "ContentDeleted":
+        return ContentDeleted(self.len)
+
 
 class ContentJSON(Content):
     """Legacy JSON content: a list of raw JSON strings (one clock unit each)."""
@@ -79,6 +112,14 @@ class ContentJSON(Content):
 
     def length(self) -> int:
         return len(self.raw)
+
+    def splice(self, offset: int) -> "ContentJSON":
+        right = ContentJSON(self.raw[offset:])
+        self.raw = self.raw[:offset]
+        return right
+
+    def copy(self) -> "ContentJSON":
+        return ContentJSON(list(self.raw))
 
     def encode(self, enc) -> None:
         enc.write_len(len(self.raw))
@@ -121,6 +162,15 @@ class ContentString(Content):
 
     def length(self) -> int:
         return self._u16len
+
+    def splice(self, offset: int) -> "ContentString":
+        left, right = split_str_utf16(self.text, offset)
+        self.text = left
+        self._u16len = offset
+        return ContentString(right)
+
+    def copy(self) -> "ContentString":
+        return ContentString(self.text)
 
     def encode(self, enc) -> None:
         enc.write_string(self.text)
@@ -185,6 +235,14 @@ class ContentAny(Content):
 
     def length(self) -> int:
         return len(self.items)
+
+    def splice(self, offset: int) -> "ContentAny":
+        right = ContentAny(self.items[offset:])
+        self.items = self.items[:offset]
+        return right
+
+    def copy(self) -> "ContentAny":
+        return ContentAny(list(self.items))
 
     def encode(self, enc) -> None:
         enc.write_len(len(self.items))

@@ -1,6 +1,6 @@
 """Delete sets (copy of `ytpu.core.id_set`'s `DeleteSet`: `insert_range`,
-`is_empty`, `ranges`, `decode` and `encode`; parity target: yrs
-id_set.rs:440-652).
+`is_empty`, `ranges`, `merge`, `squash`, `decode` and `encode`; parity
+target: yrs id_set.rs:440-652).
 
 A delete set maps each client to half-open clock ranges ``[start, end)``,
 kept unsorted until read: then each client's ranges are sorted and
@@ -47,6 +47,20 @@ class DeleteSet:
 
     def ranges(self, client: int) -> List[Range]:
         return _squash_ranges(self.clients.get(client, []))
+
+    def squash(self) -> None:
+        """Sort and merge each client's ranges; drop clients left empty."""
+        for client in list(self.clients):
+            rs = _squash_ranges(self.clients[client])
+            if rs:
+                self.clients[client] = rs
+            else:
+                del self.clients[client]
+
+    def merge(self, other: "DeleteSet") -> None:
+        for client, rs in other.clients.items():
+            self.clients.setdefault(client, []).extend(rs)
+        self.squash()
 
     def __eq__(self, other: object) -> bool:
         if not isinstance(other, DeleteSet):

@@ -70,6 +70,8 @@ __all__ = [
     "state_vectors",
     "encode_diff_batch",
     "state_capacity_ledger",
+    "Diff",
+    "get_diff",
     "ClientInterner",
     "KeyInterner",
     "PayloadStore",
@@ -405,13 +407,16 @@ def encode_diff_batch(state: DocStateBatch, remote_sv: torch.Tensor, n_clients: 
     from ytpu_torch.ops.state_vector import sv_from_blocks
 
     bl = state.blocks
-    valid = _valid_rows(state)
-    safe_client = bl.client.clamp(0, n_clients - 1).long()
-    remote_clock = torch.as_tensor(remote_sv, device=bl.client.device).to(I32).gather(1, safe_client)
-    ship = valid & (bl.clock + bl.length > remote_clock)
-    offsets = (remote_clock - bl.clock).clamp(min=0) * ship
-    local_sv = sv_from_blocks(bl.client, bl.clock, bl.length, n_clients)
-    return ship, offsets.to(I32), local_sv, bl.deleted & valid
+    with torch.profiler.record_function("ytpu_torch.encode_diff_batch"):
+        valid = _valid_rows(state)
+        safe_client = bl.client.clamp(0, n_clients - 1).long()
+        remote_clock = torch.as_tensor(remote_sv, device=bl.client.device).to(I32).gather(1, safe_client)
+        ship = valid & (bl.clock + bl.length > remote_clock)
+        offsets = (remote_clock - bl.clock).clamp(min=0) * ship
+        deleted = bl.deleted & valid
+    with torch.profiler.record_function("ytpu_torch.state_vectors"):
+        local_sv = sv_from_blocks(bl.client, bl.clock, bl.length, n_clients)
+    return ship, offsets.to(I32), local_sv, deleted
 
 
 def state_capacity_ledger(state: DocStateBatch):
@@ -1270,6 +1275,10 @@ class DiffPipeline:
         return plan_diff_pipeline(n_docs, self.sub_batch, self.depth)
 
     def run(self, state: DocStateBatch, docs, ship, offsets, deleted, enc) -> List[bytes]:
+        with torch.profiler.record_function("ytpu_torch.finisher"):
+            return self._run(state, docs, ship, offsets, deleted, enc)
+
+    def _run(self, state: DocStateBatch, docs, ship, offsets, deleted, enc) -> List[bytes]:
         docs = [int(d) for d in docs]
         stats = self.stats = DiffStats(n_docs=len(docs), depth=self.depth)
         if not docs:
@@ -1422,6 +1431,78 @@ def get_string(state: DocStateBatch, doc: int, payloads) -> str:
                 )
             )
     return "".join(out)
+
+
+class Diff:
+    """One run of a formatted text rendering: a value and the formatting
+    attributes in force (copy of the JAX package's ``types.text.Diff``;
+    types/text.rs:1103). ``ychange`` is always None here: snapshots are
+    the host CRDT's."""
+
+    __slots__ = ("insert", "attributes", "ychange")
+
+    def __init__(self, insert, attributes: Optional[dict] = None, ychange=None):
+        self.insert = insert
+        self.attributes = attributes
+        self.ychange = ychange
+
+    def __eq__(self, other):
+        if not isinstance(other, Diff):
+            return NotImplemented
+        return (
+            self.insert == other.insert
+            and (self.attributes or None) == (other.attributes or None)
+            and self.ychange == other.ychange
+        )
+
+    def __repr__(self):
+        return f"Diff({self.insert!r}, {self.attributes!r})"
+
+
+def get_diff(state: DocStateBatch, doc: int, payloads) -> list:
+    """A doc's visible root text as formatted runs, the device-state form
+    of ``Text.diff()`` (types/text.rs:534-): string content in runs under
+    the formatting attributes in force, a ContentFormat that changes an
+    attribute ending the run, embeds and shared types each a run of their
+    own. A shared type's run holds its decoded TypeRef (`payloads.
+    type_branch`, or the host-lane `Branch`): the port has no
+    user-facing shared-type views."""
+    bl = BlockCols(*(np.asarray(a[doc].cpu()) for a in state.blocks))
+    n = int(state.n_blocks[doc])
+    runs: list = []
+    attrs: dict = {}
+    buf: List[str] = []
+
+    def flush():
+        if buf:
+            runs.append(Diff("".join(buf), dict(attrs) if attrs else None))
+            buf.clear()
+
+    for i in _visible_walk(bl, n, int(state.start[doc])):
+        if bl.deleted[i]:
+            continue
+        kind = int(bl.kind[i])
+        ref = int(bl.content_ref[i])
+        if kind == CONTENT_STRING:
+            buf.append(payloads.slice_text(ref, int(bl.content_off[i]), int(bl.length[i])))
+        elif kind == CONTENT_FORMAT:
+            fkey, fval = payloads.format_kv(ref)
+            if attrs.get(fkey) != fval:
+                flush()
+            if fval is None:
+                attrs.pop(fkey, None)
+            else:
+                attrs[fkey] = fval
+        elif kind in (CONTENT_EMBED, CONTENT_TYPE):
+            flush()
+            if kind == CONTENT_EMBED:
+                value = payloads.embed_value(ref)
+            else:
+                tb = getattr(payloads, "type_branch", None)
+                value = tb(ref) if tb is not None else payloads.items[ref][1].branch
+            runs.append(Diff(value, dict(attrs) if attrs else None))
+    flush()
+    return runs
 
 
 def get_values(state: DocStateBatch, doc: int, payloads) -> list:
