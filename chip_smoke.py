@@ -6,11 +6,16 @@ Usage (on a machine with one NVIDIA GPU and the CUDA toolkit):
 
     python3 chip_smoke.py
 
-Phases, one JSON line each: ``build`` (the four CUDA libraries, one nvcc
+Phases, one JSON line each: ``build`` (the five CUDA libraries, one nvcc
 each, in parallel; the integrate kernel must use no stack frame and no
 spills, the column put, the map put, rungs 1, 3, 4 and 5 and v_multi's
 sized copy must issue their loads before their first store and use no
 local memory, v_body's one-pass kernel must use no local memory),
+``decode`` (the decode kernel against its plain loop, every pre-resolve
+column, the flags and the resolved stream equal, on one B4 chunk of 8,192
+lanes, one ingest step's fast lanes with their intern tables and four
+merged whole-state lanes; the sync server's round 5 is held the same way
+inside its phase; the kernel must use no stack frame and no spills),
 ``kernel_vs_plain`` (small
 cases: B4 chunks, synthetic streams at three scan plans and a capacity
 cut, 8 clients typing, clients above the client-clock table, a
@@ -63,8 +68,13 @@ slot and at the main path's width, v_vmem and v_body at that width, rungs
 1, 3, 4 and 5 at ``[256, 65,536]``, rung 1 beside ``torch.add(x, 1)``, the
 others beside ``fill_``); then
 the card's name and power limit, the ``kernels`` line and, last,
-``{"ok": true, "device": {...}}``. Launch counts are set to 0 just
-before each program runs and read just after it. Any failure exits
+``{"ok": true, "device": {...}}``; before them ``decode_timing`` (the
+decode kernel's device ms on each set of its phase, from CUDA graphs
+captured after every traced phase) and a ``total`` line with the
+script's seconds against its 1,200 s limit. Launch counts are set to 0
+just before each program runs and read just after it: the decode
+kernel's on the B4 replay (one a chunk), the stream replay's one decode
+call, the ingest and sync-server calls and rungs 8-10. Any failure exits
 non-zero without the last line. It imports neither JAX nor the JAX
 package.
 """
@@ -226,6 +236,165 @@ def phase_build(gpu):
         raise RuntimeError(f"multi_call_sass: v_multi's copy stores before its last load, or a multi call "
                            f"kernel uses local memory: {multi}")
     return ptxas
+
+
+# --- the decode kernel -------------------------------------------------------------
+
+DECODE_REPLACES = "ytpu/ops/decode_kernel.py:379"
+DECODE_LOOP = "ytpu/ops/decode_kernel.py:1038 (the XLA fori_loop of decode_updates_v1)"
+# merged whole-state lanes: B4 prefixes of these lengths and the big-client
+# cohort's whole log, each merged into one update (the longest, ~2,000
+# steps, keeps the plain version near 20 s at ~11 ms of host time a step)
+DECODE_MERGED_B4 = (64, 128, 192)
+DECODE_KERNEL_REPS = 10
+DECODE_GRAPH_REPS = 50
+# the decode kernel's name in a profiler trace
+DECODE_KERNEL = "decode_v1_kernel"
+
+
+def _capture_decode(module, captured: dict):
+    """A stand-in for `module.decode_updates_v1` that records the arguments
+    of its call in `captured`, then decodes."""
+    real = module.decode_updates_v1
+
+    def capture(buf, lens, max_rows, max_dels, **kw):
+        captured.update(buf=buf, lens=lens, U=max_rows, R=max_dels, **kw)
+        return real(buf, lens, max_rows, max_dels, **kw)
+
+    return capture
+
+
+def _decode_vs_plain(name: str, buf, lens, U: int, R: int, n_steps=None, max_sections=None, **tables) -> dict:
+    """The decode kernel against its plain version on the same lanes on the
+    card: every pre-resolve column and the flags must be equal (max abs err
+    0), and so must the resolved stream and flags with the intern tables
+    `tables` (`_resolve_and_pack` over either output). Issued ms: CUDA
+    events over DECODE_KERNEL_REPS calls issued one after another, the
+    wrapper's host work included; plain ms: one call. The byte bound: each
+    lane's bytes and its length read once, every output column and the
+    flags written once, over HBM_BYTES_PER_S. Returns the result and the
+    kernel's arguments, for `_decode_graph_ms`."""
+    import torch
+
+    from ytpu_torch.ops import decode_kernel as dk
+
+    U, R = int(U), int(R)
+    T = n_steps or dk.default_steps(U, R)
+    max_sec = max_sections if max_sections is not None else U + 1
+    lens = lens.to(torch.int64).contiguous()
+    rows_k, dels_k, flags_k, steps = dk._decode_kernel(buf, lens, U, R, T, max_sec, steps=True)
+    issued_ms = _time_ms(lambda: dk._decode_kernel(buf, lens, U, R, T, max_sec), reps=DECODE_KERNEL_REPS)
+    (rows_p, dels_p, flags_p), p_ms = _event_ms(lambda: dk._decode_loop_reference(buf, lens, U, R, T, max_sec))
+    err = int((flags_k - flags_p).abs().max())
+    differ = [] if torch.equal(flags_k, flags_p) else ["flags"]
+    for kind, got, want in (("rows", rows_k, rows_p), ("dels", dels_k, dels_p)):
+        for col in want:
+            a, b = got[col].long(), want[col].long()
+            if a.numel():
+                err = max(err, int((a - b).abs().max()))
+            if not torch.equal(a, b):
+                differ.append(f"{kind}.{col}")
+    stream_k, fk = dk._resolve_and_pack(dict(rows_k), dict(dels_k), flags_k, **tables)
+    stream_p, fp = dk._resolve_and_pack(dict(rows_p), dict(dels_p), flags_p, **tables)
+    differ += [f"resolved.{f}" for f, a, b in zip(stream_k._fields, stream_k, stream_p) if not torch.equal(a, b)]
+    if not torch.equal(fk, fp):
+        differ.append("resolved.flags")
+    if differ:
+        raise RuntimeError(f"decode {name}: kernel and plain version differ in {differ[:8]}")
+    S, L = buf.shape
+    bound_b = (int(lens.long().sum()) + 8 * S + S * U * (8 * len(dk.ROW_COLUMNS) + 1)
+               + S * R * (8 * len(dk.DEL_COLUMNS) + 1) + 8 * S)
+    return {"lanes": S, "width": L, "U": U, "R": R, "T": T, "wire_bytes": int(lens.long().sum()),
+            "longest_lane_steps": int(steps.max()), "lanes_at_budget": int((steps == T).sum()),
+            "error_lanes": int(((fp & dk.FLAG_ERRORS) != 0).sum()), "max_abs_err": err,
+            "issued_ms": issued_ms, "plain_ms": p_ms, "bound_bytes": bound_b,
+            "bound_ms": bound_b / HBM_BYTES_PER_S * 1e3,
+            "tables": sorted(k for k, v in tables.items() if v is not None)}, (buf, lens, U, R, T, max_sec)
+
+
+def _decode_graph_ms(inputs: dict) -> dict:
+    """Device ms a launch of the decode kernel on each input set (name ->
+    the kernel's arguments), from a CUDA graph of DECODE_GRAPH_REPS
+    launches (`graph_ms`: min, mean and max of its rounds, no host issue
+    time). Run after the traced phases, as the diagnostic kernels' graphs
+    are: no graph is captured before a profiler window."""
+    from ytpu_torch.benches._kernels import graph_ms
+    from ytpu_torch.ops import decode_kernel as dk
+
+    return {name: graph_ms(lambda a=args: dk._decode_kernel(*a), reps=DECODE_GRAPH_REPS)
+            for name, args in inputs.items()}
+
+
+def _ingest_decode_inputs(log, dev) -> dict:
+    """The arguments of the fast lane's decode call at step
+    INGEST_SNAPSHOT_STEP of the ingest phase's traffic: a `BatchIngestor`
+    at its width on the card, fed its first steps."""
+    from ytpu_torch.benches import ingest as bench
+    from ytpu_torch.models import ingest as ingest_mod
+
+    logs = bench.load_ingest_logs()
+    b4 = log[: bench.INGEST_STEPS]
+    ing = ingest_mod.BatchIngestor(bench.INGEST_DOCS, bench.INGEST_CAPACITY, device=dev)
+    real, captured = ingest_mod.decode_updates_v1, {}
+    try:
+        for t in range(INGEST_SNAPSHOT_STEP + 1):
+            ingest_mod.decode_updates_v1 = _capture_decode(ingest_mod, captured) if t == INGEST_SNAPSHOT_STEP \
+                else real
+            ing.apply_bytes(bench.step_payloads(t, b4, logs))
+    finally:
+        ingest_mod.decode_updates_v1 = real
+    if not captured:
+        raise RuntimeError(f"decode: ingest step {INGEST_SNAPSHOT_STEP} made no fast-lane decode call")
+    return captured
+
+
+def _merged_lanes(log):
+    """Whole-state lanes: B4 prefixes and the big-client cohort's log, each
+    merged into one update, with their step budget from the column walk."""
+    from ytpu_torch.benches import ingest as bench
+    from ytpu_torch.core.update import merge_updates_v1
+    from ytpu_torch.models.replay import plan_replay
+
+    merged = [merge_updates_v1(log[:n]) for n in DECODE_MERGED_B4]
+    merged.append(merge_updates_v1(bench.load_ingest_logs()["big_client_text"]["log"]))
+    return merged, plan_replay(merged)
+
+
+def phase_decode(gpu, log, plan, dev="cuda"):
+    """The decode kernel against its plain version on the card, on the
+    lanes its paths give it: one B4 chunk of 8,192 lanes at the replay's
+    budgets (chunk LATE_CHUNK), the fast lanes of one ingest step with
+    their intern tables, and a few merged whole-state lanes. (The sync
+    server's round SYNC_SNAPSHOT_STEP is held the same way inside its
+    phase, where its inputs exist.) Then the build's ptxas report. Returns
+    the sets, the report and each set's kernel arguments, which
+    `_decode_graph_ms` times after the traced phases."""
+    import torch
+
+    from ytpu_torch.ops import _build
+    from ytpu_torch.ops.decode_kernel import pack_updates
+
+    dev = torch.device(dev)
+    t0 = time.perf_counter()
+    chunk = log[LATE_CHUNK * CHUNK:(LATE_CHUNK + 1) * CHUNK]
+    buf_np, lens_np = pack_updates(chunk, pad_to=plan.max_len + 16)
+    sets, inputs = {}, {}
+    sets["b4_chunk"], inputs["b4_chunk"] = _decode_vs_plain(
+        "b4_chunk", torch.from_numpy(buf_np).to(dev), torch.from_numpy(lens_np).to(dev), plan.max_rows,
+        plan.max_dels, n_steps=plan.max_steps, max_sections=plan.max_sections)
+    sets["ingest_step"], inputs["ingest_step"] = _decode_vs_plain("ingest_step", **_ingest_decode_inputs(log, dev))
+    sets["ingest_step"]["step"] = INGEST_SNAPSHOT_STEP
+    merged, mplan = _merged_lanes(log)
+    buf_np, lens_np = pack_updates(merged)
+    sets["merged_whole_state"], inputs["merged_whole_state"] = _decode_vs_plain(
+        "merged_whole_state", torch.from_numpy(buf_np).to(dev), torch.from_numpy(lens_np).to(dev),
+        mplan.max_rows, mplan.max_dels, n_steps=mplan.max_steps, max_sections=mplan.max_sections)
+    sets["merged_whole_state"]["lane_updates"] = list(DECODE_MERGED_B4) + ["big_client_text"]
+    ptxas = _ptxas(_build.build_log("decode"), DECODE_KERNEL)
+    emit({"phase": "decode", "sets": sets, "ptxas": ptxas, "seconds": time.perf_counter() - t0, "gpu": gpu})
+    if ptxas["stack_frame_bytes"] or ptxas["spill_store_bytes"] or ptxas["spill_load_bytes"]:
+        raise RuntimeError(f"the decode kernel uses local memory: {ptxas}")
+    return sets, ptxas, inputs
 
 
 def _time_ms(fn, reps: int = 1):
@@ -466,13 +635,15 @@ def _trace_breakdown(prof, wall_s: float, kernel: str = "integrate_kernel"):
 
 def _replay(plan, log, expect, traced: bool):
     """One `FusedReplay.run` over the whole log at the flagship envelope,
-    with the kernel's launch count reset just before it and read just
-    after; checks the text of the first and last doc and the sticky error."""
+    with the integrate and decode kernels' launch counts reset just before
+    it and read just after (one of each a chunk); checks the text of the
+    first and last doc and the sticky error."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from ytpu_torch.models.replay import FusedReplay
     from ytpu_torch.ops import integrate_kernel as ik
+    from ytpu_torch.ops.decode_kernel import decode_updates_v1
 
     rep = FusedReplay(N_DOCS, plan, capacity=CAPACITY, max_capacity=CAPACITY, chunk=CHUNK,
                       device="cuda")
@@ -480,12 +651,13 @@ def _replay(plan, log, expect, traced: bool):
     prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) if traced else None
     if prof is not None:
         prof.start()
-    ik.integrate_stream.launches = 0
+    _reset_counts([ik.integrate_stream, decode_updates_v1])
     t0 = time.perf_counter()
     st = rep.run(log)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = ik.integrate_stream.launches
+    decode_launches = decode_updates_v1.launches
     if prof is not None:
         prof.stop()
     err = int(rep.meta[:, ik.M_ERROR].max())
@@ -495,9 +667,10 @@ def _replay(plan, log, expect, traced: bool):
         raise RuntimeError(f"b4_replay: sticky error {err}")
     if not text_ok:
         raise RuntimeError("b4_replay: replayed text differs from the log's expected text")
-    if launches != st.chunks:
-        raise RuntimeError(f"b4_replay: {launches} kernel launches for {st.chunks} chunks")
-    return st, wall, launches, err, readout, prof, rep
+    if launches != st.chunks or decode_launches != st.chunks:
+        raise RuntimeError(f"b4_replay: {launches} integrate and {decode_launches} decode launches for "
+                           f"{st.chunks} chunks")
+    return st, wall, launches, err, readout, prof, rep, decode_launches
 
 
 def _launch_bound_bytes(plan, launches: int, rows_read: int, rows_added: int) -> float:
@@ -520,14 +693,16 @@ def phase_b4_replay(gpu, log, expect, plan, plan_s: float):
     Returns the second run's replay (its final state feeds `sync_step`)."""
     import torch
 
-    st, wall, launches, err, readout, _, _ = _replay(plan, log, expect, traced=False)
+    st, wall, launches, err, readout, _, _, decode_launches = _replay(plan, log, expect, traced=False)
     torch.cuda.empty_cache()
-    st_t, wall_t, launches_t, _, _, prof, rep = _replay(plan, log, expect, traced=True)
+    st_t, wall_t, launches_t, _, _, prof, rep, _ = _replay(plan, log, expect, traced=True)
     trace, integrate, _ = _trace_breakdown(prof, wall_t)
+    _, decodes, _ = _trace_breakdown(prof, wall_t, kernel=DECODE_KERNEL)
     integrate_ms = [ms for _, ms in integrate]
-    if len(integrate_ms) != launches_t:
-        raise RuntimeError(f"b4_replay: the trace holds {len(integrate_ms)} integrate kernels "
-                           f"for {launches_t} launches")
+    decode_ms = [ms for _, ms in decodes]
+    if len(integrate_ms) != launches_t or len(decode_ms) != launches_t:
+        raise RuntimeError(f"b4_replay: the trace holds {len(integrate_ms)} integrate and {len(decode_ms)} "
+                           f"decode kernels for {launches_t} chunks")
     bound_b = _launch_bound_bytes(plan, launches, st.launch_rows_read, st.launch_rows_added)
     bound_ms = bound_b / HBM_BYTES_PER_S * 1e3
     line = {
@@ -535,16 +710,18 @@ def phase_b4_replay(gpu, log, expect, plan, plan_s: float):
         "chunk": CHUNK, "updates_per_s": len(log) / wall, "doc_updates_per_s": len(log) * N_DOCS / wall,
         "wall_s": wall, "plan_s": plan_s, "chunks": st.chunks, "compactions": st.compactions,
         "growths": st.growths, "peak_blocks": st.peak_blocks, "final_blocks": st.final_blocks,
-        "sticky_error": err, "launches": launches, "launch_rows_read": st.launch_rows_read,
+        "sticky_error": err, "launches": launches, "decode_launches": decode_launches,
+        "launch_rows_read": st.launch_rows_read,
         "launch_rows_added": st.launch_rows_added, "bound_bytes_per_launch": bound_b,
         "readout": readout, "text_ok": True,
         "traced": {"wall_s": wall_t, "updates_per_s": len(log) / wall_t, "launches": launches_t,
                    "integrate_ms_mean": sum(integrate_ms) / len(integrate_ms),
-                   "integrate_ms_max": max(integrate_ms), **trace},
+                   "integrate_ms_max": max(integrate_ms), "decode_kernel_ms_mean": sum(decode_ms) / len(decode_ms),
+                   "decode_kernel_ms_max": max(decode_ms), **trace},
         "gpu": gpu,
     }
     emit(line)
-    return launches, sum(integrate_ms) / len(integrate_ms), bound_ms, rep
+    return launches, sum(integrate_ms) / len(integrate_ms), bound_ms, rep, line
 
 
 # --- the sync step -----------------------------------------------------------------
@@ -1011,6 +1188,7 @@ def phase_ingest(gpu, log, dev="cuda"):
     from ytpu_torch.models import batch_doc as bd
     from ytpu_torch.models import ingest as ingest_mod
     from ytpu_torch.ops import integrate_kernel as ik
+    from ytpu_torch.ops.decode_kernel import decode_updates_v1
 
     dev = torch.device(dev)
     logs = bench.load_ingest_logs()
@@ -1028,7 +1206,7 @@ def phase_ingest(gpu, log, dev="cuda"):
     call_ms, traced_ms, lanes = [], [], []
     prof = None
     torch.cuda.synchronize()
-    _reset_counts([ik.integrate_batch, ik.integrate_stream])
+    _reset_counts([ik.integrate_batch, ik.integrate_stream, decode_updates_v1])
     t_all = time.perf_counter()
     for t in range(bench.INGEST_STEPS):
         payloads = bench.step_payloads(t, b4, logs)
@@ -1051,8 +1229,10 @@ def phase_ingest(gpu, log, dev="cuda"):
     ingest_mod.apply_update_batch = real_apply
     wall = time.perf_counter() - t_all
     launches = {"batch": ik.integrate_batch.launches, "stream": ik.integrate_stream.launches}
-    if launches != {"batch": bench.INGEST_STEPS, "stream": 0}:
-        raise RuntimeError(f"ingest: the calls made launches {launches}")
+    decode_launches = decode_updates_v1.launches
+    fast_calls = sum(1 for f, _, _ in lanes if f)
+    if launches != {"batch": bench.INGEST_STEPS, "stream": 0} or decode_launches < 1:
+        raise RuntimeError(f"ingest: the calls made launches {launches}, {decode_launches} decode launches")
 
     # the checks
     err = int(ing.state.error.max())
@@ -1090,9 +1270,10 @@ def phase_ingest(gpu, log, dev="cuda"):
     pieces = ("ingest.plan", "ingest.decode", "pack_state", "pack_stream", "integrate_batch", "unpack_state")
     trace, integrates, _ = _trace_breakdown(prof, traced_s, kernel="integrate_batch_kernel")
     _, indexes, _ = _trace_breakdown(prof, traced_s, kernel="integrate_batch_index_kernel")
-    if len(integrates) != INGEST_TRACED_STEPS or len(indexes) != INGEST_TRACED_STEPS:
-        raise RuntimeError(f"ingest: the trace holds {len(indexes)} index and {len(integrates)} integrate "
-                           f"kernels for {INGEST_TRACED_STEPS} calls")
+    _, decodes, _ = _trace_breakdown(prof, traced_s, kernel=DECODE_KERNEL)
+    if len(integrates) != INGEST_TRACED_STEPS or len(indexes) != INGEST_TRACED_STEPS or not decodes:
+        raise RuntimeError(f"ingest: the trace holds {len(indexes)} index, {len(integrates)} integrate and "
+                           f"{len(decodes)} decode kernels for {INGEST_TRACED_STEPS} calls")
     device_ms = {k: trace["device_s"].get(k, 0.0) * 1e3 / INGEST_TRACED_STEPS for k in pieces + ("other",)}
     host_ms = {k: trace["host_s"].get(k, 0.0) * 1e3 / INGEST_TRACED_STEPS for k in pieces}
     index_ms = [ms for _, ms in indexes]
@@ -1121,7 +1302,8 @@ def phase_ingest(gpu, log, dev="cuda"):
         "phase": "ingest", "docs": bench.INGEST_DOCS, "capacity": bench.INGEST_CAPACITY,
         "steps": bench.INGEST_STEPS,
         "cohorts": {name: n for name, _, n in bench.COHORTS},
-        "b4_lag": f"(doc mod {bench.LAG_GROUPS}) * {bench.LAG_STEP}", "launches": launches, "wall_s": wall,
+        "b4_lag": f"(doc mod {bench.LAG_GROUPS}) * {bench.LAG_STEP}", "launches": launches,
+        "decode_launches": decode_launches, "calls_with_fast_docs": fast_calls, "wall_s": wall,
         "ms_per_apply_bytes": statistics.fmean(call_ms), "ms_per_apply_bytes_median": statistics.median(call_ms),
         "ms_per_apply_bytes_min": min(call_ms), "ms_per_apply_bytes_max": max(call_ms),
         "ms_per_apply_bytes_traced": statistics.fmean(traced_ms),
@@ -1129,6 +1311,7 @@ def phase_ingest(gpu, log, dev="cuda"):
         "host_plan_ms_per_call": host_ms["ingest.plan"], "host_ms_per_call": host_ms,
         "device_ms_per_call": device_ms, "index_kernel_ms": statistics.fmean(index_ms),
         "integrate_kernel_ms": statistics.fmean(kernel_ms),
+        "decode_kernel_ms": statistics.fmean(ms for _, ms in decodes), "decode_kernels_traced": len(decodes),
         "device_idle_share_traced": trace["device_idle_share"],
         "fast_docs_per_call": ing.fast_docs / bench.INGEST_STEPS,
         "slow_docs_per_call": ing.slow_docs / bench.INGEST_STEPS,
@@ -1228,6 +1411,7 @@ def phase_sync_server(gpu, log, dev="cuda"):
     from ytpu_torch.core.state_vector import StateVector
     from ytpu_torch.models import ingest as ingest_mod
     from ytpu_torch.ops import integrate_kernel as ik
+    from ytpu_torch.ops.decode_kernel import decode_updates_v1
     from ytpu_torch.sync import DeviceSyncServer
     from ytpu_torch.sync.protocol import Message, SyncMessage
     from ytpu_torch.sync.server import DeviceBatchFull, TenantAnchor
@@ -1244,8 +1428,9 @@ def phase_sync_server(gpu, log, dev="cuda"):
 
     server = new_server()
     ing = server.ingestor
-    captured = {}
-    real_apply = ingest_mod.apply_update_batch
+    captured, decode_captured = {}, {}
+    real_apply, real_decode = ingest_mod.apply_update_batch, ingest_mod.decode_updates_v1
+    capture_decode = _capture_decode(ingest_mod, decode_captured)
 
     def capture(state, batch, rank):
         cols, meta = ik.pack_state(state)
@@ -1257,6 +1442,7 @@ def phase_sync_server(gpu, log, dev="cuda"):
 
     def flush(step):
         before = (ing.fast_docs, ing.slow_docs, ing.fast_recoveries)
+        window["decode_before_rest"] = decode_updates_v1.launches
         traced = SYNC_TRACED_FROM <= step < SYNC_TRACED_FROM + SYNC_TRACED_STEPS
         if step == SYNC_TRACED_FROM:
             window["prof"] = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
@@ -1264,15 +1450,18 @@ def phase_sync_server(gpu, log, dev="cuda"):
             window["prof"].__enter__()
             window["t0"] = time.perf_counter()
         ingest_mod.apply_update_batch = capture if step == SYNC_SNAPSHOT_STEP else real_apply
+        ingest_mod.decode_updates_v1 = capture_decode if step == SYNC_SNAPSHOT_STEP else real_decode
         t0 = time.perf_counter()
         n = server.flush_device()
         torch.cuda.synchronize()
         ms = (time.perf_counter() - t0) * 1e3
         if step == plan.rounds:
             window["rest_ms"] = ms
+            window["rest_decode_launches"] = decode_updates_v1.launches - window["decode_before_rest"]
         else:
             (traced_ms if traced else step_ms).append(ms)
         ingest_mod.apply_update_batch = real_apply
+        ingest_mod.decode_updates_v1 = real_decode
         lanes.append(tuple(a - b for a, b in zip((ing.fast_docs, ing.slow_docs, ing.fast_recoveries), before)))
         if step % 8 == 7:
             recent = (step_ms + traced_ms)[-8:]
@@ -1338,7 +1527,7 @@ def phase_sync_server(gpu, log, dev="cuda"):
         _progress(t_all, f"rebalanced {len(SYNC_REBALANCED)} tenants after round {r}")
 
     torch.cuda.synchronize()
-    _reset_counts([ik.integrate_batch, ik.integrate_stream])
+    _reset_counts([ik.integrate_batch, ik.integrate_stream, decode_updates_v1])
     t_all = window["round_t0"] = time.perf_counter()
     run = bench.drive_writes(server, plan, tenants, flush=flush, after_round=after_round)
     write_s = time.perf_counter() - t_all
@@ -1352,9 +1541,12 @@ def phase_sync_server(gpu, log, dev="cuda"):
     fanout_s = time.perf_counter() - t0
     _progress(t_all, "fan-out")
     launches = {"batch": ik.integrate_batch.launches, "stream": ik.integrate_stream.launches}
+    decode_launches = decode_updates_v1.launches
     want_launches = plan.rounds + 1 + len(SYNC_REBALANCED)
-    if launches != {"batch": want_launches, "stream": 0} or run.flush_steps != [1] * (plan.rounds + 1):
-        raise RuntimeError(f"sync_server: flush steps {run.flush_steps} made launches {launches}")
+    if launches != {"batch": want_launches, "stream": 0} or run.flush_steps != [1] * (plan.rounds + 1) \
+            or decode_launches < 1 or window["rest_decode_launches"] < 1:
+        raise RuntimeError(f"sync_server: flush steps {run.flush_steps} made launches {launches}, "
+                           f"{decode_launches} decode launches ({window['rest_decode_launches']} in the rest)")
     if not rebalance.get("stashed"):
         raise RuntimeError("sync_server: no rebalanced tenant held a stash")
 
@@ -1407,7 +1599,8 @@ def phase_sync_server(gpu, log, dev="cuda"):
     read_pieces = ("encode_diff_batch", "state_vectors", "finisher")
     w_trace, integrates, _ = _trace_breakdown(window["write"], window["write_s"], kernel="integrate_batch_kernel")
     _, indexes, _ = _trace_breakdown(window["write"], window["write_s"], kernel="integrate_batch_index_kernel")
-    if len(integrates) != SYNC_TRACED_STEPS or len(indexes) != SYNC_TRACED_STEPS:
+    _, decodes, _ = _trace_breakdown(window["write"], window["write_s"], kernel=DECODE_KERNEL)
+    if len(integrates) != SYNC_TRACED_STEPS or len(indexes) != SYNC_TRACED_STEPS or not decodes:
         raise RuntimeError(f"sync_server: the trace holds {len(indexes)} index and {len(integrates)} integrate "
                            f"kernels for {SYNC_TRACED_STEPS} flush steps")
     r_trace, _, _ = _trace_breakdown(window["read"], window["read_s"])
@@ -1421,9 +1614,11 @@ def phase_sync_server(gpu, log, dev="cuda"):
     # a fresh replica catches up from the fan-out
     t0 = time.perf_counter()
     fresh = new_server()
+    catch_up_decodes = decode_updates_v1.launches
     catch_up_steps = bench.catch_up(fresh, tenants, {t.name: fanout[t.index] for t in tenants})
     torch.cuda.synchronize()
     catch_up_s = time.perf_counter() - t0
+    catch_up_decodes = decode_updates_v1.launches - catch_up_decodes
     _progress(t_all, f"catch-up flush: {catch_up_s:.1f} s, lanes fast {fresh.ingestor.fast_docs} "
                      f"slow {fresh.ingestor.slow_docs}")
     # every state vector and text; the values of each cohort's first and
@@ -1449,6 +1644,12 @@ def phase_sync_server(gpu, log, dev="cuda"):
     p_ms = _time_ms(lambda: ik.integrate_batch_reference(cols_p, meta_p, c["rows"], c["dels"], c["rank"]))
     snap_err = _compare("integrate_batch on the sync_server snapshot round", c["cols"], c["meta"], cols_p, meta_p)
     del cols_p, meta_p, captured
+    # the decode kernel against its plain version on the same round's fast lanes
+    if not decode_captured:
+        raise RuntimeError(f"sync_server: round {SYNC_SNAPSHOT_STEP} made no fast-lane decode call")
+    decode_vs_plain, decode_args = _decode_vs_plain("sync_server round", **decode_captured)
+    decode_vs_plain["step"] = SYNC_SNAPSHOT_STEP
+    del decode_captured
 
     n_steps = plan.rounds
     lanes_rest = lanes.pop()
@@ -1456,7 +1657,8 @@ def phase_sync_server(gpu, log, dev="cuda"):
         "phase": "sync_server", "tenants": plan.n_docs, "capacity": plan.capacity, "rounds": plan.rounds,
         "cohorts": dict(zip(bench.COHORT_NAMES, plan.cohort_docs)),
         "b4_lag": f"(tenant mod {plan.lag_groups}) * {plan.lag_step} rounds", "launches": launches,
-        "write_s": write_s, "read_s": read_s,
+        "decode_launches": decode_launches, "decode_launches_rest": window["rest_decode_launches"],
+        "decode_launches_catch_up": catch_up_decodes, "write_s": write_s, "read_s": read_s,
         "ms_per_flush_step": statistics.fmean(step_ms), "ms_per_flush_step_median": statistics.median(step_ms),
         "ms_per_flush_step_min": min(step_ms), "ms_per_flush_step_max": max(step_ms),
         "ms_rest_flush_step": window["rest_ms"], "ms_per_flush_step_traced": statistics.fmean(traced_ms),
@@ -1475,6 +1677,7 @@ def phase_sync_server(gpu, log, dev="cuda"):
         "write_host_ms_per_step": write_host_ms, "write_device_ms_per_step": write_device_ms,
         "index_kernel_ms": statistics.fmean(ms for _, ms in indexes),
         "integrate_kernel_ms": statistics.fmean(ms for _, ms in integrates),
+        "decode_kernel_ms": statistics.fmean(ms for _, ms in decodes), "decode_kernels_traced": len(decodes),
         "write_device_idle_share_traced": w_trace["device_idle_share"],
         "read_host_ms_per_reply": read_host_ms, "read_device_ms_per_reply": read_device_ms,
         "read_device_idle_share_traced": r_trace["device_idle_share"],
@@ -1483,11 +1686,11 @@ def phase_sync_server(gpu, log, dev="cuda"):
         "cohort_values": values, "b4_texts_equal_stream_replay": True, "replies_equal_cpu_finisher": True,
         "catch_up_equal": True, "sticky_error": err,
         "snapshot_step": SYNC_SNAPSHOT_STEP, "snapshot_lanes": snap_lanes, "snapshot_kernel_ms": k_ms,
-        "snapshot_plain_ms": p_ms, "max_abs_err": snap_err, "gpu": gpu,
+        "snapshot_plain_ms": p_ms, "max_abs_err": snap_err, "decode_vs_plain": decode_vs_plain, "gpu": gpu,
     }
     emit(line)
     del server, ing
-    return line
+    return line, decode_args
 
 
 def _diag_cases():
@@ -1508,20 +1711,22 @@ def phase_mosaic_ladder(gpu, dev="cuda"):
     committed logs. Each rung's name goes to stderr before it launches."""
     from ytpu_torch.benches import mosaic_ladder
     from ytpu_torch.ops import integrate_kernel as ik
+    from ytpu_torch.ops.decode_kernel import decode_updates_v1
 
     wrappers = [fn for _, fn, *_ in mosaic_ladder.RUNGS]
-    _reset_counts(wrappers + [ik.integrate_stream])
+    _reset_counts(wrappers + [ik.integrate_stream, decode_updates_v1])
     state = mosaic_ladder.run_ladder(
         dev, on_attempt=lambda name: print(f"mosaic_ladder: attempting {name}", file=sys.stderr,
                                               flush=True))
     launches = {w.__name__: w.launches for w in wrappers}
     launches["integrate_stream"] = ik.integrate_stream.launches
+    launches["decode_updates_v1"] = decode_updates_v1.launches
     emit({"phase": "mosaic_ladder", "steps": state["steps"], "failures": state["failures"],
           "launches": launches, "gpu": gpu})
     if state["failures"]:
         raise RuntimeError(f"mosaic_ladder: rungs failed: {state['failures']}")
     idle = [name for name, n in launches.items() if n == 0]
-    if idle or launches["integrate_stream"] != 3:
+    if idle or launches["integrate_stream"] != 3 or launches["decode_updates_v1"] != 3:
         raise RuntimeError(f"mosaic_ladder: launches {launches}")
     # rungs 8-10 each held the integrate kernel's state against the plain version's
     integrate_err = max(s["max_abs_err"] for name, s in state["steps"].items() if "_kernel_" in name)
@@ -2092,15 +2297,20 @@ def phase_stream_replay_full_width(gpu, log, expect, plan, dev="cuda"):
     t0 = time.perf_counter()
     buf_np, lens_np = pack_updates(log)
     buf, lens = torch.from_numpy(buf_np).to(dev), torch.from_numpy(lens_np).to(dev)
+    torch.cuda.synchronize()
+    decode_updates_v1.launches = 0
+    t1 = time.perf_counter()
     stream, flags = decode_updates_v1(
         buf, lens, max_rows=plan.max_rows, max_dels=plan.max_dels, n_steps=plan.max_steps,
         max_sections=plan.max_sections,
     )
     bad = int(((flags & FLAG_ERRORS) != 0).sum())
     torch.cuda.synchronize()
+    decode_call_s = time.perf_counter() - t1
     decode_s = time.perf_counter() - t0
-    if bad:
-        raise RuntimeError(f"stream_replay_full_width: decode flagged {bad} updates")
+    decode_launches = decode_updates_v1.launches
+    if bad or decode_launches != 1:
+        raise RuntimeError(f"stream_replay_full_width: decode flagged {bad} updates in {decode_launches} launches")
     state = init_state(N_DOCS, CAPACITY, dev)
     rank = identity_rank(256, dev)
     torch.cuda.synchronize()
@@ -2122,7 +2332,8 @@ def phase_stream_replay_full_width(gpu, log, expect, plan, dev="cuda"):
     line = {
         "phase": "stream_replay_full_width", "updates": len(log), "docs": N_DOCS,
         "capacity_start": CAPACITY, "capacity_end": st.capacity, "chunk_steps": CHUNK,
-        "lane_width": int(buf_np.shape[1]), "decode_s": decode_s, "wall_s": wall,
+        "lane_width": int(buf_np.shape[1]), "decode_s": decode_s, "decode_call_s": decode_call_s,
+        "decode_launches": decode_launches, "wall_s": wall,
         "updates_per_s": len(log) / wall, "doc_updates_per_s": len(log) * N_DOCS / wall,
         "chunks": st.chunks, "compactions": st.compactions, "growths": st.growths,
         "peak_blocks": st.peak_blocks, "final_blocks": st.final_blocks, "launches": launches,
@@ -2136,7 +2347,7 @@ def phase_stream_replay_full_width(gpu, log, expect, plan, dev="cuda"):
         raise RuntimeError("stream_replay_full_width: replayed text differs from the log's expected text")
     if launches != -(-len(log) // CHUNK) or launches != st.chunks:
         raise RuntimeError(f"stream_replay_full_width: {launches} launches for {st.chunks} windows")
-    return launches, vs_plain, launch_ms
+    return launches, vs_plain, launch_ms, decode_launches
 
 
 def _stream_launch_ms(stream, rank, dev):
@@ -2221,6 +2432,7 @@ def ik_launch_plan(plan) -> dict:
 def main() -> int:
     import torch
 
+    t_script = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -2237,24 +2449,38 @@ def main() -> int:
     t0 = time.perf_counter()
     plan = plan_replay(log)
     plan_s = time.perf_counter() - t0
+    decode_sets, decode_ptxas, decode_inputs = phase_decode(gpu, log, plan)
     max_err = phase_kernel_vs_plain(gpu, log, plan)
     err_full, full_kernel_ms, full_plain_ms, profile = phase_full_width_vs_plain(gpu, log, plan)
-    launches, ms, bound_ms, rep = phase_b4_replay(gpu, log, expect, plan, plan_s)
+    launches, ms, bound_ms, rep, b4 = phase_b4_replay(gpu, log, expect, plan, plan_s)
     torch.cuda.empty_cache()
     sync = phase_sync_step(gpu, log, plan, rep)
     del rep
     torch.cuda.empty_cache()
     ingest = phase_ingest(gpu, log)
     torch.cuda.empty_cache()
-    sync_server = phase_sync_server(gpu, log)
+    sync_server, decode_inputs["sync_server_round"] = phase_sync_server(gpu, log)
     torch.cuda.empty_cache()
-    stream_launches, stream_vs_plain, stream_launch_ms = phase_stream_replay_full_width(
+    stream_launches, stream_vs_plain, stream_launch_ms, stream_decodes = phase_stream_replay_full_width(
         gpu, log, expect, plan)
     torch.cuda.empty_cache()
     diag_launches, ladder_err = phase_mosaic_ladder(gpu)
     ladder_integrate = diag_launches.pop("integrate_stream")
+    ladder_decodes = diag_launches.pop("decode_updates_v1")
     diag_launches.update(phase_plane_rmw(gpu))
     diag = phase_diag_kernels(gpu, diag_launches)
+    decode_sets["sync_server_round"] = sync_server["decode_vs_plain"]
+    decode_ms = _decode_graph_ms(decode_inputs)
+    del decode_inputs
+    for name, t in decode_ms.items():
+        decode_sets[name].update(kernel_ms=t["mean"], kernel_ms_min_max=[t["min"], t["max"]])
+    emit({"phase": "decode_timing", "kernel_ms": decode_ms, "graph_launches": DECODE_GRAPH_REPS, "gpu": gpu})
+    decode_by_path = {"b4_replay": b4["decode_launches"], "ingest": ingest["decode_launches"],
+                      "sync_server": sync_server["decode_launches"], "stream_replay_full_width": stream_decodes,
+                      "mosaic_ladder": ladder_decodes}
+    chunk = decode_sets["b4_chunk"]
+    script_s = time.perf_counter() - t_script
+    emit({"phase": "total", "seconds": script_s, "limit_s": 1200})
     print(f"gpu: {gpu}", flush=True)
     emit({"kernels": [{
         "name": "integrate_stream", "route": "cuda", "source": "ytpu_torch/csrc/integrate.cu",
@@ -2311,6 +2537,21 @@ def main() -> int:
         "sync_server_kernel_ms": {"index": sync_server["index_kernel_ms"],
                                   "integrate": sync_server["integrate_kernel_ms"]},
         "gpu": gpu,
+    }, {
+        "name": "decode_v1", "route": "cuda", "source": "ytpu_torch/csrc/decode.cu",
+        "replaces": DECODE_REPLACES, "loop": DECODE_LOOP, "launches": sum(decode_by_path.values()),
+        "launches_by_path": decode_by_path,
+        "max_abs_err": max(v["max_abs_err"] for v in decode_sets.values()),
+        "ms": chunk["kernel_ms"], "plain_ms": chunk["plain_ms"], "bound_ms": chunk["bound_ms"],
+        "bound_by": "bytes", "library_ms": None,
+        "shape": f"one B4 chunk: S={chunk['lanes']} lanes of L={chunk['width']}, U={chunk['U']}, "
+                 f"R={chunk['R']}, T={chunk['T']}",
+        "ms_by_path": {"b4_replay": b4["traced"]["decode_kernel_ms_mean"],
+                       "ingest": ingest["decode_kernel_ms"], "sync_server": sync_server["decode_kernel_ms"]},
+        "longest_lane_steps": max(v["longest_lane_steps"] for v in decode_sets.values()),
+        "sets": {k: {w: v[w] for w in ("lanes", "U", "R", "T", "longest_lane_steps", "max_abs_err", "kernel_ms",
+                                       "issued_ms", "plain_ms", "bound_ms")} for k, v in decode_sets.items()},
+        "ptxas": decode_ptxas, "gpu": gpu,
     }] + [{**{k: e[k] for k in KERNEL_KEYS}, **({"full_width": e["full_width"]} if "full_width" in e else {})}
           for e in diag]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -35,6 +35,7 @@ _BUILD = os.path.join(_PKG, "_build")
 
 #: library name -> source file under csrc/
 SOURCES = {
+    "decode": "decode.cu",
     "integrate": "integrate.cu",
     "integrate_profile": "integrate.cu",
     "mosaic_ladder": "mosaic_ladder.cu",

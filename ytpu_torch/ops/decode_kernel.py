@@ -6,13 +6,16 @@ Host half (copied): the flag bits, staging helpers (`pack_updates`,
 the host key/client hashes and the wire payload readers behind
 `RawPayloadView`.
 
-Device half (ported as torch ops): `gather_raw_lanes` and the lane-parallel
-varint state machine `decode_updates_v1`. Every iteration decodes one
-lib0 varint (or one info byte / one string skip) in every update lane at
-once; the per-lane parse is sequential, all S lanes advance in lockstep
-as ``[S]``-wide tensor ops. The intern tables (clients, key hashes,
-big-client hashes, primary roots) resolve after the loop, as torch ops
-(`_resolve_and_pack`).
+Device half: `gather_raw_lanes` (one gather, torch ops) and the 41-state
+lib0 varint machine `decode_updates_v1`. On the card the machine is the
+hand-written kernel of ``csrc/decode.cu``: one thread per update lane,
+each walking its own bytes until DONE or ERR or the step budget. Its
+plain version `_decode_loop_reference` keeps the JAX package's shape:
+every iteration decodes one lib0 varint (or one info byte / one string
+skip) in every lane at once, all S lanes in lockstep as ``[S]``-wide
+tensor ops; it serves the CPU and the tests. The intern tables (clients,
+key hashes, big-client hashes, primary roots) resolve after either, as
+torch ops (`_resolve_and_pack`).
 
 `ChunkedWirePayloads` resolves the payloads of the batch ingestor's rows:
 host-planned rows through a `PayloadStore`, device-decoded rows through
@@ -24,6 +27,7 @@ explicitly. uint32 arithmetic is emulated in int64 with 32-bit masks.
 
 from __future__ import annotations
 
+import ctypes
 import json
 from typing import List, NamedTuple, Optional, Tuple
 
@@ -610,12 +614,47 @@ def decode_updates_v1(
     ``key_table`` to their anchor's key id (a miss flags
     FLAG_UNKNOWN_KEY, a name beyond the hash window FLAG_UNSUPPORTED).
     Without tables every client id stays raw, map rows flag and
-    ``key`` / ``p_root`` are -1."""
-    dev = buf.device
-    S, L = buf.shape
+    ``key`` / ``p_root`` are -1.
+
+    Launches on CUDA tensors the hand-written kernel of
+    ``csrc/decode.cu`` (one thread per lane, counted in
+    ``decode_updates_v1.launches``) and on CPU tensors the plain loop
+    `_decode_loop_reference`; any other device raises, and so does a
+    kernel that fails to build or launch. Both give the same pre-resolve
+    columns and flags."""
     U, R = max_rows, max_dels
     T = n_steps or default_steps(U, R)
     max_sec = max_sections if max_sections is not None else U + 1
+    dev = buf.device
+    if dev.type == "cpu":
+        rows, dels, flags = _decode_loop_reference(buf, lens, U, R, T, max_sec)
+    elif dev.type == "cuda":
+        rows, dels, flags, _ = _decode_kernel(buf, lens, U, R, T, max_sec)
+        decode_updates_v1.launches += 1
+    else:
+        raise ValueError(f"decode_updates_v1 runs on cuda or cpu tensors, not {dev}")
+    return _resolve_and_pack(rows, dels, flags, client_table, key_table, client_hash_table,
+                             primary_root_hash)
+
+
+decode_updates_v1.launches = 0
+
+#: the pre-resolve columns both versions return: ``rows`` holds these
+#: ``[S, U]`` int64 columns and ``valid`` (bool), ``dels`` these ``[S, R]``
+#: int64 columns and ``valid``; the kernel writes them as planes in this order
+ROW_COLUMNS = ("client", "clock", "length", "oc", "ok", "rc", "rk", "kind", "ref", "ptag", "pc", "pk",
+               "keyh", "rooth", "msc", "msk", "msa", "mec", "mek", "mea", "mprio")
+DEL_COLUMNS = ("client", "start", "end")
+
+
+def _decode_loop_reference(buf, lens, U: int, R: int, T: int, max_sec: int):
+    """The plain version of the decode: the lane-parallel machine as torch
+    ops, ``T`` iterations, each decoding one lib0 varint (or one info byte,
+    one string skip, one Any value) in every lane at once; lanes at DONE or
+    ERR change nothing. Returns the pre-resolve ``(rows, dels, flags)``
+    (`ROW_COLUMNS`, `DEL_COLUMNS`)."""
+    dev = buf.device
+    S, L = buf.shape
     b = buf.to(I64)
     lens = lens.to(I64)
 
@@ -1063,8 +1102,66 @@ def decode_updates_v1(
         regs = regs2
 
     flags = regs["flags"] | torch.where(regs["st"] != ST_DONE, FLAG_MALFORMED, 0)
-    return _resolve_and_pack(rows, dels, flags, client_table, key_table, client_hash_table,
-                             primary_root_hash)
+    return rows, dels, flags
+
+
+#: C signature of ``csrc/decode.cu``'s entry point
+DECODE_SIGNATURES = {
+    "ytpu_decode_v1": [ctypes.c_void_p] * 2 + [ctypes.c_int] * 5 + [ctypes.c_longlong]
+    + [ctypes.c_void_p] * 7,
+}
+
+
+def _decode_lib():
+    """The built decode library with its C signatures declared."""
+    from ytpu_torch.ops import _build
+
+    return _build.bind("decode", DECODE_SIGNATURES, "ytpu_cuda_error_string")
+
+
+def _launch_decode(lib, buf, lens, U: int, R: int, T: int, max_sec: int, stream, steps: bool = False):
+    """One launch of the decode kernel in `lib` over contiguous ``buf``
+    ``[S, L]`` uint8 and ``lens`` ``[S]`` int64, outputs allocated on their
+    device; `stream` is the CUDA stream handle (None in a host build).
+    Returns ``(rows, dels, flags, steps)``, ``steps`` each lane's step
+    count (int32) when asked for, else None."""
+    from ytpu_torch.ops import _build
+
+    dev = buf.device
+    S, L = buf.shape
+    rows_t = torch.empty((len(ROW_COLUMNS), S, U), dtype=I64, device=dev)
+    rvalid = torch.empty((S, U), dtype=torch.bool, device=dev)
+    dels_t = torch.empty((len(DEL_COLUMNS), S, R), dtype=I64, device=dev)
+    dvalid = torch.empty((S, R), dtype=torch.bool, device=dev)
+    flags = torch.empty((S,), dtype=I64, device=dev)
+    steps_t = torch.empty((S,), dtype=I32, device=dev) if steps else None
+    err = lib.ytpu_decode_v1(
+        buf.data_ptr(), lens.data_ptr(), S, L, U, R, T, max_sec, rows_t.data_ptr(), rvalid.data_ptr(),
+        dels_t.data_ptr(), dvalid.data_ptr(), flags.data_ptr(),
+        None if steps_t is None else steps_t.data_ptr(), stream,
+    )
+    _build.check(lib, err, "decode kernel")
+    rows = dict(zip(ROW_COLUMNS, rows_t.unbind(0)), valid=rvalid)
+    dels = dict(zip(DEL_COLUMNS, dels_t.unbind(0)), valid=dvalid)
+    return rows, dels, flags, steps_t
+
+
+def _decode_kernel(buf, lens, U: int, R: int, T: int, max_sec: int, steps: bool = False):
+    """The kernel on CUDA tensors, on the current stream: the pre-resolve
+    ``(rows, dels, flags)`` of `_decode_loop_reference`, plus each lane's
+    step count when `steps` is set. Not counted in
+    ``decode_updates_v1.launches``."""
+    if buf.dtype != torch.uint8 or buf.dim() != 2:
+        raise ValueError(f"the decode kernel takes an [S, L] uint8 matrix, got {buf.dtype} {tuple(buf.shape)}")
+    dev = buf.device
+    if dev.type != "cuda":
+        raise ValueError(f"the decode kernel runs on cuda tensors, not {dev}")
+    buf = buf.contiguous()
+    lens = lens.to(device=dev, dtype=I64).contiguous()
+    if tuple(lens.shape) != (buf.shape[0],):
+        raise ValueError(f"lens {tuple(lens.shape)} does not match {buf.shape[0]} lanes")
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    return _launch_decode(_decode_lib(), buf, lens, int(U), int(R), int(T), int(max_sec), stream, steps)
 
 
 _ID_COLUMNS = ("client", "oc", "rc", "pc", "msc", "mec")
