@@ -11,11 +11,14 @@ each, in parallel; the integrate kernel must use no stack frame and no
 spills, the column put, the map put, rungs 1, 3, 4 and 5 and v_multi's
 sized copy must issue their loads before their first store and use no
 local memory, v_body's one-pass kernel must use no local memory),
-``decode`` (the decode kernel against its plain loop, every pre-resolve
-column, the flags and the resolved stream equal, on one B4 chunk of 8,192
-lanes, one ingest step's fast lanes with their intern tables and four
-merged whole-state lanes; the sync server's round 5 is held the same way
-inside its phase; the kernel must use no stack frame and no spills),
+``decode`` (the decode program against the plain composition
+`gather_raw_lanes` -> plain loop -> `_resolve_and_pack`, every UpdateBatch
+field and the flags equal, on one B4 chunk of 8,192 lanes from its arena,
+one ingest step's fast lanes from their arena with their intern tables
+and four merged whole-state lanes from their matrix, each also from the
+other layout and without its tables; the sync server's round 5 is held
+the same way inside its phase; the kernel must use no stack frame and no
+spills),
 ``kernel_vs_plain`` (small
 cases: B4 chunks, synthetic streams at three scan plans and a capacity
 cut, 8 clients typing, clients above the client-clock table, a
@@ -55,8 +58,9 @@ logs and the CPU finisher; a fresh server caught up from the fan-out;
 rebalances; 8 flush steps and 8 replies under `torch.profiler`; the
 per-doc kernel against its plain version on one round's captured inputs),
 ``stream_replay_full_width`` (the whole log decoded
-into one stream and replayed through `replay_stream_fused` at 256 docs,
-again under `torch.profiler` for the time of each launch, then the
+into one stream and replayed through `replay_stream_fused` at 256 docs;
+the decode call's kernels read from a CUDA graph of it; the replay again
+under `torch.profiler` for the time of each launch, then the
 kernel against its plain version on one late window at the grown
 capacity),
 ``mosaic_ladder``
@@ -75,8 +79,12 @@ script's seconds against its 1,200 s limit. Launch counts are set to 0
 just before each program runs and read just after it: the decode
 kernel's on the B4 replay (one a chunk), the stream replay's one decode
 call, the ingest and sync-server calls and rungs 8-10. Any failure exits
-non-zero without the last line. It imports neither JAX nor the JAX
-package.
+non-zero without the last line. The traced B4 replay, ingest and sync
+server phases check that each `decode_updates_v1` call is one device
+kernel, ``decode_v1_kernel``, inside its span ``ytpu_torch.decode.v1``;
+the stream replay phase checks its call's one kernel in a CUDA graph of
+the call (`_graph_launches`).
+It imports neither JAX nor the JAX package.
 """
 
 from __future__ import annotations
@@ -264,16 +272,53 @@ def _capture_decode(module, captured: dict):
     return capture
 
 
-def _decode_vs_plain(name: str, buf, lens, U: int, R: int, n_steps=None, max_sections=None, **tables) -> dict:
-    """The decode kernel against its plain version on the same lanes on the
-    card: every pre-resolve column and the flags must be equal (max abs err
-    0), and so must the resolved stream and flags with the intern tables
-    `tables` (`_resolve_and_pack` over either output). Issued ms: CUDA
-    events over DECODE_KERNEL_REPS calls issued one after another, the
-    wrapper's host work included; plain ms: one call. The byte bound: each
-    lane's bytes and its length read once, every output column and the
-    flags written once, over HBM_BYTES_PER_S. Returns the result and the
-    kernel's arguments, for `_decode_graph_ms`."""
+def _stream_diff(name: str, got, want) -> int:
+    """Max abs difference of two ``(UpdateBatch, flags)`` pairs; raises
+    naming the fields where they differ."""
+    import torch
+
+    (stream_k, flags_k), (stream_p, flags_p) = got, want
+    pairs = list(zip(stream_p._fields, stream_k, stream_p)) + [("flags", flags_k, flags_p)]
+    err, differ = 0, []
+    for field, a, b in pairs:
+        if a.shape != b.shape:
+            differ.append(field)
+            continue
+        if a.numel():
+            err = max(err, int((a.long() - b.long()).abs().max()))
+        if not torch.equal(a.long(), b.long()):
+            differ.append(field)
+    if differ:
+        raise RuntimeError(f"decode {name}: kernel and plain composition differ in {differ[:8]}")
+    return err
+
+
+def _decode_bound_bytes(lens, S: int, U: int, R: int, offs=None, tables=()) -> int:
+    """Bytes the decode must move at least: each lane's wire bytes, its
+    length and offset read once, each table once; the 22 int32 row fields
+    and their valid bytes, the 3 delete fields and theirs and the int32
+    flags written once."""
+    reads = int(lens.long().sum()) + lens.numel() * lens.element_size()
+    if offs is not None:
+        reads += offs.numel() * offs.element_size()
+    for t in tables:
+        for x in (t if isinstance(t, tuple) else (t,)):
+            reads += x.numel() * x.element_size()
+    return reads + S * U * (22 * 4 + 1) + S * R * (3 * 4 + 1) + 4 * S
+
+
+def _decode_vs_plain(name: str, buf, lens, U: int, R: int, n_steps=None, max_sections=None, offs=None,
+                     width=None, **tables) -> dict:
+    """The decode program against the plain composition on the card (the
+    gather for an arena, the plain loop, `_resolve_and_pack`), on the lanes
+    as their path gives them (the arena with ``offs``, or a matrix) with
+    the intern tables `tables`, then from the other layout (the gathered
+    matrix, or an arena of the matrix's rows) and, where there are tables,
+    without them: every UpdateBatch field and the flags equal (max abs err
+    0), or it raises. Issued ms: CUDA events over DECODE_KERNEL_REPS calls
+    issued one after another, the wrapper's host work included; plain ms:
+    the gather, the loop and the resolve, each between CUDA events.
+    Returns the result and the kernel's arguments, for `_decode_graph_ms`."""
     import torch
 
     from ytpu_torch.ops import decode_kernel as dk
@@ -281,39 +326,55 @@ def _decode_vs_plain(name: str, buf, lens, U: int, R: int, n_steps=None, max_sec
     U, R = int(U), int(R)
     T = n_steps or dk.default_steps(U, R)
     max_sec = max_sections if max_sections is not None else U + 1
-    lens = lens.to(torch.int64).contiguous()
-    rows_k, dels_k, flags_k, steps = dk._decode_kernel(buf, lens, U, R, T, max_sec, steps=True)
-    issued_ms = _time_ms(lambda: dk._decode_kernel(buf, lens, U, R, T, max_sec), reps=DECODE_KERNEL_REPS)
-    (rows_p, dels_p, flags_p), p_ms = _event_ms(lambda: dk._decode_loop_reference(buf, lens, U, R, T, max_sec))
-    err = int((flags_k - flags_p).abs().max())
-    differ = [] if torch.equal(flags_k, flags_p) else ["flags"]
-    for kind, got, want in (("rows", rows_k, rows_p), ("dels", dels_k, dels_p)):
-        for col in want:
-            a, b = got[col].long(), want[col].long()
-            if a.numel():
-                err = max(err, int((a - b).abs().max()))
-            if not torch.equal(a, b):
-                differ.append(f"{kind}.{col}")
-    stream_k, fk = dk._resolve_and_pack(dict(rows_k), dict(dels_k), flags_k, **tables)
-    stream_p, fp = dk._resolve_and_pack(dict(rows_p), dict(dels_p), flags_p, **tables)
-    differ += [f"resolved.{f}" for f, a, b in zip(stream_k._fields, stream_k, stream_p) if not torch.equal(a, b)]
-    if not torch.equal(fk, fp):
-        differ.append("resolved.flags")
-    if differ:
-        raise RuntimeError(f"decode {name}: kernel and plain version differ in {differ[:8]}")
-    S, L = buf.shape
-    bound_b = (int(lens.long().sum()) + 8 * S + S * U * (8 * len(dk.ROW_COLUMNS) + 1)
-               + S * R * (8 * len(dk.DEL_COLUMNS) + 1) + 8 * S)
-    return {"lanes": S, "width": L, "U": U, "R": R, "T": T, "wire_bytes": int(lens.long().sum()),
+    S = lens.shape[0]
+    main = dict(buf=buf, lens=lens, offs=offs, width=width)
+    if offs is None:
+        L = buf.shape[1]
+        mat, g_ms = buf, 0.0
+        other = dict(buf=buf.reshape(-1), lens=lens, offs=torch.arange(S, dtype=torch.int32, device=buf.device) * L,
+                     width=L)
+    else:
+        L = int(width)
+        mat, g_ms = _event_ms(lambda: dk.gather_raw_lanes(buf, offs, lens, L))
+        other = dict(buf=mat, lens=lens, offs=None, width=None)
+    (rows, dels, fl), l_ms = _event_ms(lambda: dk._decode_loop_reference(mat, lens, U, R, T, max_sec))
+    plain, r_ms = _event_ms(lambda: dk._resolve_and_pack(dict(rows), dict(dels), fl, **tables))
+
+    def kernel(layout, tabs, steps=False):
+        return dk._decode_kernel(layout["buf"], layout["lens"], U, R, T, max_sec, offs=layout["offs"],
+                                 width=layout["width"], steps=steps, **tabs)
+
+    stream_k, flags_k, steps = kernel(main, tables, steps=True)
+    err = _stream_diff(name, (stream_k, flags_k), plain)
+    # the other layout: its gathered matrix is the main one's where the
+    # matrix holds zeros past lens, and then shares its plain result
+    if other["offs"] is None or torch.equal(dk.gather_raw_lanes(other["buf"], other["offs"], lens, L), mat):
+        other_plain = plain
+    else:
+        other_plain = dk._decode_plain(**other, U=U, R=R, T=T, max_sec=max_sec, **tables)
+    err = max(err, _stream_diff(f"{name} (other layout)", kernel(other, tables)[:2], other_plain))
+    held = ["arena" if offs is not None else "matrix", "matrix" if offs is not None else "arena"]
+    if any(v is not None for v in tables.values()):
+        bare = dk._resolve_and_pack(dict(rows), dict(dels), fl)
+        err = max(err, _stream_diff(f"{name} (no tables)", kernel(main, {})[:2], bare))
+        held.append("no tables")
+    issued_ms = _time_ms(lambda: kernel(main, tables), reps=DECODE_KERNEL_REPS)
+    bound_b = _decode_bound_bytes(lens, S, U, R, offs, [v for v in tables.values() if v is not None])
+    flags_p = plain[1]
+    wire = int(lens.long().sum())
+    return {"lanes": S, "width": L, "U": U, "R": R, "T": T, "wire_bytes": wire,
+            "layout": held[0], "held": held, "staged": bool(dk._decode_lib().ytpu_decode_stage_bytes(U, R)),
             "longest_lane_steps": int(steps.max()), "lanes_at_budget": int((steps == T).sum()),
-            "error_lanes": int(((fp & dk.FLAG_ERRORS) != 0).sum()), "max_abs_err": err,
-            "issued_ms": issued_ms, "plain_ms": p_ms, "bound_bytes": bound_b,
+            "error_lanes": int(((flags_p & dk.FLAG_ERRORS) != 0).sum()), "max_abs_err": err,
+            "issued_ms": issued_ms, "plain_ms": g_ms + l_ms + r_ms,
+            "plain_ms_parts": {"gather": g_ms, "loop": l_ms, "resolve": r_ms}, "bound_bytes": bound_b,
             "bound_ms": bound_b / HBM_BYTES_PER_S * 1e3,
-            "tables": sorted(k for k, v in tables.items() if v is not None)}, (buf, lens, U, R, T, max_sec)
+            "tables": sorted(k for k, v in tables.items() if v is not None)}, dict(
+                buf=buf, lens=lens, U=U, R=R, T=T, max_sec=max_sec, offs=offs, width=width, **tables)
 
 
 def _decode_graph_ms(inputs: dict) -> dict:
-    """Device ms a launch of the decode kernel on each input set (name ->
+    """Device ms a launch of the decode program on each input set (name ->
     the kernel's arguments), from a CUDA graph of DECODE_GRAPH_REPS
     launches (`graph_ms`: min, mean and max of its rounds, no host issue
     time). Run after the traced phases, as the diagnostic kernels' graphs
@@ -321,8 +382,111 @@ def _decode_graph_ms(inputs: dict) -> dict:
     from ytpu_torch.benches._kernels import graph_ms
     from ytpu_torch.ops import decode_kernel as dk
 
-    return {name: graph_ms(lambda a=args: dk._decode_kernel(*a), reps=DECODE_GRAPH_REPS)
-            for name, args in inputs.items()}
+    def launch(a):
+        return dk._decode_kernel(a["buf"], a["lens"], a["U"], a["R"], a["T"], a["max_sec"],
+                                 **{k: v for k, v in a.items() if k not in ("buf", "lens", "U", "R", "T", "max_sec")})
+
+    return {name: graph_ms(lambda a=args: launch(a), reps=DECODE_GRAPH_REPS) for name, args in inputs.items()}
+
+
+def _decode_calls(prof, phase: str) -> dict:
+    """Each `decode_updates_v1` call of a trace is one device kernel: the
+    device events launched inside each ``ytpu_torch.decode.v1`` span (the
+    host time of the runtime call that launched them) must be exactly one,
+    ``decode_v1_kernel``; raises otherwise. Returns the count of calls,
+    the kernels' device ms and the least and most time from a launch's
+    runtime call to its kernel's start on the trace's clock."""
+    from torch.autograd import DeviceType
+
+    events = prof.profiler.kineto_results.events()
+    spans, launched_at = [], {}
+    for e in events:
+        if e.device_type() != DeviceType.CPU:
+            continue
+        if e.name() == "ytpu_torch.decode.v1":
+            spans.append((e.start_ns(), e.end_ns()))
+        elif e.name().startswith("cu"):
+            launched_at[e.correlation_id()] = e.start_ns()
+    spans.sort()
+    starts = [a for a, _ in spans]
+    inside, lag_ms = [[] for _ in spans], []
+    for e in events:
+        if e.device_type() != DeviceType.CUDA or e.is_user_annotation():
+            continue
+        t = launched_at.get(e.correlation_id())
+        i = bisect.bisect_right(starts, t) - 1 if t is not None else -1
+        if i >= 0 and t <= spans[i][1]:
+            inside[i].append((e.name(), e.duration_ns() / 1e6))
+            lag_ms.append((e.start_ns() - t) / 1e6)
+    bad = [names for names in inside if len(names) != 1 or DECODE_KERNEL not in names[0][0]]
+    if not spans or bad:
+        # what the trace holds, to tell a missing device event from a
+        # missing launch: the runtime calls inside the spans and the
+        # trace's device kernels by name
+        calls = sorted({e.name() for e in events if e.device_type() == DeviceType.CPU and e.name().startswith("cu")
+                        and any(a <= e.start_ns() <= b for a, b in spans)})
+        kernels = sorted({e.name()[:60] for e in events if e.device_type() == DeviceType.CUDA})
+        raise RuntimeError(f"{phase}: of {len(spans)} decode_updates_v1 calls, {len(bad)} are not one "
+                           f"{DECODE_KERNEL} launch: {[[n for n, _ in b] for b in bad[:3]]}; runtime calls "
+                           f"in the spans {calls[:8]}, device events in the trace {kernels[:8]}")
+    return {"calls": len(spans), "device_kernels_per_call": 1, "kernel": DECODE_KERNEL,
+            "kernel_ms_mean": sum(ms for (_, ms), in inside) / len(inside),
+            "launch_to_kernel_start_ms": [min(lag_ms), max(lag_ms)]}
+
+
+def _graph_launches(fn) -> list:
+    """What one call of `fn` puts on the device, read without the
+    profiler: the nodes of a CUDA graph captured around the call (after a
+    warm call on a side stream), each as its kernel's name, or as its
+    driver node type for a node that is not a kernel (a copy or a
+    memset), through the driver API (`cuGraphGetNodes`,
+    `cuGraphNodeGetType`, `cuGraphKernelNodeGetParams`, `cuFuncGetName`
+    or `cuKernelGetName`)."""
+    import ctypes
+
+    import torch
+
+    class KernelNodeParams(ctypes.Structure):  # the driver's CUDA_KERNEL_NODE_PARAMS_v2
+        _fields_ = ([("func", ctypes.c_void_p)]
+                    + [(f, ctypes.c_uint) for f in ("gx", "gy", "gz", "bx", "by", "bz", "smem")]
+                    + [(f, ctypes.c_void_p) for f in ("params", "extra", "kern", "ctx")])
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        fn()
+    cu = ctypes.CDLL("libcuda.so.1")
+
+    def check(err, what):
+        if err:
+            raise RuntimeError(f"graph nodes: {what} returned CUresult {err}")
+
+    g, n = ctypes.c_void_p(graph.raw_cuda_graph()), ctypes.c_size_t(0)
+    check(cu.cuGraphGetNodes(g, None, ctypes.byref(n)), "cuGraphGetNodes")
+    nodes = (ctypes.c_void_p * n.value)()
+    check(cu.cuGraphGetNodes(g, nodes, ctypes.byref(n)), "cuGraphGetNodes")
+    out = []
+    for node in nodes:
+        kind = ctypes.c_int()
+        check(cu.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind)), "cuGraphNodeGetType")
+        if kind.value != 0:  # CU_GRAPH_NODE_TYPE_KERNEL
+            out.append(f"node type {kind.value}")
+            continue
+        params, name = KernelNodeParams(), ctypes.c_char_p()
+        check(cu.cuGraphKernelNodeGetParams_v2(ctypes.c_void_p(node), ctypes.byref(params)),
+              "cuGraphKernelNodeGetParams")
+        if params.func:
+            check(cu.cuFuncGetName(ctypes.byref(name), ctypes.c_void_p(params.func)), "cuFuncGetName")
+        else:
+            check(cu.cuKernelGetName(ctypes.byref(name), ctypes.c_void_p(params.kern)), "cuKernelGetName")
+        out.append(name.value.decode())
+    del graph
+    return out
 
 
 def _ingest_decode_inputs(log, dev) -> dict:
@@ -360,15 +524,30 @@ def _merged_lanes(log):
     return merged, plan_replay(merged)
 
 
+def _arena_of(payloads, dev):
+    """``(raw, offs, lens)`` on `dev`: the payloads concatenated, int32
+    offsets and lengths (the layout `pack_raw_updates_into` stages)."""
+    import numpy as np
+    import torch
+
+    lens = np.asarray([len(p) for p in payloads], dtype=np.int32)
+    offs = np.zeros(len(payloads), dtype=np.int32)
+    offs[1:] = np.cumsum(lens[:-1])
+    raw = np.frombuffer(b"".join(payloads), dtype=np.uint8).copy()
+    return tuple(torch.from_numpy(x).to(dev) for x in (raw, offs, lens))
+
+
 def phase_decode(gpu, log, plan, dev="cuda"):
-    """The decode kernel against its plain version on the card, on the
+    """The decode program against the plain composition on the card, on the
     lanes its paths give it: one B4 chunk of 8,192 lanes at the replay's
-    budgets (chunk LATE_CHUNK), the fast lanes of one ingest step with
-    their intern tables, and a few merged whole-state lanes. (The sync
-    server's round SYNC_SNAPSHOT_STEP is held the same way inside its
-    phase, where its inputs exist.) Then the build's ptxas report. Returns
-    the sets, the report and each set's kernel arguments, which
-    `_decode_graph_ms` times after the traced phases."""
+    budgets (chunk LATE_CHUNK) from its arena, the fast lanes of one ingest
+    step from their arena with their intern tables, and a few merged
+    whole-state lanes from their matrix (each also from the other layout
+    and without its tables; the sync server's round SYNC_SNAPSHOT_STEP is
+    held the same way inside its phase, where its inputs exist). Then the
+    build's ptxas report. Returns the sets, the report and each set's
+    kernel arguments, which `_decode_graph_ms` times after the traced
+    phases."""
     import torch
 
     from ytpu_torch.ops import _build
@@ -377,11 +556,11 @@ def phase_decode(gpu, log, plan, dev="cuda"):
     dev = torch.device(dev)
     t0 = time.perf_counter()
     chunk = log[LATE_CHUNK * CHUNK:(LATE_CHUNK + 1) * CHUNK]
-    buf_np, lens_np = pack_updates(chunk, pad_to=plan.max_len + 16)
+    raw, offs, lens = _arena_of(chunk, dev)
     sets, inputs = {}, {}
     sets["b4_chunk"], inputs["b4_chunk"] = _decode_vs_plain(
-        "b4_chunk", torch.from_numpy(buf_np).to(dev), torch.from_numpy(lens_np).to(dev), plan.max_rows,
-        plan.max_dels, n_steps=plan.max_steps, max_sections=plan.max_sections)
+        "b4_chunk", raw, lens, plan.max_rows, plan.max_dels, n_steps=plan.max_steps,
+        max_sections=plan.max_sections, offs=offs, width=plan.max_len + 16)
     sets["ingest_step"], inputs["ingest_step"] = _decode_vs_plain("ingest_step", **_ingest_decode_inputs(log, dev))
     sets["ingest_step"]["step"] = INGEST_SNAPSHOT_STEP
     merged, mplan = _merged_lanes(log)
@@ -586,10 +765,12 @@ def _trace_breakdown(prof, wall_s: float, kernel: str = "integrate_kernel"):
     any span is ``other``), the device time of every `kernel` (by default
     the stream integrate), and the device's idle share of the traced wall
     time. A device event is placed by the host time of the runtime call
-    that launched it (the CPU event of the same CUPTI correlation id).
-    Returns the breakdown, the `kernel` launches as ``(launch host ns,
-    device ms)`` in launch order, and the spans as ``(start ns, end ns,
-    name)``."""
+    that launched it (the CPU event of the same CUPTI correlation id), and
+    counts in every span open at that time: spans nest (``decode.v1``
+    inside ``decode`` or ``ingest.decode``), and each span's device and
+    host seconds include those of the spans inside it. Returns the
+    breakdown, the `kernel` launches as ``(launch host ns, device ms)`` in
+    launch order, and the spans as ``(start ns, end ns, name)``."""
     from torch.autograd import DeviceType
 
     events = prof.profiler.kineto_results.events()
@@ -603,6 +784,13 @@ def _trace_breakdown(prof, wall_s: float, kernel: str = "integrate_kernel"):
             launched_at[e.correlation_id()] = e.start_ns()
     spans.sort()
     span_starts = [s for s, _, _ in spans]
+    # each span's enclosing span (-1: none)
+    parent, open_ = [], []
+    for s, t, _ in spans:
+        while open_ and spans[open_[-1]][1] < s:
+            open_.pop()
+        parent.append(open_[-1] if open_ else -1)
+        open_.append(len(parent) - 1)
     host_s, device_s = {}, {"other": 0.0}
     for s, t, name in spans:
         host_s[name] = host_s.get(name, 0.0) + (t - s) / 1e9
@@ -616,8 +804,16 @@ def _trace_breakdown(prof, wall_s: float, kernel: str = "integrate_kernel"):
         if kernel in e.name():
             integrate_ms.append((t, e.duration_ns() / 1e6))
         i = bisect.bisect_right(span_starts, t) - 1 if t is not None else -1
-        name = spans[i][2] if i >= 0 and t <= spans[i][1] else "other"
-        device_s[name] += e.duration_ns() / 1e9
+        while i >= 0 and spans[i][1] < t:
+            i = parent[i]
+        if i < 0:
+            device_s["other"] += e.duration_ns() / 1e9
+        names = set()
+        while i >= 0:
+            names.add(spans[i][2])
+            i = parent[i]
+        for name in names:
+            device_s[name] += e.duration_ns() / 1e9
     busy.sort()
     busy_ns, end = 0, None
     for s, t in busy:
@@ -698,6 +894,7 @@ def phase_b4_replay(gpu, log, expect, plan, plan_s: float):
     st_t, wall_t, launches_t, _, _, prof, rep, _ = _replay(plan, log, expect, traced=True)
     trace, integrate, _ = _trace_breakdown(prof, wall_t)
     _, decodes, _ = _trace_breakdown(prof, wall_t, kernel=DECODE_KERNEL)
+    decode_calls = _decode_calls(prof, "b4_replay")
     integrate_ms = [ms for _, ms in integrate]
     decode_ms = [ms for _, ms in decodes]
     if len(integrate_ms) != launches_t or len(decode_ms) != launches_t:
@@ -717,7 +914,7 @@ def phase_b4_replay(gpu, log, expect, plan, plan_s: float):
         "traced": {"wall_s": wall_t, "updates_per_s": len(log) / wall_t, "launches": launches_t,
                    "integrate_ms_mean": sum(integrate_ms) / len(integrate_ms),
                    "integrate_ms_max": max(integrate_ms), "decode_kernel_ms_mean": sum(decode_ms) / len(decode_ms),
-                   "decode_kernel_ms_max": max(decode_ms), **trace},
+                   "decode_kernel_ms_max": max(decode_ms), "decode_calls": decode_calls, **trace},
         "gpu": gpu,
     }
     emit(line)
@@ -1267,10 +1464,12 @@ def phase_ingest(gpu, log, dev="cuda"):
         values[name] = {"docs": n, "blocks": int(ing.state.n_blocks[first])}
 
     # the pieces of a call from the traced window
-    pieces = ("ingest.plan", "ingest.decode", "pack_state", "pack_stream", "integrate_batch", "unpack_state")
+    pieces = ("ingest.plan", "ingest.decode", "decode.v1", "pack_state", "pack_stream", "integrate_batch",
+              "unpack_state")
     trace, integrates, _ = _trace_breakdown(prof, traced_s, kernel="integrate_batch_kernel")
     _, indexes, _ = _trace_breakdown(prof, traced_s, kernel="integrate_batch_index_kernel")
     _, decodes, _ = _trace_breakdown(prof, traced_s, kernel=DECODE_KERNEL)
+    decode_calls = _decode_calls(prof, "ingest")
     if len(integrates) != INGEST_TRACED_STEPS or len(indexes) != INGEST_TRACED_STEPS or not decodes:
         raise RuntimeError(f"ingest: the trace holds {len(indexes)} index, {len(integrates)} integrate and "
                            f"{len(decodes)} decode kernels for {INGEST_TRACED_STEPS} calls")
@@ -1312,7 +1511,7 @@ def phase_ingest(gpu, log, dev="cuda"):
         "device_ms_per_call": device_ms, "index_kernel_ms": statistics.fmean(index_ms),
         "integrate_kernel_ms": statistics.fmean(kernel_ms),
         "decode_kernel_ms": statistics.fmean(ms for _, ms in decodes), "decode_kernels_traced": len(decodes),
-        "device_idle_share_traced": trace["device_idle_share"],
+        "decode_calls": decode_calls, "device_idle_share_traced": trace["device_idle_share"],
         "fast_docs_per_call": ing.fast_docs / bench.INGEST_STEPS,
         "slow_docs_per_call": ing.slow_docs / bench.INGEST_STEPS,
         "recovery_docs_per_call": ing.fast_recoveries / bench.INGEST_STEPS,
@@ -1594,12 +1793,13 @@ def phase_sync_server(gpu, log, dev="cuda"):
     _progress(t_all, "replies against the CPU finisher")
 
     # the pieces of a flush step and of a reply, from the traced windows
-    write_pieces = ("sync.dispatch", "ingest.plan", "ingest.decode", "pack_state", "pack_stream",
+    write_pieces = ("sync.dispatch", "ingest.plan", "ingest.decode", "decode.v1", "pack_state", "pack_stream",
                     "integrate_batch", "unpack_state")
     read_pieces = ("encode_diff_batch", "state_vectors", "finisher")
     w_trace, integrates, _ = _trace_breakdown(window["write"], window["write_s"], kernel="integrate_batch_kernel")
     _, indexes, _ = _trace_breakdown(window["write"], window["write_s"], kernel="integrate_batch_index_kernel")
     _, decodes, _ = _trace_breakdown(window["write"], window["write_s"], kernel=DECODE_KERNEL)
+    decode_calls = _decode_calls(window["write"], "sync_server")
     if len(integrates) != SYNC_TRACED_STEPS or len(indexes) != SYNC_TRACED_STEPS or not decodes:
         raise RuntimeError(f"sync_server: the trace holds {len(indexes)} index and {len(integrates)} integrate "
                            f"kernels for {SYNC_TRACED_STEPS} flush steps")
@@ -1678,7 +1878,7 @@ def phase_sync_server(gpu, log, dev="cuda"):
         "index_kernel_ms": statistics.fmean(ms for _, ms in indexes),
         "integrate_kernel_ms": statistics.fmean(ms for _, ms in integrates),
         "decode_kernel_ms": statistics.fmean(ms for _, ms in decodes), "decode_kernels_traced": len(decodes),
-        "write_device_idle_share_traced": w_trace["device_idle_share"],
+        "decode_calls": decode_calls, "write_device_idle_share_traced": w_trace["device_idle_share"],
         "read_host_ms_per_reply": read_host_ms, "read_device_ms_per_reply": read_device_ms,
         "read_device_idle_share_traced": r_trace["device_idle_share"],
         "catch_up_s": catch_up_s, "rebalanced": [tenants[i].name for i in SYNC_REBALANCED],
@@ -2284,8 +2484,10 @@ def phase_stream_replay_full_width(gpu, log, expect, plan, dev="cuda"):
     65,536 slots and the driver grows the state (up to STREAM_MAX_CAPACITY).
     Checks the text of the first and last doc, the sticky error, one launch
     per window, and the kernel against its plain version on one late window
-    at the final capacity (`_late_window_vs_plain`). A second, traced run
-    times each integrate launch (`_stream_launch_ms`)."""
+    at the final capacity (`_late_window_vs_plain`). A CUDA graph of the
+    decode call shows that it is one kernel (`_graph_launches`); a
+    second, traced run of the replay times each integrate launch
+    (`_stream_launch_ms`)."""
     import torch
 
     from ytpu_torch.models.batch_doc import get_string, init_state
@@ -2304,13 +2506,23 @@ def phase_stream_replay_full_width(gpu, log, expect, plan, dev="cuda"):
         buf, lens, max_rows=plan.max_rows, max_dels=plan.max_dels, n_steps=plan.max_steps,
         max_sections=plan.max_sections,
     )
-    bad = int(((flags & FLAG_ERRORS) != 0).sum())
     torch.cuda.synchronize()
     decode_call_s = time.perf_counter() - t1
+    bad = int(((flags & FLAG_ERRORS) != 0).sum())
     decode_s = time.perf_counter() - t0
     decode_launches = decode_updates_v1.launches
     if bad or decode_launches != 1:
         raise RuntimeError(f"stream_replay_full_width: decode flagged {bad} updates in {decode_launches} launches")
+    # the call's one kernel, read from a CUDA graph of the same call: here,
+    # late in the script, the profiler drops the device records at the
+    # start of its windows (kineto's "Out-of-range" count), torch's own
+    # kernels too, so a trace cannot show this call's kernel
+    decode_nodes = _graph_launches(lambda: decode_updates_v1(
+        buf, lens, max_rows=plan.max_rows, max_dels=plan.max_dels, n_steps=plan.max_steps,
+        max_sections=plan.max_sections))
+    if len(decode_nodes) != 1 or DECODE_KERNEL not in decode_nodes[0]:
+        raise RuntimeError(f"stream_replay_full_width: the decode call launched {decode_nodes}, not one "
+                           f"{DECODE_KERNEL}")
     state = init_state(N_DOCS, CAPACITY, dev)
     rank = identity_rank(256, dev)
     torch.cuda.synchronize()
@@ -2333,7 +2545,7 @@ def phase_stream_replay_full_width(gpu, log, expect, plan, dev="cuda"):
         "phase": "stream_replay_full_width", "updates": len(log), "docs": N_DOCS,
         "capacity_start": CAPACITY, "capacity_end": st.capacity, "chunk_steps": CHUNK,
         "lane_width": int(buf_np.shape[1]), "decode_s": decode_s, "decode_call_s": decode_call_s,
-        "decode_launches": decode_launches, "wall_s": wall,
+        "decode_launches": decode_launches, "decode_graph_nodes": decode_nodes, "wall_s": wall,
         "updates_per_s": len(log) / wall, "doc_updates_per_s": len(log) * N_DOCS / wall,
         "chunks": st.chunks, "compactions": st.compactions, "growths": st.growths,
         "peak_blocks": st.peak_blocks, "final_blocks": st.final_blocks, "launches": launches,

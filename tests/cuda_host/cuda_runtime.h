@@ -1,9 +1,9 @@
-// Host stand-in for the CUDA pieces ytpu_torch/csrc/integrate.cu, the
+// Host stand-in for the CUDA pieces ytpu_torch/csrc/integrate.cu, decode.cu, the
 // column put and the multi call of ytpu_torch/csrc/plane_rmw.cu and the
 // map put, the scan and nested sum and the row put and carried sum of
 // ytpu_torch/csrc/mosaic_ladder.cu use, so that g++ can compile
 // the kernel source and run its logic on the CPU
-// (tests/test_torch_integrate_emulated.py,
+// (tests/test_torch_integrate_emulated.py, tests/test_torch_decode_emulated.py,
 // tests/test_torch_plane_rmw_emulated.py, tests/test_torch_ladder_emulated.py).
 // It is an emulator, not a GPU:
 //
@@ -169,6 +169,7 @@ inline void __syncthreads() { emu_cta->bar.arrive_and_wait(); }
 inline int __ffs(unsigned x) { return __builtin_ffs((int)x); }
 inline int __ffsll(long long x) { return __builtin_ffsll(x); }
 inline int __clzll(long long x) { return x ? __builtin_clzll((unsigned long long)x) : 64; }
+inline int __popcll(unsigned long long x) { return __builtin_popcountll(x); }
 inline long long clock64() { return 0; }
 
 inline unsigned long long atomicCAS(unsigned long long* p, unsigned long long c, unsigned long long v) {

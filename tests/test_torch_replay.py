@@ -150,8 +150,9 @@ def test_launch_rows_count_rows_before_and_after_each_launch(runs):
 
 
 def test_chunk_phases_are_profiler_spans():
-    """Every chunk records its decode / integrate / readout span and every
-    compaction and growth its own, so a trace splits the replay by phase."""
+    """Every chunk records its decode / integrate / readout span (the decode
+    call's own span inside the first) and every compaction and growth its
+    own, so a trace splits the replay by phase."""
     log = b4_log()[:96]
     rep = treplay.FusedReplay(2, treplay.plan_replay(log), capacity=64, chunk=32, device="cpu")
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
@@ -163,7 +164,7 @@ def test_chunk_phases_are_profiler_spans():
     st = rep.stats
     assert st.chunks == 3 and st.compactions >= 1 and st.growths >= 1
     assert counts == {
-        "ytpu_torch.decode": st.chunks, "ytpu_torch.integrate": st.chunks,
+        "ytpu_torch.decode": st.chunks, "ytpu_torch.decode.v1": st.chunks, "ytpu_torch.integrate": st.chunks,
         "ytpu_torch.readout": st.chunks, "ytpu_torch.compaction": st.compactions,
         "ytpu_torch.grow": st.growths,
     }

@@ -60,7 +60,6 @@ from ytpu_torch.ops.decode_kernel import (
     ChunkedWirePayloads,
     client_hash_host,
     decode_updates_v1,
-    gather_raw_lanes,
     key_hash_host,
     pack_updates,
     steps_for_columns,
@@ -98,10 +97,10 @@ def _sorted_table(mapping: Dict[int, int], device) -> Tuple[torch.Tensor, torch.
 class BatchIngestor:
     """`n_docs` doc slots of `capacity` block slots each, on `device` (the
     GPU unless it says otherwise). ``ingest="raw"`` ships the fast lane's
-    wire bytes as one flat arena plus offsets and gathers the padded lane
-    matrix on the device (`gather_raw_lanes`); ``"packed"`` ships the
+    wire bytes as one flat arena plus offsets, which the decode reads in
+    place (`decode_updates_v1` with ``offs``); ``"packed"`` ships the
     host-padded matrix (`pack_updates`). The two feed the decoder the same
-    bytes."""
+    lanes."""
 
     def __init__(
         self,
@@ -552,9 +551,10 @@ class BatchIngestor:
         dev = self.device
         maxlen = max(len(p) for p in fast_payloads)
         S = len(fast_payloads)
+        arena = {}
         if self.ingest == "raw":
-            # the wire bytes and an offsets table; the padded [S, L] matrix
-            # is gathered on the device (byte for byte the packed one)
+            # the wire bytes and an offsets table; the decode reads the
+            # lanes straight from the arena (byte for byte the packed ones)
             L = _bucket(maxlen + 16, 64)
             lens = np.asarray([len(p) for p in fast_payloads], dtype=np.int32)
             offsets = np.zeros(S, dtype=np.int32)
@@ -564,10 +564,8 @@ class BatchIngestor:
             # the arena is padded to a bucket (the zero tail is masked out)
             wire = np.zeros(_bucket(len(flat), 256), dtype=np.uint8)
             wire[: len(flat)] = np.frombuffer(flat, dtype=np.uint8)
-            dev_buf = gather_raw_lanes(
-                torch.from_numpy(wire).to(dev), torch.from_numpy(offsets).to(dev),
-                torch.from_numpy(lens).to(dev), L,
-            )
+            dev_buf = torch.from_numpy(wire).to(dev)
+            arena = dict(offs=torch.from_numpy(offsets).to(dev), width=L)
             self.wire_bytes += wire.nbytes + offsets.nbytes + lens.nbytes
         else:
             buf, lens = pack_updates(fast_payloads, pad_to=_bucket(maxlen + 16, 64))
@@ -596,6 +594,7 @@ class BatchIngestor:
             key_table=_sorted_table(self._key_hashes, dev),
             client_hash_table=_sorted_table(self._client_hashes, dev),
             primary_root_hash=torch.from_numpy(prim_hash).to(dev),
+            **arena,
         )
         ref = stream.content_ref
         is_str_ref = stream.valid & (ref >= 0)

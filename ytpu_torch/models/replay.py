@@ -5,8 +5,8 @@ The stream is pre-scanned on the host (`plan_replay`: decode budgets,
 worst-case growth per update, and a global UTF-16 unit arena for string
 content), then replayed chunk by chunk through
 `integrate_kernel.PackedReplayDriver.step_raw`: each chunk's raw wire bytes
-are staged with `pack_raw_updates_into`, gathered into update lanes and
-decoded on the device, rebased onto the unit arena, integrated by the CUDA
+are staged with `pack_raw_updates_into` and decoded on the device straight
+from that arena, rebased onto the unit arena, integrated by the CUDA
 kernel and read out. Between chunks the driver compacts (and grows) the
 packed state under the `CompactionPolicy`. Chunks dispatch serially.
 """
@@ -289,8 +289,8 @@ class _RawStagingSlot:
 class FusedReplay:
     """Chunked replay of one shared update stream over a doc batch, on the
     raw ingest lane: per chunk, the host stages the raw wire bytes and the
-    device gathers, decodes, rebases, integrates (the CUDA kernel) and reads
-    out; between chunks the driver compacts or grows the packed state.
+    device decodes them in place, rebases, integrates (the CUDA kernels) and
+    reads out; between chunks the driver compacts or grows the packed state.
     ``device=None`` runs on the GPU."""
 
     def __init__(

@@ -6,16 +6,18 @@ Host half (copied): the flag bits, staging helpers (`pack_updates`,
 the host key/client hashes and the wire payload readers behind
 `RawPayloadView`.
 
-Device half: `gather_raw_lanes` (one gather, torch ops) and the 41-state
-lib0 varint machine `decode_updates_v1`. On the card the machine is the
-hand-written kernel of ``csrc/decode.cu``: one thread per update lane,
-each walking its own bytes until DONE or ERR or the step budget. Its
-plain version `_decode_loop_reference` keeps the JAX package's shape:
-every iteration decodes one lib0 varint (or one info byte / one string
-skip) in every lane at once, all S lanes in lockstep as ``[S]``-wide
-tensor ops; it serves the CPU and the tests. The intern tables (clients,
-key hashes, big-client hashes, primary roots) resolve after either, as
-torch ops (`_resolve_and_pack`).
+Device half: `decode_updates_v1`, from wire bytes (an ``[S, L]`` matrix,
+or a flat arena with per-lane offsets) to the int32 UpdateBatch. On the
+card it is one launch of the hand-written program of ``csrc/decode.cu``:
+one thread per update lane walks its own bytes through the 41-state lib0
+varint machine until DONE or ERR or the step budget, resolves each row's
+ids through the intern tables (clients, key hashes, big-client hashes,
+primary roots) as it emits it, and its warp writes the rows out. Its plain
+version is the JAX package's composition: `gather_raw_lanes` (one gather,
+torch ops) for an arena, `_decode_loop_reference` (every iteration decodes
+one lib0 varint, info byte or string skip in every lane at once, all S
+lanes in lockstep as ``[S]``-wide tensor ops), then `_resolve_and_pack`
+(the tables, torch ops); it serves the CPU and the tests.
 
 `ChunkedWirePayloads` resolves the payloads of the batch ingestor's rows:
 host-planned rows through a `PayloadStore`, device-decoded rows through
@@ -29,6 +31,7 @@ from __future__ import annotations
 
 import ctypes
 import json
+import struct
 from typing import List, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -593,15 +596,20 @@ def decode_updates_v1(
     key_table: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
     client_hash_table: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
     primary_root_hash: Optional[torch.Tensor] = None,
+    *,
+    offs: Optional[torch.Tensor] = None,
+    width: Optional[int] = None,
 ) -> Tuple[UpdateBatch, torch.Tensor]:
     """Decode S updates (``buf`` ``[S, L]`` uint8, ``lens`` ``[S]``) into an
     ``[S, U] / [S, R]`` UpdateBatch stream. Returns ``(stream, flags)``;
     lanes with ``flags & FLAG_ERRORS`` decoded incompletely and their rows
-    are marked invalid.
+    are marked invalid. With ``offs`` (``[S]``) and ``width`` L, ``buf`` is
+    the flat ``[RC]`` arena of concatenated wire bytes and lane s the L
+    bytes at ``offs[s]``, bytes at or past ``lens[s]`` zero: the matrix
+    `gather_raw_lanes` builds.
 
     The tables (each a ``(sorted keys, perm)`` pair: ``perm[j]`` is the
-    interned index of ``keys[j]``) are resolved after the loop by
-    `_resolve_and_pack`, with the JAX package's semantics:
+    interned index of ``keys[j]``) have the JAX package's semantics:
     ``client_table`` maps raw client ids to interned indices (a miss flags
     FLAG_UNKNOWN_CLIENT); ``client_hash_table`` maps the varint-byte hash
     of an id beyond i32 (`client_hash_host`) to its interned index
@@ -616,32 +624,43 @@ def decode_updates_v1(
     Without tables every client id stays raw, map rows flag and
     ``key`` / ``p_root`` are -1.
 
-    Launches on CUDA tensors the hand-written kernel of
-    ``csrc/decode.cu`` (one thread per lane, counted in
-    ``decode_updates_v1.launches``) and on CPU tensors the plain loop
-    `_decode_loop_reference`; any other device raises, and so does a
-    kernel that fails to build or launch. Both give the same pre-resolve
-    columns and flags."""
+    On CUDA tensors the whole decode, from the bytes to the stream and
+    the flags, is one launch of the hand-written program of
+    ``csrc/decode.cu`` (counted in ``decode_updates_v1.launches``); on
+    CPU tensors it is the plain composition `gather_raw_lanes` (for an
+    arena) -> `_decode_loop_reference` -> `_resolve_and_pack`. Any other
+    device raises, and so does a kernel that fails to build or launch.
+    The work runs inside the profiler span ``ytpu_torch.decode.v1``."""
     U, R = max_rows, max_dels
     T = n_steps or default_steps(U, R)
     max_sec = max_sections if max_sections is not None else U + 1
+    tables = dict(client_table=client_table, key_table=key_table, client_hash_table=client_hash_table,
+                  primary_root_hash=primary_root_hash)
     dev = buf.device
-    if dev.type == "cpu":
-        rows, dels, flags = _decode_loop_reference(buf, lens, U, R, T, max_sec)
-    elif dev.type == "cuda":
-        rows, dels, flags, _ = _decode_kernel(buf, lens, U, R, T, max_sec)
+    with torch.profiler.record_function("ytpu_torch.decode.v1"):
+        if dev.type == "cpu":
+            return _decode_plain(buf, lens, U, R, T, max_sec, offs=offs, width=width, **tables)
+        if dev.type != "cuda":
+            raise ValueError(f"decode_updates_v1 runs on cuda or cpu tensors, not {dev}")
+        stream, flags, _ = _decode_kernel(buf, lens, U, R, T, max_sec, offs=offs, width=width, **tables)
         decode_updates_v1.launches += 1
-    else:
-        raise ValueError(f"decode_updates_v1 runs on cuda or cpu tensors, not {dev}")
-    return _resolve_and_pack(rows, dels, flags, client_table, key_table, client_hash_table,
-                             primary_root_hash)
+        return stream, flags
+
+
+def _decode_plain(buf, lens, U: int, R: int, T: int, max_sec: int, offs=None, width=None, **tables):
+    """The plain version of `decode_updates_v1` (any device): the gather for
+    an arena, the lockstep loop, then the tables."""
+    if offs is not None:
+        buf = gather_raw_lanes(buf, offs, lens, width)
+    rows, dels, flags = _decode_loop_reference(buf, lens, U, R, T, max_sec)
+    return _resolve_and_pack(rows, dels, flags, **tables)
 
 
 decode_updates_v1.launches = 0
 
-#: the pre-resolve columns both versions return: ``rows`` holds these
+#: the pre-resolve columns of the plain loop: ``rows`` holds these
 #: ``[S, U]`` int64 columns and ``valid`` (bool), ``dels`` these ``[S, R]``
-#: int64 columns and ``valid``; the kernel writes them as planes in this order
+#: int64 columns and ``valid``
 ROW_COLUMNS = ("client", "clock", "length", "oc", "ok", "rc", "rk", "kind", "ref", "ptag", "pc", "pk",
                "keyh", "rooth", "msc", "msk", "msa", "mec", "mek", "mea", "mprio")
 DEL_COLUMNS = ("client", "start", "end")
@@ -1105,11 +1124,22 @@ def _decode_loop_reference(buf, lens, U: int, R: int, T: int, max_sec: int):
     return rows, dels, flags
 
 
-#: C signature of ``csrc/decode.cu``'s entry point
+#: C signatures of ``csrc/decode.cu``'s entry points: the launch takes its
+#: arguments as one packed array of int64 (`_LAUNCH_ARGS`), which ctypes
+#: passes as one pointer
 DECODE_SIGNATURES = {
-    "ytpu_decode_v1": [ctypes.c_void_p] * 2 + [ctypes.c_int] * 5 + [ctypes.c_longlong]
-    + [ctypes.c_void_p] * 7,
+    "ytpu_decode_v1": [ctypes.c_char_p],
+    "ytpu_decode_stage_bytes": [ctypes.c_int, ctypes.c_int],
 }
+#: the launch's arguments, in the order of ``DecodeArgs`` in decode.cu
+_LAUNCH_ARGS = ("raw", "n_raw", "offs", "lens", "S", "L", "U", "R", "T", "max_sec",
+                "ct_keys", "ct_perm", "ct_n", "cht_keys", "cht_perm", "cht_n", "kt_keys", "kt_perm", "kt_n",
+                "prim", "n_prim", "rows", "dels", "flags", "steps", "rvalid", "dvalid", "stream")
+_PACK = struct.Struct(f"<{len(_LAUNCH_ARGS)}q").pack
+
+#: the row fields of an UpdateBatch (its first 22), in the kernel's plane order
+ROW_FIELDS = UpdateBatch._fields[:22]
+_NR, _ND = len(ROW_FIELDS), len(DEL_COLUMNS)
 
 
 def _decode_lib():
@@ -1119,49 +1149,97 @@ def _decode_lib():
     return _build.bind("decode", DECODE_SIGNATURES, "ytpu_cuda_error_string")
 
 
-def _launch_decode(lib, buf, lens, U: int, R: int, T: int, max_sec: int, stream, steps: bool = False):
-    """One launch of the decode kernel in `lib` over contiguous ``buf``
-    ``[S, L]`` uint8 and ``lens`` ``[S]`` int64, outputs allocated on their
-    device; `stream` is the CUDA stream handle (None in a host build).
-    Returns ``(rows, dels, flags, steps)``, ``steps`` each lane's step
-    count (int32) when asked for, else None."""
+def _ints(x, dev, what: str) -> torch.Tensor:
+    """`x` as a flat contiguous int32 tensor on `dev`: as it is where it
+    already is one, else cast once. The callers' offsets, lengths, table
+    keys and perms fit in int32 by construction (raw client ids are below
+    2**31, larger ids and key hashes are hashed into 31 bits)."""
+    if not (isinstance(x, torch.Tensor) and x.device == dev):
+        x = torch.as_tensor(x, device=dev)
+    if x.dtype != I32:
+        x = x.to(I32)
+    if x.dim() != 1:
+        x = x.reshape(-1)
+    if not x.is_contiguous():
+        raise ValueError(f"decode: {what} is not contiguous")
+    return x
+
+
+def _launch_decode(lib, buf, offs, lens, L: int, U: int, R: int, T: int, max_sec: int, client_table=None,
+                   key_table=None, client_hash_table=None, primary_root_hash=None, stream=None,
+                   steps: bool = False):
+    """One launch of the decode program in `lib` over ``buf`` (the flat
+    arena with ``offs``, or with ``offs`` None the contiguous ``[S, L]``
+    matrix), ``lens`` ``[S]`` and the intern tables; `stream` is the CUDA
+    stream handle (None in a host build). All outputs are views of one
+    allocation. Returns ``(stream, flags, steps)``, ``steps`` each lane's
+    step count (int32) when asked for, else None."""
     from ytpu_torch.ops import _build
 
     dev = buf.device
-    S, L = buf.shape
-    rows_t = torch.empty((len(ROW_COLUMNS), S, U), dtype=I64, device=dev)
-    rvalid = torch.empty((S, U), dtype=torch.bool, device=dev)
-    dels_t = torch.empty((len(DEL_COLUMNS), S, R), dtype=I64, device=dev)
-    dvalid = torch.empty((S, R), dtype=torch.bool, device=dev)
-    flags = torch.empty((S,), dtype=I64, device=dev)
-    steps_t = torch.empty((S,), dtype=I32, device=dev) if steps else None
-    err = lib.ytpu_decode_v1(
-        buf.data_ptr(), lens.data_ptr(), S, L, U, R, T, max_sec, rows_t.data_ptr(), rvalid.data_ptr(),
-        dels_t.data_ptr(), dvalid.data_ptr(), flags.data_ptr(),
-        None if steps_t is None else steps_t.data_ptr(), stream,
-    )
+    S = lens.shape[0]
+    offs = None if offs is None else _ints(offs, dev, "offs")
+    lens = _ints(lens, dev, "lens")
+    tabs = []
+    for name, t in (("ct", client_table), ("cht", client_hash_table), ("kt", key_table)):
+        if t is None:
+            tabs += [0, 0, -1]
+            continue
+        keys, perm = _ints(t[0], dev, f"{name} keys"), _ints(t[1], dev, f"{name} perm")
+        if perm.numel() < keys.numel():
+            raise ValueError(f"decode: the {name} table has {keys.numel()} keys and {perm.numel()} perm entries")
+        tabs += [keys.data_ptr(), perm.data_ptr(), keys.numel()]
+    prim = None if primary_root_hash is None else _ints(primary_root_hash, dev, "primary_root_hash")
+    if prim is not None and prim.numel() not in (1, S):
+        raise ValueError(f"decode: primary_root_hash has {prim.numel()} entries for {S} lanes")
+
+    # one allocation: the int32 row planes, delete planes, flags and step
+    # counts, then the valid bytes of rows and ranges
+    n32 = (_NR * U + _ND * R + 2) * S
+    o_dels, o_flags = _NR * S * U, (_NR * U + _ND * R) * S
+    out = torch.empty(4 * n32 + -(-S * (U + R) // 4) * 4, dtype=torch.uint8, device=dev)
+    words, bools = out.view(I32), out.view(torch.bool)
+    flags, steps_t = words.as_strided((S,), (1,), o_flags), words.as_strided((S,), (1,), o_flags + S)
+    base = out.data_ptr()
+    err = lib.ytpu_decode_v1(_PACK(
+        buf.data_ptr(), buf.numel(), 0 if offs is None else offs.data_ptr(), lens.data_ptr(), S, L, U, R, T,
+        max_sec, *tabs, 0 if prim is None else prim.data_ptr(), 0 if prim is None else prim.numel(),
+        base, base + 4 * o_dels, base + 4 * o_flags, base + 4 * (o_flags + S) if steps else 0, base + 4 * n32,
+        base + 4 * n32 + S * U, stream or 0))
     _build.check(lib, err, "decode kernel")
-    rows = dict(zip(ROW_COLUMNS, rows_t.unbind(0)), valid=rvalid)
-    dels = dict(zip(DEL_COLUMNS, dels_t.unbind(0)), valid=dvalid)
-    return rows, dels, flags, steps_t
+    stream_out = UpdateBatch(*words.as_strided((_NR, S, U), (S * U, U, 1), 0).unbind(0),
+                             bools.as_strided((S, U), (U, 1), 4 * n32),
+                             *words.as_strided((_ND, S, R), (S * R, R, 1), o_dels).unbind(0),
+                             bools.as_strided((S, R), (R, 1), 4 * n32 + S * U))
+    return stream_out, flags, (steps_t if steps else None)
 
 
-def _decode_kernel(buf, lens, U: int, R: int, T: int, max_sec: int, steps: bool = False):
-    """The kernel on CUDA tensors, on the current stream: the pre-resolve
-    ``(rows, dels, flags)`` of `_decode_loop_reference`, plus each lane's
-    step count when `steps` is set. Not counted in
-    ``decode_updates_v1.launches``."""
-    if buf.dtype != torch.uint8 or buf.dim() != 2:
-        raise ValueError(f"the decode kernel takes an [S, L] uint8 matrix, got {buf.dtype} {tuple(buf.shape)}")
+def _decode_kernel(buf, lens, U: int, R: int, T: int, max_sec: int, offs=None, width=None,
+                   client_table=None, key_table=None, client_hash_table=None, primary_root_hash=None,
+                   steps: bool = False):
+    """The decode program on CUDA tensors, on the current stream: what
+    `_decode_plain` returns, plus each lane's step count when `steps` is
+    set. Not counted in ``decode_updates_v1.launches``."""
     dev = buf.device
     if dev.type != "cuda":
         raise ValueError(f"the decode kernel runs on cuda tensors, not {dev}")
-    buf = buf.contiguous()
-    lens = lens.to(device=dev, dtype=I64).contiguous()
-    if tuple(lens.shape) != (buf.shape[0],):
-        raise ValueError(f"lens {tuple(lens.shape)} does not match {buf.shape[0]} lanes")
+    if buf.dtype != torch.uint8 or not buf.is_contiguous():
+        raise ValueError(f"the decode kernel takes contiguous uint8 bytes, got {buf.dtype}")
+    S = lens.shape[0]
+    if offs is None:
+        if buf.dim() != 2 or buf.shape[0] != S:
+            raise ValueError(f"the decode kernel takes an [S, L] matrix of {S} lanes, got {tuple(buf.shape)}")
+        L = buf.shape[1]
+    else:
+        if buf.dim() != 1 or width is None or tuple(offs.shape) != (S,):
+            raise ValueError(f"the decode kernel takes a flat arena with [S] offsets and a width, got "
+                             f"{tuple(buf.shape)}, offsets {tuple(offs.shape)}, width {width}")
+        L = int(width)
+    if len(lens.shape) != 1:
+        raise ValueError(f"lens {tuple(lens.shape)} is not one length a lane")
     stream = torch.cuda.current_stream(dev).cuda_stream
-    return _launch_decode(_decode_lib(), buf, lens, int(U), int(R), int(T), int(max_sec), stream, steps)
+    return _launch_decode(_decode_lib(), buf, offs, lens, L, int(U), int(R), int(T), int(max_sec),
+                          client_table, key_table, client_hash_table, primary_root_hash, stream, steps)
 
 
 _ID_COLUMNS = ("client", "oc", "rc", "pc", "msc", "mec")

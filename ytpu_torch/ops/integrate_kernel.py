@@ -1035,15 +1035,15 @@ def decode_chunk_raw(
     err, raw, offs, lens, refs, *, width: int, max_rows: int, max_dels: int,
     n_steps: int, max_sections: int,
 ):
-    """The decode half of a chunk: lane gather -> decode -> global unit-ref
-    rebase (``refs`` >= 0 replaces the decoded ref) -> OR of the decode
-    error flags into the sticky ``err``. Returns ``(rows, dels, err)``."""
-    from ytpu_torch.ops.decode_kernel import FLAG_ERRORS, decode_updates_v1, gather_raw_lanes
+    """The decode half of a chunk: decode of the lanes straight from the
+    arena (`decode_updates_v1` with ``offs``) -> global unit-ref rebase
+    (``refs`` >= 0 replaces the decoded ref) -> OR of the decode error
+    flags into the sticky ``err``. Returns ``(rows, dels, err)``."""
+    from ytpu_torch.ops.decode_kernel import FLAG_ERRORS, decode_updates_v1
 
-    buf = gather_raw_lanes(raw, offs, lens, width)
     stream, flags = decode_updates_v1(
-        buf, lens, max_rows=max_rows, max_dels=max_dels, n_steps=n_steps,
-        max_sections=max_sections,
+        raw, lens, max_rows=max_rows, max_dels=max_dels, n_steps=n_steps,
+        max_sections=max_sections, offs=offs, width=width,
     )
     stream = stream._replace(
         content_ref=torch.where(refs >= 0, refs, stream.content_ref)
@@ -1292,7 +1292,7 @@ class PackedReplayDriver:
 
     def step_raw(self, raw, offs, lens, refs, dims, width: int, margin: int):
         """Integrate one chunk from raw concatenated wire bytes plus its
-        offsets table: lane gather -> decode -> rebase -> integrate ->
+        offsets table: decode from the arena -> rebase -> integrate ->
         readout. ``dims`` is ``(max_rows, max_dels, n_steps,
         max_sections)``; ``refs`` the chunk's ``[S, U]`` global unit refs;
         ``margin`` its worst-case slot growth. Returns the device inputs."""
