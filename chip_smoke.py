@@ -1,16 +1,21 @@
-"""GPU smoke run of the port: build the CUDA kernels, hold each against its
-plain PyTorch version, and replay the full B4 wire log through the port's
-main path.
+"""GPU smoke run of the port: build the CUDA kernels and the host C++
+library, hold each against its plain version, and replay the full B4 wire
+log through the port's main path.
 
 Usage (on a machine with one NVIDIA GPU and the CUDA toolkit):
 
     python3 chip_smoke.py
 
 Phases, one JSON line each: ``build`` (the five CUDA libraries, one nvcc
-each, in parallel; the integrate kernel must use no stack frame and no
+each, and the host library ``native``, g++, all in parallel; the
+integrate kernel must use no stack frame and no
 spills, the column put, the map put, rungs 1, 3, 4 and 5 and v_multi's
 sized copy must issue their loads before their first store and use no
 local memory, v_body's one-pass kernel must use no local memory),
+``native`` (the host C++ column walk against the Python walk
+`update_columns`, every count and column, on the whole B4 log in one call
+and on the ingest phase's 512 steps in one call each; host µs per update
+of both),
 ``decode`` (the decode program against the plain composition
 `gather_raw_lanes` -> plain loop -> `_resolve_and_pack`, every UpdateBatch
 field and the flags equal, on one B4 chunk of 8,192 lanes from its arena,
@@ -35,10 +40,12 @@ each prefix, with the per-doc kernel's profile (phase 1 against phase 2,
 its scratch sized from each doc's live rows and, as before, for C), the
 bytes its phase 1 clears and its launch floor; the per-doc kernel against
 its plain version, on synthetic streams and on edge cases; the read path
-at BASELINE config 5's width, 10,240 docs x 64 clients: `state_vectors`,
-`encode_diff_batch`, the finisher and `DiffPipeline`, a sample held
-against the CPU finisher; and `encode_diff_batch` on the B4 replay's final
-state), ``ingest`` (one `BatchIngestor` at 1,024 docs x 8,192 slots, one
+at BASELINE config 5's width, 10,240 docs x 64 clients, the rows' refs
+rebased onto one wire chunk as the batch ingestor keeps them:
+`state_vectors`, `encode_diff_batch`, the native finisher and
+`DiffPipeline`, both against the Python finisher on every doc with no doc
+left to it, a sample also against the CPU finisher; and
+`encode_diff_batch` on the B4 replay's final state), ``ingest`` (one `BatchIngestor` at 1,024 docs x 8,192 slots, one
 `apply_bytes` call per step over 512 steps of four tenant cohorts: B4 text
 with per-doc lags and, in one doc of eight, swapped update pairs; BASELINE
 config 4's map + XML tenant; config 3's 256-client array; a 53-bit
@@ -54,8 +61,9 @@ readers' SyncStep1s, even tenants with an empty state vector, odd ones
 with the middle round's; one `device_encode_diff_many` over every tenant;
 greetings, drained broadcasts, texts, values and every reply held to the
 device state vectors, the writers' frames, stream replays, the committed
-logs and the CPU finisher; a fresh server caught up from the fan-out;
-rebalances; 8 flush steps and 8 replies under `torch.profiler`; the
+logs and the CPU finisher; a fresh server caught up from the fan-out
+(then a second one, its flush under `torch.profiler`); rebalances; 8 flush
+steps, 8 replies and the rest's flush under `torch.profiler`; the
 per-doc kernel against its plain version on one round's captured inputs),
 ``stream_replay_full_width`` (the whole log decoded
 into one stream and replayed through `replay_stream_fused` at 256 docs;
@@ -204,14 +212,19 @@ def phase_build(gpu):
     sum put and of v_multi's sized copy must issue all its loads before its
     first store and use no local memory, and v_body's one-pass kernel must
     use no local memory (`_sass_summary`)."""
+    from ytpu_torch import native
     from ytpu_torch.ops import _build
 
     t0 = time.perf_counter()
     libs = _build.build_all()
     build_s = time.perf_counter() - t0
-    # load each library now, so that no timed launch pays for the dlopen
+    # load each library now, so that no timed launch pays for the dlopen;
+    # the host library through its binding, which checks FinishIn's size
     for name in libs:
         _build.load(name)
+    native.load()
+    host = {name: {"compiler": "g++", "flags": _build.GXX_FLAGS, "sources": list(srcs),
+                   "library": os.path.relpath(libs[name], HERE)} for name, srcs in _build.HOST_SOURCES.items()}
     ptxas = {name: _ptxas(_build.build_log(name), "integrate_kernel")
              for name in ("integrate", "integrate_profile")}
     ptxas["integrate_batch"] = _ptxas(_build.build_log("integrate"), "integrate_batch_kernel")
@@ -226,7 +239,8 @@ def phase_build(gpu):
     body_sass = _sass_summary(libs["plane_rmw"], "client_clock_pass")
     multi = {**copy_sass, **body_sass}
     emit({"phase": "build", "seconds": build_s, "load_seconds": time.perf_counter() - t0 - build_s,
-          "libraries": sorted(libs), "integrate_ptxas": ptxas, **sass, "multi_call_sass": multi, "gpu": gpu})
+          "libraries": sorted(libs), "host_libraries": host, "integrate_ptxas": ptxas, **sass,
+          "multi_call_sass": multi, "gpu": gpu})
     for name in ("integrate", "integrate_batch", "integrate_batch_index"):
         k = ptxas[name]
         if k["stack_frame_bytes"] or k["spill_store_bytes"] or k["spill_load_bytes"]:
@@ -244,6 +258,72 @@ def phase_build(gpu):
         raise RuntimeError(f"multi_call_sass: v_multi's copy stores before its last load, or a multi call "
                            f"kernel uses local memory: {multi}")
     return ptxas
+
+
+# --- the host C++ column walk ------------------------------------------------------
+
+NATIVE_CHECK_CHUNK = 8192  # updates held against the Python walk at a time
+
+
+def _walk_vs_python(calls):
+    """`calls`: lists of payloads, one native batch walk each (as its
+    caller makes it). Every count and column of every update against the
+    Python walk `update_columns`, in chunks of NATIVE_CHECK_CHUNK updates;
+    host-clock seconds of the native calls, of making each update's
+    `UpdateColumns` view, and of the Python walk."""
+    import numpy as np
+
+    from ytpu_torch import native
+    from ytpu_torch.encoding.lib0 import BLOCK_COLUMNS, DEL_COLUMNS, update_columns
+
+    t0 = time.perf_counter()
+    batches = [native.decode_update_columns_batch(c) for c in calls]
+    native_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for b in batches:
+        for cols in b:
+            pass
+    views_s = time.perf_counter() - t0
+    python_s, bad, errors = 0.0, [], 0
+    for k, b in enumerate(batches):
+        errors += int(b.counts[:, 7].sum())
+        for lo in range(0, len(b), NATIVE_CHECK_CHUNK):
+            hi = min(lo + NATIVE_CHECK_CHUNK, len(b))
+            t0 = time.perf_counter()
+            walked = [update_columns(p) for p in b.payloads[lo:hi]]
+            python_s += time.perf_counter() - t0
+            counts = np.array([[int(getattr(c, n)) for n in native.COUNT_NAMES] for c in walked], dtype=np.uint64)
+            if not np.array_equal(counts, b.counts[lo:hi]):
+                bad.append((k, lo, "counts"))
+            for rows, off, names in ((b.blocks, b.block_off, BLOCK_COLUMNS), (b.dels, b.del_off, DEL_COLUMNS)):
+                for j, name in enumerate(names):
+                    want = np.concatenate([getattr(c, name) for c in walked])
+                    if not np.array_equal(rows[j, off[lo]:off[hi]], want):
+                        bad.append((k, lo, name))
+    n = sum(len(c) for c in calls)
+    if bad or errors:
+        raise RuntimeError(f"native: the column walk differs from update_columns at {bad[:8]} "
+                           f"(call, first update, column); {errors} updates flagged as malformed")
+    return {"calls": len(calls), "updates": n, "bytes": sum(len(p) for c in calls for p in c),
+            "blocks": sum(b.blocks.shape[1] for b in batches), "native_s": native_s,
+            "native_us_per_update": native_s / n * 1e6, "views_us_per_update": views_s / n * 1e6,
+            "python_s": python_s, "python_us_per_update": python_s / n * 1e6, "columns_equal": True}
+
+
+def phase_native(gpu, log):
+    """The host C++ column walk (`ytpu_torch.native`, built in `build`)
+    against its plain version, the Python walk: the whole B4 log in one
+    call, as `plan_replay` makes it, and the ingest phase's 512 steps in
+    one call each over the step's payloads, as `apply_bytes` makes it."""
+    from ytpu_torch.benches import ingest as bench
+
+    logs = bench.load_ingest_logs()
+    b4 = log[: bench.INGEST_STEPS]
+    steps = [[p for p in bench.step_payloads(t, b4, logs) if p is not None] for t in range(bench.INGEST_STEPS)]
+    line = {"phase": "native", "b4_log": _walk_vs_python([log]), "ingest_steps": _walk_vs_python(steps),
+            "gpu": gpu}
+    emit(line)
+    return line
 
 
 # --- the decode kernel -------------------------------------------------------------
@@ -1160,8 +1240,9 @@ def _batch_vs_plain(dev):
 
 def _finish_check(state, docs, ship, off, dele, tables, got):
     """`got` (the card's bytes of `docs`) against `finish_encode_diff_batch`
-    of the same docs on a CPU copy of their rows; each must parse as a v1
-    update."""
+    of the same docs on a CPU copy of their rows, and against the Python
+    finisher (`finish_encode_diff`, i.e. `_finish_rows`) of each; each must
+    parse as a v1 update."""
     import torch
 
     from ytpu_torch.encoding.lib0 import update_columns
@@ -1170,31 +1251,36 @@ def _finish_check(state, docs, ship, off, dele, tables, got):
     idx = torch.as_tensor(docs, device=state.start.device)
     cpu = bd.DocStateBatch(bd.BlockCols(*(a[idx].cpu() for a in state.blocks)),
                            *(a[idx].cpu() for a in (state.start, state.n_blocks, state.error)))
-    want = bd.finish_encode_diff_batch(cpu, range(len(docs)), ship[idx].cpu(), off[idx].cpu(),
-                                       dele[idx].cpu(), tables)
-    if got != want:
-        bad = [d for d, g, w in zip(docs, got, want) if g != w][:5]
-        raise RuntimeError(f"sync_step: the card's diff bytes differ from the CPU finisher's for docs {bad}")
+    sel = ship[idx].cpu(), off[idx].cpu(), dele[idx].cpu()
+    want = bd.finish_encode_diff_batch(cpu, range(len(docs)), *sel, tables)
+    plain = [bd.finish_encode_diff(cpu, j, *sel, tables) for j in range(len(docs))]
+    if got != want or got != plain:
+        bad = [d for d, g, w, p in zip(docs, got, want, plain) if not g == w == p][:5]
+        raise RuntimeError(f"sync_step: the card's diff bytes differ from the CPU finisher's or the Python "
+                           f"finisher's for docs {bad}")
     if any(update_columns(b).error for b in got):
         raise RuntimeError("sync_step: a diff does not parse as a v1 update")
     return want
 
 
 def _read_path(gpu, dev):
-    """(c) BASELINE config 5: the 64 one-insert updates applied as one
-    stream to 10,240 docs x 1,024 slots, remote state vectors from
-    ``default_rng(5).integers(0, 12)``, then `state_vectors`,
-    `encode_diff_batch`, the serial finisher and `DiffPipeline` over every
-    doc; a sample of 64 docs is held against the CPU finisher."""
+    """(c) BASELINE config 5: the 64 one-insert updates decoded on the card
+    and applied as one stream to 10,240 docs x 1,024 slots, their content
+    refs rebased onto one chunk of a `ChunkedWirePayloads` as the batch
+    ingestor keeps its fast lane's bytes (`wire_chunk_tables`), remote
+    state vectors from ``default_rng(5).integers(0, 12)``; then
+    `state_vectors`, `encode_diff_batch`, the serial finisher and
+    `DiffPipeline` over every doc (the native finisher), and the Python
+    finisher (`_finish_rows`, its plain version) over the same compacted
+    rows: every doc's bytes equal, no doc left to the Python finisher; a
+    sample of 64 docs is held against the CPU finisher."""
     import numpy as np
     import torch
 
-    from ytpu_torch.benches.sync_step import config5_updates, encode_diff_bound_bytes
+    from ytpu_torch.benches.sync_step import config5_updates, encode_diff_bound_bytes, wire_chunk_tables
     from ytpu_torch.models import batch_doc as bd
     from ytpu_torch.ops import integrate_kernel as ik
-    from ytpu_torch.ops.decode_kernel import (
-        FLAG_ERRORS, RawPayloadView, decode_updates_v1, identity_rank, pack_updates,
-    )
+    from ytpu_torch.ops.decode_kernel import FLAG_ERRORS, decode_updates_v1, identity_rank, pack_updates
 
     updates = config5_updates(READ_CLIENTS)
     buf_np, lens_np = pack_updates(updates)
@@ -1203,7 +1289,7 @@ def _read_path(gpu, dev):
     if int(((flags & FLAG_ERRORS) != 0).sum()):
         raise RuntimeError("sync_step: decode flagged a config-5 update")
     n = READ_CLIENTS + 1  # clients 1..64 at their raw ids
-    tables = bd.EncoderTables.identity(n, RawPayloadView(buf_np))
+    stream, tables = wire_chunk_tables(updates, stream, buf_np.shape[1], n)
     _reset_counts([ik.integrate_stream])
     state = bd.apply_update_stream(bd.init_state(READ_DOCS, READ_CAPACITY, dev), stream,
                                    identity_rank(256, dev))
@@ -1225,8 +1311,9 @@ def _read_path(gpu, dev):
         (ship, off, _, dele), m = _event_ms(lambda: bd.encode_diff_batch(state, remote_t, n))
         enc_ms.append(m)
     docs = list(range(READ_DOCS))
+    serial_stats = bd.DiffStats()
     t0 = time.perf_counter()
-    serial = bd.finish_encode_diff_batch(state, docs, ship, off, dele, tables)
+    serial = bd.finish_encode_diff_batch(state, docs, ship, off, dele, tables, stats=serial_stats)
     finisher_s = time.perf_counter() - t0
     pipe = bd.DiffPipeline(sub_batch=512, depth=2)
     t0 = time.perf_counter()
@@ -1234,6 +1321,19 @@ def _read_path(gpu, dev):
     pipeline_s = time.perf_counter() - t0
     if piped != serial:
         raise RuntimeError("sync_step: DiffPipeline's bytes differ from the serial finisher's")
+    # the Python finisher over the rows the serial call compacted
+    idx = bd._selection(docs, READ_DOCS, bd._next_pow2(len(docs)), dev)
+    R = min(bd._next_pow2(int(bd._finish_counts(state.blocks.parent, ship, dele, idx).max())), READ_CAPACITY)
+    rows = bd.compact_finisher_rows(state.blocks, ship, off, dele, idx, R).cpu().numpy()
+    t0 = time.perf_counter()
+    plain = [bd._finish_compacted(rows[j], tables) for j in docs]
+    python_s = time.perf_counter() - t0
+    del rows
+    bad = [d for d in docs if plain[d] != serial[d]]
+    fallback = {"serial": serial_stats.fallback_docs, "pipeline": pipe.stats.fallback_docs}
+    if bad or any(fallback.values()):
+        raise RuntimeError(f"sync_step: the native finisher's bytes differ from the Python finisher's for docs "
+                           f"{bad[:5]} ({len(bad)} docs); docs left to the Python finisher {fallback}")
     sample = sorted(np.random.default_rng(7).choice(READ_DOCS, READ_SAMPLE, replace=False).tolist())
     _finish_check(state, sample, ship, off, dele, tables, [serial[d] for d in sample])
     bound_b = encode_diff_bound_bytes(READ_DOCS, READ_CAPACITY, n)
@@ -1245,10 +1345,12 @@ def _read_path(gpu, dev):
         "encode_diff_batch_ms_min": min(enc_ms), "encode_diff_bound_bytes": bound_b,
         "encode_diff_bound_ms": bound_b / HBM_BYTES_PER_S * 1e3,
         "shipped_rows": int(ship.sum()), "bytes_out": sum(len(b) for b in serial),
-        "finisher_s": finisher_s, "pipeline_s": pipeline_s,
+        "finisher_s": finisher_s, "pipeline_s": pipeline_s, "python_finisher_s": python_s,
+        "finisher_threads": serial_stats.threads, "finisher_rows": serial_stats.total_rows,
+        "fallback_docs": fallback, "docs_equal_python_finisher": len(docs),
         "pipeline": {"sub": st.sub, "n_sub": st.n_sub, "depth": st.depth, "R": st.R,
                      "select_s": st.select_s, "stall_s": st.stall_s, "finish_s": st.finish_s,
-                     "d2h_bytes": st.d2h_bytes, "syncs": st.syncs},
+                     "d2h_bytes": st.d2h_bytes, "syncs": st.syncs, "threads": st.threads},
         "sample_equal_cpu": READ_SAMPLE,
     }
     del state
@@ -1260,7 +1362,8 @@ def _b4_read(gpu, rep, log, plan, dev):
     65,536 slots) against an empty state vector and against the state
     vector of the first 130,000 updates' rows; docs 0 and 255 finished
     through the unit arena must be equal (same history) and equal to the
-    CPU finisher's bytes."""
+    CPU finisher's bytes. The unit arena has no native route: both docs
+    are the Python finisher's, counted in ``fallback_docs``."""
     import numpy as np
     import torch
 
@@ -1287,15 +1390,16 @@ def _b4_read(gpu, rep, log, plan, dev):
                      ("after_130000", mid.expand(D, n).contiguous())):
         bd.encode_diff_batch(state, sv, n)
         (ship, off, local_sv, dele), ms = _event_ms(lambda: bd.encode_diff_batch(state, sv, n))
+        stats = bd.DiffStats()
         t0 = time.perf_counter()
-        got = bd.finish_encode_diff_batch(state, [0, D - 1], ship, off, dele, tables)
+        got = bd.finish_encode_diff_batch(state, [0, D - 1], ship, off, dele, tables, stats=stats)
         fin_s = time.perf_counter() - t0
         if got[0] != got[1]:
             raise RuntimeError(f"sync_step: B4 docs 0 and {D - 1} diff differently ({name})")
         _finish_check(state, [0, D - 1], ship, off, dele, tables, got)
         out[name] = {"encode_diff_batch_ms": ms, "shipped_rows_doc0": int(ship[0].sum()),
                      "deleted_rows_doc0": int(dele[0].sum()), "bytes": len(got[0]),
-                     "finisher_s_2docs": fin_s}
+                     "finisher_s_2docs": fin_s, "fallback_docs": stats.fallback_docs}
     if out["after_130000"]["shipped_rows_doc0"] >= out["empty"]["shipped_rows_doc0"]:
         raise RuntimeError("sync_step: the mid-history state vector did not cut the diff")
     bound_b = encode_diff_bound_bytes(D, B, n)
@@ -1464,8 +1568,8 @@ def phase_ingest(gpu, log, dev="cuda"):
         values[name] = {"docs": n, "blocks": int(ing.state.n_blocks[first])}
 
     # the pieces of a call from the traced window
-    pieces = ("ingest.plan", "ingest.decode", "decode.v1", "pack_state", "pack_stream", "integrate_batch",
-              "unpack_state")
+    pieces = ("ingest.plan", "ingest.plan.walk", "ingest.plan.intern", "ingest.plan.host_lane", "ingest.decode",
+              "decode.v1", "pack_state", "pack_stream", "integrate_batch", "unpack_state")
     trace, integrates, _ = _trace_breakdown(prof, traced_s, kernel="integrate_batch_kernel")
     _, indexes, _ = _trace_breakdown(prof, traced_s, kernel="integrate_batch_index_kernel")
     _, decodes, _ = _trace_breakdown(prof, traced_s, kernel=DECODE_KERNEL)
@@ -1578,6 +1682,37 @@ def _cpu_finisher_replies(server, tenants, clocks):
     return out
 
 
+def _traced_catch_up(new_server, tenants, fanout, pieces):
+    """`benches.sync_server.catch_up` of a second fresh server from the
+    fan-out, its stages on the host clock (the connects, the SyncStep2
+    frames, the flush) and the flush under `torch.profiler`: host and
+    device ms of each span in `pieces`."""
+    import torch
+
+    from ytpu_torch.benches import sync_server as bench
+
+    t0 = time.perf_counter()
+    fresh = new_server()
+    sessions = [fresh.connect_frames(t.name)[0] for t in tenants]
+    t1 = time.perf_counter()
+    for t, session in zip(tenants, sessions):
+        if fresh.receive_frames(session, bench._step2_frame(fanout[t.index])):
+            raise RuntimeError(f"sync_server: the catch-up SyncStep2 of {t.name} got a reply")
+    t2 = time.perf_counter()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        steps = fresh.flush_device()
+        torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    trace, _, _ = _trace_breakdown(prof, t3 - t2)
+    out = {"s": t3 - t0, "connect_s": t1 - t0, "frames_s": t2 - t1, "flush_s": t3 - t2, "steps": steps,
+           "flush_host_ms": {k: trace["host_s"].get(k, 0.0) * 1e3 for k in pieces},
+           "flush_device_ms": {k: trace["device_s"].get(k, 0.0) * 1e3 for k in pieces + ("other",)},
+           "flush_device_idle_share": trace["device_idle_share"]}
+    del prof, fresh
+    return out
+
+
 def phase_sync_server(gpu, log, dev="cuda"):
     """One device-authoritative `DeviceSyncServer` at 1,024 tenants x 8,192
     slots on the card (`benches/sync_server.py`'s `FULL` plan: the ingest
@@ -1586,8 +1721,9 @@ def phase_sync_server(gpu, log, dev="cuda"):
     Update, SyncStep2 and SyncStep1 frames, `drain`, `flush_device`,
     `device_encode_diff_many`, `rebalance_tenant`. Counts are reset just
     before the write rounds and read after the fan-out; flush steps
-    SYNC_TRACED_FROM.. and SYNC_TRACED_REPLIES replies run under
-    `torch.profiler` (left out of the per-step and per-reply times).
+    SYNC_TRACED_FROM.., replies SYNC_TRACED_REPLIES..2 * SYNC_TRACED_REPLIES
+    and the rest's flush run under `torch.profiler` (left out of the
+    per-step and per-reply times; the rest's flush is timed traced).
     After the middle round's flush a rebalance on the full batch must raise
     and move nothing, and eight in-place rebalances (SYNC_REBALANCED, one
     of them over a pending stash) must change no value, state vector or
@@ -1650,11 +1786,16 @@ def phase_sync_server(gpu, log, dev="cuda"):
             window["t0"] = time.perf_counter()
         ingest_mod.apply_update_batch = capture if step == SYNC_SNAPSHOT_STEP else real_apply
         ingest_mod.decode_updates_v1 = capture_decode if step == SYNC_SNAPSHOT_STEP else real_decode
+        if step == plan.rounds:  # the rest's flush, under the profiler for its span breakdown
+            window["rest"] = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                                torch.profiler.ProfilerActivity.CUDA])
+            window["rest"].__enter__()
         t0 = time.perf_counter()
         n = server.flush_device()
         torch.cuda.synchronize()
         ms = (time.perf_counter() - t0) * 1e3
         if step == plan.rounds:
+            window["rest"].__exit__(None, None, None)
             window["rest_ms"] = ms
             window["rest_decode_launches"] = decode_updates_v1.launches - window["decode_before_rest"]
         else:
@@ -1676,9 +1817,12 @@ def phase_sync_server(gpu, log, dev="cuda"):
     reply_ms, reply_traced_ms = [], []
 
     def reply(session, frame):
+        # the traced replies come after SYNC_TRACED_REPLIES untraced ones, so
+        # that the finisher's first-call work (its payload and wire caches)
+        # stays out of the trace
         k = len(reply_ms) + len(reply_traced_ms)
-        traced = k < SYNC_TRACED_REPLIES
-        if k == 0:
+        traced = SYNC_TRACED_REPLIES <= k < 2 * SYNC_TRACED_REPLIES
+        if k == SYNC_TRACED_REPLIES:
             window["prof"] = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
                                                                 torch.profiler.ProfilerActivity.CUDA])
             window["prof"].__enter__()
@@ -1687,7 +1831,7 @@ def phase_sync_server(gpu, log, dev="cuda"):
         out = server.receive_frames(session, frame)
         torch.cuda.synchronize()
         (reply_traced_ms if traced else reply_ms).append((time.perf_counter() - t0) * 1e3)
-        if k == SYNC_TRACED_REPLIES - 1:
+        if k == 2 * SYNC_TRACED_REPLIES - 1:
             window["read_s"] = time.perf_counter() - window["t0"]
             window["prof"].__exit__(None, None, None)
             window["read"] = window.pop("prof")
@@ -1793,7 +1937,8 @@ def phase_sync_server(gpu, log, dev="cuda"):
     _progress(t_all, "replies against the CPU finisher")
 
     # the pieces of a flush step and of a reply, from the traced windows
-    write_pieces = ("sync.dispatch", "ingest.plan", "ingest.decode", "decode.v1", "pack_state", "pack_stream",
+    write_pieces = ("sync.dispatch", "ingest.plan", "ingest.plan.walk", "ingest.plan.intern",
+                    "ingest.plan.host_lane", "ingest.decode", "decode.v1", "pack_state", "pack_stream",
                     "integrate_batch", "unpack_state")
     read_pieces = ("encode_diff_batch", "state_vectors", "finisher")
     w_trace, integrates, _ = _trace_breakdown(window["write"], window["write_s"], kernel="integrate_batch_kernel")
@@ -1804,12 +1949,15 @@ def phase_sync_server(gpu, log, dev="cuda"):
         raise RuntimeError(f"sync_server: the trace holds {len(indexes)} index and {len(integrates)} integrate "
                            f"kernels for {SYNC_TRACED_STEPS} flush steps")
     r_trace, _, _ = _trace_breakdown(window["read"], window["read_s"])
+    rest_trace, _, _ = _trace_breakdown(window["rest"], window["rest_ms"] / 1e3)
     _progress(t_all, "trace breakdowns")
     write_device_ms = {k: w_trace["device_s"].get(k, 0.0) * 1e3 / SYNC_TRACED_STEPS for k in write_pieces + ("other",)}
     write_host_ms = {k: w_trace["host_s"].get(k, 0.0) * 1e3 / SYNC_TRACED_STEPS for k in write_pieces}
     read_device_ms = {k: r_trace["device_s"].get(k, 0.0) * 1e3 / SYNC_TRACED_REPLIES for k in read_pieces + ("other",)}
     read_host_ms = {k: r_trace["host_s"].get(k, 0.0) * 1e3 / SYNC_TRACED_REPLIES for k in read_pieces}
-    del window["write"], window["read"]
+    rest_host_ms = {k: rest_trace["host_s"].get(k, 0.0) * 1e3 for k in write_pieces}
+    rest_device_ms = {k: rest_trace["device_s"].get(k, 0.0) * 1e3 for k in write_pieces + ("other",)}
+    del window["write"], window["read"], window["rest"]
 
     # a fresh replica catches up from the fan-out
     t0 = time.perf_counter()
@@ -1832,6 +1980,11 @@ def phase_sync_server(gpu, log, dev="cuda"):
         raise RuntimeError(f"sync_server: the catch-up took {catch_up_steps} steps; tenants {bad[:8]} differ")
     _progress(t_all, "catch-up")
     del fresh
+    torch.cuda.empty_cache()
+    catch_up_traced = _traced_catch_up(new_server, tenants, fanout, write_pieces)
+    if catch_up_traced["steps"] != 1:
+        raise RuntimeError(f"sync_server: the traced catch-up took {catch_up_traced['steps']} steps")
+    _progress(t_all, f"traced catch-up: {catch_up_traced['s']:.1f} s")
     torch.cuda.empty_cache()
 
     # the per-doc kernel against its plain version on the snapshot round
@@ -1881,7 +2034,11 @@ def phase_sync_server(gpu, log, dev="cuda"):
         "decode_calls": decode_calls, "write_device_idle_share_traced": w_trace["device_idle_share"],
         "read_host_ms_per_reply": read_host_ms, "read_device_ms_per_reply": read_device_ms,
         "read_device_idle_share_traced": r_trace["device_idle_share"],
-        "catch_up_s": catch_up_s, "rebalanced": [tenants[i].name for i in SYNC_REBALANCED],
+        "rest_flush_traced": {"host_ms": rest_host_ms, "device_ms": rest_device_ms,
+                              "device_idle_share": rest_trace["device_idle_share"]},
+        "catch_up_s": catch_up_s, "catch_up_traced": catch_up_traced,
+        "fallback_docs": server.metrics["encode.fallback_docs"],
+        "rebalanced": [tenants[i].name for i in SYNC_REBALANCED],
         "rebalanced_with_stash": rebalance["stashed"], "rebalance_s_per_tenant": rebalance["s_per_tenant"],
         "cohort_values": values, "b4_texts_equal_stream_replay": True, "replies_equal_cpu_finisher": True,
         "catch_up_equal": True, "sticky_error": err,
@@ -2658,6 +2815,7 @@ def main() -> int:
     log, expect = data["log"], data["expect"]
 
     ptxas = phase_build(gpu)
+    phase_native(gpu, log)
     t0 = time.perf_counter()
     plan = plan_replay(log)
     plan_s = time.perf_counter() - t0

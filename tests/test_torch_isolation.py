@@ -1,6 +1,7 @@
 """The port stands alone: importing it pulls in neither JAX nor any module
-of the JAX package, and no source file of the port (or chip_smoke.py)
-imports them."""
+of the JAX package, no source file of the port (or chip_smoke.py) imports
+them, and its host C++ library builds from sources under ``ytpu_torch/``
+only."""
 
 import ast
 import json
@@ -35,7 +36,7 @@ def test_import_leaves_jax_and_ytpu_unloaded():
         "import ytpu_torch.core.state_vector, ytpu_torch.core.content, ytpu_torch.benches.ingest\n"
         "import ytpu_torch.benches.streams, ytpu_torch.benches.sync_server\n"
         "import ytpu_torch.sync, ytpu_torch.sync.awareness, ytpu_torch.sync.protocol\n"
-        "import ytpu_torch.sync.server, ytpu_torch.sync.device_server\n"
+        "import ytpu_torch.sync.server, ytpu_torch.sync.device_server, ytpu_torch.native\n"
         "from ytpu_torch.sync import DeviceSyncServer\n"
         "print(json.dumps(sorted(m for m in sys.modules\n"
         "    if m == 'jax' or m.startswith('jax.') or m == 'ytpu' or m.startswith('ytpu.'))))\n"
@@ -82,3 +83,17 @@ def test_scan_catches_a_foreign_import(tmp_path):
     p = tmp_path / "bad.py"
     p.write_text("import numpy\nfrom ytpu.ops import integrate_kernel\nimport jax.numpy as jnp\nimport ytpu_torch\n")
     assert _foreign_imports(str(p)) == ["ytpu.ops", "jax.numpy"]
+
+
+def test_host_library_sources_lie_in_the_port():
+    """Every source of the host library lies under ``ytpu_torch/`` (none in
+    the JAX package's ``ytpu/native``), and none includes a file by a
+    relative or package path."""
+    from ytpu_torch.ops import _build
+
+    pkg = os.path.join(ROOT, "ytpu_torch") + os.sep
+    srcs = [os.path.realpath(src) for name in _build.HOST_SOURCES for src in _build._sources(name)]
+    assert srcs and all(src.startswith(pkg) and os.path.isfile(src) for src in srcs), srcs
+    for src in srcs:
+        includes = [ln for ln in open(src, encoding="utf-8") if ln.startswith("#include")]
+        assert all(ln.split()[1].startswith("<") for ln in includes), (src, includes)

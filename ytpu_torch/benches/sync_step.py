@@ -11,6 +11,10 @@ write path (`apply_update_batch` on per-doc updates) and the read path
   every step's batch holds different updates per doc.
 - `stream_state_vector`: the state vector of the rows of a decoded
   stream's first updates.
+- `wire_chunk_tables`: the finisher tables of a stream decoded from an
+  ``[S, L]`` wire matrix, as the batch ingestor keeps its fast lane's
+  bytes: one chunk of a `ChunkedWirePayloads`, the stream's content refs
+  rebased onto it (what the native finisher reads).
 - `batch_bound_bytes` / `encode_diff_bound_bytes`: the bytes a launch of
   the per-doc integrate and a call of `encode_diff_batch` must move at
   least, counted from the inputs.
@@ -18,8 +22,9 @@ write path (`apply_update_batch` on per-doc updates) and the read path
 
 from __future__ import annotations
 
-from typing import List
+from typing import List, Tuple
 
+import numpy as np
 import torch
 
 from ytpu_torch.core.content import BLOCK_SKIP, CONTENT_STRING
@@ -28,6 +33,7 @@ __all__ = [
     "config5_updates",
     "lagged_batch",
     "stream_state_vector",
+    "wire_chunk_tables",
     "batch_bound_bytes",
     "encode_diff_bound_bytes",
 ]
@@ -53,6 +59,29 @@ def config5_updates(n_clients: int = 64) -> List[bytes]:
         DeleteSet().encode(enc)
         out.append(enc.to_bytes())
     return out
+
+
+def wire_chunk_tables(updates: List[bytes], stream, width: int, n_clients: int,
+                      root_name: str = "text") -> Tuple[object, object]:
+    """``(stream, tables)`` for a `stream` decoded from `updates` packed as
+    an ``[S, width]`` matrix (`pack_updates`): the updates' bytes become the
+    one chunk of a `ChunkedWirePayloads`, and each valid row's content ref
+    ``s * width + start`` becomes ``-2 - (base + offset of update s in the
+    chunk + start)``, as `BatchIngestor._merge_fast_lane` rebases its fast
+    lane; the tables intern clients 0..`n_clients` - 1 at their raw ids."""
+    from ytpu_torch.models.batch_doc import EncoderTables, PayloadStore
+    from ytpu_torch.ops.decode_kernel import ChunkedWirePayloads
+
+    payloads = ChunkedWirePayloads(PayloadStore())
+    base = payloads.add_chunk(np.frombuffer(b"".join(updates), dtype=np.uint8))
+    prefix = np.zeros(len(updates), dtype=np.int64)
+    prefix[1:] = np.cumsum([len(p) for p in updates[:-1]])
+    ref = stream.content_ref
+    dev = ref.device
+    lane = torch.arange(len(updates), dtype=torch.int64, device=dev)[:, None]
+    start = torch.from_numpy(prefix).to(dev)[:, None] + ref.long() - lane * width
+    rebased = torch.where(stream.valid & (ref >= 0), -2 - base - start, ref.long()).to(ref.dtype)
+    return stream._replace(content_ref=rebased), EncoderTables.identity(n_clients, payloads, root_name)
 
 
 def lagged_batch(stream, t: int, lag: torch.Tensor):

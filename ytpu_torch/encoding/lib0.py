@@ -3,8 +3,9 @@
 `any_from_json`, which the wire payload readers need) plus a small update
 walker.
 
-`update_columns` walks one v1 update into the columns of the JAX
-package's native decoder (`ytpu/native/lib0_codec.cpp`): per block its
+`update_columns` walks one v1 update into the columns of the port's host
+C++ walk (`ytpu_torch/native/lib0_codec.cpp`, a copy of the JAX package's
+native decoder), whose plain version it is: per block its
 client, clock, length, kind, origins, how it names its parent (root name
 span, parent id, parent_sub span) and content span; per delete range its
 client, start and end; and the wire-section counts the device decoder's
@@ -544,9 +545,10 @@ def _i64(v: int) -> int:
 
 def update_columns(payload: bytes) -> UpdateColumns:
     """Walk one v1 update into `UpdateColumns` (``error`` set on malformed
-    input; the columns then hold what was read before the fault). This is
-    the port's stand-in for the native column decoder of the JAX package
-    (``ytpu_decode_update_v1``): the same columns and counts."""
+    input; the columns then hold what was read before the fault, the
+    native walk's also the block it failed in). The plain version of the
+    port's native walk (`ytpu_torch.native.decode_update_columns`): the
+    same columns and counts."""
     out = UpdateColumns(payload)
     cur = Cursor(payload)
     blocks: List[tuple] = []  # one tuple per block, in BLOCK_COLUMNS order

@@ -14,7 +14,12 @@ rebuilt by `recompute_origin_slot`. The read path is `state_vectors` and
 `compact_finisher_rows` (device), and the host finisher that writes the v1
 wire bytes (`finish_encode_diff`, `finish_encode_diff_batch`, and
 `DiffPipeline`, which overlaps the device half of sub-batch k+1 with the
-finisher of sub-batch k). The interners and the payload store are the
+finisher of sub-batch k). The batched entries write every doc in one call
+of the port's host C++ finisher (`ytpu_torch.native`, through
+`_FinisherContext`); a doc the library leaves alone, and every doc of a
+payload view it cannot read (`RawPayloadView`, `UnitArenaView`), is
+written by the Python finisher `_finish_rows`, and counted in
+`DiffStats.fallback_docs`. The interners and the payload store are the
 host tables of ytpu's `BatchEncoder` that the finisher reads
 (`EncoderTables`); `BatchEncoder` plans host-decoded `Update`s into
 batches over them. Root anchors (`ensure_root_anchor`,
@@ -32,12 +37,13 @@ from __future__ import annotations
 import os
 import time
 from collections import deque
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
+from ytpu_torch import native
 from ytpu_torch.core.content import (
     BLOCK_GC,
     BLOCK_ROOT_ANCHOR,
@@ -82,6 +88,7 @@ __all__ = [
     "finish_encode_diff",
     "compact_finisher_rows",
     "finish_encode_diff_batch",
+    "FINISHER_MT_MIN_ROWS",
     "DiffPlan",
     "plan_diff_pipeline",
     "DiffStats",
@@ -1166,7 +1173,7 @@ def compact_finisher_rows(bl: BlockCols, ship, offsets, deleted, idx, R: int) ->
     tgt = torch.where(incl, new_idx, torch.full_like(new_idx, R)).long()
     out = torch.zeros((Ds, P, R + 1), dtype=I32, device=planes.device)
     out.scatter_(2, tgt[:, None, :].expand(Ds, P, B), planes)
-    return out[:, :, :R]
+    return out[:, :, :R].contiguous()  # the native finisher reads it at doc stride 15 * R
 
 
 def _check_doc_selection(sel: np.ndarray, n_docs: int) -> None:
@@ -1183,26 +1190,290 @@ def _selection(docs, n_docs: int, width: int, dev) -> torch.Tensor:
     return torch.from_numpy(sel).to(dev)
 
 
-def finish_encode_diff_batch(state: DocStateBatch, docs, ship, offsets, deleted, enc) -> List[bytes]:
+# --- the native finisher ----------------------------------------------------------
+
+
+# total selected rows from which the native finisher spreads its docs over
+# a thread pool (below it, one thread: starting the pool costs more)
+FINISHER_MT_MIN_ROWS = 4096
+
+
+def _finisher_threads(total_rows: int) -> int:
+    """The native finisher's thread count: 0 = a pool of hardware
+    concurrency, 1 = the calling thread. Keyed on the call's total
+    selected rows, not its doc count, so a few huge docs still fan out."""
+    return 0 if int(total_rows) >= FINISHER_MT_MIN_ROWS else 1
+
+
+def _payload_native_arenas(store) -> dict:
+    """Per-item arenas the native finisher reads, cached on the
+    `PayloadStore`. The store is append-only, so the cache extends with
+    each new item: UTF-16LE text bytes of string payloads, the pre-encoded
+    content blob of other payloads (the bytes ``content.encode(EncoderV1())``
+    writes: the Python finisher's last branch), and the per-element
+    ``write_any`` bytes of ContentAny payloads."""
+    from ytpu_torch.encoding.codec import EncoderV1
+
+    ar = getattr(store, "_nat_arena", None)
+    if ar is None:
+        ar = {
+            "n": 0,
+            "text": bytearray(),
+            "text_off": [],
+            "text_units": [],
+            "blob": bytearray(),
+            "blob_off": [],
+            "blob_len": [],
+            "elem_base": [],
+            "elem_count": [],
+            "elem_off": [0],
+            "elem": bytearray(),
+        }
+        store._nat_arena = ar
+    items = store.items
+    for i in range(ar["n"], len(items)):
+        kind, payload = items[i]
+        text_off = blob_off = blob_len = elem_base = -1
+        text_units = elem_count = 0
+        if kind == CONTENT_STRING and isinstance(payload, (bytes, bytearray)):
+            text_off = len(ar["text"])
+            text_units = len(payload) // 2
+            ar["text"] += payload
+        elif kind == CONTENT_ANY and isinstance(payload, list):
+            elem_base = len(ar["elem_off"]) - 1
+            elem_count = len(payload)
+            for v in payload:
+                enc = EncoderV1()
+                enc.write_any(v)
+                ar["elem"] += enc.to_bytes()
+                ar["elem_off"].append(len(ar["elem"]))
+        else:
+            try:
+                enc = EncoderV1()
+                payload.encode(enc)
+                blob = enc.to_bytes()
+                blob_off = len(ar["blob"])
+                blob_len = len(blob)
+                ar["blob"] += blob
+            except Exception:
+                pass  # a row of this item is left to the Python finisher
+        ar["text_off"].append(text_off)
+        ar["text_units"].append(text_units)
+        ar["blob_off"].append(blob_off)
+        ar["blob_len"].append(blob_len)
+        ar["elem_base"].append(elem_base)
+        ar["elem_count"].append(elem_count)
+    ar["n"] = len(items)
+
+    # numpy mirrors, rebuilt only when the store grew: a long-lived server
+    # answering single-doc syncs must not copy the whole store per reply
+    key = (ar["n"], len(ar["text"]), len(ar["blob"]), len(ar["elem"]))
+    if ar.get("np_key") != key:
+        ar["np"] = {
+            "text": np.frombuffer(bytes(ar["text"]) or b"\0", dtype=np.uint8),
+            "blob": np.frombuffer(bytes(ar["blob"]) or b"\0", dtype=np.uint8),
+            "elem": np.frombuffer(bytes(ar["elem"]) or b"\0", dtype=np.uint8),
+            "text_off": np.asarray(ar["text_off"] or [0], dtype=np.int64),
+            "text_units": np.asarray(ar["text_units"] or [0], dtype=np.int64),
+            "blob_off": np.asarray(ar["blob_off"] or [0], dtype=np.int64),
+            "blob_len": np.asarray(ar["blob_len"] or [0], dtype=np.int64),
+            "elem_base": np.asarray(ar["elem_base"] or [0], dtype=np.int64),
+            "elem_count": np.asarray(ar["elem_count"] or [0], dtype=np.int64),
+            "elem_off": np.asarray(ar["elem_off"] or [0], dtype=np.int64),
+        }
+        ar["np_key"] = key
+    return ar
+
+
+def _wire_concat(payloads) -> np.ndarray:
+    """One contiguous buffer over a `ChunkedWirePayloads`' retained chunks
+    (refs <= -2 index into it directly), cached on it. Chunks are appended,
+    so each call copies only the chunks added since the last one; a chunk
+    dropped since then (`generation` moved; a new chunk may since sit at
+    its base) makes the buffer start over."""
+    state = getattr(payloads, "_nat_wire", None)
+    if state is None:
+        state = {
+            "arr": np.empty(4096, dtype=np.uint8),
+            "len": 0,
+            "n_chunks": 0,
+            "gen": payloads.generation,
+        }
+        payloads._nat_wire = state
+    chunks = payloads._chunks
+    if state["gen"] != payloads.generation:
+        state["len"] = 0
+        state["n_chunks"] = 0
+        state["gen"] = payloads.generation
+    for _, flat in chunks[state["n_chunks"] :]:
+        need = state["len"] + flat.size
+        if need > state["arr"].size:
+            grown = np.empty(max(need, state["arr"].size * 2), dtype=np.uint8)
+            grown[: state["len"]] = state["arr"][: state["len"]]
+            state["arr"] = grown
+        state["arr"][state["len"] : need] = flat
+        state["len"] = need
+    state["n_chunks"] = len(chunks)
+    return state["arr"][: state["len"]]
+
+
+def _interner_tables(enc) -> dict:
+    """The client and key tables the native finisher reads. Both interners
+    only grow, so each table is cached on its interner and rebuilt only
+    when it grew (a server answering single-doc syncs must not copy them
+    per reply; it makes a new `EncoderTables` per reply over the same
+    interners)."""
+    interner, keys = enc.interner, enc.keys
+    clients = getattr(interner, "_nat_table", None)
+    if clients is None or clients[0] != len(interner):
+        from_idx = np.asarray(interner.from_idx or [0], dtype=np.int64)
+        clients = interner._nat_table = (len(interner), from_idx)
+    names = getattr(keys, "_nat_table", None)
+    if names is None or names[0] != len(keys):
+        key_names = [keys.names[k].encode("utf-8") for k in range(len(keys))]
+        key_blob = np.frombuffer(b"".join(key_names) or b"\0", dtype=np.uint8)
+        key_off = np.zeros(len(key_names) + 1, dtype=np.int64)
+        key_off[1:] = np.cumsum([len(k) for k in key_names], dtype=np.int64)
+        names = keys._nat_table = (len(keys), key_blob, key_off)
+    return {"n_interned": clients[0], "from_idx": clients[1], "n_keys": names[0], "key_blob": names[1],
+            "key_off": names[2]}
+
+
+class _FinisherContext:
+    """What the native finisher reads of one `EncoderTables`, resolved once
+    per call of `finish_encode_diff_batch` or `DiffPipeline.run`: the
+    payload arenas, the retained wire bytes and the client and key tables.
+    `native_route` is False for payload views the library cannot read (no
+    ``items``: `RawPayloadView`, `UnitArenaView`); then `write` hands every
+    doc to the Python finisher."""
+
+    def __init__(self, enc):
+        from ytpu_torch.ops.decode_kernel import ChunkedWirePayloads
+
+        self.enc = enc
+        payloads = enc.payloads
+        self.native_route = isinstance(payloads, (PayloadStore, ChunkedWirePayloads))
+        if not self.native_route:
+            return
+        if isinstance(payloads, ChunkedWirePayloads):
+            store, wire, wire_len = payloads.store, _wire_concat(payloads), payloads.total_bytes
+        else:
+            store, wire, wire_len = payloads, np.empty(0, dtype=np.uint8), 0
+        self.ar = _payload_native_arenas(store)
+        self.wire = wire if wire.size else np.zeros(1, dtype=np.uint8)
+        self.wire_len = wire_len
+        self.tables = _interner_tables(enc)
+        root = enc.root_name.encode("utf-8")
+        self.root_len = len(root)
+        self.root = np.frombuffer(root or b"\0", dtype=np.uint8)
+
+    def _native_finish(self, arr: np.ndarray, n: int, n_threads: int) -> Tuple[List[Optional[bytes]], List[int]]:
+        """The first `n` docs of the packed ``[d_pad, 15, R]`` int32 host
+        rows `arr` in one library call: per doc its bytes, or None where
+        the library left it to the Python finisher; and the statuses."""
+        import ctypes
+
+        if arr.dtype != np.int32 or not arr.flags.c_contiguous or arr.ndim != 3 or arr.shape[1] != FINISH_PLANES:
+            raise ValueError(f"the finisher reads C-contiguous int32 [D, {FINISH_PLANES}, R] rows")
+        d_pad, _, R = arr.shape
+        if n > d_pad:
+            raise ValueError(f"{n} docs asked of {d_pad} packed")
+        base = arr.ctypes.data
+        ar, np_ar, tables = self.ar, self.ar["np"], self.tables
+        sel = np.arange(n, dtype=np.int32)
+
+        def plane(k):
+            return ctypes.cast(base + k * R * 4, ctypes.POINTER(ctypes.c_int32))
+
+        def ptr(a, typ):
+            return a.ctypes.data_as(ctypes.POINTER(typ))
+
+        u8, i64 = ctypes.c_uint8, ctypes.c_int64
+        fin = native.FinishIn(
+            n_docs_total=d_pad,
+            n_blocks_cap=R,
+            **{name: plane(k) for k, name in enumerate(_FINISH_COLS)},
+            ship=plane(12),
+            offsets=plane(13),
+            deleted=plane(14),
+            sel=ptr(sel, ctypes.c_int32),
+            n_sel=n,
+            from_idx=ptr(tables["from_idx"], i64),
+            n_interned=tables["n_interned"],
+            key_blob=ptr(tables["key_blob"], u8),
+            key_off=ptr(tables["key_off"], i64),
+            n_keys=tables["n_keys"],
+            root_name=ptr(self.root, u8),
+            root_name_len=self.root_len,
+            text_arena=ptr(np_ar["text"], u8),
+            text_arena_len=len(ar["text"]),
+            item_text_off=ptr(np_ar["text_off"], i64),
+            item_text_units=ptr(np_ar["text_units"], i64),
+            blob_arena=ptr(np_ar["blob"], u8),
+            blob_arena_len=len(ar["blob"]),
+            item_blob_off=ptr(np_ar["blob_off"], i64),
+            item_blob_len=ptr(np_ar["blob_len"], i64),
+            item_elem_base=ptr(np_ar["elem_base"], i64),
+            item_elem_count=ptr(np_ar["elem_count"], i64),
+            elem_off=ptr(np_ar["elem_off"], i64),
+            elem_arena=ptr(np_ar["elem"], u8),
+            elem_arena_len=len(ar["elem"]),
+            n_items=ar["n"],
+            wire=ptr(self.wire, u8),
+            wire_len=self.wire_len,
+        )
+        blob, offs, lens, stat = native.finish_strided(fin, FINISH_PLANES * R, n_threads)
+        return [blob[o : o + ln] if st == 0 else None for o, ln, st in zip(offs, lens, stat)], stat
+
+    def write(self, arr: np.ndarray, n: int, n_threads: int, stats: "DiffStats") -> List[bytes]:
+        """The wire bytes of the first `n` docs of the packed host rows
+        `arr`: the native finisher's, and `_finish_rows`' for each doc it
+        left alone (every doc where there is no native route), counted in
+        ``stats.fallback_docs``; the library's statuses go to
+        ``stats.statuses``."""
+        if not self.native_route:
+            stats.fallback_docs += n
+            return [_finish_compacted(arr[j], self.enc) for j in range(n)]
+        res, stat = self._native_finish(arr, n, n_threads)
+        stats.statuses.extend(stat)
+        out = []
+        for j, payload in enumerate(res):
+            if payload is None:
+                stats.fallback_docs += 1
+                payload = _finish_compacted(arr[j], self.enc)
+            out.append(payload)
+        return out
+
+
+def finish_encode_diff_batch(state: DocStateBatch, docs, ship, offsets, deleted, enc,
+                             stats: Optional["DiffStats"] = None) -> List[bytes]:
     """Wire payloads of many docs, byte-identical to `finish_encode_diff`
     of each: the device counts each selected doc's rows and compacts them
     (`compact_finisher_rows`; the width R is the largest count rounded up
     to a power of two, the doc selection padded to a power of two), one
-    tensor crosses to the host, and the host finisher writes each doc.
-    `docs` may repeat a doc."""
+    tensor crosses to the host, and one call of the native finisher writes
+    every doc (on a thread pool from `FINISHER_MT_MIN_ROWS` rows), the
+    Python finisher each doc it leaves. `docs` may repeat a doc. A given
+    `stats` gets R, the rows, the threads, the library's statuses and the
+    docs the Python finisher wrote."""
     docs = [int(d) for d in docs]
+    stats = DiffStats() if stats is None else stats
+    stats.n_docs = len(docs)
     bl = state.blocks
     D, B = bl.client.shape
     _check_doc_selection(np.asarray(docs, dtype=np.int64), D)
     if not docs:
         return []
+    ctx = _FinisherContext(enc)
     dev = bl.client.device
     idx = _selection(docs, D, _next_pow2(len(docs)), dev)
     ship, offsets, deleted = (torch.as_tensor(a, device=dev) for a in (ship, offsets, deleted))
     counts = _finish_counts(bl.parent, ship, deleted, idx).cpu().numpy()
-    R = min(_next_pow2(int(counts.max(initial=1))), B)
+    R = stats.R = min(_next_pow2(int(counts.max(initial=1))), B)
+    stats.total_rows = int(counts[: len(docs)].sum())
+    stats.threads = _finisher_threads(stats.total_rows)
     arr = compact_finisher_rows(bl, ship, offsets, deleted, idx, R).cpu().numpy()
-    return [_finish_compacted(arr[j], enc) for j in range(len(docs))]
+    return ctx.write(arr, len(docs), stats.threads, stats)
 
 
 # --- the pipelined finisher ------------------------------------------------------------
@@ -1242,6 +1513,7 @@ class DiffStats:
     depth: int = 0
     R: int = 0  # compacted row width (a power of two)
     total_rows: int = 0  # rows sent to the finisher over the whole call
+    threads: int = 0  # the native finisher's threads for the whole call (0 = a pool, 1 = one)
     select_s: float = 0.0  # host time to issue counts, compaction and copies
     stall_s: float = 0.0  # host time waiting for a sub-batch's rows
     finish_s: float = 0.0  # host finisher
@@ -1249,6 +1521,8 @@ class DiffStats:
     max_inflight: int = 0
     syncs: int = 0  # blocking waits on the device (the counts, then one per sub-batch)
     buffer_reuses: int = 0
+    fallback_docs: int = 0  # docs the Python finisher wrote: left by the library, or no native route
+    statuses: List[int] = field(default_factory=list)  # the library's, per doc it was given (0 = written)
 
 
 class DiffPipeline:
@@ -1259,8 +1533,10 @@ class DiffPipeline:
     run makes ``n_sub + 1`` blocking waits, none per doc. Each in-flight
     sub-batch has its own host buffer, filled again only after its
     finisher has returned; the doc selection is a fresh host array per
-    sub-batch, copied synchronously. On CPU tensors the stages run one
-    after another. Byte output equals `finish_encode_diff_batch`'s."""
+    sub-batch, copied synchronously. Each sub-batch is one call of the
+    native finisher (threads by its rows), with the Python finisher for
+    each doc it leaves. On CPU tensors the stages run one after another.
+    Byte output equals `finish_encode_diff_batch`'s."""
 
     def __init__(self, sub_batch: int = 512, depth: int = 2):
         if depth < 1:
@@ -1286,6 +1562,7 @@ class DiffPipeline:
         bl = state.blocks
         D, B = bl.client.shape
         _check_doc_selection(np.asarray(docs, dtype=np.int64), D)
+        ctx = _FinisherContext(enc)
         dev = bl.client.device
         ship, offsets, deleted = (torch.as_tensor(a, device=dev) for a in (ship, offsets, deleted))
         plan = self.plan(len(docs))
@@ -1298,6 +1575,7 @@ class DiffPipeline:
         stats.select_s += time.perf_counter() - t0
         R = stats.R = min(_next_pow2(int(counts.max(initial=1))), B)
         stats.total_rows = int(counts.sum())
+        stats.threads = _finisher_threads(stats.total_rows)
 
         cuda = dev.type == "cuda"
         side = torch.cuda.Stream(dev) if cuda else None
@@ -1339,8 +1617,7 @@ class DiffPipeline:
             t0 = time.perf_counter()
             arr = buf.numpy()
             stats.d2h_bytes += arr.nbytes
-            for j in range(hi - lo):
-                out[lo + j] = _finish_compacted(arr[j], enc)
+            out[lo:hi] = ctx.write(arr, hi - lo, _finisher_threads(counts[lo:hi].sum()), stats)
             stats.finish_s += time.perf_counter() - t0
 
         for k in range(plan.n_sub):

@@ -20,13 +20,17 @@ contract for a batch of doc slots on the device:
 holds only content the device decodes ships its wire bytes to the device,
 where `decode_updates_v1` turns them into rows through the ingestor's
 intern tables (clients, big-client hashes, map keys, named roots). The
-column walk that proves a doc eligible (`ytpu_torch.encoding.lib0.
-update_columns`, the port's stand-in for the JAX package's native
-decoder) always runs. Both lanes merge into one `apply_update_batch`
-step: the per-doc entry of the CUDA integrate kernel on the GPU, its
-plain version on the CPU. Host planning runs in the profiler span
-``ytpu_torch.ingest.plan``, the fast lane's upload and decode in
-``ytpu_torch.ingest.decode``.
+column walk that proves a doc eligible always runs: one call of the
+port's host C++ walk over the step's payloads
+(`ytpu_torch.native.decode_update_columns_batch`). Both lanes merge into
+one `apply_update_batch` step: the per-doc entry of the CUDA integrate
+kernel on the GPU, its plain version on the CPU. Host planning runs in
+the profiler span ``ytpu_torch.ingest.plan``, split into
+``ytpu_torch.ingest.plan.walk`` (the native walk),
+``ytpu_torch.ingest.plan.intern`` (the eligibility checks and the
+per-block interning of fast docs) and ``ytpu_torch.ingest.plan.host_lane``
+(`Update.decode_v1`, `_plan_doc` and `batch_from_rows` of the host lane);
+the fast lane's upload and decode run in ``ytpu_torch.ingest.decode``.
 
 Left out: doc-axis sharding (multi-device, ROADMAP A.12) and V2 payloads
 (ROADMAP A.11).
@@ -44,7 +48,7 @@ from ytpu_torch.core.device import resolve_device
 from ytpu_torch.core.id_set import DeleteSet
 from ytpu_torch.core.state_vector import StateVector
 from ytpu_torch.core.update import Update
-from ytpu_torch.encoding.lib0 import PARENT_ID, PARENT_NAME, Cursor, EncodingError, update_columns
+from ytpu_torch.encoding.lib0 import PARENT_ID, PARENT_NAME, Cursor, EncodingError
 from ytpu_torch.models.batch_doc import (
     BatchEncoder,
     DocStateBatch,
@@ -54,6 +58,7 @@ from ytpu_torch.models.batch_doc import (
     init_state,
     state_capacity_ledger,
 )
+from ytpu_torch.native import decode_update_columns_batch
 from ytpu_torch.ops.decode_kernel import (
     FLAG_ERRORS,
     KEY_HASH_BYTES,
@@ -452,55 +457,59 @@ class BatchIngestor:
             # recovery: per fast doc, first-touch (client -> pre-step clock)
             fast_sv_deltas: Dict[int, Dict[int, int]] = {}
             fast_has_str: List[bool] = []
-            slow_updates: List[Optional[Update]] = [None] * self.n_docs
+            slow_docs: List[int] = []
             max_fast_rows = max_fast_dels = max_sections = max_steps = 0
             interner = self.enc.interner
-            for d, p in enumerate(payloads):
-                if p is None:
-                    continue
-                cols = update_columns(p)
-                if not self._fast_eligible(d, cols):
-                    slow_updates[d] = Update.decode_v1(p)
-                    continue
-                fast_idx.append(d)
-                fast_payloads.append(p)
-                sv = self.svs[d]
-                deltas = fast_sv_deltas[d] = {}
-                rows_here = 0
-                has_str = False
-                for i in range(cols.n_blocks):
-                    kind = int(cols.kind[i])
-                    if kind == BLOCK_SKIP:
+            with torch.profiler.record_function("ytpu_torch.ingest.plan.walk"):
+                docs = [d for d, p in enumerate(payloads) if p is not None]
+                walked = decode_update_columns_batch([payloads[d] for d in docs])
+            with torch.profiler.record_function("ytpu_torch.ingest.plan.intern"):
+                for d, cols in zip(docs, walked):
+                    if not self._fast_eligible(d, cols):
+                        slow_docs.append(d)
                         continue
-                    ln = int(cols.length[i])
-                    has_str = has_str or (kind in _WIRE_REF_KINDS and ln > 0)
-                    c = int(cols.client[i])
-                    interner.intern(c)
-                    if int(cols.origin_clock[i]) >= 0:
-                        interner.intern(int(cols.origin_client[i]))
-                    if int(cols.ror_clock[i]) >= 0:
-                        interner.intern(int(cols.ror_client[i]))
-                    deltas.setdefault(c, sv.get(c))
-                    sv.set_max(c, int(cols.clock[i]) + ln)
-                    rows_here += ln > 0
-                for i in range(cols.n_dels):
-                    interner.intern(int(cols.del_client[i]))
-                fast_has_str.append(has_str)
-                max_fast_rows = max(max_fast_rows, rows_here)
-                max_fast_dels = max(max_fast_dels, cols.n_dels)
-                max_sections = max(max_sections, cols.n_client_sections)
-                max_steps = max(max_steps, steps_for_columns(cols))
-            n_slow = sum(1 for u in slow_updates if u is not None)
+                    fast_idx.append(d)
+                    fast_payloads.append(cols.payload)
+                    sv = self.svs[d]
+                    deltas = fast_sv_deltas[d] = {}
+                    rows_here = 0
+                    has_str = False
+                    for i in range(cols.n_blocks):
+                        kind = int(cols.kind[i])
+                        if kind == BLOCK_SKIP:
+                            continue
+                        ln = int(cols.length[i])
+                        has_str = has_str or (kind in _WIRE_REF_KINDS and ln > 0)
+                        c = int(cols.client[i])
+                        interner.intern(c)
+                        if int(cols.origin_clock[i]) >= 0:
+                            interner.intern(int(cols.origin_client[i]))
+                        if int(cols.ror_clock[i]) >= 0:
+                            interner.intern(int(cols.ror_client[i]))
+                        deltas.setdefault(c, sv.get(c))
+                        sv.set_max(c, int(cols.clock[i]) + ln)
+                        rows_here += ln > 0
+                    for i in range(cols.n_dels):
+                        interner.intern(int(cols.del_client[i]))
+                    fast_has_str.append(has_str)
+                    max_fast_rows = max(max_fast_rows, rows_here)
+                    max_fast_dels = max(max_fast_dels, cols.n_dels)
+                    max_sections = max(max_sections, cols.n_client_sections)
+                    max_steps = max(max_steps, steps_for_columns(cols))
             self.fast_docs += len(fast_idx)
-            self.slow_docs += n_slow
-            all_rows, all_dels = [], []
-            for d, u in enumerate(slow_updates):
-                rows, dels = self._plan_doc(d, u)
-                all_rows.append(rows)
-                all_dels.append(dels)
-            n_rows = _bucket(max(max_fast_rows, 1, max(len(r) for r in all_rows)))
-            n_dels = _bucket(max(max_fast_dels, 1, max(len(d_) for d_ in all_dels)))
-            batch = self.enc.batch_from_rows(all_rows, all_dels, n_rows, n_dels, device=self.device)
+            self.slow_docs += len(slow_docs)
+            with torch.profiler.record_function("ytpu_torch.ingest.plan.host_lane"):
+                slow_updates: List[Optional[Update]] = [None] * self.n_docs
+                for d in slow_docs:
+                    slow_updates[d] = Update.decode_v1(payloads[d])
+                all_rows, all_dels = [], []
+                for d, u in enumerate(slow_updates):
+                    rows, dels = self._plan_doc(d, u)
+                    all_rows.append(rows)
+                    all_dels.append(dels)
+                n_rows = _bucket(max(max_fast_rows, 1, max(len(r) for r in all_rows)))
+                n_dels = _bucket(max(max_fast_dels, 1, max(len(d_) for d_ in all_dels)))
+                batch = self.enc.batch_from_rows(all_rows, all_dels, n_rows, n_dels, device=self.device)
 
         flags = chunk_base = None
         if fast_idx:

@@ -57,73 +57,85 @@ class ReplayPlan:
 
 
 def plan_replay(payloads: List[bytes]) -> ReplayPlan:
-    from ytpu_torch.encoding.lib0 import update_columns
-    from ytpu_torch.ops.decode_kernel import steps_for_columns
+    """One native column walk over the whole log (`decode_update_columns_batch`),
+    the budgets and worst-case adds from its columns and counts as array
+    operations, then one pass over the string rows in wire order for the
+    unit arena. Raises on the first update in log order that is malformed
+    or carries a content kind other than GC, Deleted or String."""
+    from ytpu_torch.core.content import BLOCK_GC, BLOCK_SKIP, CONTENT_DELETED, CONTENT_STRING
+    from ytpu_torch.encoding.lib0 import BLOCK_COLUMNS
+    from ytpu_torch.native import decode_update_columns_batch
+    from ytpu_torch.ops.decode_kernel import exact_steps
 
     S = len(payloads)
-    max_rows = max_dels = max_len = max_steps = max_sections = 0
-    max_client = 0
-    adds = np.zeros(S, dtype=np.int32)
-    rows_per: List[List[int]] = []
+    walk = decode_update_columns_batch(payloads)
+    n_blocks, n_dels, n_sections, n_ds, n_zero, n_value, _, error = walk.counts.T.astype(np.int64)
+    cols = dict(zip(BLOCK_COLUMNS, walk.blocks))
+    kind, length, client = cols["kind"], cols["length"], cols["client"]
+    upd = np.repeat(np.arange(S), n_blocks)
+    live = kind != BLOCK_SKIP
+    # the unit-ref arena covers text streams only
+    foreign = np.flatnonzero(live & (kind != BLOCK_GC) & (kind != CONTENT_DELETED) & (kind != CONTENT_STRING))
+    bad = np.flatnonzero(error)
+    if bad.size and (not foreign.size or bad[0] <= upd[foreign[0]]):
+        raise ValueError("malformed update in stream")
+    if foreign.size:
+        raise ValueError(
+            f"replay plan supports text streams only (GC/Deleted/"
+            f"String); update carries content kind {int(kind[foreign[0]])}"
+        )
+    row = live & (length > 0)
+    rows_per = np.bincount(upd[row], minlength=S)
+    skip_gc = np.bincount(upd[(kind == BLOCK_SKIP) | (kind == BLOCK_GC)], minlength=S)
+    steps = exact_steps(n_sections, n_blocks - skip_gc + n_zero, skip_gc, n_ds, n_dels, n_value)
+    max_rows = int(rows_per.max(initial=0))
+
+    # string rows in wire order: strip the varint length prefix of each
+    # content span; one unit_byte entry per UTF-16 unit (both units of a
+    # surrogate pair share the char start)
+    arena, starts = walk.arena, (walk.offs[upd] + cols["content_start"])[row & (kind == CONTENT_STRING)].tolist()
     arena_parts: List[bytes] = []
     unit_byte: List[int] = []
+    str_refs: List[int] = []
     total_bytes = 0
-    for p in payloads:
-        cols = update_columns(p)
-        if cols.error:
-            raise ValueError("malformed update in stream")
-        max_len = max(max_len, len(p))
-        max_sections = max(max_sections, cols.n_client_sections)
-        refs_here: List[int] = []
-        for i in range(cols.n_blocks):
-            kind = int(cols.kind[i])
-            if kind == 10:
-                continue
-            # the unit-ref arena covers text streams only
-            if kind not in (0, 1, 4):
-                raise ValueError(
-                    f"replay plan supports text streams only (GC/Deleted/"
-                    f"String); update carries content kind {kind}"
-                )
-            max_client = max(max_client, int(cols.client[i]))
-            if int(cols.length[i]) <= 0:
-                continue
-            if kind == 4:
-                # strip the varint length prefix from the content span
-                span = cols.content_bytes(i)
-                j, blen, shift = 0, 0, 0
-                while True:
-                    b = span[j]
-                    blen |= (b & 0x7F) << shift
-                    shift += 7
-                    j += 1
-                    if b < 0x80:
-                        break
-                sbytes = span[j : j + blen]
-                refs_here.append(len(unit_byte))
-                # per-unit char starts (surrogate pairs take two entries)
-                k = 0
-                while k < len(sbytes):
-                    b0 = sbytes[k]
-                    w = 1 if b0 < 0x80 else 2 if b0 < 0xE0 else 3 if b0 < 0xF0 else 4
+    for j in starts:
+        blen, shift = 0, 0
+        while True:
+            b = arena[j]
+            blen |= (b & 0x7F) << shift
+            shift += 7
+            j += 1
+            if b < 0x80:
+                break
+        sbytes = arena[j : j + blen]
+        str_refs.append(len(unit_byte))
+        if sbytes.isascii():
+            unit_byte.extend(range(total_bytes, total_bytes + len(sbytes)))
+        else:
+            k = 0
+            while k < len(sbytes):
+                b0 = sbytes[k]
+                w = 1 if b0 < 0x80 else 2 if b0 < 0xE0 else 3 if b0 < 0xF0 else 4
+                unit_byte.append(total_bytes + k)
+                if w == 4:
                     unit_byte.append(total_bytes + k)
-                    if w == 4:
-                        unit_byte.append(total_bytes + k)
-                    k += w
-                arena_parts.append(sbytes)
-                total_bytes += len(sbytes)
-            else:
-                refs_here.append(-1)
-        rows_per.append(refs_here)
-        adds[len(rows_per) - 1] = 3 * len(refs_here) + 2 * cols.n_dels
-        max_rows = max(max_rows, len(refs_here))
-        max_dels = max(max_dels, cols.n_dels)
-        max_steps = max(max_steps, steps_for_columns(cols))
+                k += w
+        arena_parts.append(sbytes)
+        total_bytes += len(sbytes)
     U = max(1, max_rows)
     refs = np.full((S, U), -1, dtype=np.int32)
-    for s, rr in enumerate(rows_per):
-        refs[s, : len(rr)] = rr
+    row_upd = upd[row]
+    slot = np.arange(row_upd.size) - (np.cumsum(rows_per) - rows_per)[row_upd]
+    is_str = kind[row] == CONTENT_STRING
+    refs[row_upd[is_str], slot[is_str]] = str_refs
     unit_byte.append(total_bytes)
+    lens = np.fromiter((len(p) for p in payloads), dtype=np.int64, count=S)
+    max_dels = int(n_dels.max(initial=0))
+    max_len = int(lens.max(initial=0))
+    max_steps = int(steps.max(initial=0))
+    max_sections = int(n_sections.max(initial=0))
+    max_client = int(client[live].max(initial=0))
+    adds = (3 * rows_per + 2 * n_dels).astype(np.int32)
     return ReplayPlan(
         n_updates=S,
         max_rows=U,

@@ -1,14 +1,19 @@
-"""Build and load the port's hand-written CUDA kernels.
+"""Build and load the port's hand-written CUDA kernels and its host C++.
 
 Each source under ``ytpu_torch/csrc`` is compiled by ``nvcc`` for
 ``sm_90a`` into a shared library with a plain C interface and loaded with
-`ctypes`. The build runs at first use, into ``ytpu_torch/_build/`` (listed
-in ``.gitignore``), keyed by a hash of the source, so an edited kernel
-rebuilds and an unchanged one loads at once. A failed build raises with
-the compiler's output. `build_all` starts one ``nvcc`` per library at the
-same time. Every build passes ``-Xptxas -v``; its log (registers, shared
-memory, stack frame and spills of each kernel) is kept beside the library
-and read by `build_log`.
+`ctypes`. The host library ``native`` (the lib0 column walk and the wire
+finisher, ``ytpu_torch/native/*.cpp``) is compiled by ``g++`` the same
+way, so it builds where there is no CUDA toolkit: the compiler is chosen
+by the library. The build runs at first use, into ``ytpu_torch/_build/``
+(listed in ``.gitignore``), keyed by a hash of the sources and flags, so
+an edited source rebuilds and an unchanged one loads at once. Each build
+writes a temporary file that is moved into place, so processes building
+the same library at once each load a whole one. A failed build raises
+with the compiler's output. `build_all` starts one compiler per library
+at the same time. Every CUDA build passes ``-Xptxas -v``; the compiler's
+output (registers, shared memory, stack frame and spills of each kernel)
+is kept beside the library and read by `build_log`.
 
 A library is a source plus extra flags: ``integrate_profile`` is
 ``integrate.cu`` built with ``-DYTPU_INTEGRATE_PROFILE`` (the per-phase
@@ -26,7 +31,7 @@ import subprocess
 import threading
 from typing import Dict
 
-__all__ = ["SOURCES", "bind", "build_all", "build_log", "check", "load", "nvcc_path"]
+__all__ = ["HOST_SOURCES", "SOURCES", "bind", "build_all", "build_log", "check", "gxx_path", "load", "nvcc_path"]
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _PKG = os.path.dirname(_HERE)
@@ -42,6 +47,9 @@ SOURCES = {
     "plane_rmw": "plane_rmw.cu",
 }
 
+#: host library name -> its C++ sources, relative to the package (g++)
+HOST_SOURCES = {"native": ("native/lib0_codec.cpp", "native/encode_finisher.cpp")}
+
 #: library name -> flags added to NVCC_FLAGS
 EXTRA_FLAGS = {"integrate_profile": ["-DYTPU_INTEGRATE_PROFILE"]}
 
@@ -49,6 +57,8 @@ NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
+
+GXX_FLAGS = ["-O2", "-shared", "-fPIC", "-pthread", "-std=c++17"]
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -64,26 +74,43 @@ def nvcc_path() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels build only where the CUDA toolkit is installed")
 
 
+def gxx_path() -> str:
+    cand = shutil.which("g++")
+    if cand is None:
+        raise RuntimeError("g++ not found: the port's host library builds only where a C++ compiler is installed")
+    return cand
+
+
+def _sources(name: str) -> list:
+    if name in HOST_SOURCES:
+        return [os.path.join(_PKG, s) for s in HOST_SOURCES[name]]
+    return [os.path.join(_CSRC, SOURCES[name])]
+
+
 def _flags(name: str) -> list:
+    if name in HOST_SOURCES:
+        return GXX_FLAGS
     return NVCC_FLAGS + EXTRA_FLAGS.get(name, [])
 
 
 def _target(name: str) -> str:
-    src = os.path.join(_CSRC, SOURCES[name])
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(_flags(name)).encode()).hexdigest()[:16]
-    return os.path.join(_BUILD, f"lib{name}_{digest}.so")
+    h = hashlib.sha256(" ".join(_flags(name)).encode())
+    for src in _sources(name):
+        with open(src, "rb") as f:
+            h.update(f.read())
+    return os.path.join(_BUILD, f"lib{name}_{h.hexdigest()[:16]}.so")
 
 
 def _spawn(name: str):
-    """Start nvcc for `name` unless its library is already built; returns
-    (target, process or None)."""
+    """Start the compiler of `name` unless its library is already built;
+    returns (target, process or None)."""
     out = _target(name)
     if os.path.exists(out):
         return out, None
     os.makedirs(_BUILD, exist_ok=True)
     tmp = f"{out}.{os.getpid()}.tmp"
-    cmd = [nvcc_path(), *_flags(name), "-o", tmp, os.path.join(_CSRC, SOURCES[name])]
+    compiler = gxx_path() if name in HOST_SOURCES else nvcc_path()
+    cmd = [compiler, *_flags(name), "-o", tmp, *_sources(name)]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
     return out, (proc, tmp)
 
@@ -95,7 +122,7 @@ def _finish(name: str, out: str, job) -> None:
     log, _ = proc.communicate()
     if proc.returncode != 0:
         raise RuntimeError(
-            f"nvcc failed for {SOURCES[name]} (exit {proc.returncode}):\n"
+            f"the build of library {name} from {', '.join(_sources(name))} failed (exit {proc.returncode}):\n"
             + log.decode(errors="replace")
         )
     with open(out + ".log", "wb") as f:
@@ -104,18 +131,18 @@ def _finish(name: str, out: str, job) -> None:
 
 
 def build_all() -> Dict[str, str]:
-    """Build every kernel library, one nvcc per library started together;
-    returns name -> library path."""
+    """Build every library, the CUDA ones and the host one, one compiler
+    per library started together; returns name -> library path."""
     with _lock:
-        jobs = {name: _spawn(name) for name in SOURCES}
+        jobs = {name: _spawn(name) for name in (*SOURCES, *HOST_SOURCES)}
         for name, (out, job) in jobs.items():
             _finish(name, out, job)
         return {name: out for name, (out, _) in jobs.items()}
 
 
 def build_log(name: str) -> str:
-    """The compiler's output (``-Xptxas -v``) of library `name`, building
-    it first if needed."""
+    """The compiler's output (for a CUDA library, ``-Xptxas -v``) of
+    library `name`, building it first if needed."""
     with _lock:
         out, job = _spawn(name)
         _finish(name, out, job)
@@ -124,7 +151,7 @@ def build_log(name: str) -> str:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of kernel `name`, building it first if needed."""
+    """The loaded library `name`, building it first if needed."""
     lib = _libs.get(name)
     if lib is not None:
         return lib

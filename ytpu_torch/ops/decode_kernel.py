@@ -434,6 +434,9 @@ class ChunkedWirePayloads:
         self.store = store
         self._chunks: List[Tuple[int, np.ndarray]] = []  # (base, flat bytes)
         self.total_bytes = 0
+        # bumped whenever a chunk is dropped, so incremental readers of the
+        # chunks (the native finisher's wire buffer) know to start over
+        self.generation = 0
 
     @property
     def items(self):
@@ -453,6 +456,7 @@ class ChunkedWirePayloads:
         if self._chunks and self._chunks[-1][0] == base:
             self._chunks.pop()
             self.total_bytes = base
+            self.generation += 1
 
     def _locate(self, ref: int) -> Tuple[np.ndarray, int]:
         import bisect

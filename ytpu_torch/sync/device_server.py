@@ -31,7 +31,6 @@ import torch
 
 from ytpu_torch.core.state_vector import StateVector
 from ytpu_torch.core.update import Update, merge_updates_v1
-from ytpu_torch.encoding.lib0 import update_columns
 from ytpu_torch.models.batch_doc import (
     DiffPipeline,
     EncoderTables,
@@ -41,6 +40,7 @@ from ytpu_torch.models.batch_doc import (
     get_tree,
 )
 from ytpu_torch.models.ingest import BatchIngestor
+from ytpu_torch.native import decode_update_columns
 
 from .protocol import MSG_SYNC, MSG_SYNC_STEP_1, Message, SyncMessage, message_reader
 from .server import _HOST_CRDT, DeviceBatchFull, Session, SyncServer
@@ -85,7 +85,10 @@ class DeviceSyncServer(SyncServer):
             ingestor = BatchIngestor(n_docs, capacity, device=device)
         # the ingestor is the single source of truth for the slot count
         self.ingestor = ingestor
-        self.metrics.update({"sync.diffs_encoded": {}, "sync.multi_root_tenants": 0, "sync.rebalances": 0})
+        # encode.fallback_docs: replies the Python finisher wrote (docs the
+        # native finisher left, or tables it cannot read)
+        self.metrics.update({"sync.diffs_encoded": {}, "sync.multi_root_tenants": 0, "sync.rebalances": 0,
+                             "encode.fallback_docs": 0})
         self._slot_of: Dict[str, int] = {}
         # every SyncStep1 answer and batched fan-out routes through the
         # pipelined finisher: single-tenant calls take one sub-batch,
@@ -221,9 +224,9 @@ class DeviceSyncServer(SyncServer):
     @staticmethod
     def _scan_root_names(payload: bytes) -> List[str]:
         """Distinct root-parent names in a wire update, in block order: the
-        column walk the ingest fast lane runs, falling back to the host
-        decoder where the walk fails."""
-        cols = update_columns(payload)
+        native column walk the ingest fast lane runs (a batch of one),
+        falling back to the host decoder where the walk fails."""
+        cols = decode_update_columns(payload)
         names: List[str] = []
         if not cols.error:
             for i in range(cols.n_blocks):
@@ -353,6 +356,7 @@ class DeviceSyncServer(SyncServer):
         payload = self._diff_pipeline.run(
             ing.state, [slot], ship, offsets, deleted, self._tables(self._root_names.get(tenant_name))
         )[0]
+        self._count("encode.fallback_docs", n=self._diff_pipeline.stats.fallback_docs)
         payload = self._merge_pending(slot, payload)
         self._count("sync.diffs_encoded", tenant_name)
         return payload
@@ -385,6 +389,7 @@ class DeviceSyncServer(SyncServer):
             res = self._diff_pipeline.run(
                 ing.state, [slots[i] for i in idxs], ship, offsets, deleted, self._tables(root)
             )
+            self._count("encode.fallback_docs", n=self._diff_pipeline.stats.fallback_docs)
             for i, p in zip(idxs, res):
                 out[i] = self._merge_pending(slots[i], p)
         for t, _ in requests:
