@@ -1,7 +1,7 @@
 """The port's replay slice end to end on the CPU: plan -> staged raw chunks
 -> decode -> integrate -> compaction/growth -> readout -> text, against
-the JAX package's FusedReplay (XLA lane, raw ingest, overlap pipeline) and
-the host oracle, on the first 3,000 updates of the B4 log at 4 docs,
+the JAX package's FusedReplay (XLA lane, raw ingest, overlap pipeline; the
+port on the same lane) and the host oracle, on the first 3,000 updates of the B4 log at 4 docs,
 capacity 1,024, chunks of 512 (so compaction and growth both fire).
 """
 
@@ -89,7 +89,7 @@ def runs():
         )
         jr.run(log)
         tr = treplay.FusedReplay(N_DOCS, treplay.plan_replay(log), capacity=CAPACITY,
-                                 chunk=CHUNK, device="cpu")
+                                 chunk=CHUNK, overlap=True, device="cpu")
         tr.run(log)
     finally:
         mp.undo()
@@ -154,7 +154,7 @@ def test_chunk_phases_are_profiler_spans():
     call's own span inside the first) and every compaction and growth its
     own, so a trace splits the replay by phase."""
     log = b4_log()[:96]
-    rep = treplay.FusedReplay(2, treplay.plan_replay(log), capacity=64, chunk=32, device="cpu")
+    rep = treplay.FusedReplay(2, treplay.plan_replay(log), capacity=64, chunk=32, overlap=True, device="cpu")
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
         rep.run(log)
     counts = {}

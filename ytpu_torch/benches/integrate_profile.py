@@ -38,7 +38,7 @@ def b4_chunks(plan, log, starts, chunk: int, device):
 
     from ytpu_torch.models.replay import build_wire_table, raw_chunk_cap
     from ytpu_torch.ops.decode_kernel import pack_raw_updates_into
-    from ytpu_torch.ops.integrate_kernel import decode_chunk_raw
+    from ytpu_torch.ops.integrate_kernel import decode_chunk
 
     wire, woffs = build_wire_table(log)
     cap = raw_chunk_cap(woffs, chunk)
@@ -52,10 +52,10 @@ def b4_chunks(plan, log, starts, chunk: int, device):
         pack_raw_updates_into(wire, woffs, pos, end, raw, offs, lens, width=width)
         refs = np.full((chunk, plan.unit_refs.shape[1]), -1, np.int32)
         refs[: end - pos] = plan.unit_refs[pos:end]
-        t = [torch.from_numpy(a).to(device) for a in (raw, offs, lens, refs)]
+        d_raw, d_offs, d_lens, d_refs = (torch.from_numpy(a).to(device) for a in (raw, offs, lens, refs))
         err = torch.zeros((), dtype=torch.int32, device=device)
-        rows, dels, err = decode_chunk_raw(
-            err, *t, width=width, max_rows=plan.max_rows, max_dels=plan.max_dels,
+        rows, dels, err = decode_chunk(
+            err, d_raw, d_lens, d_refs, offs=d_offs, width=width, max_rows=plan.max_rows, max_dels=plan.max_dels,
             n_steps=plan.max_steps, max_sections=plan.max_sections,
         )
         if int(err):
@@ -72,7 +72,8 @@ def late_chunk(plan, log, index: int, chunk: int, capacity: int):
     from ytpu_torch.models.replay import FusedReplay
 
     pos = index * chunk
-    rep = FusedReplay(2, plan, capacity=capacity, max_capacity=capacity, chunk=chunk, device="cuda")
+    rep = FusedReplay(2, plan, capacity=capacity, max_capacity=capacity, chunk=chunk, overlap=True,
+                      device="cuda")
     rep.run(log[:pos])
     rep.driver.compact()  # slots renumbered, as after a compaction in the run
     ((rows, dels),) = b4_chunks(plan, log, (pos,), chunk, rep.driver.cols.device)

@@ -715,6 +715,10 @@ class BatchEncoder(EncoderTables):
         self._root_adopted = False
         # build_batch slot primaries: doc index -> its first named root
         self.doc_primaries: Dict[int, str] = {}
+        # True once an encoded row was a map row or had a branch-id parent,
+        # and once one was a ContentMove (kept in checkpoints)
+        self.saw_map_or_nested = False
+        self.saw_move = False
 
     def partition_carriers(self, update, local_sv=None):
         """``(applicable, leftover)`` carriers: the host half of the
@@ -848,8 +852,11 @@ class BatchEncoder(EncoderTables):
                     p_root = self.keys.intern(parent)
             else:  # omitted on the wire: inherited from the anchors
                 p_tag, pc, pk = 0, -1, 0
+            if key >= 0 or p_tag == 2:
+                self.saw_map_or_nested = True
             mv = _NO_MOVE
             if kind == CONTENT_MOVE:
+                self.saw_move = True
                 move = item.content.move
                 # a bound with no item id (a branch-scoped sticky index)
                 # reads as the sequence head / tail
@@ -891,6 +898,24 @@ class BatchEncoder(EncoderTables):
             all_rows.append(r)
             all_dels.append(d)
         return self.batch_from_rows(all_rows, all_dels, n_rows, n_dels, device=device)
+
+    def build_step(self, update, n_rows: int, n_dels: int, primary_root=None, device=None) -> UpdateBatch:
+        """One update as a doc-axis-free batch (leaves ``[U]`` / ``[R]``) for
+        `apply_update_stream`, on `device` (the GPU unless it says
+        otherwise)."""
+        rows, dels = self.rows_from_update(update, primary_root=primary_root)
+        if len(rows) > n_rows or len(dels) > n_dels:
+            raise ValueError(
+                f"update needs {len(rows)} rows/{len(dels)} dels, "
+                f"buckets are {n_rows}/{n_dels}"
+            )
+        batch = self.batch_from_rows([rows], [dels], n_rows, n_dels, device=device)
+        return UpdateBatch(*(a[0] for a in batch))
+
+    @staticmethod
+    def stack_steps(steps: List[UpdateBatch]) -> UpdateBatch:
+        """Stack per-step batches into ``[S, ...]`` leaves."""
+        return UpdateBatch(*(torch.stack(xs) for xs in zip(*steps)))
 
     def batch_from_rows(self, all_rows, all_dels, n_rows=None, n_dels=None, device=None) -> UpdateBatch:
         """Pad per-doc row / delete tuple lists into one ``[D, U]`` /

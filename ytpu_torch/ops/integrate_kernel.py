@@ -19,7 +19,7 @@ from __future__ import annotations
 
 import ctypes
 from dataclasses import dataclass
-from typing import List, Optional, Tuple
+from typing import List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -47,6 +47,8 @@ from ytpu_torch.models.batch_doc import (
     scan_width_bucket,
     scan_width_quantile,
 )
+from ytpu_torch.utils.faults import FaultError, faults
+from ytpu_torch.utils.metrics import metrics as _metrics
 
 __all__ = [
     "NC",
@@ -66,10 +68,13 @@ __all__ = [
     "scratch_cleared",
     "apply_update_stream_fused",
     "replay_stream_fused",
+    "replay_chunk_program",
     "replay_chunk_program_raw",
     "packed_capacity_ledger",
+    "ChunkUpload",
     "PackedReplayDriver",
     "ReplayChunkStats",
+    "ReplayFault",
 ]
 
 I32 = torch.int32
@@ -1031,18 +1036,19 @@ def _readout_words(cols, meta, err):
     )
 
 
-def decode_chunk_raw(
-    err, raw, offs, lens, refs, *, width: int, max_rows: int, max_dels: int,
+def decode_chunk(
+    err, buf, lens, refs, *, offs=None, width=None, max_rows: int, max_dels: int,
     n_steps: int, max_sections: int,
 ):
-    """The decode half of a chunk: decode of the lanes straight from the
-    arena (`decode_updates_v1` with ``offs``) -> global unit-ref rebase
-    (``refs`` >= 0 replaces the decoded ref) -> OR of the decode error
-    flags into the sticky ``err``. Returns ``(rows, dels, err)``."""
+    """The decode half of a chunk: `decode_updates_v1` (of the ``[S, L]``
+    matrix ``buf``, or with ``offs`` / ``width`` of the flat arena read in
+    place) -> global unit-ref rebase (``refs`` >= 0 replaces the decoded
+    ref) -> `pack_stream`, and the OR of the decode error flags into the
+    sticky ``err``. Returns ``(rows, dels, err)``."""
     from ytpu_torch.ops.decode_kernel import FLAG_ERRORS, decode_updates_v1
 
     stream, flags = decode_updates_v1(
-        raw, lens, max_rows=max_rows, max_dels=max_dels, n_steps=n_steps,
+        buf, lens, max_rows=max_rows, max_dels=max_dels, n_steps=n_steps,
         max_sections=max_sections, offs=offs, width=width,
     )
     stream = stream._replace(
@@ -1052,25 +1058,46 @@ def decode_chunk_raw(
     return rows, dels, err | _or_reduce(flags & FLAG_ERRORS)
 
 
-def replay_chunk_program_raw(
-    cols, meta, err, raw, offs, lens, refs, rank, *, width: int, max_rows: int,
-    max_dels: int, n_steps: int, max_sections: int, scan_plan=None,
-):
-    """One replay chunk from raw concatenated wire bytes: `decode_chunk_raw`
-    -> integrate -> readout. ``cols``/``meta`` update in place; returns
-    ``(cols, meta, err, readout)``. Each phase is a `torch.profiler`
-    span (``ytpu_torch.decode`` / ``.integrate`` / ``.readout``)."""
+def _chunk_core(cols, meta, err, buf, lens, refs, rank, *, scan_plan=None, **decode_kw):
+    """The body both chunk programs share: `decode_chunk` -> integrate
+    -> readout. ``cols``/``meta`` update in place; returns ``(cols, meta,
+    err, readout)``. Each phase is a `torch.profiler` span
+    (``ytpu_torch.decode`` / ``.integrate`` / ``.readout``)."""
     record = torch.profiler.record_function
     with record("ytpu_torch.decode"):
-        rows, dels, err = decode_chunk_raw(
-            err, raw, offs, lens, refs, width=width, max_rows=max_rows,
-            max_dels=max_dels, n_steps=n_steps, max_sections=max_sections,
-        )
+        rows, dels, err = decode_chunk(err, buf, lens, refs, **decode_kw)
     with record("ytpu_torch.integrate"):
         integrate_stream(cols, meta, rows, dels, rank, scan_plan)
     with record("ytpu_torch.readout"):
         readout = _readout_words(cols, meta, err)
     return cols, meta, err, readout
+
+
+def replay_chunk_program(
+    cols, meta, err, buf, lens, refs, rank, *, max_rows: int, max_dels: int,
+    n_steps: int, max_sections: int, scan_plan=None,
+):
+    """One replay chunk from the host-packed ``[S, L]`` lane matrix
+    (`pack_updates_into` staging): `_chunk_core`. Flagged lanes integrate
+    as no-ops (the decode clears their valid masks) and their flags fold
+    into the sticky ``err``."""
+    return _chunk_core(
+        cols, meta, err, buf, lens, refs, rank, scan_plan=scan_plan, max_rows=max_rows,
+        max_dels=max_dels, n_steps=n_steps, max_sections=max_sections,
+    )
+
+
+def replay_chunk_program_raw(
+    cols, meta, err, raw, offs, lens, refs, rank, *, width: int, max_rows: int,
+    max_dels: int, n_steps: int, max_sections: int, scan_plan=None,
+):
+    """One replay chunk from raw concatenated wire bytes and their
+    offsets table: `_chunk_core` with the decode reading the arena in
+    place."""
+    return _chunk_core(
+        cols, meta, err, raw, lens, refs, rank, scan_plan=scan_plan, offs=offs, width=width,
+        max_rows=max_rows, max_dels=max_dels, n_steps=n_steps, max_sections=max_sections,
+    )
 
 
 def _or_reduce(x: torch.Tensor) -> torch.Tensor:
@@ -1095,6 +1122,7 @@ class ReplayChunkStats:
     capacity: int = 0
     peak_blocks: int = 0  # max occupancy observed at readouts
     final_blocks: int = 0
+    quarantined: int = 0  # update indices recorded by the quarantine hook
     scan_hist: tuple = ()
     scan_max: int = 0
     scan_p50: int = 0
@@ -1116,6 +1144,52 @@ class ReplayChunkStats:
     launch_rows_added: int = 0
 
 
+_QUARANTINED = _metrics.counter("replay.quarantined")
+
+
+class ReplayFault(RuntimeError):
+    """A mid-replay fault the driver does not absorb (simulated worker
+    death at the ``replay.kill`` site): the state is treated as lost, and
+    a recovering caller (`FusedReplay`, `UpdatePipeline`) restores its
+    last chunk-boundary checkpoint, or the initial state, and runs again."""
+
+    def __init__(self, msg: str, *, chunk: int, cause: Optional[BaseException] = None):
+        super().__init__(msg)
+        self.chunk = chunk
+        self.cause = cause
+
+
+class ChunkUpload(NamedTuple):
+    """A chunk's inputs on the state's device and the CUDA event recorded
+    right after their host-to-device copies (None on the CPU, where the
+    copy is done when the call returns)."""
+
+    tensors: tuple
+    copied: Optional[object]
+
+    def wait(self) -> None:
+        """Block until the copies have read their host buffers: after
+        this the staging buffers may be written again."""
+        if self.copied is not None:
+            self.copied.synchronize()
+
+
+def _upload(host_arrays, device) -> ChunkUpload:
+    """Copy numpy arrays or CPU tensors to `device`, asynchronously where a
+    tensor is pinned, and record the event that ends the copies."""
+    tensors = tuple(
+        (a if isinstance(a, torch.Tensor) else torch.from_numpy(np.ascontiguousarray(a))).to(
+            device, non_blocking=True
+        )
+        for a in host_arrays
+    )
+    copied = None
+    if device.type == "cuda":
+        copied = torch.cuda.Event()
+        copied.record()
+    return ChunkUpload(tensors, copied)
+
+
 class PackedReplayDriver:
     """Chunked replay over a packed ``[NC, D, C]`` state with between-chunk
     compaction under one `CompactionPolicy`.
@@ -1127,7 +1201,14 @@ class PackedReplayDriver:
     readout. If the actual occupancy still trips the policy, the state is
     compacted in place and, when even that cannot make room, grown. Sticky
     integrate errors and decode flags surface at every materialized
-    readout and at `finish()`."""
+    readout and at `finish()`.
+
+    Decode errors: `on_decode_error(flags)` (set by the caller) is called
+    first and is expected to raise a message naming the updates. With
+    ``quarantine=True`` and an `on_quarantine(flags)` hook, flagged lanes
+    (which integrated as no-ops) are recorded through the hook instead and
+    the sticky flags start again from 0. Each chunk dispatch passes the
+    ``replay.kill`` fault site; a real device error propagates unchanged."""
 
     def __init__(
         self,
@@ -1141,6 +1222,7 @@ class PackedReplayDriver:
         max_capacity: Optional[int] = None,
         sync_every_chunk: bool = False,
         initial_occupancy: int = 0,
+        quarantine: bool = False,
     ):
         self.cols = cols
         self.meta = meta
@@ -1156,14 +1238,18 @@ class PackedReplayDriver:
         self._err = torch.zeros((), dtype=I32, device=cols.device)
         self._last_compact_chunk = -1
         self._occupied = int(meta[:, M_NBLOCKS].sum())  # as of the last readout
+        self.on_decode_error = None
+        self.quarantine = quarantine
+        self.on_quarantine = None
 
     @property
     def capacity(self) -> int:
         return self.cols.shape[2]
 
-    def _absorb(self, readout: torch.Tensor) -> int:
-        """Fold one readout into the stats; returns its max occupancy.
-        Raises on a sticky integrate error or decode flag."""
+    def _absorb(self, readout: torch.Tensor) -> Tuple[int, int]:
+        """Fold one readout into the stats; returns its max occupancy and
+        its decode flags. Raises on a sticky integrate error, and on decode
+        flags unless the quarantine hook takes them."""
         vals = readout.cpu().numpy()
         occ, kerr, derr = int(vals[0]), int(vals[1]), int(vals[2])
         self._record_scan_width(
@@ -1177,20 +1263,23 @@ class PackedReplayDriver:
         self.stats.dead_rows = int(vals[base + 1])
         self.stats.dead_max = int(vals[base + 2])
         self.stats.peak_blocks = max(self.stats.peak_blocks, occ)
-        if derr != 0:
+        if derr != 0 and not (self.quarantine and self.on_quarantine is not None):
             self._raise_decode_error(derr)
         if kerr != 0:
             self._raise_device_error()
-        return occ
+        return occ, derr
 
     def _drain_readouts(self) -> int:
         """Materialize every pending launch readout; returns the freshest
-        actual occupancy."""
+        actual occupancy. Flagged decode lanes go to the quarantine hook
+        once, after the loop."""
         hi = self._hi_bound
         if not self._pending:
             return hi
+        sticky = 0
         for fut in self._pending:
-            hi = self._absorb(fut)
+            hi, derr = self._absorb(fut)
+            sticky |= derr
             # the launch read the rows its docs held before it and wrote
             # the rows it added (an integrate never frees a row)
             self.stats.launch_rows_read += self._occupied
@@ -1199,6 +1288,13 @@ class PackedReplayDriver:
         self._pending.clear()
         self.stats.syncs += 1
         self._hi_bound = hi
+        if sticky:
+            # flagged lanes already integrated as no-ops: recording the
+            # offenders and clearing the sticky flags is the recovery
+            newly = self.on_quarantine(sticky) or []
+            self.stats.quarantined += len(newly)
+            _QUARANTINED.inc(len(newly))
+            self._err = torch.zeros((), dtype=I32, device=self.cols.device)
         return hi
 
     def _record_scan_width(self, buckets, observed_max: int, tiers) -> None:
@@ -1220,10 +1316,26 @@ class PackedReplayDriver:
         raise RuntimeError(f"device error flags {bad}")
 
     def _raise_decode_error(self, flags_or: int):
+        if self.on_decode_error is not None:
+            self.on_decode_error(flags_or)  # expected to raise
         raise RuntimeError(
             f"device decode flagged errors in a deferred chunk (sticky flags "
             f"{flags_or}); replay with sync_every_chunk=True to localize the update"
         )
+
+    def _dispatch(self, fn):
+        """Run one chunk dispatch, then pass the ``replay.kill`` fault site:
+        a firing spec raises `ReplayFault` (simulated worker death, the
+        state treated as lost). Nothing is retried here."""
+        out = fn()
+        spec = faults.fire("replay.kill")
+        if spec is not None:
+            raise ReplayFault(
+                "injected mid-replay kill (state treated as lost)",
+                chunk=self.stats.chunks,
+                cause=FaultError("replay.kill", spec),
+            )
+        return out
 
     def compact(self) -> int:
         """Compact the packed state in place; returns the actual high-water
@@ -1240,7 +1352,8 @@ class PackedReplayDriver:
         if self._last_compact_chunk >= 0:
             self.stats.compact_gap_chunks = self.stats.chunks - self._last_compact_chunk
         self._last_compact_chunk = self.stats.chunks
-        hi = self._hi_bound = self._absorb(_readout_words(self.cols, self.meta, self._err))
+        hi, _ = self._absorb(_readout_words(self.cols, self.meta, self._err))
+        self._hi_bound = hi
         self._occupied = self.stats.occupied_rows
         self.stats.syncs += 1
         self.stats.reclaimed_rows += max(0, occ_before - self.stats.occupied_rows)
@@ -1270,6 +1383,12 @@ class PackedReplayDriver:
             self.stats.growths += 1
             self.stats.capacity = new_cap
 
+    def _chunk_done(self, margin: int) -> None:
+        self._hi_bound += margin
+        self.stats.chunks += 1
+        if self.sync_every_chunk:
+            self._drain_readouts()
+
     def step(self, stream: UpdateBatch, margin: Optional[int] = None) -> None:
         """Integrate one ``[S, ...]`` stream chunk (a doc-free leading step
         axis, on the state's device): room check -> `pack_stream` ->
@@ -1280,40 +1399,52 @@ class PackedReplayDriver:
         if margin is None:
             margin = int(stream_worst_case_adds(stream).sum()) + 8
         self.ensure_room(margin)
-        rows, dels = pack_stream(stream)
-        with torch.profiler.record_function("ytpu_torch.integrate"):
-            integrate_stream(self.cols, self.meta, rows, dels, self.rank, scan_tier_plan())
-        with torch.profiler.record_function("ytpu_torch.readout"):
-            self._pending.append(_readout_words(self.cols, self.meta, self._err))
-        self._hi_bound += margin
-        self.stats.chunks += 1
-        if self.sync_every_chunk:
-            self._drain_readouts()
 
-    def step_raw(self, raw, offs, lens, refs, dims, width: int, margin: int):
-        """Integrate one chunk from raw concatenated wire bytes plus its
-        offsets table: decode from the arena -> rebase -> integrate ->
-        readout. ``dims`` is ``(max_rows, max_dels, n_steps,
-        max_sections)``; ``refs`` the chunk's ``[S, U]`` global unit refs;
-        ``margin`` its worst-case slot growth. Returns the device inputs."""
+        def dispatch():
+            rows, dels = pack_stream(stream)
+            with torch.profiler.record_function("ytpu_torch.integrate"):
+                integrate_stream(self.cols, self.meta, rows, dels, self.rank, scan_tier_plan())
+            with torch.profiler.record_function("ytpu_torch.readout"):
+                return _readout_words(self.cols, self.meta, self._err)
+
+        self._pending.append(self._dispatch(dispatch))
+        self._chunk_done(margin)
+
+    def _step_program(self, program, host_arrays, dims, margin: int, **kw) -> ChunkUpload:
+        """What `step_bytes` and `step_raw` share: room check -> the inputs'
+        copy to the state's device -> one chunk program -> lazy readout."""
         max_rows, max_dels, n_steps, max_sections = dims
         self.ensure_room(margin)
-        dev = self.cols.device
-        d_raw, d_offs, d_lens, d_refs = (
-            torch.as_tensor(np.ascontiguousarray(a)).to(dev)
-            for a in (raw, offs, lens, refs)
-        )
-        self.cols, self.meta, self._err, readout = replay_chunk_program_raw(
-            self.cols, self.meta, self._err, d_raw, d_offs, d_lens, d_refs,
-            self.rank, width=width, max_rows=max_rows, max_dels=max_dels,
-            n_steps=n_steps, max_sections=max_sections, scan_plan=scan_tier_plan(),
+        upload = _upload(host_arrays, self.cols.device)
+        self.cols, self.meta, self._err, readout = self._dispatch(
+            lambda: program(
+                self.cols, self.meta, self._err, *upload.tensors, self.rank, max_rows=max_rows,
+                max_dels=max_dels, n_steps=n_steps, max_sections=max_sections,
+                scan_plan=scan_tier_plan(), **kw,
+            )
         )
         self._pending.append(readout)
-        self._hi_bound += margin
-        self.stats.chunks += 1
-        if self.sync_every_chunk:
-            self._drain_readouts()
-        return d_raw, d_offs, d_lens, d_refs
+        self._chunk_done(margin)
+        return upload
+
+    def step_bytes(self, buf, lens, refs, dims, margin: int) -> ChunkUpload:
+        """Integrate one chunk from the host-packed ``[S, L]`` lane matrix
+        `buf` and its ``lens`` (`replay_chunk_program`). ``dims`` is
+        ``(max_rows, max_dels, n_steps, max_sections)``; ``refs`` the
+        chunk's ``[S, U]`` global unit refs; ``margin`` its worst-case slot
+        growth. Decode errors fold into the sticky flags and surface at the
+        next drain or `finish()`. Returns the `ChunkUpload`: the caller
+        writes the staging buffers again only after its `wait()`."""
+        return self._step_program(replay_chunk_program, (buf, lens, refs), dims, margin)
+
+    def step_raw(self, raw, offs, lens, refs, dims, width: int, margin: int) -> ChunkUpload:
+        """Integrate one chunk from raw concatenated wire bytes plus its
+        offsets table: decode from the arena -> rebase -> integrate ->
+        readout (`replay_chunk_program_raw`). ``width`` is the per-lane
+        window; the rest is as in `step_bytes`."""
+        return self._step_program(
+            replay_chunk_program_raw, (raw, offs, lens, refs), dims, margin, width=width
+        )
 
     def finish(self):
         """Drain every pending readout (surfacing sticky errors) and

@@ -85,6 +85,7 @@ class DeviceSyncServer(SyncServer):
             ingestor = BatchIngestor(n_docs, capacity, device=device)
         # the ingestor is the single source of truth for the slot count
         self.ingestor = ingestor
+        self.device_authoritative = True
         # encode.fallback_docs: replies the Python finisher wrote (docs the
         # native finisher left, or tables it cannot read)
         self.metrics.update({"sync.diffs_encoded": {}, "sync.multi_root_tenants": 0, "sync.rebalances": 0,

@@ -1,0 +1,429 @@
+"""Labeled metrics: counters, gauges, log-bucketed histograms + exporters
+(copy of `ytpu.utils.metrics`; the two packages keep separate registries).
+
+Thread-safe, allocation-free on the hot path:
+callers cache the metric (or labeled child) object once and call
+`inc`/`set`/`observe` on it — no dict lookups or string formatting per
+operation.
+
+Families vs children: `registry.counter("x", labelnames=("tenant",))`
+returns a *family*; `family.labels("roomA")` returns (and caches) the
+per-label-set *child* that holds the value. A family registered without
+labelnames is its own child, so `counter("x").inc()`
+works directly.
+
+Exporters:
+
+- `snapshot()` — flat JSON-safe dict;
+- `prometheus_text()` — Prometheus text exposition format 0.0.4
+  (`# TYPE` headers, `_total` counters, cumulative `_bucket{le=...}`
+  histogram series) for scraping a serving process.
+"""
+
+from __future__ import annotations
+
+import math
+import os
+import re
+import threading
+import time
+from contextlib import contextmanager
+from typing import Dict, List, Optional, Tuple
+
+__all__ = [
+    "Counter",
+    "Gauge",
+    "Histogram",
+    "MetricsRegistry",
+    "metrics",
+]
+
+# \Z, not $: `$` matches BEFORE a trailing newline, so "tenant\n" used to
+# validate as a label name and emit a malformed exposition line (the label
+# VALUE escaping below never saw it — names are emitted verbatim)
+_LABEL_RE = re.compile(r"[a-zA-Z_][a-zA-Z0-9_]*\Z")
+
+
+def _escape(v) -> str:
+    return str(v).replace("\\", "\\\\").replace('"', '\\"').replace("\n", "\\n")
+
+
+def _sanitize(name: str) -> str:
+    """Metric name in Prometheus' [a-zA-Z_:][a-zA-Z0-9_:]* alphabet
+    (dots become underscores; a leading digit gets a '_' prefix)."""
+    s = re.sub(r"[^a-zA-Z0-9_:]", "_", name)
+    if s and s[0].isdigit():
+        s = "_" + s
+    return s or "_"
+
+
+#: reserved label value every over-cap label-set folds into:
+#: per-tenant labels are unbounded in production, and an unbounded child
+#: dict tears `/metrics` (scrape size, lock hold time) long before it
+#: ooms — past the cap a family aggregates the tail under `other`
+_OVERFLOW_LABEL = "other"
+
+
+def _max_labelsets() -> int:
+    """Per-family distinct label-set cap (env-tunable, read per miss —
+    the miss path is already the slow path, and a test must be able to
+    lower it without re-importing)."""
+    try:
+        return int(os.environ.get("YTPU_METRICS_MAX_LABELSETS", "512"))
+    except ValueError:
+        return 512
+
+
+class _Family:
+    """Shared label plumbing: a family keyed by label-value tuples.
+
+    With empty `labelnames` the family IS its single child (value methods
+    live on the subclass and operate on `self`); with labels, value
+    methods on the family raise and `labels(...)` returns the child."""
+
+    def __init__(self, name: str, labelnames: Tuple[str, ...] = ()):
+        self.name = name
+        self.labelnames = tuple(labelnames)
+        for ln in self.labelnames:
+            if not _LABEL_RE.match(ln):
+                raise ValueError(f"invalid label name {ln!r}")
+        self._children: Dict[Tuple, "_Family"] = {}
+        self._lock = threading.Lock()
+
+    def labels(self, *values, **kv):
+        if kv:
+            if values:
+                raise ValueError("pass label values positionally OR by name")
+            values = tuple(kv[ln] for ln in self.labelnames)
+        if len(values) != len(self.labelnames):
+            raise ValueError(
+                f"{self.name}: expected labels {self.labelnames}, "
+                f"got {len(values)} values"
+            )
+        if not self.labelnames:
+            return self
+        key = tuple(str(v) for v in values)
+        child = self._children.get(key)
+        dropped = False
+        if child is None:
+            with self._lock:
+                child = self._children.get(key)
+                if child is None:
+                    # label-cardinality guard: past the cap,
+                    # NEW label-sets fold into one reserved `other`
+                    # child — established children keep their series
+                    if len(self._children) >= _max_labelsets():
+                        key = tuple(
+                            _OVERFLOW_LABEL for _ in self.labelnames
+                        )
+                        child = self._children.get(key)
+                        dropped = True
+                    if child is None:
+                        child = self._make_child(key)
+                        self._children[key] = child
+        if dropped:
+            # outside the family lock: the counter lives in the global
+            # registry (registry lock), and exporters take registry →
+            # family — taking family → registry here would invert it
+            metrics.counter("metrics.cardinality_dropped").inc()
+        return child
+
+    def _make_child(self, key: Tuple[str, ...]):
+        raise NotImplementedError
+
+    def _each(self):
+        """(label_values_or_None, child) pairs — the exporters' view."""
+        if not self.labelnames:
+            yield None, self
+            return
+        with self._lock:
+            items = list(self._children.items())
+        for key, child in items:
+            yield key, child
+
+    def _require_unlabeled(self):
+        if self.labelnames:
+            raise ValueError(
+                f"{self.name} has labels {self.labelnames}; "
+                "call .labels(...) first"
+            )
+
+
+class Counter(_Family):
+    """Monotonic counter (optionally labeled)."""
+
+    kind = "counter"
+
+    def __init__(self, name: str, labelnames: Tuple[str, ...] = ()):
+        super().__init__(name, labelnames)
+        self._value = 0
+        self._vlock = threading.Lock()
+
+    def _make_child(self, key):
+        return Counter(self.name)
+
+    def inc(self, n: int = 1) -> None:
+        self._require_unlabeled()
+        with self._vlock:
+            self._value += n
+
+    @property
+    def value(self) -> int:
+        self._require_unlabeled()
+        return self._value
+
+
+class Gauge(_Family):
+    """Point-in-time value (queue depths, slots in use); can go down."""
+
+    kind = "gauge"
+
+    def __init__(self, name: str, labelnames: Tuple[str, ...] = ()):
+        super().__init__(name, labelnames)
+        self._value = 0.0
+        self._vlock = threading.Lock()
+
+    def _make_child(self, key):
+        return Gauge(self.name)
+
+    def set(self, v: float) -> None:
+        self._require_unlabeled()
+        with self._vlock:
+            self._value = v
+
+    def inc(self, n: float = 1) -> None:
+        self._require_unlabeled()
+        with self._vlock:
+            self._value += n
+
+    def dec(self, n: float = 1) -> None:
+        self.inc(-n)
+
+    def set_max(self, v: float) -> None:
+        """Ratchet upward (high-water marks) — still settable back via
+        `set` when the caller re-baselines."""
+        self._require_unlabeled()
+        with self._vlock:
+            if v > self._value:
+                self._value = v
+
+    @property
+    def value(self) -> float:
+        self._require_unlabeled()
+        return self._value
+
+
+class Histogram(_Family):
+    """Log-scale bucketed histogram (2 buckets per octave, 1us..~137s).
+
+    Quantiles come from bucket interpolation — adequate for p50/p99 SLO
+    tracking at zero per-sample allocation.
+    """
+
+    kind = "histogram"
+
+    BUCKETS_PER_OCTAVE = 2
+    MIN_US = 1.0
+    N_BUCKETS = 2 * 28  # up to ~2^28 us ≈ 268s
+
+    def __init__(self, name: str, labelnames: Tuple[str, ...] = ()):
+        super().__init__(name, labelnames)
+        self._counts = [0] * self.N_BUCKETS
+        self._sum_us = 0.0
+        self._n = 0
+        self._vlock = threading.Lock()
+
+    def _make_child(self, key):
+        return Histogram(self.name)
+
+    def _bucket(self, us: float) -> int:
+        if us <= self.MIN_US:
+            return 0
+        b = int(self.BUCKETS_PER_OCTAVE * math.log2(us))
+        return min(max(b, 0), self.N_BUCKETS - 1)
+
+    @classmethod
+    def bucket_upper_s(cls, b: int) -> float:
+        """Inclusive upper bound of bucket `b`, in seconds."""
+        return 2 ** ((b + 1) / cls.BUCKETS_PER_OCTAVE) / 1e6
+
+    def observe(self, seconds: float) -> None:
+        self._require_unlabeled()
+        us = seconds * 1e6
+        b = self._bucket(us)
+        with self._vlock:
+            self._counts[b] += 1
+            self._sum_us += us
+            self._n += 1
+
+    @contextmanager
+    def time(self):
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            self.observe(time.perf_counter() - t0)
+
+    @property
+    def count(self) -> int:
+        self._require_unlabeled()
+        return self._n
+
+    @property
+    def mean_s(self) -> float:
+        self._require_unlabeled()
+        return (self._sum_us / self._n) / 1e6 if self._n else 0.0
+
+    def quantile(self, q: float) -> float:
+        """Approximate quantile in seconds (upper bucket bound interp)."""
+        self._require_unlabeled()
+        with self._vlock:
+            n = self._n
+            if n == 0:
+                return 0.0
+            target = q * n
+            acc = 0
+            for b, c in enumerate(self._counts):
+                acc += c
+                if acc >= target:
+                    return self.bucket_upper_s(b)
+            return self.bucket_upper_s(self.N_BUCKETS - 1)
+
+    @property
+    def p50_s(self) -> float:
+        return self.quantile(0.50)
+
+    @property
+    def p99_s(self) -> float:
+        return self.quantile(0.99)
+
+
+class MetricsRegistry:
+    """Process-wide named metric families (thread-safe registration).
+
+    `counter`/`gauge`/`histogram` get-or-create a family; re-registering
+    a name with a different kind or label set raises — two subsystems
+    silently sharing one series under different schemas is the bug this
+    guards against.
+    """
+
+    def __init__(self):
+        self._families: Dict[str, _Family] = {}
+        self._lock = threading.Lock()
+
+    def _get(self, cls, name: str, labelnames: Tuple[str, ...]):
+        labelnames = tuple(labelnames)
+        with self._lock:
+            fam = self._families.get(name)
+            if fam is None:
+                fam = self._families[name] = cls(name, labelnames)
+            elif not isinstance(fam, cls) or fam.labelnames != labelnames:
+                raise ValueError(
+                    f"metric {name!r} already registered as "
+                    f"{fam.kind}{fam.labelnames} "
+                    f"(requested {cls.kind}{labelnames})"
+                )
+            return fam
+
+    def counter(self, name: str, labelnames: Tuple[str, ...] = ()) -> Counter:
+        return self._get(Counter, name, labelnames)
+
+    def gauge(self, name: str, labelnames: Tuple[str, ...] = ()) -> Gauge:
+        return self._get(Gauge, name, labelnames)
+
+    def histogram(
+        self, name: str, labelnames: Tuple[str, ...] = ()
+    ) -> Histogram:
+        return self._get(Histogram, name, labelnames)
+
+    # --- exporters -------------------------------------------------------------
+
+    def snapshot(self) -> Dict[str, float]:
+        """Flat JSON-safe dict; labeled children render as
+        ``name{label="value"}`` keys, histograms expand to
+        ``.count/.mean_s/.p50_s/.p99_s``."""
+        out: Dict[str, float] = {}
+        with self._lock:
+            fams = list(self._families.values())
+        for fam in fams:
+            for key, child in fam._each():
+                suffix = (
+                    "" if key is None
+                    else "{%s}" % ",".join(
+                        f'{k}="{_escape(v)}"'
+                        for k, v in zip(fam.labelnames, key)
+                    )
+                )
+                if fam.kind == "histogram":
+                    out[f"{fam.name}.count{suffix}"] = child.count
+                    out[f"{fam.name}.mean_s{suffix}"] = child.mean_s
+                    out[f"{fam.name}.p50_s{suffix}"] = child.p50_s
+                    out[f"{fam.name}.p99_s{suffix}"] = child.p99_s
+                else:
+                    out[f"{fam.name}{suffix}"] = child._value
+        return out
+
+    def prometheus_text(self) -> str:
+        """Prometheus text exposition (format 0.0.4): counters emit a
+        ``_total`` sample, histograms cumulative ``_bucket{le=...}`` +
+        ``_sum``/``_count`` (le bounds in seconds)."""
+        lines: List[str] = []
+        with self._lock:
+            fams = sorted(self._families.values(), key=lambda f: f.name)
+        for fam in fams:
+            sname = _sanitize(fam.name)
+            # format 0.0.4: the TYPE header names the SAMPLE family —
+            # counters sample as `<name>_total`, so the header must too
+            # (prometheus_client parity; a bare-name header would leave
+            # the typed family sampleless and the samples untyped)
+            declared = f"{sname}_total" if fam.kind == "counter" else sname
+            lines.append(f"# TYPE {declared} {fam.kind}")
+            for key, child in fam._each():
+                pairs = (
+                    []
+                    if key is None
+                    else [
+                        f'{k}="{_escape(v)}"'
+                        for k, v in zip(fam.labelnames, key)
+                    ]
+                )
+
+                def fmt(suffix: str, value, extra: str = "") -> str:
+                    lbl = pairs + ([extra] if extra else [])
+                    block = "{%s}" % ",".join(lbl) if lbl else ""
+                    return f"{sname}{suffix}{block} {value}"
+
+                if fam.kind == "counter":
+                    lines.append(fmt("_total", child._value))
+                elif fam.kind == "gauge":
+                    lines.append(fmt("", child._value))
+                else:  # histogram
+                    with child._vlock:
+                        counts = list(child._counts)
+                        n = child._n
+                        sum_s = child._sum_us / 1e6
+                    acc = 0
+                    last = max(
+                        (b for b, c in enumerate(counts) if c), default=-1
+                    )
+                    for b in range(last + 1):
+                        acc += counts[b]
+                        le = Histogram.bucket_upper_s(b)
+                        lines.append(fmt("_bucket", acc, f'le="{le:.9g}"'))
+                    lines.append(fmt("_bucket", n, 'le="+Inf"'))
+                    lines.append(fmt("_sum", f"{sum_s:.9g}"))
+                    lines.append(fmt("_count", n))
+        return "\n".join(lines) + "\n" if lines else ""
+
+    def reset(self) -> None:
+        """Test-only: metric objects cached by holders keep working but
+        drop out of future snapshot() results."""
+        with self._lock:
+            self._families.clear()
+
+
+metrics = MetricsRegistry()
+
+#: the cardinality guard's drop signal, registered eagerly so a scrape
+#: sees the series (at 0) before the first fold ever happens
+metrics.counter("metrics.cardinality_dropped")
