@@ -85,6 +85,15 @@ the decode call's kernels read from a CUDA graph of it; the replay again
 under `torch.profiler` for the time of each launch, then the
 kernel against its plain version on one late window at the grown
 capacity),
+``decode_v2`` (the whole log transcoded to V2 by the port's codec; the V2
+decode kernel against its plain version, every pre-resolve column, valid
+mask and flag of every lane and the resolved stream, on the crafted sets
+of ``ytpu_torch/benches/data/v2_cases.json`` and one B4 chunk of 8,192
+lanes, with device ms from a CUDA graph; the whole V2 log decoded by one
+`decode_updates_v2` call, no lane flagged, and replayed through
+`replay_stream_fused` at 256 docs to the log's text; `BatchIngestor.apply(v2=True)`
+over 32 steps of the ingest phase's cohorts equal to `apply` of their V1
+bytes, cols and meta, after every step),
 ``mosaic_ladder``
 (rungs 0-10), ``plane_rmw`` (the three repros), ``diag_kernels`` (each
 diagnostic kernel against its plain version, then timed beside its
@@ -101,7 +110,8 @@ script's seconds against its 1,200 s limit. Launch counts are set to 0
 just before each program runs and read just after it: the decode
 kernel's on the B4 replay (one a chunk), each run of `replay_lanes` and
 `pipeline_checkpoint`, the stream replay's one decode call, the ingest
-and sync-server calls and rungs 8-10. Any failure exits
+and sync-server calls and rungs 8-10, and the V2 decode kernel's on the
+V2 stream's one decode call. Any failure exits
 non-zero without the last line. The traced B4 replay, ingest and sync
 server phases check that each `decode_updates_v1` call is one device
 kernel, ``decode_v1_kernel``, inside its span ``ytpu_torch.decode.v1``;
@@ -3185,6 +3195,282 @@ def _late_window_vs_plain(stream, rank, capacity: int, dev):
     }
 
 
+# --- the V2 lane -------------------------------------------------------------------
+
+DECODE_V2_REPLACES = "ytpu/ops/decode_v2.py:1025"
+DECODE_V2_LOOPS = ("ytpu/ops/decode_v2.py:516, :555, :587, :1018, :1322, :1541 (the XLA fori_loops of "
+                   "decode_updates_v2)")
+DECODE_V2_KERNEL = "decode_v2_kernel"
+# the crafted V2 sets, written by tests/_torch_v2_cases.py
+V2_CASES = os.path.join(HERE, "ytpu_torch", "benches", "data", "v2_cases.json")
+# the JAX package's full-log V2 test: lanes padded to 64 bytes, 4 rows and
+# 4 delete ranges a lane, 4 client sections
+V2_PAD, V2_U, V2_R, V2_SEC = 64, 4, 4, 4
+# CUDA-graph calls a round when the whole log's launch is timed
+V2_FULL_GRAPH_REPS = 10
+# steps of the ingest phase's cohorts that V2 ingest runs
+V2_INGEST_STEPS = 32
+
+
+def _or_lanes(flags) -> int:
+    import numpy as np
+
+    f = flags.cpu().numpy()
+    return int(np.bitwise_or.reduce(f)) if f.size else 0
+
+
+def _v2_bound_bytes(lens, spans, sidecar, tables, U: int, R: int) -> int:
+    """Bytes the V2 decode must move at least: each lane's wire bytes, its
+    length, its 12 spans and its sidecar row read once, each table once;
+    the 21 pre-resolve row values (int32, as the decode wraps them, and the
+    int64 content ref) and their valid bytes, the 3 int32 delete values and
+    theirs and the int32 flags written once, as `_decode_bound_bytes`
+    counts the V1 decode's UpdateBatch. The kernel's int64 columns and its
+    scratch are its own choice, not counted."""
+    S = lens.shape[0]
+    reads = int(lens.long().sum()) + 4 * lens.numel() + 4 * spans.numel()
+    if sidecar is not None:
+        reads += 4 * sidecar.numel()
+    for t in tables.values():
+        if t is not None:
+            reads += sum(x.numel() * x.element_size() for x in (t if isinstance(t, tuple) else (t,)))
+    return reads + S * U * (20 * 4 + 8 + 1) + S * R * (3 * 4 + 1) + 4 * S
+
+
+def _pre_equal(name: str, got, want) -> None:
+    """Two pre-resolve ``(rows, dels, flags)`` results equal in every
+    column, both valid masks and the flags of every lane, or it raises
+    naming the columns where they differ."""
+    import torch
+
+    (rows_k, dels_k, flags_k), (rows_p, dels_p, flags_p) = got, want
+    pairs = ([(f"rows.{k}", rows_k[k], v) for k, v in rows_p.items()]
+             + [(f"dels.{k}", dels_k[k], v) for k, v in dels_p.items()] + [("flags", flags_k, flags_p)])
+    differ = [field for field, a, b in pairs if a.shape != b.shape or not torch.equal(a.long(), b.long())]
+    if differ:
+        raise RuntimeError(f"decode_v2 {name}: kernel and plain version differ in {differ[:8]}")
+
+
+def _v2_scratch(S: int, U: int, R: int, SEC: int, dev) -> dict:
+    """The kernel's per-lane scratch at S lanes: its bytes, and the device
+    ms of as many bytes read once and written once, alone and coalesced
+    (one `copy_` between two buffers of the scratch's size; `graph_ms`):
+    about the least the kernel's own round trip through it can cost."""
+    import torch
+
+    from ytpu_torch.benches._kernels import graph_ms
+    from ytpu_torch.ops import decode_v2 as dv2
+
+    words = int(dv2._decode_v2_lib().ytpu_decode_v2_scratch_words(U, R, SEC))
+    src = torch.ones(words * S, dtype=torch.int32, device=dev)
+    dst = torch.empty_like(src)
+    ms = graph_ms(lambda: dst.copy_(src), reps=DECODE_GRAPH_REPS)
+    del src, dst
+    return {"words_per_lane": words, "bytes": 4 * words * S, "roundtrip_ms": ms["mean"],
+            "roundtrip_ms_min_max": [ms["min"], ms["max"]],
+            "roundtrip_bound_ms": 8 * words * S / HBM_BYTES_PER_S * 1e3}
+
+
+def _decode_v2_vs_plain(name: str, payloads, U: int, R: int, SEC: int, tables: dict, dev, pad_to=None) -> dict:
+    """The V2 decode kernel against its plain version on the card, on
+    `payloads` as `pack_updates_v2` packs them: the pre-resolve columns and
+    the flags of every lane, then the stream resolved with `tables`, equal
+    (max abs err 0), or it raises. Device ms a launch from a CUDA graph
+    (`graph_ms`), issued ms from CUDA events over DECODE_KERNEL_REPS calls,
+    plain ms between CUDA events."""
+    import torch
+
+    from ytpu_torch.benches._kernels import graph_ms
+    from ytpu_torch.ops import decode_kernel as dk
+    from ytpu_torch.ops import decode_v2 as dv2
+
+    buf_np, lens_np, spans_np, side_np = dv2.pack_updates_v2(payloads, pad_to=pad_to)
+    buf, lens, spans = (torch.from_numpy(x).to(dev) for x in (buf_np, lens_np, spans_np))
+    side = None if side_np is None else torch.from_numpy(side_np).to(dev)
+    args = (buf, lens, spans, U, R, SEC, side)
+    plain, p_ms = _event_ms(lambda: dv2._decode_v2_reference(*args))
+    kernel = dv2._decode_v2_kernel(*args)
+    torch.cuda.synchronize()
+    _pre_equal(name, kernel, plain)
+    resolved_p = dk._resolve_and_pack(dict(plain[0]), dict(plain[1]), plain[2], **tables)
+    resolved_k = dk._resolve_and_pack(dict(kernel[0]), dict(kernel[1]), kernel[2], **tables)
+    err = _stream_diff(f"v2 {name}", resolved_k, resolved_p)
+    issued_ms = _time_ms(lambda: dv2._decode_v2_kernel(*args), reps=DECODE_KERNEL_REPS)
+    dev_ms = graph_ms(lambda: dv2._decode_v2_kernel(*args), reps=DECODE_GRAPH_REPS)
+    bound_b = _v2_bound_bytes(lens, spans, side, tables, U, R)
+    flags = resolved_p[1]
+    return {"lanes": int(lens.shape[0]), "width": int(buf.shape[1]), "U": U, "R": R, "SEC": SEC,
+            "wire_bytes": int(lens.long().sum()), "sidecar": side is not None, "flags_or": _or_lanes(flags),
+            "error_lanes": int(((flags & dk.FLAG_ERRORS) != 0).sum()), "max_abs_err": err,
+            "kernel_ms": dev_ms["mean"], "kernel_ms_min_max": [dev_ms["min"], dev_ms["max"]],
+            "issued_ms": issued_ms, "plain_ms": p_ms, "bound_bytes": bound_b,
+            "bound_ms": bound_b / HBM_BYTES_PER_S * 1e3,
+            "tables": sorted(k for k, v in tables.items() if v is not None)}
+
+
+def _decode_v2_sets(v2_log, dev) -> dict:
+    """Part (a): the kernel against its plain version on the crafted sets
+    (each with the key and big-client tables; the big clients also
+    without them) and on one B4 chunk of CHUNK lanes (LATE_CHUNK) at the
+    JAX package's full-log settings."""
+    import torch
+
+    with open(V2_CASES, encoding="utf-8") as f:
+        data = json.load(f)
+    tables = {k: tuple(torch.tensor(x, dtype=torch.int32, device=dev) for x in v) for k, v in data["tables"].items()}
+    sets = {}
+    for name, c in data["sets"].items():
+        payloads = [bytes.fromhex(p) for p in c["payloads"]]
+        sets[name] = _decode_v2_vs_plain(name, payloads, c["U"], c["R"], c["SEC"], tables, dev)
+        if name == "big_clients":
+            sets["big_clients_no_tables"] = _decode_v2_vs_plain(name, payloads, c["U"], c["R"], c["SEC"], {}, dev)
+    chunk = v2_log[LATE_CHUNK * CHUNK:(LATE_CHUNK + 1) * CHUNK]
+    sets["b4_chunk"] = _decode_v2_vs_plain("b4_chunk", chunk, V2_U, V2_R, V2_SEC, {}, dev, pad_to=V2_PAD)
+    sets["b4_chunk"]["chunk"] = LATE_CHUNK
+    sets["b4_chunk"]["scratch"] = _v2_scratch(len(chunk), V2_U, V2_R, V2_SEC, dev)
+    return sets
+
+
+def _decode_v2_full_log(v2_log, expect, dev) -> dict:
+    """Part (b): the whole V2 log packed (`pack_updates_v2`), decoded on the
+    card by one `decode_updates_v2` call (content refs ``s * L + byte`` of
+    the one matrix), then replayed through `replay_stream_fused` as the
+    stream_replay_full_width phase replays the V1 stream. Gates: no lane
+    flagged, the first and last doc's text (read through `RawPayloadView`
+    over the V2 matrix) equal to the log's, sticky error 0. A CUDA graph
+    of the call shows one `decode_v2_kernel` in it. Also the launch's
+    device ms over the whole log from a CUDA graph, and the scratch's
+    round trip alone at that lane count (`_v2_scratch`)."""
+    import torch
+
+    from ytpu_torch.models.batch_doc import get_string, init_state
+    from ytpu_torch.ops import integrate_kernel as ik
+    from ytpu_torch.ops.decode_kernel import FLAG_ERRORS, RawPayloadView, identity_rank
+    from ytpu_torch.benches._kernels import graph_ms
+    from ytpu_torch.ops.decode_v2 import _decode_v2_kernel, decode_updates_v2, pack_updates_v2
+
+    t0 = time.perf_counter()
+    buf_np, lens_np, spans_np, side_np = pack_updates_v2(v2_log, pad_to=V2_PAD)
+    pack_s = time.perf_counter() - t0
+    if side_np is not None:
+        raise RuntimeError("decode_v2: the B4 log has no cold content, yet the pack made a sidecar")
+    buf, lens, spans = (torch.from_numpy(x).to(dev) for x in (buf_np, lens_np, spans_np))
+    torch.cuda.synchronize()
+    decode_updates_v2.launches = 0
+    t1 = time.perf_counter()
+    stream, flags = decode_updates_v2(buf, lens, spans, V2_U, V2_R, max_sections=V2_SEC)
+    torch.cuda.synchronize()
+    decode_call_s = time.perf_counter() - t1
+    launches = decode_updates_v2.launches
+    flagged = int(((flags & FLAG_ERRORS) != 0).sum())
+    nodes = _graph_launches(lambda: decode_updates_v2(buf, lens, spans, V2_U, V2_R, max_sections=V2_SEC))
+    kernel_ms = graph_ms(lambda: _decode_v2_kernel(buf, lens, spans, V2_U, V2_R, V2_SEC), reps=V2_FULL_GRAPH_REPS)
+    scratch = _v2_scratch(len(v2_log), V2_U, V2_R, V2_SEC, dev)
+    torch.cuda.empty_cache()
+    state = init_state(N_DOCS, CAPACITY, dev)
+    rank = identity_rank(256, dev)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    state, st = ik.replay_stream_fused(state, stream, rank, chunk_steps=CHUNK, max_capacity=STREAM_MAX_CAPACITY)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t2
+    err = int(state.error.max())
+    view = RawPayloadView(buf_np)
+    text_ok = [get_string(state, d, view) == expect for d in (0, N_DOCS - 1)]
+    del state
+    torch.cuda.empty_cache()
+    out = {"updates": len(v2_log), "lane_width": int(buf_np.shape[1]), "wire_bytes": int(lens_np.sum()),
+           "pack_s": pack_s, "decode_call_s": decode_call_s, "decode_launches": launches,
+           "kernel_ms": kernel_ms["mean"], "kernel_ms_min_max": [kernel_ms["min"], kernel_ms["max"]],
+           "scratch": scratch,
+           "decode_graph_kernels": sum(DECODE_V2_KERNEL in n for n in nodes), "decode_graph_nodes": len(nodes),
+           "flagged_lanes": flagged, "replay_wall_s": wall, "updates_per_s": len(v2_log) / wall,
+           "capacity_end": st.capacity, "chunks": st.chunks, "sticky_error": err, "text_ok": text_ok}
+    if flagged:
+        raise RuntimeError(f"decode_v2: {flagged} lanes of the V2 B4 log flagged")
+    if launches != 1 or out["decode_graph_kernels"] != 1:
+        raise RuntimeError(f"decode_v2: the full-log call made {launches} counted launches and "
+                           f"{out['decode_graph_kernels']} {DECODE_V2_KERNEL} in its graph ({nodes[:4]})")
+    if err or not all(text_ok):
+        raise RuntimeError(f"decode_v2: the V2 stream replay ended with sticky error {err}, texts {text_ok}")
+    return out
+
+
+def _decode_v2_ingest(log, dev) -> dict:
+    """Part (c): `BatchIngestor.apply(v2=True)` at the ingest phase's width
+    over V2_INGEST_STEPS steps of its cohorts transcoded to V2, beside
+    `apply` of the same updates as V1 bytes: the two ingestors' packed
+    cols and meta, state vectors and stashes equal after every step. ms a
+    step on the host clock, each call ending in a synchronize."""
+    import torch
+
+    from ytpu_torch.benches import ingest as bench
+    from ytpu_torch.core.update import Update
+    from ytpu_torch.models.ingest import BatchIngestor
+    from ytpu_torch.ops import integrate_kernel as ik
+
+    logs = bench.load_ingest_logs()
+    b4 = log[: bench.INGEST_STEPS]
+    steps = [bench.step_payloads(t, b4, logs) for t in range(V2_INGEST_STEPS)]
+    t0 = time.perf_counter()
+    steps_v2 = [[None if p is None else Update.decode_v1(p).encode_v2() for p in step] for step in steps]
+    transcode_s = time.perf_counter() - t0
+    ing_v1 = BatchIngestor(bench.INGEST_DOCS, bench.INGEST_CAPACITY, device=dev)
+    ing_v2 = BatchIngestor(bench.INGEST_DOCS, bench.INGEST_CAPACITY, device=dev)
+    ms_v1, ms_v2, unequal = [], [], []
+    for t in range(V2_INGEST_STEPS):
+        for ing, payloads, v2, ms in ((ing_v1, steps[t], False, ms_v1), (ing_v2, steps_v2[t], True, ms_v2)):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            ing.apply(payloads, v2=v2)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t1) * 1e3)
+        (c1, m1), (c2, m2) = ik.pack_state(ing_v1.state), ik.pack_state(ing_v2.state)
+        if not (torch.equal(c1, c2) and torch.equal(m1, m2) and [s.clocks for s in ing_v1.svs]
+                == [s.clocks for s in ing_v2.svs] and [sorted(p) for p in ing_v1._pending]
+                == [sorted(p) for p in ing_v2._pending]):
+            unequal.append(t)
+    err = int(ing_v2.state.error.max())
+    out = {"docs": bench.INGEST_DOCS, "capacity": bench.INGEST_CAPACITY, "steps": V2_INGEST_STEPS,
+           "updates": sum(p is not None for s in steps for p in s), "transcode_s": transcode_s,
+           "v2_ms_per_step": sum(ms_v2) / len(ms_v2), "v2_ms_min_max": [min(ms_v2), max(ms_v2)],
+           "v1_ms_per_step": sum(ms_v1) / len(ms_v1), "unequal_steps": unequal, "sticky_error": err,
+           "blocks": int(ing_v2.state.n_blocks.sum())}
+    if unequal or err:
+        raise RuntimeError(f"decode_v2: V2 ingest differs from V1 ingest after steps {unequal[:8]} "
+                           f"(sticky error {err})")
+    return out
+
+
+def phase_decode_v2(gpu, log, expect, dev="cuda"):
+    """The V2 lane on the card: the whole B4 log transcoded to V2 by the
+    port's own codec (`Update.decode_v1(p).encode_v2()`, timed); (a) the
+    decode kernel against its plain version (`_decode_v2_sets`); (b) the
+    whole log decoded and replayed (`_decode_v2_full_log`; the launch count
+    is set to 0 just before its decode call and read just after); (c) V2
+    ingest against V1 ingest (`_decode_v2_ingest`). Then the build's
+    ptxas report of the kernel."""
+    import torch
+
+    from ytpu_torch.core.update import Update
+    from ytpu_torch.ops import _build
+
+    dev = torch.device(dev)
+    t0 = time.perf_counter()
+    v2_log = [Update.decode_v1(p).encode_v2() for p in log]
+    transcode_s = time.perf_counter() - t0
+    sets = _decode_v2_sets(v2_log, dev)
+    full = _decode_v2_full_log(v2_log, expect, dev)
+    del v2_log
+    ingest = _decode_v2_ingest(log, dev)
+    ptxas = _ptxas(_build.build_log("decode_v2"), DECODE_V2_KERNEL)
+    line = {"phase": "decode_v2", "transcode_s": transcode_s, "transcode_updates_per_s": len(log) / transcode_s,
+            "sets": sets, "full_log": full, "ingest": ingest, "ptxas": ptxas,
+            "seconds": time.perf_counter() - t0, "gpu": gpu}
+    emit(line)
+    return line
+
+
 def ik_launch_plan(plan) -> dict:
     """The integrate kernel's launch on the main path: one B4 chunk into
     the flagship envelope."""
@@ -3234,6 +3520,8 @@ def main() -> int:
     stream_launches, stream_vs_plain, stream_launch_ms, stream_decodes = phase_stream_replay_full_width(
         gpu, log, expect, plan)
     torch.cuda.empty_cache()
+    v2 = phase_decode_v2(gpu, log, expect)
+    torch.cuda.empty_cache()
     diag_launches, ladder_err = phase_mosaic_ladder(gpu)
     ladder_integrate = diag_launches.pop("integrate_stream")
     ladder_decodes = diag_launches.pop("decode_updates_v1")
@@ -3252,6 +3540,7 @@ def main() -> int:
                       "sync_server": sync_server["decode_launches"], "stream_replay_full_width": stream_decodes,
                       "mosaic_ladder": ladder_decodes}
     chunk = decode_sets["b4_chunk"]
+    v2_chunk = v2["sets"]["b4_chunk"]
     script_s = time.perf_counter() - t_script
     emit({"phase": "total", "seconds": script_s, "limit_s": 1200})
     print(f"gpu: {gpu}", flush=True)
@@ -3329,6 +3618,21 @@ def main() -> int:
         "sets": {k: {w: v[w] for w in ("lanes", "U", "R", "T", "longest_lane_steps", "max_abs_err", "kernel_ms",
                                        "issued_ms", "plain_ms", "bound_ms")} for k, v in decode_sets.items()},
         "ptxas": decode_ptxas, "gpu": gpu,
+    }, {
+        "name": "decode_v2", "route": "cuda", "source": "ytpu_torch/csrc/decode_v2.cu",
+        "replaces": DECODE_V2_REPLACES, "loops": DECODE_V2_LOOPS, "launches": v2["full_log"]["decode_launches"],
+        "launches_by_path": {"decode_v2 (the V2 B4 stream)": v2["full_log"]["decode_launches"]},
+        "max_abs_err": max(v["max_abs_err"] for v in v2["sets"].values()),
+        "ms": v2_chunk["kernel_ms"], "plain_ms": v2_chunk["plain_ms"], "bound_ms": v2_chunk["bound_ms"],
+        "bound_by": "bytes", "library_ms": None, "issued_ms": v2_chunk["issued_ms"],
+        "shape": f"one V2 B4 chunk: S={v2_chunk['lanes']} lanes of L={v2_chunk['width']}, U={v2_chunk['U']}, "
+                 f"R={v2_chunk['R']}, {v2_chunk['SEC']} sections",
+        "sets": {k: {w: v[w] for w in ("lanes", "error_lanes", "flags_or", "max_abs_err", "kernel_ms", "issued_ms",
+                                       "plain_ms", "bound_ms")} for k, v in v2["sets"].items()},
+        "full_log": {k: v2["full_log"][k] for k in ("updates", "decode_call_s", "kernel_ms", "replay_wall_s",
+                                                    "flagged_lanes")},
+        "scratch": {"b4_chunk": v2_chunk["scratch"], "full_log": v2["full_log"]["scratch"]},
+        "ptxas": v2["ptxas"], "gpu": gpu,
     }] + [{**{k: e[k] for k in KERNEL_KEYS}, **({"full_width": e["full_width"]} if "full_width" in e else {})}
           for e in diag]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -41,7 +41,9 @@ from ytpu_torch.models.ingest import BatchIngestor as TorchIngestor  # noqa: E40
 
 torch.set_num_threads(1)
 # (method, scenarios): each group runs as the doc slots of one ingestor
-GROUPS = {"apply": cases.host_lane_scenarios(), "apply_bytes": cases.fast_lane_scenarios()}
+# ("apply_v2": the host-lane scenarios as V2 bytes through `apply(v2=True)`)
+GROUPS = {"apply": cases.host_lane_scenarios(), "apply_bytes": cases.fast_lane_scenarios(),
+          "apply_v2": cases.host_lane_scenarios()}
 NAMES = [(method, name) for method, sc in GROUPS.items() for name in sc]
 
 
@@ -89,7 +91,10 @@ def run(pkg, method, steps, n_docs, start=None, patch=None):
             ing.state = state_from_numpy(start, "cpu")
     with (patch() if patch else contextlib.nullcontext()):
         for payloads in steps:
-            getattr(ing, method)(payloads)
+            if method == "apply_v2":
+                ing.apply(payloads, v2=True)
+            else:
+                getattr(ing, method)(payloads)
     state = ing.state if pkg == "jax" else tbd.ensure_origin_slot(ing.state)
     return ing, _summary(ing, state)
 
@@ -136,6 +141,10 @@ def group_run(method):
     the port's ingestor; computed once per process."""
     if method not in _GROUP_RUNS:
         n_docs, steps, slices = cases.combined(GROUPS[method])
+        if method == "apply_v2":
+            from ytpu_torch.core.update import Update
+
+            steps = [[None if p is None else Update.decode_v1(p).encode_v2() for p in step] for step in steps]
         patch = _sabotage if method == "apply_bytes" else None
         j = run("jax", method, steps, n_docs, patch=patch)[1]
         t_ing, t = run("torch", method, steps, n_docs, patch=patch)
@@ -207,6 +216,18 @@ def test_rendered_values_match(runs, method, name):
     assert t["trees"][docs] == j["trees"][docs]
     assert t["values"][docs] == j["values"][docs]
     assert t["strings"][docs] == j["strings"][docs]
+
+
+def test_v2_apply_equals_v1_apply(runs):
+    """The port's `apply(v2=True)` on the V2 form of the host-lane
+    scenarios ends in the state, mirrors, stashes and values of `apply` on
+    their V1 form."""
+    _, v1, _, _ = runs["apply"]
+    _, v2, _, _ = runs["apply_v2"]
+    for key in ("svs", "pending", "trees", "values", "strings", "primary_roots", "keys", "clients"):
+        assert v2[key] == v1[key], key
+    for plane, want in v1["planes"].items():
+        np.testing.assert_array_equal(v2["planes"][plane], want, err_msg=plane)
 
 
 def test_interners_match(runs):
@@ -370,9 +391,18 @@ def test_build_batch_matches_ytpu():
 
 
 def test_v2_raises():
+    """A V2 payload cut short raises in `apply(v2=True)`, in both packages,
+    before any state changes."""
+    from ytpu.encoding.lib0 import EncodingError as JaxEncodingError
+
+    from ytpu_torch.encoding.lib0 import EncodingError
+
     ing = TorchIngestor(1, cases.CAPACITY, device="cpu")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(EncodingError):
         ing.apply([b"\x00\x00"], v2=True)
+    with pytest.raises(JaxEncodingError):
+        JaxIngestor(1, cases.CAPACITY).apply([b"\x00\x00"], v2=True)
+    assert int(ing.state.n_blocks.sum()) == 0
 
 
 # --- the chip_smoke ingest phase's committed logs -------------------------------------

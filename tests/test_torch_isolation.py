@@ -38,7 +38,7 @@ def test_import_leaves_jax_and_ytpu_unloaded():
         "import ytpu_torch.sync, ytpu_torch.sync.awareness, ytpu_torch.sync.protocol\n"
         "import ytpu_torch.sync.server, ytpu_torch.sync.device_server, ytpu_torch.native\n"
         "import ytpu_torch.utils, ytpu_torch.utils.faults, ytpu_torch.utils.metrics\n"
-        "import ytpu_torch.models.pipeline, ytpu_torch.models.checkpoint\n"
+        "import ytpu_torch.models.pipeline, ytpu_torch.models.checkpoint, ytpu_torch.ops.decode_v2\n"
         "from ytpu_torch.sync import DeviceSyncServer\n"
         "print(json.dumps(sorted(m for m in sys.modules\n"
         "    if m == 'jax' or m.startswith('jax.') or m == 'ytpu' or m.startswith('ytpu.'))))\n"

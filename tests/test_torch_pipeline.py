@@ -47,9 +47,9 @@ def _clean_slate():
     _clear()
 
 
-def _jax_run(lane, payloads, kill=False):
+def _jax_run(lane, payloads, kill=False, **kw):
     enc = JEncoder(root_name="t")
-    pipe = JPipeline(enc, N_ROWS, N_DELS, chunk_steps=CHUNK_STEPS, lane=lane, max_capacity=2 * CAPACITY)
+    pipe = JPipeline(enc, N_ROWS, N_DELS, chunk_steps=CHUNK_STEPS, lane=lane, max_capacity=2 * CAPACITY, **kw)
     if kill:
         j_faults.arm("replay.kill", after=2)
     state, n = pipe.run(j_init(N_DOCS, CAPACITY), payloads)
@@ -69,17 +69,23 @@ def stream():
     return make_payload_stream()
 
 
+def _v2(payloads):
+    return [JUpdate.decode_v1(p).encode_v2() for p in payloads]
+
+
 @pytest.fixture(scope="module")
 def jax_states(stream):
     """``{port lane: (state, chunks, encoder, restarts under a kill, the
-    state after that restart)}``."""
+    state after that restart)}``, and under ``"v2"`` ``{port lane: (state,
+    chunks, encoder)}`` of the stream as V2 bytes with ``decode_v2=True``."""
     payloads, _ = stream
-    out = {}
+    out = {"v2": {}}
     for lane, j_lane in LANES.items():
         state, n, enc = _jax_run(j_lane, payloads)
         before = j_metrics.counter("pipeline.restarts").value
         killed = _jax_run(j_lane, payloads, kill=True)[0]
         out[lane] = (state, n, enc, j_metrics.counter("pipeline.restarts").value - before, killed)
+        out["v2"][lane] = _jax_run(j_lane, _v2(payloads), decode_v2=True)
     return out
 
 
@@ -102,6 +108,21 @@ def test_lane_matches_jax(jax_states, stream, lane):
     _assert_states_equal(state, j_state)
     assert enc.interner.from_idx == j_enc.interner.from_idx
     assert len(enc.payloads.items) == len(j_enc.payloads.items)
+    for d in range(N_DOCS):
+        assert get_string(state, d, enc.payloads) == expected
+
+
+@pytest.mark.parametrize("lane", list(LANES))
+def test_decode_v2_lane_matches_jax(jax_states, stream, lane):
+    """``decode_v2=True`` over the stream's V2 form ends in the JAX
+    package's state for the same lane and in the port's own V1 state."""
+    payloads, expected = stream
+    j_state, j_n, j_enc = jax_states["v2"][lane]
+    state, n, enc = _port_run(lane, _v2(payloads), decode_v2=True)
+    assert n == j_n
+    _assert_states_equal(state, j_state)
+    assert enc.interner.from_idx == j_enc.interner.from_idx
+    _assert_states_equal(state, _port_run(lane, payloads)[0])
     for d in range(N_DOCS):
         assert get_string(state, d, enc.payloads) == expected
 
@@ -161,8 +182,6 @@ def test_options_outside_the_port_raise():
         UpdatePipeline(enc, N_ROWS, N_DELS, lane="host")
     with pytest.raises(ValueError, match="depth"):
         UpdatePipeline(enc, N_ROWS, N_DELS, depth=0)
-    with pytest.raises(NotImplementedError, match="A.11"):
-        UpdatePipeline(enc, N_ROWS, N_DELS, decode_v2=True)
     with pytest.raises(NotImplementedError, match="A.2c"):
         UpdatePipeline(enc, N_ROWS, N_DELS, admission=object())
 

@@ -266,8 +266,21 @@ class ContentDoc(Content):
         self.options = options
 
     def encode(self, enc) -> None:
+        """The options as the JAX package's `Options` reads and writes them
+        back: the known keys, defaults where absent, ``encoding`` with the
+        BigInt tag."""
+        from ytpu_torch.encoding.lib0 import BigInt
+
+        m = self.options if isinstance(self.options, dict) else {}
+        auto_load = m["autoLoad"] if isinstance(m.get("autoLoad"), bool) else False
+        out = {"gc": m["gc"] if isinstance(m.get("gc"), bool) else True}
+        if isinstance(m.get("collectionId"), str):
+            out["collectionId"] = m["collectionId"]
+        out["encoding"] = BigInt(1 if m.get("encoding") == 1 else 0)
+        out["autoLoad"] = auto_load
+        out["shouldLoad"] = auto_load
         enc.write_string(self.guid)
-        enc.write_any(self.options)
+        enc.write_any(out)
 
     def values(self) -> List[PyAny]:
         return [self.guid]

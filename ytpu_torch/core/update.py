@@ -1,8 +1,9 @@
 """A decoded-but-not-integrated update (copy of `ytpu.core.update.Update`'s
-v1 decode and encode, `encode_diff`, `merge`, `is_empty` and
-`state_vector`, and of its doc-less `merge_updates_v1`; parity target: yrs
-update.rs, `Update` :91, block decode :433-488, `encode_diff` :490-535,
-`merge_updates` :537-704, alt.rs:15-95).
+v1 and v2 decode and encode, `encode_diff`, `merge`, `is_empty` and
+`state_vector`, and of its doc-less utilities `merge_updates_v1/v2`,
+`encode_state_vector_from_update_v2` and `diff_updates_v1/v2`; parity
+target: yrs update.rs, `Update` :91, block decode :433-488, `encode_diff`
+:490-535, `merge_updates` :537-704, alt.rs:15-95).
 
 An update carries, per client, a clock-contiguous run of block carriers
 (Item / GC / Skip) plus a delete set. The batch ingestor's host lane
@@ -20,9 +21,16 @@ from ytpu_torch.core.content import BLOCK_GC, BLOCK_SKIP, decode_content
 from ytpu_torch.core.id_set import DeleteSet
 from ytpu_torch.core.ids import ID
 from ytpu_torch.core.state_vector import StateVector
-from ytpu_torch.encoding.codec import DecoderV1, EncoderV1
+from ytpu_torch.encoding.codec import DecoderV1, DecoderV2, EncoderV1, EncoderV2
 
-__all__ = ["Update", "merge_updates_v1"]
+__all__ = [
+    "Update",
+    "diff_updates_v1",
+    "diff_updates_v2",
+    "encode_state_vector_from_update_v2",
+    "merge_updates_v1",
+    "merge_updates_v2",
+]
 
 Carrier = Union[Item, GCRange, SkipRange]
 
@@ -71,7 +79,7 @@ class Update:
 
     @classmethod
     def decode_v2(cls, data: bytes) -> "Update":
-        raise NotImplementedError("V2 decode is not ported yet (ROADMAP A.11)")
+        return cls.decode(DecoderV2(data))
 
     # --- encoding ---
 
@@ -80,6 +88,11 @@ class Update:
 
     def encode_v1(self) -> bytes:
         enc = EncoderV1()
+        self.encode(enc)
+        return enc.to_bytes()
+
+    def encode_v2(self) -> bytes:
+        enc = EncoderV2()
         self.encode(enc)
         return enc.to_bytes()
 
@@ -200,3 +213,25 @@ def merge_updates_v1(updates: List[bytes]) -> bytes:
     """One v1 update holding everything `updates` hold (the JAX package's
     ``compat.merge_updates``)."""
     return Update.merge([Update.decode_v1(u) for u in updates]).encode_v1()
+
+
+def merge_updates_v2(updates: List[bytes]) -> bytes:
+    return Update.merge([Update.decode_v2(u) for u in updates]).encode_v2()
+
+
+def encode_state_vector_from_update_v2(update: bytes) -> bytes:
+    """The state vector is written in v1 form, as yrs writes it."""
+    return Update.decode_v2(update).state_vector().encode_v1()
+
+
+def diff_updates_v1(update: bytes, state_vector: bytes) -> bytes:
+    """What `update` holds past the v1 `state_vector`, as a v1 update."""
+    return Update.decode_v1(update).encode_diff_v1(StateVector.decode_v1(state_vector))
+
+
+def diff_updates_v2(update: bytes, state_vector: bytes) -> bytes:
+    """What the v2 `update` holds past the v1 `state_vector`, as a v2
+    update."""
+    enc = EncoderV2()
+    Update.decode_v2(update).encode_diff(StateVector.decode_v1(state_vector), enc)
+    return enc.to_bytes()

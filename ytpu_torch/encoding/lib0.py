@@ -22,7 +22,7 @@ import json
 import math
 import struct
 from typing import Any as PyAny
-from typing import List
+from typing import List, Tuple
 
 import numpy as np
 
@@ -142,6 +142,11 @@ class Cursor:
 
     def read_var_int(self) -> int:
         """Signed varint: 6 payload bits + sign in the first byte."""
+        return self.read_var_int_signed()[0]
+
+    def read_var_int_signed(self) -> Tuple[int, bool]:
+        """The signed varint and its raw sign bit, which tells -0 from 0
+        (the v2 run marker of `_UIntOptRleDecoder`)."""
         b = self.read_u8()
         num = b & 0x3F
         negative = (b & 0x40) != 0
@@ -150,10 +155,17 @@ class Cursor:
             b = self.read_u8()
             num |= (b & 0x7F) << shift
             shift += 7
-        return -num if negative else num
+            if b & 0x80 and shift > 70:
+                raise EncodingError("varint too long")
+        return (-num if negative else num), negative
 
     def read_buf(self) -> bytes:
         return self.read_exact(self.read_var_uint())
+
+    def read_to_end(self) -> bytes:
+        out = self.buf[self.pos :]
+        self.pos = len(self.buf)
+        return out
 
     def read_string(self) -> str:
         return self.read_buf().decode("utf-8")

@@ -32,8 +32,9 @@ per-block interning of fast docs) and ``ytpu_torch.ingest.plan.host_lane``
 (`Update.decode_v1`, `_plan_doc` and `batch_from_rows` of the host lane);
 the fast lane's upload and decode run in ``ytpu_torch.ingest.decode``.
 
-Left out: doc-axis sharding (multi-device, ROADMAP A.12) and V2 payloads
-(ROADMAP A.11).
+V2 payloads take the host lane (`apply(payloads, v2=True)`, a host
+`Update.decode_v2`), as in the JAX package. Left out: doc-axis sharding
+(multi-device, ROADMAP A.12).
 """
 
 from __future__ import annotations
@@ -255,13 +256,12 @@ class BatchIngestor:
         return self.enc.batch_from_rows(all_rows, all_dels, n_rows, n_dels, device=self.device)
 
     def apply(self, payloads: List[Optional[bytes]], v2: bool = False) -> DocStateBatch:
-        """One batched step through the host lane: per-doc v1 update
-        payloads (None = no-op slot)."""
-        if v2:
-            raise NotImplementedError("V2 payloads are not ported yet (ROADMAP A.11)")
+        """One batched step through the host lane: per-doc update payloads,
+        v1 or with `v2` v2 (None = no-op slot)."""
         if len(payloads) != self.n_docs:
             raise ValueError(f"expected {self.n_docs} payload slots")
-        updates = [None if p is None else Update.decode_v1(p) for p in payloads]
+        decode = Update.decode_v2 if v2 else Update.decode_v1
+        updates = [None if p is None else decode(p) for p in payloads]
         self._apply(self._host_batch(updates))
         return self.state
 

@@ -44,8 +44,9 @@ class UpdatePipeline:
       stale.
 
     ``lane="packed_xla"`` (the JAX package's XLA chunk step) is outside the
-    port and raises `ValueError`; ``decode_v2=True`` and ``admission``
-    raise `NotImplementedError` until ROADMAP A.11 and A.2c.
+    port and raises `ValueError`; ``admission`` raises
+    `NotImplementedError` until ROADMAP A.2c. ``decode_v2=True`` reads
+    the payloads as v2 updates (host decode, as for v1).
 
     A `ReplayFault` or an injected staging fault restarts the whole run
     from the caller's `state` (which no lane writes) when `payloads` is a
@@ -73,11 +74,10 @@ class UpdatePipeline:
             raise ValueError(f"lane must be 'xla' or 'fused', got {lane!r}")
         if depth < 1:
             raise ValueError(f"depth must be >= 1, got {depth}")
-        if decode_v2:
-            raise NotImplementedError("decode_v2=True: V2 decode is not ported yet (ROADMAP A.11)")
         if admission is not None:
             raise NotImplementedError("admission: the admission controller is not ported yet (ROADMAP A.2c)")
         self.enc = enc
+        self.decode_v2 = decode_v2
         self.n_rows = n_rows
         self.n_dels = n_dels
         self.chunk_steps = chunk_steps
@@ -91,7 +91,8 @@ class UpdatePipeline:
         worker thread)."""
         steps: List[UpdateBatch] = []
         for p in payloads:
-            steps.append(self.enc.build_step(Update.decode_v1(p), self.n_rows, self.n_dels, device="cpu"))
+            u = Update.decode_v2(p) if self.decode_v2 else Update.decode_v1(p)
+            steps.append(self.enc.build_step(u, self.n_rows, self.n_dels, device="cpu"))
             if len(steps) == self.chunk_steps:
                 yield BatchEncoder.stack_steps(steps)
                 steps = []

@@ -41,6 +41,7 @@ _BUILD = os.path.join(_PKG, "_build")
 #: library name -> source file under csrc/
 SOURCES = {
     "decode": "decode.cu",
+    "decode_v2": "decode_v2.cu",
     "integrate": "integrate.cu",
     "integrate_profile": "integrate.cu",
     "mosaic_ladder": "mosaic_ladder.cu",
