@@ -86,14 +86,18 @@ under `torch.profiler` for the time of each launch, then the
 kernel against its plain version on one late window at the grown
 capacity),
 ``decode_v2`` (the whole log transcoded to V2 by the port's codec; the V2
-decode kernel against its plain version, every pre-resolve column, valid
-mask and flag of every lane and the resolved stream, on the crafted sets
-of ``ytpu_torch/benches/data/v2_cases.json`` and one B4 chunk of 8,192
-lanes, with device ms from a CUDA graph; the whole V2 log decoded by one
-`decode_updates_v2` call, no lane flagged, and replayed through
-`replay_stream_fused` at 256 docs to the log's text; `BatchIngestor.apply(v2=True)`
-over 32 steps of the ingest phase's cohorts equal to `apply` of their V1
-bytes, cols and meta, after every step),
+decode kernel against its plain composition, every UpdateBatch field and
+flag of every lane, from the matrix and from the arena read in place, with
+the intern tables and without, on the crafted sets of
+``ytpu_torch/benches/data/v2_cases.json``, one B4 chunk of 8,192 lanes and
+merged B4 prefixes past the kernel's shared-memory budget, each entry
+point one launch a call (its count and a CUDA graph of one node), with
+device ms from a CUDA graph; the whole V2 log decoded by one
+`decode_updates_v2` call and one `decode_updates_v2_raw` call, no lane
+flagged, and replayed through `replay_stream_fused` at 256 docs to the
+log's text; `BatchIngestor.apply(v2=True)` over 32 steps of the ingest
+phase's cohorts equal to `apply` of their V1 bytes, cols and meta, after
+every step; the kernel's registers, spills and shared memory),
 ``mosaic_ladder``
 (rungs 0-10), ``plane_rmw`` (the three repros), ``diag_kernels`` (each
 diagnostic kernel against its plain version, then timed beside its
@@ -3208,6 +3212,9 @@ V2_CASES = os.path.join(HERE, "ytpu_torch", "benches", "data", "v2_cases.json")
 V2_PAD, V2_U, V2_R, V2_SEC = 64, 4, 4, 4
 # CUDA-graph calls a round when the whole log's launch is timed
 V2_FULL_GRAPH_REPS = 10
+# merged B4 prefixes (whole-state lanes of up to ~100 blocks) at a U whose
+# column expansions pass the kernel's shared-memory budget
+V2_MERGED_PREFIXES, V2_MERGED_U, V2_MERGED_R = (8, 40, 96), 128, 8
 # steps of the ingest phase's cohorts that V2 ingest runs
 V2_INGEST_STEPS = 32
 
@@ -3219,101 +3226,135 @@ def _or_lanes(flags) -> int:
     return int(np.bitwise_or.reduce(f)) if f.size else 0
 
 
-def _v2_bound_bytes(lens, spans, sidecar, tables, U: int, R: int) -> int:
-    """Bytes the V2 decode must move at least: each lane's wire bytes, its
-    length, its 12 spans and its sidecar row read once, each table once;
-    the 21 pre-resolve row values (int32, as the decode wraps them, and the
-    int64 content ref) and their valid bytes, the 3 int32 delete values and
-    theirs and the int32 flags written once, as `_decode_bound_bytes`
-    counts the V1 decode's UpdateBatch. The kernel's int64 columns and its
-    scratch are its own choice, not counted."""
+def _v2_bound_bytes(lens, spans, sidecar, tables, U: int, R: int, arena: bool = False) -> int:
+    """Bytes the V2 decode must move at least, as `_decode_bound_bytes`
+    counts the V1 decode: each lane's wire bytes, its length (from the
+    arena also its offset and staged extent), its 24 span words and its
+    sidecar row read once, each intern table once; the 22 int32 row fields
+    and a valid byte a row slot, the 3 int32 delete fields and a valid byte
+    a delete slot and the int32 flags written once."""
     S = lens.shape[0]
-    reads = int(lens.long().sum()) + 4 * lens.numel() + 4 * spans.numel()
+    reads = int(lens.long().sum()) + 4 * S * (3 if arena else 1) + 4 * spans.numel()
     if sidecar is not None:
         reads += 4 * sidecar.numel()
     for t in tables.values():
         if t is not None:
             reads += sum(x.numel() * x.element_size() for x in (t if isinstance(t, tuple) else (t,)))
-    return reads + S * U * (20 * 4 + 8 + 1) + S * R * (3 * 4 + 1) + 4 * S
+    return reads + S * U * (22 * 4 + 1) + S * R * (3 * 4 + 1) + 4 * S
 
 
-def _pre_equal(name: str, got, want) -> None:
-    """Two pre-resolve ``(rows, dels, flags)`` results equal in every
-    column, both valid masks and the flags of every lane, or it raises
-    naming the columns where they differ."""
+def _one_launch(name: str, call, path: str) -> list:
+    """A call of a V2 decode entry point puts exactly one node on the
+    device, `decode_v2_kernel` (read from a CUDA graph of it), and counts
+    one launch in ``decode_updates_v2.launches`` and one on `path` in
+    ``decode_updates_v2.paths`` (both set to 0 just before it), or it
+    raises. Returns the graph's nodes."""
     import torch
 
-    (rows_k, dels_k, flags_k), (rows_p, dels_p, flags_p) = got, want
-    pairs = ([(f"rows.{k}", rows_k[k], v) for k, v in rows_p.items()]
-             + [(f"dels.{k}", dels_k[k], v) for k, v in dels_p.items()] + [("flags", flags_k, flags_p)])
-    differ = [field for field, a, b in pairs if a.shape != b.shape or not torch.equal(a.long(), b.long())]
-    if differ:
-        raise RuntimeError(f"decode_v2 {name}: kernel and plain version differ in {differ[:8]}")
-
-
-def _v2_scratch(S: int, U: int, R: int, SEC: int, dev) -> dict:
-    """The kernel's per-lane scratch at S lanes: its bytes, and the device
-    ms of as many bytes read once and written once, alone and coalesced
-    (one `copy_` between two buffers of the scratch's size; `graph_ms`):
-    about the least the kernel's own round trip through it can cost."""
-    import torch
-
-    from ytpu_torch.benches._kernels import graph_ms
     from ytpu_torch.ops import decode_v2 as dv2
 
-    words = int(dv2._decode_v2_lib().ytpu_decode_v2_scratch_words(U, R, SEC))
-    src = torch.ones(words * S, dtype=torch.int32, device=dev)
-    dst = torch.empty_like(src)
-    ms = graph_ms(lambda: dst.copy_(src), reps=DECODE_GRAPH_REPS)
-    del src, dst
-    return {"words_per_lane": words, "bytes": 4 * words * S, "roundtrip_ms": ms["mean"],
-            "roundtrip_ms_min_max": [ms["min"], ms["max"]],
-            "roundtrip_bound_ms": 8 * words * S / HBM_BYTES_PER_S * 1e3}
+    dv2.decode_updates_v2.launches = 0
+    dv2.decode_updates_v2.paths = dict.fromkeys(dv2.decode_updates_v2.paths, 0)
+    call()
+    torch.cuda.synchronize()
+    launches, paths = dv2.decode_updates_v2.launches, dict(dv2.decode_updates_v2.paths)
+    nodes = _graph_launches(call)
+    if launches != 1 or paths[path] != 1 or len(nodes) != 1 or DECODE_V2_KERNEL not in nodes[0]:
+        raise RuntimeError(f"decode_v2 {name}: a call made {launches} counted launches ({paths}) and put "
+                           f"{nodes[:8]} on the device")
+    return nodes
 
 
-def _decode_v2_vs_plain(name: str, payloads, U: int, R: int, SEC: int, tables: dict, dev, pad_to=None) -> dict:
-    """The V2 decode kernel against its plain version on the card, on
-    `payloads` as `pack_updates_v2` packs them: the pre-resolve columns and
-    the flags of every lane, then the stream resolved with `tables`, equal
-    (max abs err 0), or it raises. Device ms a launch from a CUDA graph
-    (`graph_ms`), issued ms from CUDA events over DECODE_KERNEL_REPS calls,
-    plain ms between CUDA events."""
+def _decode_v2_vs_plain(name: str, payloads, U: int, R: int, SEC: int, tables: dict, dev, pad_to=None,
+                        path: str = "shared") -> dict:
+    """The V2 decode kernel against the plain composition on the card, on
+    `payloads` packed as a matrix (`pack_updates_v2`) and as an arena
+    (`pack_updates_v2_raw`, read in place): `_decode_v2_reference` (of the
+    gathered arena) -> `_resolve_and_pack`, with `tables` and, where there
+    are tables, without; every UpdateBatch field and the flags of every
+    lane equal (max abs err 0), the column expansions on `path`, and each
+    entry point one launch a call (`_one_launch`), or it raises. Device ms
+    a launch from a CUDA graph (`graph_ms`) from the matrix and from the
+    arena, issued ms from CUDA events over DECODE_KERNEL_REPS calls, plain
+    ms (the reference and the resolve) between CUDA events."""
     import torch
 
     from ytpu_torch.benches._kernels import graph_ms
     from ytpu_torch.ops import decode_kernel as dk
     from ytpu_torch.ops import decode_v2 as dv2
 
-    buf_np, lens_np, spans_np, side_np = dv2.pack_updates_v2(payloads, pad_to=pad_to)
-    buf, lens, spans = (torch.from_numpy(x).to(dev) for x in (buf_np, lens_np, spans_np))
-    side = None if side_np is None else torch.from_numpy(side_np).to(dev)
-    args = (buf, lens, spans, U, R, SEC, side)
-    plain, p_ms = _event_ms(lambda: dv2._decode_v2_reference(*args))
-    kernel = dv2._decode_v2_kernel(*args)
+    def on_dev(x):
+        return None if x is None else torch.from_numpy(x).to(dev)
+
+    buf, lens, spans, side = (on_dev(x) for x in dv2.pack_updates_v2(payloads, pad_to=pad_to))
+    raw = dv2.pack_updates_v2_raw(payloads)
+    wire, offs, row_lens, alens, aspans, aside = (on_dev(x) for x in raw[:6])
+    width = raw[6]
+    pre, ref_ms = _event_ms(lambda: dv2._decode_v2_reference(buf, lens, spans, U, R, SEC, side))
+    plain, res_ms = _event_ms(lambda: dk._resolve_and_pack(dict(pre[0]), dict(pre[1]), pre[2], **tables))
+    gathered = dk.gather_raw_lanes(wire, offs, row_lens, width)
+    same = (gathered.shape == buf.shape and torch.equal(gathered, buf) and torch.equal(alens, lens)
+            and torch.equal(aspans, spans) and (side is None) == (aside is None)
+            and (side is None or torch.equal(aside, side)))
+    pre_a = pre if same else dv2._decode_v2_reference(gathered, alens, aspans, U, R, SEC, aside)
+    plain_a = dk._resolve_and_pack(dict(pre_a[0]), dict(pre_a[1]), pre_a[2], **tables)
+
+    def matrix(tabs):
+        return dv2._decode_v2_kernel(buf, lens, spans, U, R, SEC, side, **tabs)
+
+    def arena(tabs):
+        return dv2._decode_v2_kernel(wire, alens, aspans, U, R, SEC, aside, offs, row_lens, width, **tabs)
+
+    stream_m, flags_m, path_m = matrix(tables)
+    stream_a, flags_a, path_a = arena(tables)
     torch.cuda.synchronize()
-    _pre_equal(name, kernel, plain)
-    resolved_p = dk._resolve_and_pack(dict(plain[0]), dict(plain[1]), plain[2], **tables)
-    resolved_k = dk._resolve_and_pack(dict(kernel[0]), dict(kernel[1]), kernel[2], **tables)
-    err = _stream_diff(f"v2 {name}", resolved_k, resolved_p)
-    issued_ms = _time_ms(lambda: dv2._decode_v2_kernel(*args), reps=DECODE_KERNEL_REPS)
-    dev_ms = graph_ms(lambda: dv2._decode_v2_kernel(*args), reps=DECODE_GRAPH_REPS)
+    if (path_m, path_a) != (path, path):
+        raise RuntimeError(f"decode_v2 {name}: the expansions went to {path_m} / {path_a}, not {path}")
+    err = max(_stream_diff(f"v2 {name}", (stream_m, flags_m), plain),
+              _stream_diff(f"v2 {name} (arena)", (stream_a, flags_a), plain_a))
+    held = ["matrix", "arena"]
+    if any(v is not None for v in tables.values()):
+        bare = dk._resolve_and_pack(dict(pre[0]), dict(pre[1]), pre[2])
+        err = max(err, _stream_diff(f"v2 {name} (no tables)", matrix({})[:2], bare))
+        held.append("no tables")
+    nodes = {
+        "decode_updates_v2": _one_launch(name, lambda: dv2.decode_updates_v2(
+            buf, lens, spans, U, R, max_sections=SEC, sidecar=side, **tables), path),
+        "decode_updates_v2_raw": _one_launch(f"{name} (arena)", lambda: dv2.decode_updates_v2_raw(
+            wire, offs, row_lens, alens, aspans, width, U, R, max_sections=SEC, sidecar=aside, **tables), path),
+    }
+    issued_ms = _time_ms(lambda: matrix(tables), reps=DECODE_KERNEL_REPS)
+    dev_ms = graph_ms(lambda: matrix(tables), reps=DECODE_GRAPH_REPS)
+    arena_ms = graph_ms(lambda: arena(tables), reps=DECODE_GRAPH_REPS)
     bound_b = _v2_bound_bytes(lens, spans, side, tables, U, R)
-    flags = resolved_p[1]
-    return {"lanes": int(lens.shape[0]), "width": int(buf.shape[1]), "U": U, "R": R, "SEC": SEC,
+    arena_bound_b = _v2_bound_bytes(alens, aspans, aside, tables, U, R, arena=True)
+    words = int(dv2._decode_v2_lib().ytpu_decode_v2_words(U, R, SEC))
+    S = int(lens.shape[0])
+    flags = plain[1]
+    return {"lanes": S, "width": int(buf.shape[1]), "U": U, "R": R, "SEC": SEC,
             "wire_bytes": int(lens.long().sum()), "sidecar": side is not None, "flags_or": _or_lanes(flags),
-            "error_lanes": int(((flags & dk.FLAG_ERRORS) != 0).sum()), "max_abs_err": err,
+            "error_lanes": int(((flags & dk.FLAG_ERRORS) != 0).sum()), "max_abs_err": err, "held": held,
+            "path": path_m, "words_per_lane": words,
+            "smem_bytes_per_cta": 32 * 4 * words if path_m == "shared" else 0,
+            "scratch_bytes": 4 * words * S if path_m == "global" else 0, "graph_nodes": nodes,
             "kernel_ms": dev_ms["mean"], "kernel_ms_min_max": [dev_ms["min"], dev_ms["max"]],
-            "issued_ms": issued_ms, "plain_ms": p_ms, "bound_bytes": bound_b,
-            "bound_ms": bound_b / HBM_BYTES_PER_S * 1e3,
+            "arena_kernel_ms": arena_ms["mean"], "arena_kernel_ms_min_max": [arena_ms["min"], arena_ms["max"]],
+            "issued_ms": issued_ms, "plain_ms": ref_ms + res_ms,
+            "plain_ms_parts": {"reference": ref_ms, "resolve": res_ms}, "bound_bytes": bound_b,
+            "bound_ms": bound_b / HBM_BYTES_PER_S * 1e3, "arena_bound_ms": arena_bound_b / HBM_BYTES_PER_S * 1e3,
             "tables": sorted(k for k, v in tables.items() if v is not None)}
 
 
-def _decode_v2_sets(v2_log, dev) -> dict:
-    """Part (a): the kernel against its plain version on the crafted sets
-    (each with the key and big-client tables; the big clients also
-    without them) and on one B4 chunk of CHUNK lanes (LATE_CHUNK) at the
-    JAX package's full-log settings."""
+def _decode_v2_sets(v2_log, log, dev) -> dict:
+    """Part (a): the kernel against the plain composition on the crafted
+    sets (each with the key and big-client tables; the big clients also
+    without them), on one B4 chunk of CHUNK lanes (LATE_CHUNK) at the JAX
+    package's full-log settings with a raw client table (its ids
+    reversed) and without, and on merged B4 prefixes past the shared-memory
+    budget (the device-memory scratch path)."""
     import torch
+
+    from ytpu_torch.core.update import Update, merge_updates_v1
 
     with open(V2_CASES, encoding="utf-8") as f:
         data = json.load(f)
@@ -3325,10 +3366,30 @@ def _decode_v2_sets(v2_log, dev) -> dict:
         if name == "big_clients":
             sets["big_clients_no_tables"] = _decode_v2_vs_plain(name, payloads, c["U"], c["R"], c["SEC"], {}, dev)
     chunk = v2_log[LATE_CHUNK * CHUNK:(LATE_CHUNK + 1) * CHUNK]
+    ids = torch.arange(256, dtype=torch.int32, device=dev)
     sets["b4_chunk"] = _decode_v2_vs_plain("b4_chunk", chunk, V2_U, V2_R, V2_SEC, {}, dev, pad_to=V2_PAD)
     sets["b4_chunk"]["chunk"] = LATE_CHUNK
-    sets["b4_chunk"]["scratch"] = _v2_scratch(len(chunk), V2_U, V2_R, V2_SEC, dev)
+    sets["b4_chunk_client_table"] = _decode_v2_vs_plain(
+        "b4_chunk_client_table", chunk, V2_U, V2_R, V2_SEC, {"client_table": (ids, ids.flip(0))}, dev,
+        pad_to=V2_PAD)
+    merged = [Update.decode_v1(merge_updates_v1(log[:n])).encode_v2() for n in V2_MERGED_PREFIXES]
+    sets["merged_global"] = _decode_v2_vs_plain("merged_global", merged, V2_MERGED_U, V2_MERGED_R, V2_SEC, {}, dev,
+                                                path="global")
     return sets
+
+
+def _decode_v2_profile(v2_log, dev) -> dict:
+    """Where a lane's cycles go on the B4 chunk of `_decode_v2_sets`: the
+    profiling build's mean SM cycles a lane in each phase
+    (`ytpu_torch.benches.decode_v2_profile.profile_table`)."""
+    import torch
+
+    from ytpu_torch.benches.decode_v2_profile import profile_table
+    from ytpu_torch.ops.decode_v2 import pack_updates_v2
+
+    chunk = v2_log[LATE_CHUNK * CHUNK:(LATE_CHUNK + 1) * CHUNK]
+    buf, lens, spans = (torch.from_numpy(x).to(dev) for x in pack_updates_v2(chunk, pad_to=V2_PAD)[:3])
+    return dict(profile_table(buf, lens, spans, V2_U, V2_R, V2_SEC), chunk=LATE_CHUNK)
 
 
 def _decode_v2_full_log(v2_log, expect, dev) -> dict:
@@ -3337,17 +3398,19 @@ def _decode_v2_full_log(v2_log, expect, dev) -> dict:
     the one matrix), then replayed through `replay_stream_fused` as the
     stream_replay_full_width phase replays the V1 stream. Gates: no lane
     flagged, the first and last doc's text (read through `RawPayloadView`
-    over the V2 matrix) equal to the log's, sticky error 0. A CUDA graph
-    of the call shows one `decode_v2_kernel` in it. Also the launch's
-    device ms over the whole log from a CUDA graph, and the scratch's
-    round trip alone at that lane count (`_v2_scratch`)."""
+    over the V2 matrix) equal to the log's, sticky error 0, one launch a
+    call and one node, `decode_v2_kernel`, in a CUDA graph of the call
+    (`_one_launch`). The same for `decode_updates_v2_raw` on the log's
+    arena (the matrix's rows up to their lengths, made on the card), whose
+    stream must equal the matrix call's. Also each entry's launch over the
+    whole log in a CUDA graph, and one call's host wall."""
     import torch
 
     from ytpu_torch.models.batch_doc import get_string, init_state
     from ytpu_torch.ops import integrate_kernel as ik
     from ytpu_torch.ops.decode_kernel import FLAG_ERRORS, RawPayloadView, identity_rank
     from ytpu_torch.benches._kernels import graph_ms
-    from ytpu_torch.ops.decode_v2 import _decode_v2_kernel, decode_updates_v2, pack_updates_v2
+    from ytpu_torch.ops.decode_v2 import _decode_v2_kernel, decode_updates_v2, decode_updates_v2_raw, pack_updates_v2
 
     t0 = time.perf_counter()
     buf_np, lens_np, spans_np, side_np = pack_updates_v2(v2_log, pad_to=V2_PAD)
@@ -3355,6 +3418,11 @@ def _decode_v2_full_log(v2_log, expect, dev) -> dict:
     if side_np is not None:
         raise RuntimeError("decode_v2: the B4 log has no cold content, yet the pack made a sidecar")
     buf, lens, spans = (torch.from_numpy(x).to(dev) for x in (buf_np, lens_np, spans_np))
+    S, L = buf.shape
+    # the arena of `pack_updates_v2_raw` (no sidecar: each lane's bytes up to
+    # its length, back to back), made on the card
+    wire = buf[torch.arange(L, device=dev)[None, :] < lens[:, None].long()]
+    offs = (torch.cumsum(lens, 0, dtype=torch.int32) - lens).contiguous()
     torch.cuda.synchronize()
     decode_updates_v2.launches = 0
     t1 = time.perf_counter()
@@ -3362,10 +3430,23 @@ def _decode_v2_full_log(v2_log, expect, dev) -> dict:
     torch.cuda.synchronize()
     decode_call_s = time.perf_counter() - t1
     launches = decode_updates_v2.launches
+    t1 = time.perf_counter()
+    stream_a, flags_a = decode_updates_v2_raw(wire, offs, lens, lens, spans, L, V2_U, V2_R, max_sections=V2_SEC)
+    torch.cuda.synchronize()
+    arena_call_s = time.perf_counter() - t1
+    arena_err = _stream_diff("v2 full log (arena against matrix)", (stream_a, flags_a), (stream, flags))
+    del stream_a, flags_a
     flagged = int(((flags & FLAG_ERRORS) != 0).sum())
-    nodes = _graph_launches(lambda: decode_updates_v2(buf, lens, spans, V2_U, V2_R, max_sections=V2_SEC))
+    nodes = _one_launch("full log", lambda: decode_updates_v2(buf, lens, spans, V2_U, V2_R, max_sections=V2_SEC),
+                        "shared")
+    nodes_a = _one_launch("full log (arena)", lambda: decode_updates_v2_raw(
+        wire, offs, lens, lens, spans, L, V2_U, V2_R, max_sections=V2_SEC), "shared")
     kernel_ms = graph_ms(lambda: _decode_v2_kernel(buf, lens, spans, V2_U, V2_R, V2_SEC), reps=V2_FULL_GRAPH_REPS)
-    scratch = _v2_scratch(len(v2_log), V2_U, V2_R, V2_SEC, dev)
+    arena_ms = graph_ms(lambda: _decode_v2_kernel(wire, lens, spans, V2_U, V2_R, V2_SEC, None, offs, lens, L),
+                        reps=V2_FULL_GRAPH_REPS)
+    bound_b = _v2_bound_bytes(lens, spans, None, {}, V2_U, V2_R)
+    arena_bound_b = _v2_bound_bytes(lens, spans, None, {}, V2_U, V2_R, arena=True)
+    del wire, offs
     torch.cuda.empty_cache()
     state = init_state(N_DOCS, CAPACITY, dev)
     rank = identity_rank(256, dev)
@@ -3379,18 +3460,20 @@ def _decode_v2_full_log(v2_log, expect, dev) -> dict:
     text_ok = [get_string(state, d, view) == expect for d in (0, N_DOCS - 1)]
     del state
     torch.cuda.empty_cache()
-    out = {"updates": len(v2_log), "lane_width": int(buf_np.shape[1]), "wire_bytes": int(lens_np.sum()),
-           "pack_s": pack_s, "decode_call_s": decode_call_s, "decode_launches": launches,
+    out = {"updates": len(v2_log), "lane_width": int(L), "wire_bytes": int(lens_np.sum()),
+           "pack_s": pack_s, "decode_call_s": decode_call_s, "arena_call_s": arena_call_s,
+           "decode_launches": launches, "path": "shared",
            "kernel_ms": kernel_ms["mean"], "kernel_ms_min_max": [kernel_ms["min"], kernel_ms["max"]],
-           "scratch": scratch,
-           "decode_graph_kernels": sum(DECODE_V2_KERNEL in n for n in nodes), "decode_graph_nodes": len(nodes),
+           "arena_kernel_ms": arena_ms["mean"], "arena_kernel_ms_min_max": [arena_ms["min"], arena_ms["max"]],
+           "bound_bytes": bound_b, "bound_ms": bound_b / HBM_BYTES_PER_S * 1e3,
+           "arena_bound_ms": arena_bound_b / HBM_BYTES_PER_S * 1e3, "arena_max_abs_err": arena_err,
+           "decode_graph_nodes": nodes, "arena_graph_nodes": nodes_a,
            "flagged_lanes": flagged, "replay_wall_s": wall, "updates_per_s": len(v2_log) / wall,
            "capacity_end": st.capacity, "chunks": st.chunks, "sticky_error": err, "text_ok": text_ok}
     if flagged:
         raise RuntimeError(f"decode_v2: {flagged} lanes of the V2 B4 log flagged")
-    if launches != 1 or out["decode_graph_kernels"] != 1:
-        raise RuntimeError(f"decode_v2: the full-log call made {launches} counted launches and "
-                           f"{out['decode_graph_kernels']} {DECODE_V2_KERNEL} in its graph ({nodes[:4]})")
+    if launches != 1:
+        raise RuntimeError(f"decode_v2: the full-log call made {launches} counted launches")
     if err or not all(text_ok):
         raise RuntimeError(f"decode_v2: the V2 stream replay ended with sticky error {err}, texts {text_ok}")
     return out
@@ -3445,11 +3528,14 @@ def _decode_v2_ingest(log, dev) -> dict:
 def phase_decode_v2(gpu, log, expect, dev="cuda"):
     """The V2 lane on the card: the whole B4 log transcoded to V2 by the
     port's own codec (`Update.decode_v1(p).encode_v2()`, timed); (a) the
-    decode kernel against its plain version (`_decode_v2_sets`); (b) the
-    whole log decoded and replayed (`_decode_v2_full_log`; the launch count
-    is set to 0 just before its decode call and read just after); (c) V2
-    ingest against V1 ingest (`_decode_v2_ingest`). Then the build's
-    ptxas report of the kernel."""
+    decode kernel against its plain composition (`_decode_v2_sets`); (b)
+    the whole log decoded and replayed (`_decode_v2_full_log`; the launch
+    count is set to 0 just before its decode call and read just after);
+    (c) V2 ingest against V1 ingest (`_decode_v2_ingest`). Also the
+    profiling build's cycles a lane by phase on the B4 chunk
+    (`_decode_v2_profile`), and the build's ptxas report of the kernel
+    (registers, stack frame, spills; its shared memory is dynamic,
+    `smem_bytes_per_cta` of each set)."""
     import torch
 
     from ytpu_torch.core.update import Update
@@ -3459,13 +3545,14 @@ def phase_decode_v2(gpu, log, expect, dev="cuda"):
     t0 = time.perf_counter()
     v2_log = [Update.decode_v1(p).encode_v2() for p in log]
     transcode_s = time.perf_counter() - t0
-    sets = _decode_v2_sets(v2_log, dev)
+    sets = _decode_v2_sets(v2_log, log, dev)
+    profile = _decode_v2_profile(v2_log, dev)
     full = _decode_v2_full_log(v2_log, expect, dev)
     del v2_log
     ingest = _decode_v2_ingest(log, dev)
     ptxas = _ptxas(_build.build_log("decode_v2"), DECODE_V2_KERNEL)
     line = {"phase": "decode_v2", "transcode_s": transcode_s, "transcode_updates_per_s": len(log) / transcode_s,
-            "sets": sets, "full_log": full, "ingest": ingest, "ptxas": ptxas,
+            "sets": sets, "profile": profile, "full_log": full, "ingest": ingest, "ptxas": ptxas,
             "seconds": time.perf_counter() - t0, "gpu": gpu}
     emit(line)
     return line
@@ -3622,16 +3709,18 @@ def main() -> int:
         "name": "decode_v2", "route": "cuda", "source": "ytpu_torch/csrc/decode_v2.cu",
         "replaces": DECODE_V2_REPLACES, "loops": DECODE_V2_LOOPS, "launches": v2["full_log"]["decode_launches"],
         "launches_by_path": {"decode_v2 (the V2 B4 stream)": v2["full_log"]["decode_launches"]},
-        "max_abs_err": max(v["max_abs_err"] for v in v2["sets"].values()),
+        "max_abs_err": max([v["max_abs_err"] for v in v2["sets"].values()] + [v2["full_log"]["arena_max_abs_err"]]),
         "ms": v2_chunk["kernel_ms"], "plain_ms": v2_chunk["plain_ms"], "bound_ms": v2_chunk["bound_ms"],
         "bound_by": "bytes", "library_ms": None, "issued_ms": v2_chunk["issued_ms"],
+        "arena_ms": v2_chunk["arena_kernel_ms"],
         "shape": f"one V2 B4 chunk: S={v2_chunk['lanes']} lanes of L={v2_chunk['width']}, U={v2_chunk['U']}, "
                  f"R={v2_chunk['R']}, {v2_chunk['SEC']} sections",
-        "sets": {k: {w: v[w] for w in ("lanes", "error_lanes", "flags_or", "max_abs_err", "kernel_ms", "issued_ms",
-                                       "plain_ms", "bound_ms")} for k, v in v2["sets"].items()},
-        "full_log": {k: v2["full_log"][k] for k in ("updates", "decode_call_s", "kernel_ms", "replay_wall_s",
-                                                    "flagged_lanes")},
-        "scratch": {"b4_chunk": v2_chunk["scratch"], "full_log": v2["full_log"]["scratch"]},
+        "sets": {k: {w: v[w] for w in ("lanes", "error_lanes", "flags_or", "max_abs_err", "path", "kernel_ms",
+                                       "arena_kernel_ms", "issued_ms", "plain_ms", "bound_ms")}
+                 for k, v in v2["sets"].items()},
+        "full_log": {k: v2["full_log"][k] for k in ("updates", "decode_call_s", "arena_call_s", "kernel_ms",
+                                                    "arena_kernel_ms", "bound_ms", "path", "decode_graph_nodes",
+                                                    "replay_wall_s", "flagged_lanes")},
         "ptxas": v2["ptxas"], "gpu": gpu,
     }] + [{**{k: e[k] for k in KERNEL_KEYS}, **({"full_width": e["full_width"]} if "full_width" in e else {})}
           for e in diag]})

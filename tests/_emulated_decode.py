@@ -40,6 +40,7 @@ from ytpu_torch.ops import decode_kernel as dk  # noqa: E402
 torch.set_num_threads(1)
 
 B4_LOG = ROOT / "benches" / "data" / "b4_log.pkl.gz"
+CSRC = ROOT / "ytpu_torch" / "csrc"
 B4_LANES = 1024
 MERGED_PREFIXES = (8, 24, 40)
 INGEST_STEP = 5
@@ -79,9 +80,16 @@ TABLE_CASES = ("all", "client_miss", "empty_client_table", "no_hash_table", "has
                "key_miss", "root_miss", "no_primary")
 
 
+def with_headers(src: str) -> str:
+    """The source with each ``#include "x.cuh"`` of ``csrc/`` replaced by
+    that header's text, so that a mutant can rewrite the header's lines
+    and each variant's namespace holds its own copy."""
+    return re.sub(r'#include "(\w+\.cuh)"\n', lambda m: (CSRC / m.group(1)).read_text(), src)
+
+
 def host_source(src: str) -> str:
-    """decode.cu with its launch and its dynamic shared memory replaced by
-    the emulator's."""
+    """decode.cu, its headers inlined (`with_headers`), with its launch and
+    its dynamic shared memory replaced by the emulator's."""
     out, n = re.subn(r"(\w+)<<<([^,]*),\s*([^,]*),\s*([^,]*),\s*\(cudaStream_t\)stream>>>\(",
                      r"EMU_LAUNCH(\2, \3, \4, \1, ", src)
     out, n2 = re.subn(r"extern __shared__ __align__\(16\) unsigned char smem\[\];",
@@ -110,7 +118,7 @@ def variant(src: str, name: str) -> str:
 def build(build_dir: Path, names) -> subprocess.Popen:
     """Start one g++ that builds the variants `names` into one library;
     returns the process (its library is ``lib<first name>.so``)."""
-    src = host_source((ROOT / "ytpu_torch" / "csrc" / "decode.cu").read_text())
+    src = host_source(with_headers((CSRC / "decode.cu").read_text()))
     text = "#include <cuda_runtime.h>\n#include <cstdint>\n" + "".join(variant(src, name) for name in names)
     cpp = build_dir / f"decode_{names[0]}.cpp"
     cpp.write_text(text)

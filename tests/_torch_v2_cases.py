@@ -292,6 +292,67 @@ def _rest_past_span(base):
     return out
 
 
+def _uvar(x: int) -> bytes:
+    out = bytearray()
+    while True:
+        b, x = x & 0x7F, x >> 7
+        out.append(b | (0x80 if x else 0))
+        if not x:
+            return bytes(out)
+
+
+def _sections_out_of_order(lanes):
+    """A lane of three client sections whose second block count is a
+    5-byte varint that wraps to -3 or -2: the third section starts before
+    the second, so a block's section can start after the block (its clock
+    subtracts the length prefix there). The lanes decode without an error
+    flag."""
+    from ytpu.encoding.lib0 import Cursor
+
+    out = []
+    for p in lanes:
+        cols, rest = _split(p)
+        cur, slots = Cursor(rest), []
+        while cur.pos < len(rest) and len(slots) < 6:
+            start = cur.pos
+            slots.append((start, cur.read_var_uint(), cur.pos))
+        if len(slots) < 6 or slots[0][1] != 3:
+            continue
+        (s1, _, e1), (s2, _, e2) = slots[3], slots[5]
+        for nb1, nb2 in ((-3, 1), (-3, 3), (-2, 2)):
+            out.append(_frame(cols, rest[:s1] + _uvar(nb1 & 0xFFFFFFFF) + rest[e1:s2] + _uvar(nb2) + rest[e2:]))
+    return out
+
+
+def _wrapped_string_length(base):
+    """A string column with a 5-byte length varint past 32 bits that wraps
+    to -3 after its first entry: the strings' cumulative unit targets
+    fall, so the search for a later string's first byte starts over."""
+    from ytpu.encoding.lib0 import Cursor
+
+    wrapped = bytes([0x80 | ((2**32 - 3) & 0x3F)]) + _uvar((2**32 - 3) >> 6)  # magnitude 2^32 - 3, no run
+    out = []
+    for p in base:
+        cols, rest = _split(p)
+        if not cols[5]:
+            continue
+        sc = cols[5]
+        cur = Cursor(sc)
+        at = cur.read_var_uint() + cur.pos  # the lengths column, after the blob
+        if at >= len(sc):
+            continue
+        run = sc[at] & 0x40  # a negative entry: a run count follows
+        while sc[at] & 0x80:
+            at += 1
+        at += 1
+        if run:
+            cur.pos = at
+            cur.read_var_uint()
+            at = cur.pos
+        out.append(_frame(cols[:5] + [sc[:at] + wrapped + sc[at:]] + cols[6:], rest))
+    return out
+
+
 def _overflow():
     """More rows than U, more delete ranges than R, more client sections
     than SEC (and than R + 4 delete sections), and a lane whose Any values
@@ -362,6 +423,8 @@ def build_sets() -> dict:
     sets["rest_past_span"] = _rest_past_span(base)
     every = [p for v in list(sets.values()) for p in v]
     sets["mutated"] = _mutated(every, rng, 384)
+    sets["sections_out_of_order"] = _sections_out_of_order(sets["big_clients"])
+    sets["wrapped_string_length"] = _wrapped_string_length(sets["text"][:6] + sets["map_keys"][:6])
     return {name: {"payloads": v, "U": U, "R": R, "SEC": SEC} for name, v in sets.items()}
 
 

@@ -9,7 +9,9 @@ flags, on the crafted sets of ``ytpu_torch/benches/data/v2_cases.json``
 clients with and without the hash table, every content kind with a
 sidecar, truncated columns, all-zero spans, rest varints running past
 their span, row / delete / section overflow and the walker's step budget,
-maps nested 4 deep, mutated bytes) and a 2,048-update B4 prefix, all
+maps nested 4 deep, mutated bytes, a section that starts before the one
+ahead of it, a string length that wraps negative) and a 2,048-update B4
+prefix, all
 decoded together at one shape (U = 8, R = 4, 4 sections), so that ytpu
 compiles its program twice (with and without the tables). The B4 prefix
 then integrates (`apply_update_stream`) to the text of ytpu's host replay.
@@ -61,6 +63,8 @@ EXPECT = {
     "zero_spans": (4, 0),
     "rest_past_span": (4, 0),
     "mutated": (1 | 2 | 4, 0),
+    "sections_out_of_order": (16, FLAG_ERRORS),
+    "wrapped_string_length": (64, 1 | 2 | 4 | 8 | 32),
     "b4_prefix": (0, FLAG_ERRORS),
 }
 

@@ -41,7 +41,7 @@
 //     the hashes multiply in uint64 (torch wraps int64 silently, C does
 //     not), a client id beyond i32 becomes -2 - its byte hash, and a
 //     content ref is s * L + byte offset in int64 before the int32 cast;
-// and with `_resolve_and_pack`:
+// and with `_resolve_and_pack` (resolve.cuh, shared with decode_v2.cu):
 //   * ids (the six id columns and the delete client) go through the raw
 //     client table, then ids <= -2 through the client-hash table: an empty
 //     raw table flags FLAG_UNKNOWN_CLIENT for raw ids (>= 0) and leaves them
@@ -96,9 +96,7 @@
 
 namespace {
 
-typedef long long i64;
-typedef unsigned int u32;
-typedef unsigned long long u64;
+#include "resolve.cuh"
 
 enum State : int {
   ST_NCLIENTS,
@@ -144,16 +142,6 @@ enum State : int {
   ST_ERR,
 };
 
-constexpr i64 FLAG_UNSUPPORTED = 1;
-constexpr i64 FLAG_OVERFLOW = 2;
-constexpr i64 FLAG_MALFORMED = 4;
-constexpr i64 FLAG_BIG_CLIENT = 8;
-constexpr i64 FLAG_MULTI_CLIENT = 16;
-constexpr i64 FLAG_UNKNOWN_CLIENT = 32;
-constexpr i64 FLAG_UNKNOWN_KEY = 64;
-constexpr i64 FLAG_ERRORS =
-    FLAG_UNSUPPORTED | FLAG_OVERFLOW | FLAG_MALFORMED | FLAG_BIG_CLIENT | FLAG_UNKNOWN_CLIENT | FLAG_UNKNOWN_KEY;
-
 constexpr int KEY_HASH_BYTES = 32;
 constexpr u32 HASH_MUL = 2654435761u;
 
@@ -170,36 +158,19 @@ constexpr i64 CONTENT_ANY = 8;
 constexpr i64 BLOCK_SKIP = 10;
 constexpr i64 CONTENT_MOVE = 11;
 
-// the int32 row planes, in UpdateBatch order, and the delete planes
-enum RowField : int {
-  F_CLIENT, F_CLOCK, F_LENGTH, F_OCLIENT, F_OCLOCK, F_RCLIENT, F_RCLOCK, F_KIND, F_REF, F_COFF, F_KEY,
-  F_PTAG, F_PCLIENT, F_PCLOCK, F_PROOT, F_MSC, F_MSK, F_MSA, F_MEC, F_MEK, F_MEA, F_MPRIO, ROW_FIELDS
-};
-enum DelField : int { D_CLIENT, D_START, D_END, DEL_FIELDS };
-
 constexpr int THREADS = 32;  // one warp a CTA
 constexpr unsigned FULL_MASK = 0xFFFFFFFFu;
 // the largest per-warp stage of shared memory; above it rows go straight
 // to device memory (48 KB needs no opt-in attribute)
 constexpr int STAGE_MAX_BYTES = 48 * 1024;
 
-// a sorted (keys, perm) intern table; n < 0: no table
-struct Table {
-  const int* keys;
-  const int* perm;
-  i64 n;
-};
-
-struct Params {
+struct Params : Interns {
   const uint8_t* raw;  // the arena (or the matrix, row-major)
   i64 n_raw;
   const int* offs;  // [S] lane offsets into raw; null: the matrix, offs[s] = s * L
   const int* lens;  // [S]
   int S, L, U, R, T;
   i64 max_sec;
-  Table ct, cht, kt;  // raw clients, client hashes, key hashes
-  const int* prim;    // [S] or [1] primary root hash, -1 = single root; null: none
-  i64 n_prim;
   int* rows;  // [ROW_FIELDS, S, U]
   int* dels;  // [DEL_FIELDS, S, R]
   int* flags;  // [S]
@@ -215,75 +186,6 @@ __device__ __forceinline__ i64 wrap32(i64 x) {
 }
 
 __device__ __forceinline__ i64 clamp_idx(i64 i, i64 hi) { return i < 0 ? 0 : (i > hi ? hi : i); }
-
-// torch.searchsorted (left) over the sorted keys, clamped into the table:
-// true and the perm entry there when that key equals x
-__device__ __forceinline__ bool table_find(const Table& t, i64 x, i64& out) {
-  i64 lo = 0, hi = t.n;
-  while (lo < hi) {
-    const i64 mid = (lo + hi) >> 1;
-    if (__ldg(t.keys + mid) < x) lo = mid + 1;
-    else hi = mid;
-  }
-  const i64 j = lo < t.n ? lo : t.n - 1;
-  if (__ldg(t.keys + j) != x) return false;
-  out = __ldg(t.perm + j);
-  return true;
-}
-
-// an id column's value through the raw client table, then the client-hash
-// table; the flags it raises if its row is emitted go into `fl`
-__device__ __forceinline__ i64 resolve_id(const Params& P, i64 x, i64& fl) {
-  i64 y = x, v = 0;
-  if (P.ct.n == 0) {
-    if (x >= 0) fl |= FLAG_UNKNOWN_CLIENT;
-  } else if (P.ct.n > 0) {
-    if (x >= 0 && table_find(P.ct, x, v)) {
-      y = v;
-    } else {
-      if (x >= 0) fl |= FLAG_UNKNOWN_CLIENT;
-      y = x <= -2 ? x : -1;
-    }
-  }
-  if (y <= -2) {
-    if (P.cht.n <= 0) fl |= FLAG_BIG_CLIENT;
-    else if (table_find(P.cht, -2 - y, v)) y = v;
-    else fl |= FLAG_UNKNOWN_CLIENT;
-  }
-  return y;
-}
-
-// a parent_sub key hash -> its key index (-1 without a key)
-__device__ __forceinline__ i64 resolve_key(const Params& P, i64 keyh, i64& fl) {
-  if (keyh < 0) return -1;
-  i64 v;
-  if (P.kt.n > 0 && table_find(P.kt, keyh, v)) return v;
-  fl |= FLAG_UNKNOWN_KEY;
-  return -1;
-}
-
-// a named root parent -> -1 for the lane's primary root (or no root table),
-// else its anchor's key id
-__device__ __forceinline__ i64 resolve_root(const Params& P, i64 ptag, i64 rooth, i64 prim, i64& fl) {
-  if (P.prim == nullptr || ptag != 1 || prim < 0) return -1;
-  i64 r = -1, v;
-  if (rooth >= 0 && rooth != prim) {
-    if (P.kt.n > 0 && table_find(P.kt, rooth, v)) r = v;
-    else fl |= FLAG_UNKNOWN_KEY;
-  }
-  if (rooth == -2) fl |= FLAG_UNSUPPORTED;
-  return r;
-}
-
-// the value a row plane holds where no row was emitted
-__device__ __forceinline__ int row_default(int f, int client0) {
-  switch (f) {
-    case F_CLIENT: return client0;
-    case F_OCLIENT: case F_RCLIENT: case F_REF: case F_KEY: case F_PCLIENT: case F_PROOT: case F_MSC: case F_MEC: case F_MPRIO:
-      return -1;
-    default: return 0;
-  }
-}
 
 // the state after the last pre-content field, from the info byte's kind
 __device__ __forceinline__ int content_state(i64 kind4) {
@@ -420,7 +322,7 @@ __global__ void __launch_bounds__(THREADS) decode_v1_kernel(const Params P) {
     ln.rc_last = P.n_raw - 1;
     const i64 len = ln.len;
     const i64 lane_ref = (i64)s * L;
-    const i64 prim = P.prim != nullptr ? __ldg(P.prim + (P.n_prim == 1 ? 0 : s)) : -1;
+    const i64 prim = lane_prim(P, s);
 
     // the machine's registers (the plain loop's `regs`)
     int st = ST_NCLIENTS;

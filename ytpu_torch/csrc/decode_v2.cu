@@ -1,33 +1,39 @@
 // The Yjs V2 (columnar) update decode as one hand-written Hopper program:
-// ytpu_torch.ops.decode_v2.decode_updates_v2 on CUDA tensors, from the
-// [S, L] wire matrix, its frame spans and the cold-content sidecar to the
-// pre-resolve row and delete columns and the lane flags, in one launch.
+// ytpu_torch.ops.decode_v2.decode_updates_v2 and decode_updates_v2_raw on
+// CUDA tensors, from the wire bytes (the [S, L] matrix, or the arena of
+// pack_updates_v2_raw read in place), the frame spans and the cold-content
+// sidecar to the int32 UpdateBatch and the lane flags, in one launch.
 //
-// Replaces: ytpu/ops/decode_v2.py:1025 `decode_updates_v2`, one jitted XLA
-// program built of six `fori_loop`s over [S]-wide lane vectors: the RLE
-// column expanders (:516 UIntOptRle, :555 IntDiffOptRle, :587 Rle, one run
-// a step, each writing an [S, N] array), the rest-stream walker (:1018,
-// a 16-state machine for lanes whose blocks put content bytes in the rest
-// stream), the section walk (:1322) and the delete-set walk (:1541), and
-// around them the lane-parallel tensor algebra: per-block consumption
-// counts as prefix sums over the info bytes, the bulk parse of a
-// content-free rest stream (terminators by cumsum and searchsorted), the
-// UTF-16 string offsets by an 18-round binary search, and the row
-// emission as a one-hot scatter. No `pallas_call` is involved. The intern
-// tables (`_resolve_and_pack`, :1652) stay torch ops after the launch, on
-// both the card and the CPU.
+// Replaces: ytpu/ops/decode_v2.py:1025 `decode_updates_v2` (and :298
+// `decode_updates_v2_raw`, a gather first), one jitted XLA program built
+// of six `fori_loop`s over [S]-wide lane vectors: the RLE column expanders
+// (:516 UIntOptRle, :555 IntDiffOptRle, :587 Rle, one run a step, each
+// writing an [S, N] array), the rest-stream walker (:1018, a 16-state
+// machine for lanes whose blocks put content bytes in the rest stream),
+// the section walk (:1322) and the delete-set walk (:1541), around them
+// the lane-parallel tensor algebra (per-block consumption counts as prefix
+// sums over the info bytes, the bulk parse of a content-free rest stream,
+// the UTF-16 string offsets by an 18-round binary search, the row emission
+// as a one-hot scatter), then `_resolve_and_pack` (:1652), the intern
+// tables. No `pallas_call` is involved.
 //
-// What it computes, for lane s of S: the 21 pre-resolve row columns
-// (decode_kernel.ROW_COLUMNS, int64 [21, S, U]) with their valid bytes
-// [S, U], the 3 delete columns (int64 [3, S, R]) with their valid bytes
-// [S, R], and the int64 flags [S], bit for bit what the plain version
-// `decode_v2._decode_v2_reference` gives, flags and caps included:
-// NB = U + 8 blocks, NV rest slots, NS = 2U + 4 strings, NCLI client
-// entries, DSEC = R + 4 delete sections and SEC client sections
-// (`decode_v2.v2_caps`). A lane that would pass one of them ends with the
-// same FLAG_OVERFLOW, FLAG_MALFORMED, FLAG_UNSUPPORTED as the plain
-// version; its rows are written as the plain version writes them and lose
-// their valid bits only in `_resolve_and_pack`.
+// What it computes, for lane s of S: the 27 UpdateBatch fields (22 int32
+// row planes [S, U] in UpdateBatch order with the valid bytes [S, U], 3
+// int32 delete planes [S, R] with their valid bytes [S, R]) and the lane's
+// int32 flags [S], bit for bit what the plain composition gives:
+// (`gather_raw_lanes` for the arena ->) `decode_v2._decode_v2_reference`
+// -> `decode_kernel._resolve_and_pack`, flags and caps included: NB = U + 8
+// blocks, NV rest slots, NS = 2U + 4 strings, NCLI client entries, DSEC =
+// R + 4 delete sections and SEC client sections (`decode_v2.v2_caps`).
+//
+// The lane's bytes: byte j of lane s is what the gathered [S, L] matrix
+// holds, jc = clamp(j, 0, L - 1), then raw[clamp(offs[s] + jc, 0, RC - 1)]
+// where jc < row_lens[s] (the staged extent: payload and cold sidecars),
+// else 0. Unlike the V1 decode, that zero mask is not implied by the
+// parse: the bulk-parse slots, the vat_id window and the 32-byte name-hash
+// window read past a region's end unmasked, so every read applies it. A
+// [S, L] matrix is the arena with offs[s] = s * L and row_lens[s] = L (both
+// pointers null), read as given. A content ref is s * L + byte.
 //
 // Semantics kept bit for bit:
 //   * values are int32 that wrap (JAX's arithmetic): every sum that can
@@ -50,35 +56,61 @@
 //   * a client id beyond i32 is -2 - client_hash of its unsigned-varint
 //     bytes (rebuilt from the 64-bit magnitude of V2's signed varint in
 //     the client column; the wire bytes themselves in the rest stream);
-//   * a content ref is s * L + byte offset in int64.
+//   * a block's clock subtracts the length prefix at its section's first
+//     block, which a wrapped section count can put after the block: the
+//     prefix is then summed over all blocks first;
+// and with `_resolve_and_pack` (resolve.cuh, shared with decode.cu): ids,
+// key hashes and root names resolve as each row or range is written, only
+// emitted rows and written ranges raise flags, a delete range's client
+// resolves after the last section (a later section can overwrite a range),
+// rows and ranges not written hold the resolved defaults, and a lane whose
+// flags hold an error loses its valid bytes.
 //
-// Design. The decode of one lane is a chain of dependent reads, so one
-// thread owns one lane and a CTA is 128 threads. A lane walks each RLE
-// column once, entry by entry, and writes its expansion into a per-lane
-// scratch array in device memory, laid out word-major ([word][S]) so the
-// threads of a warp touch neighbouring words; the per-block pass then
-// reads those arrays where the vector version gathers. The scratch keeps
-// the vector version's meaning of a clamped or never-written index
-// exactly, which a cursor over the runs would not on a malformed column
-// (a wrapped run count rewrites earlier entries). The UTF-16 prefix sums
-// of the binary search are counted from the row as the search asks for
-// them, from a cursor that only moves forward between restarts at the
-// blob's start. Each lane writes its own rows, defaults first.
+// Design for the card. The decode of one lane is a chain of dependent
+// reads and instructions, so one thread owns one lane and a CTA is one
+// warp; a lane's time is the length of its chain. A lane walks each RLE
+// column once, entry by entry, and writes its expansion into per-lane
+// arrays that the per-block passes then read where the vector version
+// gathers; the arrays keep the vector version's meaning of a clamped or
+// never-written index and of a wrapped run count exactly. They live in
+// shared memory as a [word][lane] block a CTA, so that a warp's threads
+// hit different banks: 26 U + 12 R + 9 SEC + 216 words a lane (404 at U =
+// R = SEC = 4: 51.7 KB a CTA, four CTAs an SM). Where 32 lanes' words pass
+// SMEM_MAX_BYTES (the merged whole-state lanes' U), the host chooses, once
+// per launch, the same program over the same blocks in a device-memory
+// scratch that the wrapper allocates. What shortens the chain:
+//   * a varint window is two aligned 16-byte loads, masked in registers by
+//     the region's end and the staged extent; a varint's length and value
+//     come from the window's words with bit operations, and an RLE entry's
+//     run count from the same window where it ends inside it;
+//   * the bulk parse finds the rest stream's terminators 8 bytes at a time,
+//     and the slots past its last varint, all alike but the first, are one
+//     slot held in registers (`tail`);
+//   * the strings' byte offsets come from one forward scan of the blob's
+//     UTF-16 prefix sums (counted by 16-byte words), which gives the binary
+//     search's answer wherever its rounds are sure to meet (the blob inside
+//     the lane);
+//   * pass B walks the valid blocks only, and the arrays that only the
+//     content walker fills are cleared only where it runs.
+// Each thread writes its emitted rows and ranges as resolved int32; then
+// the warp writes the defaults of the rows and ranges its lanes did not
+// emit and every valid byte, neighbouring threads on neighbouring words,
+// each lane's counts and error shared through shuffles. The profiling
+// build (-DYTPU_DECODE_V2_PROFILE) adds each lane's cycles per phase
+// (ytpu_torch/benches/decode_v2_profile.py).
 //
-// Bound: bytes. Each lane's L bytes, its 24 span words, its sidecar row
-// and its length are read once, and the 21 row values, the valid bytes,
-// the 3 delete values and the flags written once, each value as the int32
-// it wraps to (the content ref as int64), as for the V1 decode's
-// UpdateBatch (chip_smoke.py's `decode_v2` phase counts them). Writing
-// int64 columns, so that `_resolve_and_pack` reads the plain version's
-// layout, is this design's choice and not part of the bound. That, the
-// scratch round trip (16 NB + NCLI + 2 NS + 3 NV + 2 SEC words a lane)
-// and the chain of dependent loads keep it well above the bound.
+// Bound: bytes. Each lane's wire bytes, offset, staged extent, length, 24
+// span words and sidecar row are read once, and each table once; the 22
+// int32 row fields and a valid byte a row slot, the 3 int32 delete fields
+// and a valid byte a delete slot and the int32 flags written once
+// (chip_smoke.py's `decode_v2` phase counts them). The chain of dependent
+// reads keeps a lane far above that bound.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC -o libdecode_v2.so decode_v2.cu
 // tests/_emulated_decode_v2.py builds it with g++ against tests/cuda_host
-// (a host emulator of CUDA) and holds it to the plain version on the CPU.
+// (a host emulator of CUDA) and holds it to the plain composition on the
+// CPU.
 
 #include <cuda_runtime.h>
 
@@ -86,18 +118,15 @@
 
 namespace {
 
-typedef long long i64;
-typedef unsigned int u32;
-typedef unsigned long long u64;
+#include "resolve.cuh"
 
-constexpr int THREADS = 128;
+constexpr int THREADS = 32;  // one warp a CTA
+constexpr unsigned FULL_MASK = 0xFFFFFFFFu;
+// the most shared memory a CTA's expansion arrays may take (three CTAs an
+// SM); past it the arrays go to the device-memory scratch
+constexpr int SMEM_MAX_BYTES = 64 * 1024;
 constexpr int W_DEPTH = 4;
 constexpr int KEY_HASH_BYTES = 32;
-
-constexpr int FLAG_UNSUPPORTED = 1;
-constexpr int FLAG_OVERFLOW = 2;
-constexpr int FLAG_MALFORMED = 4;
-constexpr int FLAG_MULTI_CLIENT = 16;
 
 // span indices of the host frame split
 enum Span : int {
@@ -115,34 +144,61 @@ enum Walk : int {
 constexpr int K_DELETED = 1, K_JSON = 2, K_BINARY = 3, K_STRING = 4, K_EMBED = 5, K_FORMAT = 6, K_TYPE = 7,
               K_ANY = 8, K_DOC = 9, K_SKIP = 10, K_MOVE = 11;
 
-// pre-resolve row columns, in decode_kernel.ROW_COLUMNS order
-enum Col : int {
-  C_CLIENT, C_CLOCK, C_LENGTH, C_OC, C_OK, C_RC, C_RK, C_KIND, C_REF, C_PTAG, C_PC, C_PK, C_KEYH, C_ROOTH,
-  C_MSC, C_MSK, C_MSA, C_MEC, C_MEK, C_MEA, C_MPRIO, ROW_COLS
-};
-
 __device__ __forceinline__ int wadd(int a, int b) { return (int)((u32)a + (u32)b); }
 __device__ __forceinline__ int wsub(int a, int b) { return (int)((u32)a - (u32)b); }
 __device__ __forceinline__ int wmul(int a, int b) { return (int)((u32)a * (u32)b); }
 __device__ __forceinline__ int clampi(int x, int lo, int hi) { return x < lo ? lo : (x > hi ? hi : x); }
+__device__ __forceinline__ i64 clampl(i64 x, i64 lo, i64 hi) { return x < lo ? lo : (x > hi ? hi : x); }
 
-struct Params {
-  const uint8_t* buf;
-  const int* lens;
-  const int* spans;
-  const int* side;
-  int n_side;  // -1: no sidecar
+struct Params : Interns {
+  const uint8_t* raw;  // the arena (or the matrix, row-major)
+  i64 n_raw;
+  const int* offs;   // [S] lane offsets into raw; null: the matrix, offs[s] = s * L
+  const int* rlens;  // [S] staged extents; null: L
+  const int* lens;   // [S] payload lengths
+  const int* spans;  // [S, 12, 2]
+  const int* side;   // [S, n_side]
+  int n_side;        // -1: no sidecar
   int S, L, U, R, SEC;
   int NB, DSEC, NV, NS, NCLI, T;
-  i64* rows;
-  uint8_t* rvalid;
-  i64* dels;
-  uint8_t* dvalid;
-  i64* flags;
-  int* scratch;
+  int* rows;         // [ROW_FIELDS, S, U]
+  int* dels;         // [DEL_FIELDS, S, R]
+  int* flags;        // [S]
+  uint8_t* rvalid;   // [S, U]
+  uint8_t* dvalid;   // [S, R]
+  int* scratch;      // [CTAs, words, THREADS] on the device-memory path; null: shared memory
 };
 
-// word offsets of the per-lane scratch arrays
+#ifdef YTPU_DECODE_V2_PROFILE
+// The profiling build (library decode_v2_profile): each lane adds the SM
+// cycles (clock64) it spent in each phase of decode_lane to
+// g_phase_cycles, which ytpu_decode_v2_phase_cycles reads.
+constexpr int PHASES = 8;  // spans, expansions, strings, pass A, rest stream, sections, pass B, delete set
+__device__ unsigned long long g_phase_cycles[PHASES];
+struct PhaseClock {
+  long long t;
+  unsigned long long acc[PHASES];
+};
+__device__ __forceinline__ void phase_start(PhaseClock& c) {
+  c.t = clock64();
+  for (int k = 0; k < PHASES; ++k) c.acc[k] = 0;
+}
+__device__ __forceinline__ void phase_end(PhaseClock& c, int k) {
+  const long long now = clock64();
+  c.acc[k] += (unsigned long long)(now - c.t);
+  c.t = now;
+}
+__device__ __forceinline__ void phase_flush(const PhaseClock& c) {
+  for (int k = 0; k < PHASES; ++k) atomicAdd(g_phase_cycles + k, c.acc[k]);
+}
+#else
+struct PhaseClock {};
+__device__ __forceinline__ void phase_start(PhaseClock&) {}
+__device__ __forceinline__ void phase_end(PhaseClock&, int) {}
+__device__ __forceinline__ void phase_flush(const PhaseClock&) {}
+#endif
+
+// word offsets of a lane's expansion arrays
 struct Layout {
   int info, pi, lc, rc, len, tr, cli, str16, strst, cbase, skipi, anyc, lpsum, cst, mvf, msc, msk, mec, mek, v, vst,
       vovf, sech, secb, words;
@@ -181,58 +237,162 @@ __host__ __device__ inline Layout layout(int U, int R, int SEC) {
   return o;
 }
 
-// One lane's view: its bytes, its scratch words ([word][S]) and the
+// Shared memory a CTA's expansion arrays take, or 0 where that passes
+// SMEM_MAX_BYTES and they go to the device-memory scratch.
+__host__ __device__ inline int smem_bytes(int U, int R, int SEC) {
+  const i64 bytes = (i64)THREADS * layout(U, R, SEC).words * 4;
+  return bytes <= SMEM_MAX_BYTES ? (int)bytes : 0;
+}
+
+// A varint window: the ten bytes at a position, bytes 0-7 in `lo` and 8-9
+// in `hi` (its other bits zero).
+constexpr u64 HIGH_BITS = 0x8080808080808080ull;
+
+__device__ __forceinline__ u32 wbyte(u64 lo, u64 hi, int k) { return (u32)((k < 8 ? lo >> (8 * k) : hi >> (8 * k - 64)) & 0xFF); }
+
+// bytes of the varint at byte 0 of a window: up to and including its first
+// byte < 0x80, at most 10
+__device__ __forceinline__ int vlen(u64 lo, u64 hi) {
+  const u64 t = ~lo & HIGH_BITS;
+  if (t) return __ffsll((long long)t) >> 3;
+  const u64 t2 = ~hi & 0x8080ull;
+  return t2 ? 8 + (__ffsll((long long)t2) >> 3) : 10;
+}
+
+// the window k bytes on (1 <= k <= 9); its last k bytes are zero
+__device__ __forceinline__ void wshift(u64 lo, u64 hi, int k, u64& lo2, u64& hi2) {
+  if (k < 8) {
+    lo2 = (lo >> (8 * k)) | (hi << (64 - 8 * k));
+    hi2 = hi >> (8 * k);
+  } else {
+    lo2 = hi >> (8 * k - 64);
+    hi2 = 0;
+  }
+}
+
+// the unsigned varint at byte 0: its low 32 bits (its first five 7-bit
+// groups, summed in uint32), byte count and whether it passes 32 bits
+__device__ __forceinline__ void uvar_of(u64 lo, u64 hi, int& val, int& nb, bool& ovf) {
+  const int n = vlen(lo, hi);
+  const u64 x = n < 5 ? lo & ((1ull << (8 * n)) - 1) : lo;
+  val = (int)(u32)((x & 0x7F) | ((x >> 1) & (0x7Full << 7)) | ((x >> 2) & (0x7Full << 14)) |
+                   ((x >> 3) & (0x7Full << 21)) | ((x >> 4) & (0x7Full << 28)));
+  nb = n;
+  ovf = n > 5 || (n == 5 && ((lo >> 32) & 0x7F) >= 8);
+}
+
+// the signed varint at byte 0 (6 bits and a sign in its first byte):
+// magnitude (low 32 bits), sign, byte count and overflow
+__device__ __forceinline__ void svar_of(u64 lo, u64 hi, int& mag, bool& neg, int& nb, bool& ovf) {
+  const int n = vlen(lo, hi);
+  const u64 x = n < 5 ? lo & ((1ull << (8 * n)) - 1) : lo;
+  mag = (int)(u32)((x & 0x3F) | ((x >> 2) & (0x7Full << 6)) | ((x >> 3) & (0x7Full << 13)) |
+                   ((x >> 4) & (0x7Full << 20)) | ((x >> 5) & (0x7Full << 27)));
+  neg = (lo & 0x40) != 0;
+  nb = n;
+  ovf = n > 5 || (n == 5 && ((lo >> 32) & 0x7F) >= 16);
+}
+
+// the 64-bit magnitude of the signed varint of n bytes at byte 0
+__device__ u64 smag64(u64 lo, u64 hi, int n) {
+  u64 m = lo & 0x3F;
+  for (int k = 1; k < n; ++k) m += ((u64)(wbyte(lo, hi, k) & 0x7F)) << (6 + 7 * (k - 1));
+  return m;
+}
+
+// One lane's view: its bytes in the arena, its expansion words (word w at
+// sc[w * THREADS]: its column of a CTA's [word][lane] block) and the
 // varint readers of the vector version.
 struct Lane {
-  const uint8_t* row;
+  const uint8_t* raw;
+  i64 off, rc_last;
+  int L, rlen;
   int* sc;
-  int S, L;
 
-  __device__ __forceinline__ int byte(int j) const { return row[clampi(j, 0, L - 1)]; }
-  __device__ __forceinline__ int& at(int word) const { return sc[(i64)word * S]; }
+  __device__ __forceinline__ int byte(int j) const {
+    const int jc = clampi(j, 0, L - 1);
+    return jc < rlen ? raw[clampl(off + jc, 0, rc_last)] : 0;
+  }
+  __device__ __forceinline__ int& at(int word) const { return sc[word * THREADS]; }
   // the window byte at pos + k: zero at or past `end`
   __device__ __forceinline__ int win(int pos, int end, int k) const { return pos + k < end ? byte(pos + k) : 0; }
+
+  // the window at pos, zero at or past `end`: two aligned 16-byte loads
+  // where all ten bytes lie inside the lane's width and the arena, masked
+  // in registers by `end` and the staged extent; else one byte at a time
+  __device__ __forceinline__ void window(int pos, int end, u64& lo, u64& hi) const {
+    const i64 p = pos;
+    if (p >= 0 && p + 9 <= L - 1 && off + p >= 0 && off + p + 9 <= rc_last) {
+      const uintptr_t addr = (uintptr_t)(raw + off + p);
+      const ulonglong2* c = (const ulonglong2*)(addr & ~(uintptr_t)15);
+      const int o = (int)(addr & 15);
+      const ulonglong2 c0 = __ldg(c);
+      const ulonglong2 c1 = o > 6 ? __ldg(c + 1) : make_ulonglong2(0, 0);
+      const u64 x0 = o < 8 ? c0.x : c0.y, x1 = o < 8 ? c0.y : c1.x, x2 = o < 8 ? c1.x : c1.y;
+      const int sh = (o & 7) * 8;
+      lo = sh ? (x0 >> sh) | (x1 << (64 - sh)) : x0;
+      hi = (sh ? (x1 >> sh) | (x2 << (64 - sh)) : x1) & 0xFFFFull;
+      const i64 m = (i64)(end < rlen ? end : rlen) - p;  // bytes of the window kept
+      if (m < 8) lo = m <= 0 ? 0 : lo & ((1ull << (8 * m)) - 1);
+      if (m < 10) hi = m <= 8 ? 0 : hi & 0xFFull;
+    } else {
+      lo = hi = 0;
+#pragma unroll
+      for (int k = 0; k < 10; ++k) {
+        const u64 b = (u64)win(pos, end, k);
+        if (k < 8) lo |= b << (8 * k);
+        else hi |= b << (8 * k - 64);
+      }
+    }
+  }
 
   // unsigned varint at pos (window masked by end): its low 32 bits, its
   // byte count (up to 10) and whether it passes 32 bits
   __device__ void uvar(int pos, int end, int& val, int& nb, bool& ovf) const {
-    u32 v = 0;
-    int n = 1;
-    int b4 = 0;
-    for (int k = 0; k < 10; ++k) {
-      const int w = win(pos, end, k);
-      if (k == 4) b4 = w;
-      if (k < 5) v += ((u32)(w & 0x7F)) << (7 * k);
-      if (w < 0x80) break;
-      if (k < 9) ++n;
-    }
-    val = (int)v;
-    nb = n;
-    ovf = n > 5 || (n == 5 && (b4 & 0x7F) >= 8);
+    u64 lo, hi;
+    window(pos, end, lo, hi);
+    uvar_of(lo, hi, val, nb, ovf);
   }
 
-  // signed varint at pos: magnitude (low 32 bits), sign, byte count,
-  // overflow, and the 64-bit magnitude (for the client hash)
-  __device__ void svar(int pos, int end, int& mag, bool& neg, int& nb, bool& ovf, u64& mag64) const {
-    const int b0 = win(pos, end, 0);
-    u32 m = (u32)(b0 & 0x3F);
-    u64 m64 = (u64)(b0 & 0x3F);
-    int n = 1, b4 = 0;
-    bool cont = b0 >= 0x80;
-    for (int k = 1; k < 10 && cont; ++k) {
-      const int w = win(pos, end, k);
-      if (k == 4) b4 = w;
-      const int o = 6 + 7 * (k - 1);
-      if (k < 5) m += ((u32)(w & 0x7F)) << o;
-      m64 += ((u64)(w & 0x7F)) << o;
-      ++n;
-      cont = w >= 0x80;
+  // the unsigned varint k bytes past pos, whose window (masked by end) is
+  // (lo, hi): from the same window where its last byte lies in it, else
+  // from a window of its own
+  __device__ void uvar_after(int pos, int end, u64 lo, u64 hi, int k, int& val, int& nb, bool& ovf) const {
+    if (k < 10) {
+      u64 lo2, hi2;
+      wshift(lo, hi, k, lo2, hi2);
+      if (vlen(lo2, hi2) <= 10 - k) {
+        uvar_of(lo2, hi2, val, nb, ovf);
+        return;
+      }
     }
-    mag = (int)m;
-    neg = (b0 & 0x40) != 0;
-    nb = n;
-    ovf = n > 5 || (n == 5 && (b4 & 0x7F) >= 16);
-    mag64 = m64;
+    uvar(pos + k, end, val, nb, ovf);
+  }
+
+  // UTF-16 units of the lane's bytes [lo, hi) as `byte` reads them (a
+  // UTF-8 head byte, not 0b10xxxxxx, is one unit, a 4-byte lead one more):
+  // aligned 16-byte words with population counts where the range lies
+  // inside the staged extent, the width and the arena, else byte by byte
+  __device__ int units(int lo, int hi) const {
+    int u = 0;
+    if (lo >= 0 && lo < hi && hi <= rlen && hi <= L && off + lo >= 0 && off + hi - 1 <= rc_last) {
+      const uint8_t* p = raw + off + lo;
+      int n = hi - lo;
+      for (; n > 0 && ((uintptr_t)p & 15); ++p, --n) u += ((*p & 0xC0u) != 0x80u) + (*p >= 0xF0u);
+      for (; n >= 16; p += 16, n -= 16) {
+        const ulonglong2 w = __ldg((const ulonglong2*)p);
+        u += 16 - __popcll(w.x & ~(w.x << 1) & HIGH_BITS) - __popcll(w.y & ~(w.y << 1) & HIGH_BITS) +
+             __popcll(w.x & (w.x << 1) & (w.x << 2) & (w.x << 3) & HIGH_BITS) +
+             __popcll(w.y & (w.y << 1) & (w.y << 2) & (w.y << 3) & HIGH_BITS);
+      }
+      for (; n > 0; ++p, --n) u += ((*p & 0xC0u) != 0x80u) + (*p >= 0xF0u);
+      return u;
+    }
+    for (int j = lo; j < hi; ++j) {
+      const int b = byte(j);
+      u += ((b & 0xC0) != 0x80) + (b >= 0xF0);
+    }
+    return u;
   }
 };
 
@@ -255,15 +415,16 @@ __device__ int hash_u64(u64 m) {
   return mix_client(h, last + 1);
 }
 
-// client_hash_host of the varint bytes starting at byte 0 of `w`
-__device__ int hash_window(const int* w) {
+// client_hash_host of the varint bytes at byte 0 of a window
+__device__ int hash_window(u64 lo, u64 hi) {
   u32 h = 0, p = 1;
   int n = 0;
   for (int k = 0; k < 10; ++k) {
-    h += (u32)w[k] * p;
+    const u32 w = wbyte(lo, hi, k);
+    h += w * p;
     p *= 31u;
     ++n;
-    if (w[k] < 0x80 || k == 9) break;
+    if (w < 0x80) break;
   }
   return mix_client(h, n);
 }
@@ -282,19 +443,22 @@ __device__ __forceinline__ void cover(int oidx, int count, int N, F&& put) {
   }
 }
 
-// UIntOptRle column into words [off, off + N); returns the count produced
+// UIntOptRle column into words [off, off + N); returns the count produced.
+// An entry: a signed varint (its sign: a run count follows), one window
+// for both where the count ends inside it.
 __device__ int expand_uintoptrle(const Lane& ln, int start, int length, int N, int off, bool hash_big) {
   for (int i = 0; i < N; ++i) ln.at(off + i) = 0;
   const int end = wadd(start, length);
   int pos = length > 0 ? start : end, oidx = 0;
   for (int step = 0; step < N; ++step) {
     if (!(pos < end && oidx < N)) break;
-    int mag, nb, cnt, nb2;
+    u64 lo, hi;
+    ln.window(pos, end, lo, hi);
+    int mag, nb, cnt = 0, nb2 = 0;
     bool neg, ovf, ovf2;
-    u64 m64;
-    ln.svar(pos, end, mag, neg, nb, ovf, m64);
-    if (hash_big && ovf) mag = -2 - hash_u64(m64);
-    ln.uvar(pos + nb, end, cnt, nb2, ovf2);
+    svar_of(lo, hi, mag, neg, nb, ovf);
+    if (hash_big && ovf) mag = -2 - hash_u64(smag64(lo, hi, nb));
+    if (neg) ln.uvar_after(pos, end, lo, hi, nb, cnt, nb2, ovf2);
     const int count = neg ? wadd(cnt, 2) : 1;
     const int adv = nb + (neg ? nb2 : 0);
     cover(oidx, count, N, [&](int i) { ln.at(off + i) = mag; });
@@ -311,19 +475,20 @@ __device__ int expand_intdiffoptrle(const Lane& ln, int start, int length, int N
   int pos = length > 0 ? start : end, oidx = 0, last = 0;
   for (int step = 0; step < N; ++step) {
     if (!(pos < end && oidx < N)) break;
-    int mag, nb, cnt, nb2;
+    u64 lo, hi;
+    ln.window(pos, end, lo, hi);
+    int mag, nb, cnt = 0, nb2 = 0;
     bool neg, ovf, ovf2;
-    u64 m64;
-    ln.svar(pos, end, mag, neg, nb, ovf, m64);
+    svar_of(lo, hi, mag, neg, nb, ovf);
     const int enc = neg ? wsub(0, mag) : mag;
     const bool has_count = (enc & 1) != 0;
     const int diff = enc >> 1;
-    ln.uvar(pos + nb, end, cnt, nb2, ovf2);
+    if (has_count) ln.uvar_after(pos, end, lo, hi, nb, cnt, nb2, ovf2);
     const int count = has_count ? wadd(cnt, 2) : 1;
     const int adv = nb + (has_count ? nb2 : 0);
     // value at i: last + diff * k, k = i - oidx + 1 in [1, count]
     if (oidx >= 0 && count >= 0 && (i64)oidx + count == (i64)wadd(oidx, count)) {
-      const int hi = wadd(oidx, count), e = hi < N ? hi : N;
+      const int hi_ = wadd(oidx, count), e = hi_ < N ? hi_ : N;
       for (int i = oidx; i < e; ++i) ln.at(off + i) = wadd(last, wmul(diff, i - oidx + 1));
     } else {
       for (int i = 0; i < N; ++i) {
@@ -345,11 +510,13 @@ __device__ int expand_rle(const Lane& ln, int start, int length, int N, int off)
   int pos = length > 0 ? start : end, oidx = 0;
   for (int step = 0; step < N; ++step) {
     if (!(pos < end && oidx < N)) break;
-    const int value = ln.win(pos, end, 0);
+    u64 lo, hi;
+    ln.window(pos, end, lo, hi);
+    const int value = (int)(lo & 0xFF);
     const bool has_count = pos + 1 < end;
-    int cnt, nb2;
+    int cnt = 0, nb2 = 0;
     bool ovf2;
-    ln.uvar(pos + 1, end, cnt, nb2, ovf2);
+    if (has_count) ln.uvar_after(pos, end, lo, hi, 1, cnt, nb2, ovf2);
     const int count = has_count ? wadd(cnt, 1) : N;
     const int adv = 1 + (has_count ? nb2 : 0);
     cover(oidx, count, N, [&](int i) { ln.at(off + i) = value; });
@@ -359,7 +526,7 @@ __device__ int expand_rle(const Lane& ln, int start, int length, int N, int off)
   return oidx;
 }
 
-// UTF-16 units of the row's bytes [0, m): a UTF-8 head byte is one unit, a
+// UTF-16 units of the lane's bytes [0, m): a UTF-8 head byte is one unit, a
 // 4-byte lead one more. A cursor that moves forward and restarts at a
 // base point.
 struct Psum {
@@ -375,10 +542,9 @@ struct Psum {
         val = 0;
       }
     }
-    while (pos < m) {
-      const int b = ln->byte(pos);
-      val += ((b & 0xC0) != 0x80) + (b >= 0xF0);
-      ++pos;
+    if (m > pos) {
+      val += ln->units(pos, m);
+      pos = m;
     }
     return val;
   }
@@ -394,26 +560,47 @@ __device__ int name_hash(const Lane& ln, int start, int nbytes) {
   return (int)((h ^ ((u32)nbytes * 2654435761u)) & 0x7FFFFFFFu);
 }
 
-__global__ void __launch_bounds__(THREADS) decode_v2_kernel(const Params P) {
-  const int s = blockIdx.x * THREADS + threadIdx.x;
-  if (s >= P.S) return;
+// Decode lane s into the rows and ranges it emits (resolved int32, written
+// straight to the planes); its expansion arrays at sc (word w at
+// sc[w * THREADS]). Returns its row and range counts and its flags.
+__device__ void decode_lane(const Params& P, const int s, int* sc, int& n_rows, int& n_dels,
+                            i64& flags) {
   const int S = P.S, L = P.L, U = P.U, R = P.R, SEC = P.SEC;
   const int NB = P.NB, DSEC = P.DSEC, NV = P.NV, NS = P.NS, NCLI = P.NCLI;
   const Layout O = layout(U, R, SEC);
-  Lane ln{P.buf + (i64)s * L, P.scratch + s, S, L};
-  const int len_s = P.lens[s];
+  Lane ln;
+  ln.raw = P.raw;
+  ln.off = P.offs != nullptr ? __ldg(P.offs + s) : (i64)s * L;
+  ln.rc_last = P.n_raw - 1;
+  ln.L = L;
+  ln.rlen = P.rlens != nullptr ? __ldg(P.rlens + s) : L;
+  ln.sc = sc;
+  const int len_s = __ldg(P.lens + s);
+  const i64 lane_ref = (i64)s * L;
+  const i64 prim = lane_prim(P, s);
+  // the 24 span words: six aligned 16-byte loads (the wrapper aligns them)
   int sp[12][2];
   int abs_sum = 0;
-  for (int k = 0; k < 12; ++k) {
-    sp[k][0] = P.spans[((i64)s * 12 + k) * 2];
-    sp[k][1] = P.spans[((i64)s * 12 + k) * 2 + 1];
-    abs_sum |= sp[k][0] | sp[k][1];
+  {
+    const int4* q = (const int4*)(P.spans + (i64)s * 24);
+#pragma unroll
+    for (int k = 0; k < 6; ++k) {
+      const int4 w = __ldg(q + k);
+      sp[2 * k][0] = w.x;
+      sp[2 * k][1] = w.y;
+      sp[2 * k + 1][0] = w.z;
+      sp[2 * k + 1][1] = w.w;
+      abs_sum |= w.x | w.y | w.z | w.w;
+    }
   }
-  int flags = 0;
+  i64 fl = 0;
+  PhaseClock clk;
+  phase_start(clk);
   // all-zero spans on a non-empty payload: the host frame split failed
   const bool frame_bad = len_s > 0 && abs_sum == 0;
-  if (frame_bad) flags |= FLAG_MALFORMED;
+  if (frame_bad) fl |= FLAG_MALFORMED;
 
+  phase_end(clk, 0);
   // ---- column expansions
   const int info_n = expand_rle(ln, sp[SP_INFO][0], sp[SP_INFO][1], NB, O.info);
   const int pi_n = expand_rle(ln, sp[SP_PARENT_INFO][0], sp[SP_PARENT_INFO][1], NB, O.pi);
@@ -424,9 +611,11 @@ __global__ void __launch_bounds__(THREADS) decode_v2_kernel(const Params P) {
   const int tr_n = expand_uintoptrle(ln, sp[SP_TYPE_REF][0], sp[SP_TYPE_REF][1], NB, O.tr, false);
   const int str_n = expand_uintoptrle(ln, sp[SP_STR_LENS][0], sp[SP_STR_LENS][1], NS, O.str16, false);
 
+  phase_end(clk, 1);
   // ---- string byte offsets: the first byte index in the blob whose
   // UTF-16 prefix sum reaches each string's cumulative unit target (the
-  // vector version's 18 rounds of binary search, round for round)
+  // vector version's 18 rounds of binary search, round for round; once lo
+  // has met hi, one more round settles lo and the rest change nothing)
   const int blob_start = sp[SP_STR_BLOB][0], blob_end = wadd(sp[SP_STR_BLOB][0], sp[SP_STR_BLOB][1]);
   {
     Psum ps{&ln, 0, 0, 0, 0};
@@ -434,10 +623,24 @@ __global__ void __launch_bounds__(THREADS) decode_v2_kernel(const Params P) {
     ps.base_val = ps.at(bs);
     ps.base_pos = bs;
     const int base16 = ps.base_val;
-    int tgt_excl = 0;
+    // a blob inside the lane's width and shorter than 2^17 bytes: the
+    // search's bounds meet within 17 rounds, and its 18th steps past hi
+    // where hi's prefix is short of the target, so its answer is the first
+    // m in [blob_start, blob_end] whose prefix reaches the target, else
+    // blob_end + 1: one forward scan for all the strings, which starts
+    // over only where a target falls (a wrapped length)
+    const bool scan = 0 <= blob_start && blob_start <= blob_end && blob_end <= L && blob_end - blob_start < (1 << 17);
+    int tgt_excl = 0, m = blob_start, prev = 0;
     for (int i = 0; i < NS; ++i) {
       const int tgt = wadd(base16, tgt_excl);
       tgt_excl = wadd(tgt_excl, ln.at(O.str16 + i));
+      if (scan) {
+        if (i > 0 && tgt < prev) m = blob_start;
+        prev = tgt;
+        while (m <= blob_end && ps.at(m) < tgt) ++m;
+        ln.at(O.strst + i) = m;
+        continue;
+      }
       int lo = blob_start, hi = blob_end;
       for (int r = 0; r < 18; ++r) {
         const int mid = (int)(((i64)lo + hi) >> 1);
@@ -451,6 +654,7 @@ __global__ void __launch_bounds__(THREADS) decode_v2_kernel(const Params P) {
   }
   auto str_bytes = [&](int i) { return (i + 1 < NS ? ln.at(O.strst + i + 1) : blob_end) - ln.at(O.strst + i); };
 
+  phase_end(clk, 2);
   // ---- per-block consumption, pass A: client-column bases, skip counts,
   // the walker's Any counts, and whether the walker runs
   bool has_content = false;
@@ -480,43 +684,65 @@ __global__ void __launch_bounds__(THREADS) decode_v2_kernel(const Params P) {
   }
   auto skips_upto = [&](int n) { return n > 0 ? ln.at(O.skipi + clampi(n - 1, 0, NB - 1)) : 0; };
 
-  // ---- the rest stream: slots v / vst / vovf [NV], n_varints
+  phase_end(clk, 3);
+  // ---- the rest stream: slots v / vst / vovf [NV], n_varints. Slots from
+  // `tail` on are all (tail_v, tail_vst, tail_ovf), held in registers.
   const int rest_start = sp[SP_REST][0], rest_end = wadd(sp[SP_REST][0], sp[SP_REST][1]);
-  int n_varints = 0;
+  int n_varints = 0, tail = NV, tail_v = 0, tail_vst = 0, tail_ovf = 0;
   bool walk_bad = false, deep = false;
-  for (int j = 0; j < NB; ++j) {
-    ln.at(O.cst + j) = 0;
-    ln.at(O.mvf + j) = 0;
-    ln.at(O.msc + j) = -1;
-    ln.at(O.msk + j) = 0;
-    ln.at(O.mec + j) = -1;
-    ln.at(O.mek + j) = 0;
-  }
   if (!has_content) {
-    // bulk parse: varint k ends at the (k + 1)-th byte < 0x80 of the region
-    auto slot = [&](int k, int st, int tp) {
+    // bulk parse: varint k ends at the (k + 1)-th byte < 0x80 of the
+    // region, found 8 bytes at a time; a slot reads its first five bytes
+    // unmasked by the region's end (a window whose end is past any)
+    constexpr int NO_END = 0x7FFFFFFF;
+    auto slot_of = [&](int st, int tp, int& v, int& ovf) {
       const int nb = clampi(tp - st + 1, 1, 10);
-      u32 v = 0;
-      for (int i = 0; i < 5 && i < nb; ++i) v += ((u32)(ln.byte(st + i) & 0x7F)) << (7 * i);
-      ln.at(O.v + k) = (int)v;
+      u64 lo, hi;
+      ln.window(st, NO_END, lo, hi);
+      const u64 x = nb < 5 ? lo & ((1ull << (8 * nb)) - 1) : lo;
+      v = (int)(u32)((x & 0x7F) | ((x >> 1) & (0x7Full << 7)) | ((x >> 2) & (0x7Full << 14)) |
+                     ((x >> 3) & (0x7Full << 21)) | ((x >> 4) & (0x7Full << 28)));
+      ovf = nb > 5 || (nb == 5 && ((lo >> 32) & 0x7F) >= 8);
+    };
+    auto slot = [&](int k, int st, int tp) {
+      int v, ovf;
+      slot_of(st, tp, v, ovf);
+      ln.at(O.v + k) = v;
       ln.at(O.vst + k) = st;
-      ln.at(O.vovf + k) = nb > 5 || (nb == 5 && (ln.byte(st + 4) & 0x7F) >= 8);
+      ln.at(O.vovf + k) = ovf;
     };
     int k = 0, next = rest_start;
     const int lo = rest_start > 0 ? rest_start : 0, hi = rest_end < L ? rest_end : L;
-    for (int j = lo; j < hi; ++j) {
-      if (ln.byte(j) < 0x80) {
-        if (k < NV) slot(k, next, j);
-        next = j + 1;
+    for (int j = lo; j < hi; j += 8) {
+      u64 w, unused;
+      ln.window(j, NO_END, w, unused);
+      u64 t = ~w & HIGH_BITS;
+      if (hi - j < 8) t &= (1ull << (8 * (hi - j))) - 1;
+      for (; t; t &= t - 1) {
+        const int tp = j + (__ffsll((long long)t) >> 3) - 1;
+        if (k < NV) slot(k, next, tp);
+        next = tp + 1;
         ++k;
         ++n_varints;
       }
     }
-    for (; k < NV; ++k) {
-      slot(k, next, L);
-      next = L + 1;
+    // past the last terminator: the first slot starts there, every later
+    // one at L + 1, one byte wide (the clamped byte L - 1): the tail
+    if (k < NV) slot(k++, next, L);
+    if (k < NV) {
+      tail = k;
+      tail_vst = L + 1;
+      slot_of(L + 1, L, tail_v, tail_ovf);
     }
   } else {
+    for (int j = 0; j < NB; ++j) {
+      ln.at(O.cst + j) = 0;
+      ln.at(O.mvf + j) = 0;
+      ln.at(O.msc + j) = -1;
+      ln.at(O.msk + j) = 0;
+      ln.at(O.mec + j) = -1;
+      ln.at(O.mek + j) = 0;
+    }
     for (int k = 0; k < NV; ++k) {
       ln.at(O.v + k) = 0;
       ln.at(O.vst + k) = 0;
@@ -532,18 +758,18 @@ __global__ void __launch_bounds__(THREADS) decode_v2_kernel(const Params P) {
     auto dd = [](int d) { return clampi(d, 0, W_DEPTH - 1); };
     for (int t = 0; t < P.T; ++t) {
       if (!(st != W_DONE && pos <= end)) break;
-      int w[10];
-      for (int k = 0; k < 10; ++k) w[k] = ln.win(pos, end, k);
+      u64 wlo, whi;
+      ln.window(pos, end, wlo, whi);
       int val, nb, val2, nb2;
       bool ovf, ovf2;
-      ln.uvar(pos, end, val, nb, ovf);
-      const int tag = w[0];
+      uvar_of(wlo, whi, val, nb, ovf);
+      const int tag = (int)(wlo & 0xFF);
       const bool is_mv = st == W_MVF || st == W_MSC || st == W_MSK || st == W_MEC || st == W_MEK;
       const bool is_var = st == W_NC || st == W_SEC_N || st == W_SEC_CLK || st == W_SKIP || is_mv || st == W_DS;
-      const int hashed_val = ovf ? -2 - hash_window(w) : val;
+      const int hashed_val = ovf ? -2 - hash_window(wlo, whi) : val;
       const bool in_any = st == W_ANY, in_mkey = st == W_MKEY, in_mval = st == W_MVAL;
       const bool in_anyval = in_any || in_mval;
-      ln.uvar(pos + 1, end, val2, nb2, ovf2);
+      ln.uvar_after(pos, end, wlo, whi, 1, val2, nb2, ovf2);
       int any_extra = 0;
       if (tag == 127 || tag == 126 || tag == 121 || tag == 120) any_extra = 0;
       else if (tag == 125) any_extra = nb2;
@@ -668,29 +894,33 @@ __global__ void __launch_bounds__(THREADS) decode_v2_kernel(const Params P) {
 
   // slot reads of the vector version: the value, and whether a used
   // position is past the parsed varints or overflowed
+  auto slot_v = [&](int c) { return c < tail ? ln.at(O.v + c) : tail_v; };
+  auto slot_ovf = [&](int c) { return c < tail ? ln.at(O.vovf + c) : tail_ovf; };
   auto vat = [&](int idx, bool used, bool& bad) {
     const int c = clampi(idx, 0, NV - 1);
-    if (used && (idx >= n_varints || idx >= NV || ln.at(O.vovf + c))) bad = true;
-    return ln.at(O.v + c);
+    if (used && (idx >= n_varints || idx >= NV || slot_ovf(c))) bad = true;
+    return slot_v(c);
   };
   // a client-id slot: beyond i32, -2 - the hash of its wire bytes
   auto vat_id = [&](int idx, bool used, bool& bad) {
     const int c = clampi(idx, 0, NV - 1);
     if (used && (idx >= n_varints || idx >= NV)) bad = true;
-    if (!ln.at(O.vovf + c)) return ln.at(O.v + c);
-    const int st0 = ln.at(O.vst + c);
-    int w[10];
-    for (int k = 0; k < 10; ++k) w[k] = ln.byte(st0 + k);
-    return -2 - hash_window(w);
+    if (!slot_ovf(c)) return slot_v(c);
+    u64 lo, hi;
+    ln.window(c < tail ? ln.at(O.vst + c) : tail_vst, 0x7FFFFFFF, lo, hi);
+    return -2 - hash_window(lo, hi);
   };
 
-  const int nc = ln.at(O.v + 0);
+  const int nc = slot_v(0);
   bool malformed = len_s > 0 && n_varints < 1;
-  if (nc > 1) flags |= FLAG_MULTI_CLIENT;
+  if (nc > 1) fl |= FLAG_MULTI_CLIENT;
   const bool sec_ovf = nc > SEC;
 
-  // ---- section walk
+  phase_end(clk, 4);
+  // ---- section walk; `mono`: every section starts at or after the one
+  // before it (a wrapped block count can break that)
   int total_blocks = 0;
+  bool mono = true;
   {
     int vidx = 1, base = 0;
     bool unused = false;
@@ -700,6 +930,7 @@ __global__ void __launch_bounds__(THREADS) decode_v2_kernel(const Params P) {
         ln.at(O.sech + i) = vidx;
         ln.at(O.secb + i) = base;
         const int nxt = clampi(wadd(base, nb_i), 0, NB);
+        if (nxt < base) mono = false;
         vidx = wadd(wadd(vidx, 2), skips_upto(nxt) - skips_upto(base));
         base = nxt;
       } else {
@@ -711,25 +942,26 @@ __global__ void __launch_bounds__(THREADS) decode_v2_kernel(const Params P) {
   }
   const bool blk_ovf = total_blocks > NB || total_blocks > info_n || sec_ovf;
 
-  // ---- rows: defaults first
-  const i64 SU = (i64)S * U, row0 = (i64)s * U;
-  const i64 defaults[ROW_COLS] = {0, 0, 0, -1, 0, -1, 0, 0, -1, 0, -1, 0, -1, -1, -1, 0, 0, -1, 0, 0, -1};
-  for (int u = 0; u < U; ++u) {
-    for (int f = 0; f < ROW_COLS; ++f) P.rows[f * SU + row0 + u] = defaults[f];
-    P.rvalid[row0 + u] = 0;
-  }
-
-  // ---- per-block pass B
+  phase_end(clk, 5);
+  // ---- per-block pass B: block lengths, their prefix sums and the rows,
+  // over the valid blocks [0, total_blocks) (a block past them has length
+  // 0 and no effect). A block's clock reads the length prefix at its
+  // section's first block; where sections are not in order that block can
+  // come later, even past the valid ones, so a first round (no rows, no
+  // counts) sums every block's length before the round that emits.
   bool bad_v1 = false, bad_v2 = false, unsupported = deep && has_content, key_too_long = false,
        side_bad = false, row_ovf = false, neg_len = false;
   int need_cli = 0, need_lc = 0, need_rc = 0, need_len = 0, need_str = 0, need_pi = 0, need_tr = 0;
   bool any_cold = false;
-  {
+  int emit_idx = 0;
+  const i64 SU = (i64)S * U;
+  for (int round = mono ? 1 : 0; round < 2; ++round) {
+    const bool last = round == 1;
     int pi_idx = 0, c_base = 0, l_idx = 0, r_idx = 0, n_idx = 0, tr_idx = 0, s_base = 0, cum_skip = 0, len_psum = 0,
-        cold_rank = 0, emit_idx = 0;
-    for (int j = 0; j < NB; ++j) {
+        cold_rank = 0;
+    emit_idx = 0;
+    for (int j = 0; j < total_blocks; ++j) {
       const int info = ln.at(O.info + j);
-      const bool valid = j < total_blocks;
       const bool is_gc = info == 0, is_skip = info == K_SKIP, is_item = !is_gc && !is_skip;
       const int kind4 = info & 0x0F;
       const bool has_o = is_item && (info & 0x80), has_r = is_item && (info & 0x40);
@@ -757,21 +989,21 @@ __global__ void __launch_bounds__(THREADS) decode_v2_kernel(const Params P) {
       for (int i = 0; i < SEC; ++i) cnt += ln.at(O.secb + i) <= j;
       const int sec_id = clampi(cnt - 1, 0, SEC - 1);
       const int blk_h = ln.at(O.sech + sec_id), secbase = clampi(ln.at(O.secb + sec_id), 0, NB - 1);
-      const int sec_clk = vat(clampi(blk_h, 0, NV - 1) + 1, valid && blk_h >= 0, bad_v1);
-      const int sec_client = ln.at(O.cli + clampi(sec_id + ln.at(O.cbase + secbase), 0, NCLI - 1));
       const int skips_base = ln.at(O.skipi + secbase) - (ln.at(O.info + secbase) == K_SKIP);
       const int skip_vidx = wadd(wadd(blk_h, 2), cum_skip - skips_base);
-      const int skip_len = vat(clampi(skip_vidx, 0, NV - 1), valid && is_skip, bad_v2);
+      const int skip_len = vat(clampi(skip_vidx, 0, NV - 1), is_skip, bad_v2);
 
-      int blk_len = is_str ? ln.at(O.str16 + clampi(wadd(wadd(s_base, is_root), has_psub), 0, NS - 1))
-                  : n_cnt  ? len_at
-                  : is_skip ? skip_len
-                  : is_item ? 1
-                            : 0;
-      if (!valid) blk_len = 0;
+      const int blk_len = is_str ? ln.at(O.str16 + clampi(wadd(wadd(s_base, is_root), has_psub), 0, NS - 1))
+                        : n_cnt  ? len_at
+                        : is_skip ? skip_len
+                        : is_item ? 1
+                                  : 0;
       ln.at(O.lpsum + j) = len_psum;
 
-      if (valid) {
+      const bool cold = is_json || is_embed || is_format || (is_type && !type_weak);
+      const bool emit = !is_skip && blk_len > 0;
+      if (last) {
+        const int sec_clk = vat(clampi(blk_h, 0, NV - 1) + 1, blk_h >= 0, bad_v1);
         need_cli += c_cnt;
         need_lc += l_cnt;
         need_rc += has_r;
@@ -781,63 +1013,68 @@ __global__ void __launch_bounds__(THREADS) decode_v2_kernel(const Params P) {
         need_tr += is_type;
         if (is_doc || type_weak) unsupported = true;
         if (blk_len < 0) neg_len = true;
-      }
-      const bool cold = valid && (is_json || is_embed || is_format || (is_type && !type_weak));
-      if (cold) any_cold = true;
-      i64 ref_cold = -1;
-      if (P.n_side >= 0) {
-        const int NC2 = P.n_side;
-        const int cold_off = NC2 > 0 ? P.side[(i64)s * NC2 + clampi(cold_rank, 0, NC2 - 1)] : -1;
-        if (cold && (cold_rank >= NC2 || cold_off < 0)) side_bad = true;
-        ref_cold = (i64)s * L + cold_off;
-      }
-      const int psub_idx = wadd(s_base, is_root), content_sidx = wadd(psub_idx, has_psub);
-      const int psub_c = clampi(psub_idx, 0, NS - 1);
-      const int psub_bytes = str_bytes(psub_c);
-      if (valid && has_psub && psub_bytes > KEY_HASH_BYTES) key_too_long = true;
+        if (cold) any_cold = true;
+        i64 ref_cold = -1;
+        if (P.n_side >= 0) {
+          const int NC2 = P.n_side;
+          const int cold_off = NC2 > 0 ? __ldg(P.side + (i64)s * NC2 + clampi(cold_rank, 0, NC2 - 1)) : -1;
+          if (cold && (cold_rank >= NC2 || cold_off < 0)) side_bad = true;
+          ref_cold = lane_ref + cold_off;
+        }
+        const int psub_idx = wadd(s_base, is_root), content_sidx = wadd(psub_idx, has_psub);
+        const int psub_c = clampi(psub_idx, 0, NS - 1);
+        const int psub_bytes = str_bytes(psub_c);
+        if (has_psub && psub_bytes > KEY_HASH_BYTES) key_too_long = true;
 
-      const bool emit = valid && !is_skip && blk_len > 0;
-      if (emit && emit_idx >= U) row_ovf = true;
-      if (emit && emit_idx < U) {
-        const i64 o = row0 + emit_idx;
-        i64* rw = P.rows;
-        const int blk_cli_base = sec_id + 1 + c_base;
-        const int lc = ln.at(O.lc + clampi(l_idx, 0, NB - 1));
-        const int clock = wsub(wadd(sec_clk, len_psum), ln.at(O.lpsum + secbase));
-        const int rbytes = str_bytes(clampi(s_base, 0, NS - 1));
-        i64 ref;
-        if (is_str)
-          ref = (i64)s * L + ln.at(O.strst + clampi(content_sidx, 0, NS - 1));
-        else if (is_any || is_bin || is_move)
-          ref = (i64)s * L + ln.at(O.cst + j);
-        else
-          ref = cold ? ref_cold : -1;
-        const int mvf = ln.at(O.mvf + j);
-        const bool collapsed = (mvf & 1) != 0;
-        rw[C_CLIENT * SU + o] = sec_client;
-        rw[C_CLOCK * SU + o] = clock;
-        rw[C_LENGTH * SU + o] = blk_len;
-        rw[C_OC * SU + o] = has_o ? ln.at(O.cli + clampi(blk_cli_base, 0, NCLI - 1)) : -1;
-        rw[C_OK * SU + o] = has_o ? lc : 0;
-        rw[C_RC * SU + o] = has_r ? ln.at(O.cli + clampi(blk_cli_base + (int)has_o, 0, NCLI - 1)) : -1;
-        rw[C_RK * SU + o] = has_r ? ln.at(O.rc + clampi(r_idx, 0, NB - 1)) : 0;
-        rw[C_KIND * SU + o] = is_gc ? 0 : kind4;
-        rw[C_REF * SU + o] = ref;
-        rw[C_PTAG * SU + o] = is_root ? 1 : (is_nested ? 2 : 0);
-        rw[C_PC * SU + o] = is_nested ? ln.at(O.cli + clampi(blk_cli_base, 0, NCLI - 1)) : -1;
-        rw[C_PK * SU + o] = is_nested ? lc : 0;
-        rw[C_KEYH * SU + o] = has_psub ? name_hash(ln, ln.at(O.strst + psub_c), psub_bytes) : -1;
-        rw[C_ROOTH * SU + o] =
-            is_root ? (rbytes <= KEY_HASH_BYTES ? name_hash(ln, ln.at(O.strst + clampi(s_base, 0, NS - 1)), rbytes) : -2)
-                    : -1;
-        rw[C_MSC * SU + o] = is_move ? ln.at(O.msc + j) : -1;
-        rw[C_MSK * SU + o] = is_move ? ln.at(O.msk + j) : 0;
-        rw[C_MSA * SU + o] = is_move ? ((mvf & 2) ? 0 : -1) : 0;
-        rw[C_MEC * SU + o] = is_move ? (collapsed ? ln.at(O.msc + j) : ln.at(O.mec + j)) : -1;
-        rw[C_MEK * SU + o] = is_move ? (collapsed ? ln.at(O.msk + j) : ln.at(O.mek + j)) : 0;
-        rw[C_MEA * SU + o] = is_move ? ((mvf & 4) ? 0 : -1) : 0;
-        rw[C_MPRIO * SU + o] = is_move ? (mvf >> 6) : -1;
-        P.rvalid[o] = 1;
+        if (emit && emit_idx >= U) row_ovf = true;
+        if (emit && emit_idx < U) {
+          // the row, resolved through the intern tables as it is written
+          int* o = P.rows + (i64)s * U + emit_idx;
+          const int blk_cli_base = sec_id + 1 + c_base;
+          const int lc = ln.at(O.lc + clampi(l_idx, 0, NB - 1));
+          const int clock = wsub(wadd(sec_clk, len_psum), ln.at(O.lpsum + secbase));
+          const int rbytes = str_bytes(clampi(s_base, 0, NS - 1));
+          i64 ref;
+          if (is_str)
+            ref = lane_ref + ln.at(O.strst + clampi(content_sidx, 0, NS - 1));
+          else if (is_any || is_bin || is_move)
+            ref = lane_ref + ln.at(O.cst + j);
+          else
+            ref = cold ? ref_cold : -1;
+          const int mvf = is_move ? ln.at(O.mvf + j) : 0;
+          const bool collapsed = (mvf & 1) != 0;
+          const int ptag = is_root ? 1 : (is_nested ? 2 : 0);
+          const i64 keyh = has_psub ? name_hash(ln, ln.at(O.strst + psub_c), psub_bytes) : -1;
+          const i64 rooth =
+              is_root ? (rbytes <= KEY_HASH_BYTES ? name_hash(ln, ln.at(O.strst + clampi(s_base, 0, NS - 1)), rbytes)
+                                                  : -2)
+                      : -1;
+          o[F_CLIENT * SU] = (int)resolve_id(P, ln.at(O.cli + clampi(sec_id + ln.at(O.cbase + secbase), 0, NCLI - 1)), fl);
+          o[F_CLOCK * SU] = clock;
+          o[F_LENGTH * SU] = blk_len;
+          o[F_OCLIENT * SU] = (int)resolve_id(P, has_o ? ln.at(O.cli + clampi(blk_cli_base, 0, NCLI - 1)) : -1, fl);
+          o[F_OCLOCK * SU] = has_o ? lc : 0;
+          o[F_RCLIENT * SU] =
+              (int)resolve_id(P, has_r ? ln.at(O.cli + clampi(blk_cli_base + (int)has_o, 0, NCLI - 1)) : -1, fl);
+          o[F_RCLOCK * SU] = has_r ? ln.at(O.rc + clampi(r_idx, 0, NB - 1)) : 0;
+          o[F_KIND * SU] = is_gc ? 0 : kind4;
+          o[F_REF * SU] = (int)ref;
+          o[F_COFF * SU] = 0;
+          o[F_KEY * SU] = (int)resolve_key(P, keyh, fl);
+          o[F_PTAG * SU] = ptag;
+          o[F_PCLIENT * SU] = (int)resolve_id(P, is_nested ? ln.at(O.cli + clampi(blk_cli_base, 0, NCLI - 1)) : -1, fl);
+          o[F_PCLOCK * SU] = is_nested ? lc : 0;
+          o[F_PROOT * SU] = (int)resolve_root(P, ptag, rooth, prim, fl);
+          // ContentMove range fields: assoc 0 = After, -1 = Before; a
+          // collapsed move's end id is its start id
+          o[F_MSC * SU] = (int)resolve_id(P, is_move ? ln.at(O.msc + j) : -1, fl);
+          o[F_MSK * SU] = is_move ? ln.at(O.msk + j) : 0;
+          o[F_MSA * SU] = is_move ? ((mvf & 2) ? 0 : -1) : 0;
+          o[F_MEC * SU] = (int)resolve_id(P, is_move ? (collapsed ? ln.at(O.msc + j) : ln.at(O.mec + j)) : -1, fl);
+          o[F_MEK * SU] = is_move ? (collapsed ? ln.at(O.msk + j) : ln.at(O.mek + j)) : 0;
+          o[F_MEA * SU] = is_move ? ((mvf & 4) ? 0 : -1) : 0;
+          o[F_MPRIO * SU] = is_move ? (mvf >> 6) : -1;
+        }
       }
       emit_idx += emit;
       cold_rank += cold;
@@ -851,7 +1088,9 @@ __global__ void __launch_bounds__(THREADS) decode_v2_kernel(const Params P) {
       s_base = wadd(s_base, s_cnt);
       cum_skip += is_skip;
     }
+    for (int j = total_blocks; j < NB && !last; ++j) ln.at(O.lpsum + j) = len_psum;
   }
+  n_rows = emit_idx < U ? emit_idx : U;
   if (P.n_side < 0 && any_cold) unsupported = true;  // no sidecar: cold payloads unaddressable
   if (key_too_long) unsupported = true;
   const bool consumption_ovf = ln.at(O.cbase + NB - 1) + 3 > NCLI || total_blocks > NB;
@@ -860,17 +1099,15 @@ __global__ void __launch_bounds__(THREADS) decode_v2_kernel(const Params P) {
                          need_str > str_n || need_pi > pi_n || need_tr > tr_n;
   const bool str_cap_ovf = need_str > NS;
 
-  // ---- delete set
+  phase_end(clk, 6);
+  // ---- delete set: range m of a section goes to slot out_base + m; the
+  // slots written are always [0, n_dels), and a later section can rewrite
+  // one (a run count that wrapped), so the clients resolve after the last
   const i64 SR = (i64)S * R, del0 = (i64)s * R;
-  for (int r = 0; r < R; ++r) {
-    P.dels[0 * SR + del0 + r] = 0;
-    P.dels[1 * SR + del0 + r] = 0;
-    P.dels[2 * SR + del0 + r] = 0;
-    P.dvalid[del0 + r] = 0;
-  }
   bool bad_v3 = false, ds_bad = false, ds_ovf = false;
   const int d0 = wadd(wadd(1, wmul(2, nc < SEC ? nc : SEC)), skips_upto(total_blocks));
   const int ds_n = vat(d0, len_s > 0 && !frame_bad, bad_v3);
+  n_dels = 0;
   {
     int p = wadd(d0, 1), out_base = 0;
     for (int k = 0; k < DSEC; ++k) {
@@ -886,10 +1123,10 @@ __global__ void __launch_bounds__(THREADS) decode_v2_kernel(const Params P) {
         cum_l = wadd(cum_l, lv);
         const int o = out_base + m;
         if (o < R) {
-          P.dels[0 * SR + del0 + o] = cli;
-          P.dels[1 * SR + del0 + o] = clock;
-          P.dels[2 * SR + del0 + o] = wadd(clock, lv);
-          P.dvalid[del0 + o] = 1;
+          P.dels[D_CLIENT * SR + del0 + o] = cli;
+          P.dels[D_START * SR + del0 + o] = clock;
+          P.dels[D_END * SR + del0 + o] = wadd(clock, lv);
+          if (o >= n_dels) n_dels = o + 1;
         }
       }
       if (wadd(out_base, nr) > R) ds_ovf = true;
@@ -897,38 +1134,115 @@ __global__ void __launch_bounds__(THREADS) decode_v2_kernel(const Params P) {
       out_base = clampi(wadd(out_base, nr), 0, R);
     }
   }
+  for (int o = 0; o < n_dels; ++o) {
+    int* c = P.dels + D_CLIENT * SR + del0 + o;
+    *c = (int)resolve_id(P, *c, fl);
+  }
   const bool ds_sec_ovf = ds_n > DSEC;
 
   malformed = malformed || frame_bad || bad_v1 || bad_v2 || bad_v3 || ds_bad || truncated ||
               (walk_bad && has_content) || side_bad || neg_len;
-  if (malformed) flags |= FLAG_MALFORMED;
-  if (unsupported) flags |= FLAG_UNSUPPORTED;
-  if (blk_ovf || row_ovf || consumption_ovf || ds_ovf || ds_sec_ovf || str_cap_ovf) flags |= FLAG_OVERFLOW;
-  P.flags[s] = flags;
+  if (malformed) fl |= FLAG_MALFORMED;
+  if (unsupported) fl |= FLAG_UNSUPPORTED;
+  if (blk_ovf || row_ovf || consumption_ovf || ds_ovf || ds_sec_ovf || str_cap_ovf) fl |= FLAG_OVERFLOW;
+  phase_end(clk, 7);
+  phase_flush(clk);
+  flags = fl;
+}
+
+__global__ void __launch_bounds__(THREADS) decode_v2_kernel(const Params P) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int lane = threadIdx.x;
+  const int s0 = blockIdx.x * THREADS;
+  const int s = s0 + lane;
+  const int nw = P.S - s0 < THREADS ? P.S - s0 : THREADS;  // lanes of this warp
+  i64 ignored = 0;
+  const int client0 = (int)resolve_id(P, 0, ignored);
+  int n_rows = 0, n_dels = 0;
+  i64 flags = 0;
+  if (s < P.S) {
+    // the lane's expansion arrays: its column of the CTA's [word][lane]
+    // block, in shared memory or in the device-memory scratch
+    const i64 block = (i64)layout(P.U, P.R, P.SEC).words * THREADS;
+    int* sc = (P.scratch != nullptr ? P.scratch + blockIdx.x * block : (int*)smem) + lane;
+    decode_lane(P, s, sc, n_rows, n_dels, flags);
+    P.flags[s] = (int)flags;
+  }
+  const bool lane_ok = (flags & FLAG_ERRORS) == 0;
+
+  // the rows and ranges each lane did not emit hold the defaults, and every
+  // valid byte is set here, the warp's block [s0, s0 + nw) x U (x R) word
+  // by word: lane r's counts and whether it ended clean come from lane r by
+  // shuffle (-n - 1: n written, the lane in error)
+  const int U = P.U, R = P.R;
+  const i64 SU = (i64)P.S * U, SR = (i64)P.S * R;
+  const int rcode = lane_ok ? n_rows : -n_rows - 1, dcode = lane_ok ? n_dels : -n_dels - 1;
+  for (int base = 0; base < nw * U; base += THREADS) {
+    const int i = base + lane;
+    const int r = i / U < THREADS ? i / U : THREADS - 1;
+    const int n = __shfl_sync(FULL_MASK, rcode, r);
+    if (i < nw * U) {
+      const int j = i - r * U, nr = n < 0 ? -n - 1 : n;
+      const i64 o = (i64)s0 * U + i;
+      if (j >= nr)
+        for (int f = 0; f < ROW_FIELDS; ++f) P.rows[f * SU + o] = row_default(f, client0);
+      P.rvalid[o] = j < n;
+    }
+  }
+  for (int base = 0; base < nw * R; base += THREADS) {
+    const int i = base + lane;
+    const int r = i / R < THREADS ? i / R : THREADS - 1;
+    const int d = __shfl_sync(FULL_MASK, dcode, r);
+    if (i < nw * R) {
+      const int j = i - r * R, nd = d < 0 ? -d - 1 : d;
+      const i64 o = (i64)s0 * R + i;
+      if (j >= nd) {
+        P.dels[D_CLIENT * SR + o] = client0;
+        P.dels[D_START * SR + o] = 0;
+        P.dels[D_END * SR + o] = 0;
+      }
+      P.dvalid[o] = j < d;
+    }
+  }
 }
 
 }  // namespace
 
-// Words of per-lane scratch a launch needs (times S).
-extern "C" int ytpu_decode_v2_scratch_words(int U, int R, int SEC) { return layout(U, R, SEC).words; }
+// Expansion words a lane needs in the device-memory scratch (times S
+// rounded up to whole CTAs of THREADS lanes), or 0 where its CTA's arrays
+// fit in shared memory and the launch needs none.
+extern "C" int ytpu_decode_v2_scratch_words(int U, int R, int SEC) {
+  return smem_bytes(U, R, SEC) > 0 ? 0 : layout(U, R, SEC).words;
+}
+
+// Expansion words a lane has on either path.
+extern "C" int ytpu_decode_v2_words(int U, int R, int SEC) { return layout(U, R, SEC).words; }
 
 // The launch's arguments, one int64 each (pointers as their addresses), in
 // the order of decode_v2._LAUNCH_ARGS: the host passes one array.
 struct DecodeV2Args {
-  i64 buf, lens, spans, side, n_side, S, L, U, R, SEC, rows, rvalid, dels, dvalid, flags, scratch, stream;
+  i64 raw, n_raw, offs, rlens, lens, spans, side, n_side, S, L, U, R, SEC;
+  i64 ct_keys, ct_perm, ct_n, cht_keys, cht_perm, cht_n, kt_keys, kt_perm, kt_n, prim, n_prim;
+  i64 rows, dels, flags, rvalid, dvalid, scratch, stream;
 };
 
-// One launch on `stream` over S lanes of the [S, L] uint8 matrix `buf`:
-// lens [S], spans [S, 12, 2] and the sidecar [S, n_side] (n_side -1: none)
-// int32; writes rows [21, S, U] and dels [3, S, R] int64, rvalid [S, U]
-// and dvalid [S, R] bytes and flags [S] int64, using `scratch`
-// (ytpu_decode_v2_scratch_words(U, R, SEC) * S int32). Returns the
-// launch's cudaError_t (0 when it was queued).
+// One launch on `stream` over S lanes. `raw` holds n_raw bytes: the arena
+// with `offs` and `rlens` [S], or, with both 0, the [S, L] matrix. lens
+// [S], spans [S, 12, 2] (16-byte aligned), the sidecar [S, n_side] (n_side
+// -1: none), each table's keys and perm (n < 0: no table), prim [n_prim]
+// or 0; all int32. Writes rows [22, S, U] and dels [3, S, R] int32, rvalid
+// [S, U] and dvalid [S, R] bytes and flags [S] int32; `scratch`
+// (ytpu_decode_v2_scratch_words(U, R, SEC) int32 a lane, S rounded up to
+// a multiple of 32) only where that is
+// not 0. Returns the launch's cudaError_t (0 when it was queued).
 extern "C" int ytpu_decode_v2(const DecodeV2Args* a) {
   if (a->S <= 0) return 0;
   auto ptr = [](i64 x) { return (void*)(uintptr_t)x; };
   Params P;
-  P.buf = (const uint8_t*)ptr(a->buf);
+  P.raw = (const uint8_t*)ptr(a->raw);
+  P.n_raw = a->n_raw;
+  P.offs = (const int*)ptr(a->offs);
+  P.rlens = (const int*)ptr(a->rlens);
   P.lens = (const int*)ptr(a->lens);
   P.spans = (const int*)ptr(a->spans);
   P.side = (const int*)ptr(a->side);
@@ -944,16 +1258,43 @@ extern "C" int ytpu_decode_v2(const DecodeV2Args* a) {
   P.NS = 2 * P.U + 4;
   P.NCLI = 3 * P.NB + P.SEC + 2;
   P.T = P.NV + 3 * P.NB + 8 * (P.NB / 2 > 1 ? P.NB / 2 : 1) + 16;
-  P.rows = (i64*)ptr(a->rows);
+  auto table = [&](i64 keys, i64 perm, i64 n) { return Table{(const int*)ptr(keys), (const int*)ptr(perm), n}; };
+  P.ct = table(a->ct_keys, a->ct_perm, a->ct_n);
+  P.cht = table(a->cht_keys, a->cht_perm, a->cht_n);
+  P.kt = table(a->kt_keys, a->kt_perm, a->kt_n);
+  P.prim = (const int*)ptr(a->prim);
+  P.n_prim = a->n_prim;
+  P.rows = (int*)ptr(a->rows);
+  P.dels = (int*)ptr(a->dels);
+  P.flags = (int*)ptr(a->flags);
   P.rvalid = (uint8_t*)ptr(a->rvalid);
-  P.dels = (i64*)ptr(a->dels);
   P.dvalid = (uint8_t*)ptr(a->dvalid);
-  P.flags = (i64*)ptr(a->flags);
   P.scratch = (int*)ptr(a->scratch);
+  const int smem = smem_bytes(P.U, P.R, P.SEC);
+  if (smem > 0) {
+    P.scratch = nullptr;
+    const cudaError_t e = cudaFuncSetAttribute(decode_v2_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return (int)e;
+  } else if (P.scratch == nullptr) {
+    return (int)cudaErrorInvalidValue;
+  }
   const int blocks = (P.S + THREADS - 1) / THREADS;
   void* stream = ptr(a->stream);
-  decode_v2_kernel<<<blocks, THREADS, 0, (cudaStream_t)stream>>>(P);
+  decode_v2_kernel<<<blocks, THREADS, (size_t)smem, (cudaStream_t)stream>>>(P);
   return (int)cudaGetLastError();
 }
+
+#ifdef YTPU_DECODE_V2_PROFILE
+// The profiling build's cycle sums, one a phase, copied to `out` (host
+// memory), then set to 0 where `reset` is not 0. Synchronous.
+extern "C" int ytpu_decode_v2_phase_cycles(unsigned long long* out, int reset) {
+  cudaError_t e = cudaMemcpyFromSymbol(out, g_phase_cycles, sizeof(g_phase_cycles));
+  if (e == cudaSuccess && reset) {
+    const unsigned long long zero[PHASES] = {};
+    e = cudaMemcpyToSymbol(g_phase_cycles, zero, sizeof(zero));
+  }
+  return (int)e;
+}
+#endif
 
 extern "C" const char* ytpu_cuda_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }

@@ -6,8 +6,9 @@ Each source under ``ytpu_torch/csrc`` is compiled by ``nvcc`` for
 finisher, ``ytpu_torch/native/*.cpp``) is compiled by ``g++`` the same
 way, so it builds where there is no CUDA toolkit: the compiler is chosen
 by the library. The build runs at first use, into ``ytpu_torch/_build/``
-(listed in ``.gitignore``), keyed by a hash of the sources and flags, so
-an edited source rebuilds and an unchanged one loads at once. Each build
+(listed in ``.gitignore``), keyed by a hash of the sources, the headers
+of ``csrc/`` (``*.cuh``, shared by the decode programs) and the flags, so
+an edited source or header rebuilds and an unchanged one loads at once. Each build
 writes a temporary file that is moved into place, so processes building
 the same library at once each load a whole one. A failed build raises
 with the compiler's output. `build_all` starts one compiler per library
@@ -16,9 +17,11 @@ output (registers, shared memory, stack frame and spills of each kernel)
 is kept beside the library and read by `build_log`.
 
 A library is a source plus extra flags: ``integrate_profile`` is
-``integrate.cu`` built with ``-DYTPU_INTEGRATE_PROFILE`` (the per-phase
-cycle counters). Only the profiling run loads it; the main path loads
-``integrate``.
+``integrate.cu`` built with ``-DYTPU_INTEGRATE_PROFILE`` and
+``decode_v2_profile`` is ``decode_v2.cu`` built with
+``-DYTPU_DECODE_V2_PROFILE`` (the per-phase cycle counters). Only the
+profiling runs load them; the main path loads ``integrate`` and
+``decode_v2``.
 """
 
 from __future__ import annotations
@@ -42,6 +45,7 @@ _BUILD = os.path.join(_PKG, "_build")
 SOURCES = {
     "decode": "decode.cu",
     "decode_v2": "decode_v2.cu",
+    "decode_v2_profile": "decode_v2.cu",
     "integrate": "integrate.cu",
     "integrate_profile": "integrate.cu",
     "mosaic_ladder": "mosaic_ladder.cu",
@@ -52,7 +56,7 @@ SOURCES = {
 HOST_SOURCES = {"native": ("native/lib0_codec.cpp", "native/encode_finisher.cpp")}
 
 #: library name -> flags added to NVCC_FLAGS
-EXTRA_FLAGS = {"integrate_profile": ["-DYTPU_INTEGRATE_PROFILE"]}
+EXTRA_FLAGS = {"integrate_profile": ["-DYTPU_INTEGRATE_PROFILE"], "decode_v2_profile": ["-DYTPU_DECODE_V2_PROFILE"]}
 
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -94,9 +98,17 @@ def _flags(name: str) -> list:
     return NVCC_FLAGS + EXTRA_FLAGS.get(name, [])
 
 
+def _headers(name: str) -> list:
+    """The headers a CUDA library's source may include: every ``*.cuh``
+    under csrc/ (nvcc finds them beside the source)."""
+    if name in HOST_SOURCES:
+        return []
+    return sorted(os.path.join(_CSRC, f) for f in os.listdir(_CSRC) if f.endswith(".cuh"))
+
+
 def _target(name: str) -> str:
     h = hashlib.sha256(" ".join(_flags(name)).encode())
-    for src in _sources(name):
+    for src in _sources(name) + _headers(name):
         with open(src, "rb") as f:
             h.update(f.read())
     return os.path.join(_BUILD, f"lib{name}_{h.hexdigest()[:16]}.so")

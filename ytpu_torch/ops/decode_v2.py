@@ -16,19 +16,20 @@ scatters over several columns, into a V1-form sidecar after the update's
 bytes (`_cold_sidecar`), so that every V1-shaped payload reader can
 address them. `pack_updates_v2_raw` ships the same as one flat arena.
 
-Device half: `decode_updates_v2` (and `decode_updates_v2_raw`, a
-`gather_raw_lanes` first), from the ``[S, L]`` matrix, its spans and the
-sidecar to the int32 UpdateBatch and the lane flags, the contract of
-`decode_kernel.decode_updates_v1`. On the card the pre-resolve columns
-come from one launch of the hand-written program of ``csrc/decode_v2.cu``
-(one thread a lane); its plain version, `_decode_v2_reference`, is the
-JAX package's lane-parallel composition as torch ops on ``[S, N]``
-tensors: the RLE column expanders (one run a step), the UTF-16 string
-offsets by binary search, the per-block consumption counts as prefix
-sums, the rest stream parsed in bulk (terminators by cumsum) or, for
-lanes whose blocks put content bytes there, walked by `_rest_walker`, the
-section walk, the delete set and the row emission. Both end in
-`decode_kernel._resolve_and_pack` (the intern tables, torch ops).
+Device half: `decode_updates_v2` (from the ``[S, L]`` matrix) and
+`decode_updates_v2_raw` (from the arena), with the spans and the sidecar,
+to the int32 UpdateBatch and the lane flags, the contract of
+`decode_kernel.decode_updates_v1`. On the card each call is one launch of
+the hand-written program of ``csrc/decode_v2.cu`` (one thread a lane; the
+arena read in place, the intern tables resolved inside). Its plain
+version is the composition `gather_raw_lanes` (the arena only) ->
+`_decode_v2_reference` -> `decode_kernel._resolve_and_pack`; the
+reference is the JAX package's lane-parallel program as torch ops on
+``[S, N]`` tensors: the RLE column expanders (one run a step), the UTF-16
+string offsets by binary search, the per-block consumption counts as
+prefix sums, the rest stream parsed in bulk (terminators by cumsum) or,
+for lanes whose blocks put content bytes there, walked by `_rest_walker`,
+the section walk, the delete set and the row emission.
 
 JAX computes in int32 and uint32 and wraps; here values live in int64
 and every sum that can leave 32 bits is wrapped back (`_w32`), and every
@@ -59,6 +60,7 @@ from ytpu_torch.core.content import (
     CONTENT_TYPE,
 )
 from ytpu_torch.encoding.lib0 import Cursor
+from ytpu_torch.models.batch_doc import UpdateBatch
 from ytpu_torch.ops.decode_kernel import (
     DEL_COLUMNS,
     FLAG_MALFORMED,
@@ -66,7 +68,8 @@ from ytpu_torch.ops.decode_kernel import (
     FLAG_OVERFLOW,
     FLAG_UNSUPPORTED,
     KEY_HASH_BYTES,
-    ROW_COLUMNS,
+    ROW_FIELDS,
+    _ints,
     _resolve_and_pack,
     gather_raw_lanes,
 )
@@ -722,7 +725,7 @@ def _decode_v2_reference(buf, lens, spans, U: int, R: int, SEC: int, sidecar=Non
     """The plain version of the V2 decode: the JAX package's lane-parallel
     composition as torch ops. ``buf`` ``[S, L]`` uint8, ``lens`` ``[S]``,
     ``spans`` ``[S, 12, 2]``, ``sidecar`` ``[S, NCOLD]`` or None. Returns
-    the pre-resolve ``(rows, dels, flags)`` (`ROW_COLUMNS` ``[S, U]`` and
+    the pre-resolve ``(rows, dels, flags)`` (`decode_kernel.ROW_COLUMNS` ``[S, U]`` and
     `DEL_COLUMNS` ``[S, R]`` int64 with ``valid``; flags int64 ``[S]``)."""
     dev = buf.device
     S, L = buf.shape
@@ -1072,14 +1075,16 @@ def _decode_v2_reference(buf, lens, spans, U: int, R: int, SEC: int, sidecar=Non
 
 # --- the kernel ---------------------------------------------------------------------
 
-#: C signature of ``csrc/decode_v2.cu``'s entry point: its arguments as one
-#: packed array of int64 (`_LAUNCH_ARGS`), passed as one pointer
-DECODE_V2_SIGNATURES = {"ytpu_decode_v2": [ctypes.c_char_p], "ytpu_decode_v2_scratch_words": [ctypes.c_int] * 3}
+#: C signatures of ``csrc/decode_v2.cu``'s entry points: the launch takes its
+#: arguments as one packed array of int64 (`_LAUNCH_ARGS`), passed as one pointer
+DECODE_V2_SIGNATURES = {"ytpu_decode_v2": [ctypes.c_char_p], "ytpu_decode_v2_scratch_words": [ctypes.c_int] * 3,
+                        "ytpu_decode_v2_words": [ctypes.c_int] * 3}
 #: the launch's arguments, in the order of ``DecodeV2Args`` in decode_v2.cu
-_LAUNCH_ARGS = ("buf", "lens", "spans", "side", "n_side", "S", "L", "U", "R", "SEC", "rows", "rvalid", "dels",
-                "dvalid", "flags", "scratch", "stream")
+_LAUNCH_ARGS = ("raw", "n_raw", "offs", "rlens", "lens", "spans", "side", "n_side", "S", "L", "U", "R", "SEC",
+                "ct_keys", "ct_perm", "ct_n", "cht_keys", "cht_perm", "cht_n", "kt_keys", "kt_perm", "kt_n",
+                "prim", "n_prim", "rows", "dels", "flags", "rvalid", "dvalid", "scratch", "stream")
 _PACK = struct.Struct(f"<{len(_LAUNCH_ARGS)}q").pack
-_NR, _ND = len(ROW_COLUMNS), len(DEL_COLUMNS)
+_NR, _ND = len(ROW_FIELDS), len(DEL_COLUMNS)
 
 
 def _decode_v2_lib():
@@ -1088,60 +1093,117 @@ def _decode_v2_lib():
     return _build.bind("decode_v2", DECODE_V2_SIGNATURES, "ytpu_cuda_error_string")
 
 
-def _i32(x, dev) -> torch.Tensor:
-    """`x` as a contiguous int32 tensor on `dev` (cast once where needed)."""
-    return torch.as_tensor(x, device=dev).to(I32).contiguous()
-
-
-def _launch_decode_v2(lib, buf, lens, spans, U: int, R: int, SEC: int, sidecar=None, stream=None):
-    """One launch of the V2 decode program in `lib` over the contiguous
-    ``[S, L]`` uint8 matrix ``buf``; `stream` the CUDA stream handle (None
-    in a host build). Returns the pre-resolve ``(rows, dels, flags)`` of
-    `_decode_v2_reference`, all views of one allocation."""
+def _launch_decode_v2(lib, buf, lens, spans, U: int, R: int, SEC: int, sidecar=None, offs=None, row_lens=None,
+                      width=None, client_table=None, key_table=None, client_hash_table=None,
+                      primary_root_hash=None, stream=None):
+    """One launch of the V2 decode program in `lib` over ``buf``: the flat
+    arena with ``offs`` and ``row_lens`` ``[S]`` and its `width`, or, with
+    ``offs`` None, the contiguous ``[S, L]`` matrix; ``lens`` ``[S]``,
+    ``spans`` ``[S, 12, 2]``, the sidecar and the intern tables; `stream`
+    the CUDA stream handle (None in a host build). Returns ``(stream,
+    flags, path)``: the int32 UpdateBatch and flags, views of one
+    allocation, and where the program kept its lanes' column expansions,
+    ``"shared"`` (the CTA's shared memory) or ``"global"`` (a
+    device-memory scratch allocated here)."""
     from ytpu_torch.ops import _build
 
     dev = buf.device
-    S, L = buf.shape
-    lens = _i32(lens, dev).reshape(-1)
-    spans = _i32(spans, dev).reshape(S, 12, 2)
-    side = None if sidecar is None else _i32(sidecar, dev).reshape(S, -1)
-    if lens.numel() != S:
-        raise ValueError(f"decode_v2: lens has {lens.numel()} entries for {S} lanes")
-    n_side = -1 if side is None else side.shape[1]
-    # one allocation: rows [21, S, U] and dels [3, S, R] int64, flags [S]
-    # int64, then the valid bytes of rows and ranges, padded to 8 bytes
-    n64 = _NR * S * U + _ND * S * R + S
-    nbool = -(-S * (U + R) // 8) * 8
-    out = torch.empty(8 * n64 + nbool, dtype=torch.uint8, device=dev)
-    words, bools = out.view(I64), out.view(torch.bool)
-    scratch = torch.empty(max(1, int(lib.ytpu_decode_v2_scratch_words(U, R, SEC))) * max(S, 1), dtype=I32,
-                          device=dev)
+    lens = _ints(lens, dev, "lens")
+    S = lens.numel()
+    if offs is None:
+        if buf.dim() != 2 or buf.shape[0] != S:
+            raise ValueError(f"decode_v2: an [S, L] matrix of {S} lanes, got {tuple(buf.shape)}")
+        L, offs_p, rlens_p = buf.shape[1], 0, 0
+    else:
+        offs, row_lens = _ints(offs, dev, "offsets"), _ints(row_lens, dev, "row_lens")
+        if buf.dim() != 1 or width is None or offs.numel() != S or row_lens.numel() != S:
+            raise ValueError(f"decode_v2: a flat arena with [S] offsets and row_lens and a width, got "
+                             f"{tuple(buf.shape)}, {offs.numel()} offsets, {row_lens.numel()} row_lens, width {width}")
+        L, offs_p, rlens_p = int(width), offs.data_ptr(), row_lens.data_ptr()
+    spans = _ints(spans, dev, "spans")
+    if spans.numel() != 24 * S:
+        raise ValueError(f"decode_v2: spans has {spans.numel()} words for {S} lanes of 12 spans")
+    if spans.data_ptr() % 16:
+        spans = spans.clone()  # the program reads a lane's spans as six 16-byte words
+    side, n_side = None, -1
+    if sidecar is not None:
+        side = _ints(sidecar, dev, "sidecar")
+        n_side = side.numel() // S if S else 0
+    tabs = []
+    for name, t in (("ct", client_table), ("cht", client_hash_table), ("kt", key_table)):
+        if t is None:
+            tabs += [0, 0, -1]
+            continue
+        keys, perm = _ints(t[0], dev, f"{name} keys"), _ints(t[1], dev, f"{name} perm")
+        if perm.numel() < keys.numel():
+            raise ValueError(f"decode_v2: the {name} table has {keys.numel()} keys and {perm.numel()} perm entries")
+        tabs += [keys.data_ptr(), perm.data_ptr(), keys.numel()]
+    prim = None if primary_root_hash is None else _ints(primary_root_hash, dev, "primary_root_hash")
+    if prim is not None and prim.numel() not in (1, S):
+        raise ValueError(f"decode_v2: primary_root_hash has {prim.numel()} entries for {S} lanes")
+
+    # one allocation: the int32 row planes, delete planes and flags, then
+    # the valid bytes of rows and ranges; the scratch only on its path
+    n32 = (_NR * U + _ND * R + 1) * S
+    o_dels, o_flags = _NR * S * U, (_NR * U + _ND * R) * S
+    out = torch.empty(4 * n32 + -(-S * (U + R) // 4) * 4, dtype=torch.uint8, device=dev)
+    words, bools = out.view(I32), out.view(torch.bool)
+    n_scratch = int(lib.ytpu_decode_v2_scratch_words(U, R, SEC))
+    scratch = torch.empty(n_scratch * -(-S // 32) * 32, dtype=I32, device=dev) if n_scratch else None
     base = out.data_ptr()
-    o_dels, o_flags = _NR * S * U, _NR * S * U + _ND * S * R
     err = lib.ytpu_decode_v2(_PACK(
-        buf.data_ptr(), lens.data_ptr(), spans.data_ptr(), 0 if side is None else side.data_ptr(), n_side,
-        S, L, U, R, SEC, base, base + 8 * n64, base + 8 * o_dels, base + 8 * n64 + S * U, base + 8 * o_flags,
-        scratch.data_ptr(), stream or 0))
+        buf.data_ptr(), buf.numel(), offs_p, rlens_p, lens.data_ptr(), spans.data_ptr(),
+        0 if side is None else side.data_ptr(), n_side, S, L, U, R, SEC, *tabs,
+        0 if prim is None else prim.data_ptr(), 0 if prim is None else prim.numel(),
+        base, base + 4 * o_dels, base + 4 * o_flags, base + 4 * n32, base + 4 * n32 + S * U,
+        0 if scratch is None else scratch.data_ptr(), stream or 0))
     _build.check(lib, err, "decode_v2 kernel")
-    planes = words.as_strided((_NR, S, U), (S * U, U, 1), 0).unbind(0)
-    rows = dict(zip(ROW_COLUMNS, planes), valid=bools.as_strided((S, U), (U, 1), 8 * n64))
-    dplanes = words.as_strided((_ND, S, R), (S * R, R, 1), o_dels).unbind(0)
-    dels = dict(zip(DEL_COLUMNS, dplanes), valid=bools.as_strided((S, R), (R, 1), 8 * n64 + S * U))
-    return rows, dels, words.as_strided((S,), (1,), o_flags)
+    stream_out = UpdateBatch(*words.as_strided((_NR, S, U), (S * U, U, 1), 0).unbind(0),
+                             bools.as_strided((S, U), (U, 1), 4 * n32),
+                             *words.as_strided((_ND, S, R), (S * R, R, 1), o_dels).unbind(0),
+                             bools.as_strided((S, R), (R, 1), 4 * n32 + S * U))
+    return stream_out, words.as_strided((S,), (1,), o_flags), ("global" if n_scratch else "shared")
 
 
-def _decode_v2_kernel(buf, lens, spans, U: int, R: int, SEC: int, sidecar=None):
-    """The V2 decode program on CUDA tensors, on the current stream: the
-    pre-resolve ``(rows, dels, flags)``. Not counted in
+def _decode_v2_kernel(buf, lens, spans, U: int, R: int, SEC: int, sidecar=None, offs=None, row_lens=None,
+                      width=None, **tables):
+    """The V2 decode program on CUDA tensors, on the current stream:
+    `_launch_decode_v2`'s ``(stream, flags, path)``. Not counted in
     ``decode_updates_v2.launches``."""
     dev = buf.device
     if dev.type != "cuda":
         raise ValueError(f"the decode_v2 kernel runs on cuda tensors, not {dev}")
-    if buf.dtype != torch.uint8 or buf.dim() != 2 or not buf.is_contiguous():
-        raise ValueError(f"the decode_v2 kernel takes a contiguous [S, L] uint8 matrix, got {buf.dtype} "
-                         f"{tuple(buf.shape)}")
+    if buf.dtype != torch.uint8 or not buf.is_contiguous():
+        raise ValueError(f"the decode_v2 kernel takes contiguous uint8 bytes, got {buf.dtype}")
     stream = torch.cuda.current_stream(dev).cuda_stream
-    return _launch_decode_v2(_decode_v2_lib(), buf, lens, spans, int(U), int(R), int(SEC), sidecar, stream)
+    return _launch_decode_v2(_decode_v2_lib(), buf, lens, spans, int(U), int(R), int(SEC), sidecar, offs, row_lens,
+                             width, stream=stream, **tables)
+
+
+def _decode(buf, lens, spans, max_rows, max_dels, max_sections, sidecar, tables: dict, arena=None):
+    """`decode_updates_v2` (``arena`` None) and `decode_updates_v2_raw`
+    (``arena`` = (offsets, row_lens, width)): one launch on CUDA tensors,
+    the plain composition on CPU tensors."""
+    U, R = int(max_rows), int(max_dels)
+    SEC = int(max_sections) if max_sections is not None else 4
+    if SEC < 1:
+        raise ValueError(f"decode_updates_v2 needs max_sections >= 1, got {SEC}")
+    dev = buf.device
+    with torch.profiler.record_function("ytpu_torch.decode.v2"):
+        if dev.type == "cuda":
+            offs, row_lens, width = arena if arena is not None else (None, None, None)
+            stream, flags, path = _decode_v2_kernel(buf, lens, spans, U, R, SEC, sidecar, offs, row_lens, width,
+                                                    **tables)
+            decode_updates_v2.launches += 1
+            decode_updates_v2.paths[path] += 1
+            return stream, flags
+        if dev.type != "cpu":
+            raise ValueError(f"decode_updates_v2 runs on cuda or cpu tensors, not {dev}")
+        if arena is not None:
+            offs, row_lens, width = arena
+            buf = gather_raw_lanes(buf, torch.as_tensor(offs), torch.as_tensor(row_lens), width)
+        rows, dels, flags = _decode_v2_reference(buf, torch.as_tensor(lens), spans, U, R, SEC, sidecar)
+        return _resolve_and_pack(dict(rows), dict(dels), flags, **tables)
 
 
 def decode_updates_v2(
@@ -1168,37 +1230,30 @@ def decode_updates_v2(
     offsets ``s * L + byte`` into ``buf``, read by `RawPayloadView`
     (``v2_any=True`` for Any values, which are count-less here).
 
-    On CUDA tensors the pre-resolve columns come from one launch of the
-    hand-written program of ``csrc/decode_v2.cu`` (counted in
-    ``decode_updates_v2.launches``); on CPU tensors from the plain version
-    `_decode_v2_reference`. Both end in `_resolve_and_pack`. Any other
+    On CUDA tensors the whole call is one launch of the hand-written
+    program of ``csrc/decode_v2.cu``, tables included (counted in
+    ``decode_updates_v2.launches``, and by where it kept its column
+    expansions in ``decode_updates_v2.paths``); on CPU tensors the plain
+    composition `_decode_v2_reference` -> `_resolve_and_pack`. Any other
     device raises, and so does a kernel that fails to build or launch.
     The work runs inside the profiler span ``ytpu_torch.decode.v2``."""
-    U, R = int(max_rows), int(max_dels)
-    SEC = int(max_sections) if max_sections is not None else 4
-    if SEC < 1:
-        raise ValueError(f"decode_updates_v2 needs max_sections >= 1, got {SEC}")
-    dev = buf.device
-    with torch.profiler.record_function("ytpu_torch.decode.v2"):
-        if dev.type == "cpu":
-            rows, dels, flags = _decode_v2_reference(buf, lens, spans, U, R, SEC, sidecar)
-        elif dev.type == "cuda":
-            rows, dels, flags = _decode_v2_kernel(buf, lens, spans, U, R, SEC, sidecar)
-            decode_updates_v2.launches += 1
-        else:
-            raise ValueError(f"decode_updates_v2 runs on cuda or cpu tensors, not {dev}")
-        return _resolve_and_pack(dict(rows), dict(dels), flags, client_table, key_table, client_hash_table,
-                                 primary_root_hash)
+    tables = dict(client_table=client_table, key_table=key_table, client_hash_table=client_hash_table,
+                  primary_root_hash=primary_root_hash)
+    return _decode(buf, lens, spans, max_rows, max_dels, max_sections, sidecar, tables)
 
 
 decode_updates_v2.launches = 0
+decode_updates_v2.paths = {"shared": 0, "global": 0}
 
 
-def decode_updates_v2_raw(wire, offsets, row_lens, lens, spans, width: int, **kw):
-    """`decode_updates_v2` over the raw arena of `pack_updates_v2_raw`:
-    the ``[S, width]`` lane matrix gathered on `wire`'s device, zeroed at
-    each lane's staged extent (so cold sidecars survive), then the normal
-    decode. Keyword arguments pass through (sizes, tables, sidecar)."""
-    dev = wire.device
-    buf = gather_raw_lanes(wire, torch.as_tensor(offsets, device=dev), torch.as_tensor(row_lens, device=dev), width)
-    return decode_updates_v2(buf, torch.as_tensor(lens, device=dev), spans, **kw)
+def decode_updates_v2_raw(wire, offsets, row_lens, lens, spans, width: int, max_rows: int, max_dels: int,
+                          max_sections: Optional[int] = None, sidecar=None, **tables):
+    """`decode_updates_v2` over the raw arena of `pack_updates_v2_raw`.
+    On CUDA tensors the program reads the arena in place: byte j of lane s
+    is the byte `gather_raw_lanes` would put in the ``[S, width]`` lane
+    matrix (zero at or past each lane's staged extent ``row_lens``, so cold
+    sidecars survive). On CPU tensors the matrix is gathered first, then
+    decoded as `decode_updates_v2` decodes it. The tables pass through as
+    keywords."""
+    return _decode(wire, lens, spans, max_rows, max_dels, max_sections, sidecar, tables,
+                   arena=(offsets, row_lens, int(width)))
