@@ -73,6 +73,16 @@ logs and the CPU finisher; a fresh server caught up from the fan-out
 (then a second one, its flush under `torch.profiler`); rebalances; 8 flush
 steps, 8 replies and the rest's flush under `torch.profiler`; the
 per-doc kernel against its plain version on one round's captured inputs),
+``sync_server_mirrored`` (the same plan through one `DeviceSyncServer` in
+its default, mirrored mode: a host `Doc` per tenant answers the protocol
+and its update observer queues each transaction's update to the tenant's
+slot; every host doc against its committed value and the B4 stream
+replays, the device against every host doc (state vector, rendered value,
+the fan-out applied to a fresh `Doc`), greetings and SyncStep1 replies
+from the host docs, the readers' outboxes against what the host docs
+sent, 8 tenants released to their host docs while late tenants take the
+freed slots, 8 rebalances in place, a checkpoint round trip; the per-doc
+and decode kernels against their plain versions on round 5's inputs),
 ``pipeline_checkpoint`` (`UpdatePipeline` on both lanes over the first
 8,192 B4 updates at 1,024 docs x 8,192 slots, its texts equal to
 `FusedReplay`'s; the ingest phase's ingestor saved, loaded and run 64
@@ -114,7 +124,7 @@ script's seconds against its 1,200 s limit. Launch counts are set to 0
 just before each program runs and read just after it: the decode
 kernel's on the B4 replay (one a chunk), each run of `replay_lanes` and
 `pipeline_checkpoint`, the stream replay's one decode call, the ingest
-and sync-server calls and rungs 8-10, and the V2 decode kernel's on the
+and both sync-server phases' calls and rungs 8-10, and the V2 decode kernel's on the
 V2 stream's one decode call. Any failure exits
 non-zero without the last line. The traced B4 replay, ingest and sync
 server phases check that each `decode_updates_v1` call is one device
@@ -2155,7 +2165,8 @@ def phase_sync_server(gpu, log, dev="cuda"):
     from ytpu_torch.ops.decode_kernel import decode_updates_v1
     from ytpu_torch.sync import DeviceSyncServer
     from ytpu_torch.sync.protocol import Message, SyncMessage
-    from ytpu_torch.sync.server import DeviceBatchFull, TenantAnchor
+    from ytpu_torch.core.doc import Doc
+    from ytpu_torch.sync.server import DeviceBatchFull
 
     dev = torch.device(dev)
     plan = bench.FULL
@@ -2165,7 +2176,7 @@ def phase_sync_server(gpu, log, dev="cuda"):
 
     def new_server():
         return DeviceSyncServer(n_docs=plan.n_docs, capacity=plan.capacity, device_authoritative=True,
-                                device=dev, doc_factory=lambda name: TenantAnchor(client_id=ids[name]))
+                                device=dev, doc_factory=lambda name: Doc(client_id=ids[name]))
 
     server = new_server()
     ing = server.ingestor
@@ -2196,10 +2207,12 @@ def phase_sync_server(gpu, log, dev="cuda"):
             window["rest"] = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
                                                                 torch.profiler.ProfilerActivity.CUDA])
             window["rest"].__enter__()
+        gc_writes.flushing = True
         t0 = time.perf_counter()
         n = server.flush_device()
         torch.cuda.synchronize()
         ms = (time.perf_counter() - t0) * 1e3
+        gc_writes.flushing = False
         if step == plan.rounds:
             window["rest"].__exit__(None, None, None)
             window["rest_ms"] = ms
@@ -2277,9 +2290,10 @@ def phase_sync_server(gpu, log, dev="cuda"):
 
     torch.cuda.synchronize()
     _reset_counts([ik.integrate_batch, ik.integrate_stream, decode_updates_v1])
-    t_all = window["round_t0"] = time.perf_counter()
-    run = bench.drive_writes(server, plan, tenants, flush=flush, after_round=after_round)
-    write_s = time.perf_counter() - t_all
+    with _GcPauses() as gc_writes:
+        t_all = window["round_t0"] = time.perf_counter()
+        run = bench.drive_writes(server, plan, tenants, flush=flush, after_round=after_round)
+        write_s = time.perf_counter() - t_all
     _progress(t_all, f"writes: {plan.rounds} rounds, the rest flush {window['rest_ms']:.0f} ms")
     t0 = time.perf_counter()
     bench.drive_reads(server, run, tenants, reply=reply)
@@ -2423,6 +2437,7 @@ def phase_sync_server(gpu, log, dev="cuda"):
         "ms_per_flush_step": statistics.fmean(step_ms), "ms_per_flush_step_median": statistics.median(step_ms),
         "ms_per_flush_step_min": min(step_ms), "ms_per_flush_step_max": max(step_ms),
         "ms_rest_flush_step": window["rest_ms"], "ms_per_flush_step_traced": statistics.fmean(traced_ms),
+        "gc_during_writes": gc_writes.summary(),
         "traced_steps": f"{SYNC_TRACED_FROM}..{SYNC_TRACED_FROM + SYNC_TRACED_STEPS}",
         "ms_per_reply": statistics.fmean(reply_ms), "ms_per_reply_median": statistics.median(reply_ms),
         "ms_per_reply_min": min(reply_ms), "ms_per_reply_max": max(reply_ms),
@@ -2459,10 +2474,447 @@ def phase_sync_server(gpu, log, dev="cuda"):
     return line, decode_args, server
 
 
+# mirrored sync server: the round whose per-doc kernel inputs are held
+# against the plain version; the tenants of each cohort (by their position
+# in it) released to the host, and the ones rebalanced in place at the end
+# (the batch is full again once late tenants take the released slots)
+MIRRORED_SNAPSHOT_STEP = 5
+MIRRORED_RELEASED_AT = (1, 2)
+MIRRORED_REBALANCED_AT = (3, 0)
+
+
+def _cohort_picks(plan, positions):
+    """Tenant indices: the given positions within each cohort of `plan`."""
+    out, first = [], 0
+    for n in plan.cohort_docs:
+        out += [first + p for p in positions]
+        first += n
+    return out
+
+
+def phase_sync_server_mirrored(gpu, log):
+    """One `DeviceSyncServer` in its default, mirrored mode at 1,024 tenants
+    x 8,192 slots on the card, on the sync-server phase's `FULL` plan: each
+    tenant's host `Doc` (the port's host CRDT) answers the protocol, and
+    an update observer queues each host transaction's update to the
+    tenant's slot, so every flush step is one `apply_bytes` call (the
+    decode kernel, then the per-doc integrate kernel). Counts are reset
+    just before the write rounds and read after the rebalances. Checks:
+    the greetings carry the host docs' state vectors; each reader drained
+    exactly the updates its tenant's host doc sent to the device, and
+    their merge rebuilds the host doc; every host doc holds its committed
+    log's value (B4: the stream replay's text of its prefix); the device
+    shadows every host doc (state vector, rendered value, and the fan-out
+    reply applied to a fresh doc); every SyncStep1 reply is the host
+    doc's state and rebuilds it; the MIRRORED_RELEASED_AT tenants of each
+    cohort leave their
+    slots for late tenants, keep serving from their host docs and queue
+    nothing; the MIRRORED_REBALANCED_AT tenants keep their device state; a
+    checkpoint round trip keeps every host doc's value, state vector and
+    greeting, its bytes those of a fresh doc given the saved state; the
+    per-doc kernel equals its plain version on round
+    MIRRORED_SNAPSHOT_STEP's inputs, the decode kernel on its fast lanes.
+    Progress goes to stderr."""
+    import shutil
+    import statistics
+    import tempfile
+    import types
+
+    import torch
+
+    from ytpu_torch.benches import ingest as ingest_bench
+    from ytpu_torch.benches import sync_server as bench
+    from ytpu_torch.core.doc import Doc
+    from ytpu_torch.core.state_vector import StateVector
+    from ytpu_torch.core.update import merge_updates_v1
+    from ytpu_torch.models import ingest as ingest_mod
+    from ytpu_torch.models.checkpoint import load_device_server, save_device_server
+    from ytpu_torch.ops import integrate_kernel as ik
+    from ytpu_torch.ops.decode_kernel import decode_updates_v1
+    from ytpu_torch.sync import DeviceSyncServer
+    from ytpu_torch.sync.protocol import Message, SyncMessage
+
+    dev = torch.device("cuda")
+    plan = bench.FULL
+    released, rebalanced = _cohort_picks(plan, MIRRORED_RELEASED_AT), _cohort_picks(plan, MIRRORED_REBALANCED_AT)
+    logs = ingest_bench.load_ingest_logs()
+    tenants = bench.make_tenants(plan, log, logs)
+    ids = {t.name: bench.tenant_client_id(t.index) for t in tenants}
+    late = [f"late-{k}" for k in range(len(released))]
+    ids.update({name: 200_000 + k for k, name in enumerate(late)})
+
+    def factory(name):
+        return Doc(client_id=ids[name])
+
+    server = DeviceSyncServer(n_docs=plan.n_docs, capacity=plan.capacity, device=dev, doc_factory=factory)
+    if server.device_authoritative:
+        raise RuntimeError("sync_server_mirrored: the default DeviceSyncServer is not mirrored")
+    ing = server.ingestor
+
+    # what each host doc's update observer queued to the device, in order
+    mirrored = {t.name: [] for t in tenants}
+    for t in tenants:
+        server.tenant(t.name)
+        server.doc(t.name).observe_update_v1(lambda p, o, txn, _n=t.name: mirrored[_n].append(p))
+    # the host side of every frame: `receive_frames` (the host apply, the
+    # broadcast and the mirror's enqueue)
+    host_s = {"rounds": 0.0, "rest": 0.0}
+    real_receive = server.receive_frames
+    stage = {"part": "rounds"}
+
+    def receive(session, frame):
+        t0 = time.perf_counter()
+        out = real_receive(session, frame)
+        host_s[stage["part"]] += time.perf_counter() - t0
+        return out
+
+    server.receive_frames = receive
+    # one decode launch per `apply_bytes` call with fast docs, one per-doc
+    # integrate launch per call
+    calls = []
+    real_apply_bytes = ing.apply_bytes
+
+    def apply_bytes(payloads):
+        before = ing.fast_docs
+        out = real_apply_bytes(payloads)
+        calls.append(ing.fast_docs - before)
+        return out
+
+    ing.apply_bytes = apply_bytes
+    captured, decode_captured = {}, {}
+    real_apply, real_decode = ingest_mod.apply_update_batch, ingest_mod.decode_updates_v1
+    capture_decode = _capture_decode(ingest_mod, decode_captured)
+
+    def capture(state, batch, rank):
+        cols, meta = ik.pack_state(state)
+        rows, dels = ik.pack_stream(batch)
+        captured.update(cols=cols, meta=meta, rows=rows, dels=dels, rank=rank.clone())
+        return real_apply(state, batch, rank)
+
+    step_ms, lanes, window = [], [], {}
+
+    def flush(step):
+        before = (ing.fast_docs, ing.slow_docs, ing.fast_recoveries)
+        ingest_mod.apply_update_batch = capture if step == MIRRORED_SNAPSHOT_STEP else real_apply
+        ingest_mod.decode_updates_v1 = capture_decode if step == MIRRORED_SNAPSHOT_STEP else real_decode
+        gc_writes.flushing = True
+        t0 = time.perf_counter()
+        n = server.flush_device()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        gc_writes.flushing = False
+        ingest_mod.apply_update_batch, ingest_mod.decode_updates_v1 = real_apply, real_decode
+        if step == plan.rounds:
+            window["rest_ms"] = ms
+        else:
+            step_ms.append(ms)
+            stage["part"] = "rest" if step == plan.rounds - 1 else "rounds"
+        lanes.append(tuple(a - b for a, b in zip((ing.fast_docs, ing.slow_docs, ing.fast_recoveries), before)))
+        if step % 8 == 7:
+            _progress(t_all, f"mirrored round {step}: {statistics.fmean(step_ms[-8:]):.1f} ms a flush step")
+        return n
+
+    # the B4 tenants' texts by stream replays of their prefixes, before the
+    # counts are reset (the replays launch the decode and stream kernels)
+    want_b4 = _b4_prefix_texts(log[: plan.b4_len], [len(t.log) for t in tenants if t.cohort == "b4"],
+                               plan.capacity, dev, "sync_server_mirrored")
+    torch.cuda.synchronize()
+    _reset_counts([ik.integrate_batch, ik.integrate_stream, decode_updates_v1])
+    with _GcPauses() as gc_writes:
+        t_all = time.perf_counter()
+        run = bench.drive_writes(server, plan, tenants, flush=flush)
+        write_s = time.perf_counter() - t_all
+    server.receive_frames = real_receive
+    _progress(t_all, f"mirrored writes: {plan.rounds} rounds, the rest's flush {window['rest_ms']:.0f} ms")
+
+    # the write side: greetings, the readers' broadcasts, the host docs
+    empty_step1 = Message.sync(SyncMessage.step1(StateVector())).encode_v1()
+    committed = {name: logs[name]["expect"] for name in bench.COHORT_NAMES[1:]}
+    host_values = {}
+    for t in tenants:
+        if any(g[0] != empty_step1 or len(g) != 2 for g in run.greetings[t.name]):
+            raise RuntimeError(f"sync_server_mirrored: {t.name}'s greeting is not its empty host doc's")
+        if run.drained[t.name] != mirrored[t.name] or run.writer_outbox[t.name]:
+            raise RuntimeError(f"sync_server_mirrored: {t.name}'s reader did not drain what the host doc sent")
+        doc = server.doc(t.name)
+        value = host_values[t.name] = bench.host_value(doc, t)
+        want = want_b4[len(t.log)] if t.cohort == "b4" else committed[t.cohort]
+        if value != want:
+            raise RuntimeError(f"sync_server_mirrored: {t.name}'s host doc does not hold its committed value")
+    if run.write_replies or server.metrics["net.bad_frames"]:
+        raise RuntimeError(f"sync_server_mirrored: {len(run.write_replies)} write replies, "
+                           f"{server.metrics['net.bad_frames']} bad frames")
+    for name in bench.COHORT_NAMES:  # each cohort's first and last reader: the drained merge rebuilds the doc
+        ts = [t for t in tenants if t.cohort == name]
+        for t in (ts[0], ts[-1]):
+            d = Doc(client_id=1)
+            d.apply_update_v1(merge_updates_v1(run.drained[t.name]))
+            if bench.host_value(d, t) != host_values[t.name] or d.state_vector() != server.doc(t.name).state_vector():
+                raise RuntimeError(f"sync_server_mirrored: {t.name}'s drained updates do not rebuild its host doc")
+    _progress(t_all, "mirrored write-side checks")
+
+    # the device shadows the host docs: state vectors, rendered values (from
+    # a CPU copy of the device state) and the fan-out
+    err = int(ing.state.error.max())
+    cpu = types.SimpleNamespace(ingestor=types.SimpleNamespace(
+        state=_cpu_state(ing.state), payloads=ing.payloads, enc=ing.enc, primary_roots=ing.primary_roots),
+        slot_of=server.slot_of)
+    t0 = time.perf_counter()
+    bad = [t.name for t in tenants if server.device_state_vector(t.name) != server.doc(t.name).state_vector()
+           or bench.tenant_value(cpu, t) != host_values[t.name]]
+    render_s = time.perf_counter() - t0
+    del cpu
+    if err or bad:
+        raise RuntimeError(f"sync_server_mirrored: error {err}; the device differs from the host doc of {bad[:8]}")
+    t0 = time.perf_counter()
+    fanout = server.device_encode_diff_many([(t.name, StateVector()) for t in tenants])
+    torch.cuda.synchronize()
+    fanout_s = time.perf_counter() - t0
+    bad = []
+    for t in tenants:
+        d = Doc(client_id=2)
+        d.apply_update_v1(fanout[t.index])
+        if bench.host_value(d, t) != host_values[t.name] or d.state_vector() != server.doc(t.name).state_vector():
+            bad.append(t.name)
+    if bad:
+        raise RuntimeError(f"sync_server_mirrored: the fan-out of {bad[:8]} does not rebuild the host doc")
+    _progress(t_all, "mirrored device-shadow checks")
+
+    # the reads: a SyncStep1 with the empty state vector from every reader,
+    # answered from the host doc
+    reply_ms, bad = [], []
+    for t in tenants:
+        t0 = time.perf_counter()
+        frames = server.receive_frames(run.sessions[t.name][1], bench._step1_frame({}))
+        reply_ms.append((time.perf_counter() - t0) * 1e3)
+        payload = bench.step2_payload(frames)
+        d = Doc(client_id=3)
+        d.apply_update_v1(payload)
+        if payload != server.doc(t.name).encode_state_as_update_v1() or bench.host_value(d, t) != host_values[t.name]:
+            bad.append(t.name)
+    greet_bad = []
+    for t in tenants:  # a second greeting carries the host doc's state vector now
+        session, frames = server.connect_frames(t.name)
+        if frames[0] != Message.sync(SyncMessage.step1(server.doc(t.name).state_vector())).encode_v1():
+            greet_bad.append(t.name)
+        server.disconnect(session)
+    if bad or greet_bad:
+        raise RuntimeError(f"sync_server_mirrored: replies of {bad[:8]}, greetings of {greet_bad[:8]} "
+                           "differ from their host docs")
+    _progress(t_all, "mirrored reads")
+
+    # releases: the slot goes to a late tenant; the released tenant serves
+    # SyncStep1 and writes from its host doc and queues nothing
+    release_ms = []
+    freed = []
+    for k, i in enumerate(released):
+        t = tenants[i]
+        slot = server.slot_of(t.name)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        server.release_tenant(t.name)
+        torch.cuda.synchronize()
+        release_ms.append((time.perf_counter() - t0) * 1e3)
+        freed.append(slot)
+        doc = server.doc(t.name)
+        if (t.name in server._slot_of or t.name not in server._host_tenants or slot not in server._free_slots
+                or bench.host_value(doc, t) != host_values[t.name]):
+            raise RuntimeError(f"sync_server_mirrored: releasing {t.name} kept its slot or changed its doc")
+        writer, reader = run.sessions[t.name]
+        reply = bench.step2_payload(server.receive_frames(reader, bench._step1_frame({})))
+        if reply != doc.encode_state_as_update_v1():
+            raise RuntimeError(f"sync_server_mirrored: released {t.name}'s SyncStep1 reply is not its host doc's")
+        c = Doc(client_id=300_000 + k)
+        c.apply_update_v1(reply)
+        root = next(iter(c.store.types))
+        with c.transact() as txn:
+            if t.cohort == "array":
+                c.get_array(root).insert(txn, 0, "after release")
+            elif t.cohort == "map_xml":
+                c.get_map("m").insert(txn, "released", k)
+            else:
+                c.get_text(root).insert(txn, 0, "after release ")
+        server.receive_frames(writer, bench._update_frame(c.encode_state_as_update_v1(doc.state_vector())))
+        if (server.pending_device_updates() or len(server.drain(reader)) != 1
+                or bench.host_value(doc, t) != bench.host_value(c, t)):
+            raise RuntimeError(f"sync_server_mirrored: a write to released {t.name} did not stay on its host doc")
+    late_sessions = {}
+    for k, name in enumerate(late):  # late tenants take the freed slots and write to the device
+        late_sessions[name] = server.connect_frames(name)[0]
+        c = Doc(client_id=ids[name])
+        with c.transact() as txn:
+            c.get_text("text").insert(txn, 0, f"late tenant {k}")
+        server.receive_frames(late_sessions[name], bench._update_frame(c.encode_state_as_update_v1()))
+    late_steps = server.flush_device()
+    if sorted(server.slot_of(n) for n in late) != sorted(freed) or late_steps != 1 or any(
+            server.device_state_vector(n) != server.doc(n).state_vector()
+            or server.device_text(n) != f"late tenant {k}" for k, n in enumerate(late)):
+        raise RuntimeError("sync_server_mirrored: the late tenants did not take the released slots")
+    _progress(t_all, "mirrored releases")
+
+    # rebalances in place (the batch is full again): state vectors and the
+    # values rendered from CPU copies of the device state before and after
+    def device_values():
+        view = types.SimpleNamespace(ingestor=types.SimpleNamespace(
+            state=_cpu_state(ing.state), payloads=ing.payloads, enc=ing.enc, primary_roots=ing.primary_roots),
+            slot_of=server.slot_of)
+        return {i: (server.device_state_vector(tenants[i].name), bench.tenant_value(view, tenants[i]))
+                for i in rebalanced}
+
+    before = device_values()
+    rebalance_ms = []
+    for i in rebalanced:
+        t = tenants[i]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        slot = server.rebalance_tenant(t.name, server.slot_of(t.name))
+        torch.cuda.synchronize()
+        rebalance_ms.append((time.perf_counter() - t0) * 1e3)
+        if slot != t.index:
+            raise RuntimeError(f"sync_server_mirrored: rebalancing {t.name} in place moved it to slot {slot}")
+    after = device_values()
+    bad = [tenants[i].name for i in rebalanced if after[i] != before[i]
+           or after[i] != (server.doc(tenants[i].name).state_vector(), host_values[tenants[i].name])]
+    if bad:
+        raise RuntimeError(f"sync_server_mirrored: rebalancing {bad} changed their device state")
+    launches = {"batch": ik.integrate_batch.launches, "stream": ik.integrate_stream.launches}
+    decode_launches = decode_updates_v1.launches
+    want_decodes = sum(1 for f in calls if f)
+    if launches != {"batch": len(calls), "stream": 0} or decode_launches != want_decodes \
+            or sum(run.flush_steps) + late_steps + len(rebalanced) != len(calls):
+        raise RuntimeError(f"sync_server_mirrored: {len(calls)} apply_bytes calls ({want_decodes} with fast docs), "
+                           f"flush steps {run.flush_steps}, launches {launches}, {decode_launches} decode launches")
+    _progress(t_all, "mirrored rebalances")
+
+    # a checkpoint round trip of the mirrored server
+    tmp = tempfile.mkdtemp(prefix="ytpu_torch_mirrored_")
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        save_device_server(os.path.join(tmp, "server"), server)
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        restored = load_device_server(os.path.join(tmp, "server"), device=dev, doc_factory=factory)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        ckpt_bytes = _dir_bytes(os.path.join(tmp, "server"))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    names = [t.name for t in tenants] + late
+
+    def restored_wrong(n):
+        # a doc rebuilt from its state update squashes its blocks in one
+        # transaction, so it encodes as a fresh doc given the saved state
+        # does (ytpu's too), not as the incrementally built original
+        fresh = Doc(client_id=4)
+        fresh.apply_update_v1(server.doc(n).encode_state_as_update_v1())
+        got = restored.doc(n)
+        return (got.encode_state_as_update_v1() != fresh.encode_state_as_update_v1()
+                or got.to_json() != server.doc(n).to_json() or got.state_vector() != server.doc(n).state_vector()
+                or restored.connect_frames(n)[1][0] != Message.sync(SyncMessage.step1(
+                    server.doc(n).state_vector())).encode_v1())
+
+    bad = [n for n in names if restored_wrong(n)]
+    if bad or restored.device_authoritative or restored._slot_of != server._slot_of \
+            or restored._host_tenants != server._host_tenants:
+        raise RuntimeError(f"sync_server_mirrored: the restored server differs for {bad[:8]}")
+    del restored
+    torch.cuda.empty_cache()
+    _progress(t_all, "mirrored checkpoint")
+
+    # the per-doc kernel and the decode kernel against their plain versions
+    # on the snapshot round's captured inputs
+    c = captured
+    snap_lanes = lanes[MIRRORED_SNAPSHOT_STEP]
+    if not c or not snap_lanes[0]:
+        raise RuntimeError(f"sync_server_mirrored: round {MIRRORED_SNAPSHOT_STEP} had lanes {snap_lanes}")
+    cols_p, meta_p = c["cols"].clone(), c["meta"].clone()
+    k_ms = _time_ms(lambda: ik.integrate_batch(c["cols"], c["meta"], c["rows"], c["dels"], c["rank"]))
+    p_ms = _time_ms(lambda: ik.integrate_batch_reference(cols_p, meta_p, c["rows"], c["dels"], c["rank"]))
+    snap_err = _compare("integrate_batch on the sync_server_mirrored snapshot round", c["cols"], c["meta"],
+                        cols_p, meta_p)
+    del cols_p, meta_p, captured
+    if not decode_captured:
+        raise RuntimeError(f"sync_server_mirrored: round {MIRRORED_SNAPSHOT_STEP} made no fast-lane decode call")
+    decode_vs_plain, decode_args = _decode_vs_plain("sync_server_mirrored round", **decode_captured)
+    decode_vs_plain["step"] = MIRRORED_SNAPSHOT_STEP
+    del decode_captured
+
+    n_updates = sum(len(t.log) for t in tenants)
+    rest_lanes = lanes[plan.rounds]
+    line = {
+        "phase": "sync_server_mirrored", "tenants": plan.n_docs, "capacity": plan.capacity, "rounds": plan.rounds,
+        "cohorts": dict(zip(bench.COHORT_NAMES, plan.cohort_docs)), "launches": launches,
+        "decode_launches": decode_launches, "apply_bytes_calls": len(calls), "flush_steps": sum(run.flush_steps),
+        "write_s": write_s,
+        "ms_per_flush_step": statistics.fmean(step_ms), "ms_per_flush_step_median": statistics.median(step_ms),
+        "ms_per_flush_step_min": min(step_ms), "ms_per_flush_step_max": max(step_ms),
+        "rest_flush_s": window["rest_ms"] / 1e3, "rest_lanes": rest_lanes, "gc_during_writes": gc_writes.summary(),
+        "host_receive_s": host_s, "updates_sent": n_updates,
+        "host_apply_us_per_update": (host_s["rounds"] + host_s["rest"]) / n_updates * 1e6,
+        "host_updates_mirrored": sum(len(v) for v in mirrored.values()),
+        "mirrored_bytes": sum(len(p) for v in mirrored.values() for p in v),
+        "ms_per_reply": statistics.fmean(reply_ms), "ms_per_reply_median": statistics.median(reply_ms),
+        "ms_per_release": statistics.fmean(release_ms), "ms_per_rebalance": statistics.fmean(rebalance_ms),
+        "fanout_s": fanout_s, "device_render_s": render_s,
+        "fast_docs_per_step": sum(f for f, _, _ in lanes[: plan.rounds]) / plan.rounds,
+        "slow_docs_per_step": sum(s_ for _, s_, _ in lanes[: plan.rounds]) / plan.rounds,
+        "recovery_docs": sum(r for _, _, r in lanes),
+        "released": [tenants[i].name for i in released], "rebalanced": [tenants[i].name for i in rebalanced],
+        "checkpoint": {"save_s": save_s, "load_s": load_s, "bytes_on_disk": ckpt_bytes, "tenants": len(names)},
+        "host_values_equal_committed": True, "device_equals_host": True, "fanout_rebuilds_host": True,
+        "replies_equal_host": True, "sticky_error": err,
+        "snapshot_step": MIRRORED_SNAPSHOT_STEP, "snapshot_lanes": snap_lanes, "snapshot_kernel_ms": k_ms,
+        "snapshot_plain_ms": p_ms, "max_abs_err": snap_err, "decode_vs_plain": decode_vs_plain, "gpu": gpu,
+    }
+    emit(line)
+    del ing, server
+    return line, decode_args
+
+
 def _diag_cases():
     from ytpu_torch.benches import mosaic_ladder, plane_rmw_repro, plane_rmw_repro2, plane_rmw_repro3
 
     return mosaic_ladder.CASES + plane_rmw_repro.CASES + plane_rmw_repro2.CASES + plane_rmw_repro3.CASES
+
+
+class _GcPauses:
+    """Python's garbage-collector runs and pause ms by generation while
+    open (`gc.callbacks`), in all and inside the windows where `flushing`
+    is set: host time that no profiler span names, which a full
+    collection over the script's heap puts into single flush steps."""
+
+    def __enter__(self):
+        import gc
+
+        self.objects = len(gc.get_objects())
+        self.flushing, self._t = False, None
+        self.runs, self.ms, self.runs_in_flush, self.ms_in_flush = [0] * 3, [0.0] * 3, [0] * 3, [0.0] * 3
+        self.max_ms = 0.0
+        gc.callbacks.append(self._on_gc)
+        return self
+
+    def _on_gc(self, phase, info):
+        if phase == "start":
+            self._t = time.perf_counter()
+        elif self._t is not None:
+            ms, g = (time.perf_counter() - self._t) * 1e3, info["generation"]
+            self._t = None
+            self.runs[g] += 1
+            self.ms[g] += ms
+            self.max_ms = max(self.max_ms, ms)
+            if self.flushing:
+                self.runs_in_flush[g] += 1
+                self.ms_in_flush[g] += ms
+
+    def __exit__(self, *exc):
+        import gc
+
+        gc.callbacks.remove(self._on_gc)
+
+    def summary(self):
+        return {"objects_tracked_at_start": self.objects, "runs": self.runs, "pause_ms": self.ms,
+                "max_pause_ms": self.max_ms, "runs_in_flush": self.runs_in_flush, "pause_ms_in_flush": self.ms_in_flush}
 
 
 def _reset_counts(wrappers):
@@ -3601,6 +4053,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     sync_server, decode_inputs["sync_server_round"], server = phase_sync_server(gpu, log)
     torch.cuda.empty_cache()
+    mirrored, decode_inputs["sync_server_mirrored_round"] = phase_sync_server_mirrored(gpu, log)
+    torch.cuda.empty_cache()
     pipe_ckpt = phase_pipeline_checkpoint(gpu, log, ing, server)
     del ing, server
     torch.cuda.empty_cache()
@@ -3615,6 +4069,7 @@ def main() -> int:
     diag_launches.update(phase_plane_rmw(gpu))
     diag = phase_diag_kernels(gpu, diag_launches)
     decode_sets["sync_server_round"] = sync_server["decode_vs_plain"]
+    decode_sets["sync_server_mirrored_round"] = mirrored["decode_vs_plain"]
     decode_ms = _decode_graph_ms(decode_inputs)
     del decode_inputs
     for name, t in decode_ms.items():
@@ -3624,7 +4079,8 @@ def main() -> int:
                       "replay_lanes": lanes["launches"]["decode_v1"],
                       "pipeline_checkpoint": pipe_ckpt["launches"]["replay"]["decode_v1"],
                       "ingest": ingest["decode_launches"],
-                      "sync_server": sync_server["decode_launches"], "stream_replay_full_width": stream_decodes,
+                      "sync_server": sync_server["decode_launches"],
+                      "sync_server_mirrored": mirrored["decode_launches"], "stream_replay_full_width": stream_decodes,
                       "mosaic_ladder": ladder_decodes}
     chunk = decode_sets["b4_chunk"]
     v2_chunk = v2["sets"]["b4_chunk"]
@@ -3644,7 +4100,8 @@ def main() -> int:
                              "stream_replay_full_width": stream_launches, "mosaic_ladder": ladder_integrate},
         "launches_by_entry": {"stream": launches,
                               "batch": sync["write"]["launches"]["batch"] + ingest["launches"]["batch"]
-                              + sync_server["launches"]["batch"] + pipe_ckpt["launches"]["checkpoint_integrate_batch"]},
+                              + sync_server["launches"]["batch"] + mirrored["launches"]["batch"]
+                              + pipe_ckpt["launches"]["checkpoint_integrate_batch"]},
         "plain_vs_kernel_case": {
             "shape": f"one B4 chunk, 2 docs, C={CAPACITY}, S={CHUNK}",
             "kernel_ms": full_kernel_ms, "plain_ms": full_plain_ms,
@@ -3659,14 +4116,16 @@ def main() -> int:
         "name": "integrate_batch", "route": "cuda", "source": "ytpu_torch/csrc/integrate.cu",
         "replaces": INTEGRATE_REPLACES,
         "launches": sync["write"]["launches"]["batch"] + ingest["launches"]["batch"]
-        + sync_server["launches"]["batch"] + pipe_ckpt["launches"]["checkpoint_integrate_batch"],
+        + sync_server["launches"]["batch"] + mirrored["launches"]["batch"]
+        + pipe_ckpt["launches"]["checkpoint_integrate_batch"],
         "launches_by_path": {"sync_step": sync["write"]["launches"]["batch"],
                              "ingest": ingest["launches"]["batch"],
                              "sync_server": sync_server["launches"]["batch"],
+                             "sync_server_mirrored": mirrored["launches"]["batch"],
                              "pipeline_checkpoint": pipe_ckpt["launches"]["checkpoint_integrate_batch"]},
         "max_abs_err": max(sync["kernel_vs_plain"]["max_abs_err"],
                            sync["write"]["max_abs_err_full_width_step"], ingest["max_abs_err"],
-                           sync_server["max_abs_err"]),
+                           sync_server["max_abs_err"], mirrored["max_abs_err"]),
         "ms": sync["write"]["kernel_ms"], "plain_ms": sync["write"]["plain_ms_full_width_step"],
         "bound_ms": sync["write"]["bound_ms"], "bound_by": "bytes", "library_ms": None,
         "entry": "ytpu_integrate_batch (integrate_batch_kernel), the port of apply_update_batch's "
@@ -3689,6 +4148,8 @@ def main() -> int:
             "snapshot_step", "snapshot_lanes", "snapshot_kernel_ms", "snapshot_plain_ms", "max_abs_err")},
         "sync_server_kernel_ms": {"index": sync_server["index_kernel_ms"],
                                   "integrate": sync_server["integrate_kernel_ms"]},
+        "plain_vs_kernel_sync_server_mirrored_round": {k: mirrored[k] for k in (
+            "snapshot_step", "snapshot_lanes", "snapshot_kernel_ms", "snapshot_plain_ms", "max_abs_err")},
         "gpu": gpu,
     }, {
         "name": "decode_v1", "route": "cuda", "source": "ytpu_torch/csrc/decode.cu",

@@ -172,6 +172,8 @@ def _content_kinds():
 
     from ytpu_torch.core.block import Item
     from ytpu_torch.core.content import ContentDoc, ContentJSON
+    from ytpu_torch.core.doc import Doc as TDoc
+    from ytpu_torch.core.doc import Options
     from ytpu_torch.core.id_set import DeleteSet
     from ytpu_torch.core.ids import ID
     from ytpu_torch.core.update import Update as TUpdate
@@ -208,9 +210,10 @@ def _content_kinds():
         frag.insert(txn, 0, XmlElementPrelim("div", attributes={"id": "a1"}))
     out += tl + [t.encode_state_as_update_v1()]
     v2 = [_v2(p) for p in out]
-    json_item = Item(ID(99, 0), None, None, "j", None, ContentJSON(["1", '{"a": 2}']))
+    json_item = Item(ID(99, 0), None, None, None, None, "j", None, ContentJSON(["1", '{"a": 2}']))
     v2.append(TUpdate({99: deque([json_item])}, DeleteSet()).encode_v2())
-    doc_item = Item(ID(98, 0), None, None, "d", None, ContentDoc("guid-1", {"gc": True}))
+    sub = TDoc(options=Options(client_id=0, guid="guid-1", should_load=False))
+    doc_item = Item(ID(98, 0), None, None, None, None, "d", None, ContentDoc(sub))
     v2.append(TUpdate({98: deque([doc_item])}, DeleteSet()).encode_v2())
     return v2
 

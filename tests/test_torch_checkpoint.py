@@ -236,5 +236,10 @@ def test_device_server_round_trip(tmp_path):
     side["extra"]["device_authoritative"] = False
     with open(os.path.join(tmp_path, "pod", "host.pkl"), "wb") as f:
         pickle.dump(side, f)
-    with pytest.raises(NotImplementedError, match="host CRDT"):
-        tck.load_device_server(str(tmp_path / "pod"), device="cpu")
+    # a file that says mirrored loads as a mirrored server: the device state
+    # is restored, and the host docs (none saved here) answer the greeting
+    mirrored = tck.load_device_server(str(tmp_path / "pod"), device="cpu")
+    assert not mirrored.device_authoritative
+    assert mirrored.device_state_vector("pad").clocks == {7: 9}
+    assert mirrored.doc("pad").state_vector().clocks == {}
+    assert mirrored.connect_frames("pad")[1][0] == Message.sync(SyncMessage.step1(StateVector({}))).encode_v1()

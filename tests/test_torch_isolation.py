@@ -39,7 +39,16 @@ def test_import_leaves_jax_and_ytpu_unloaded():
         "import ytpu_torch.sync.server, ytpu_torch.sync.device_server, ytpu_torch.native\n"
         "import ytpu_torch.utils, ytpu_torch.utils.faults, ytpu_torch.utils.metrics\n"
         "import ytpu_torch.models.pipeline, ytpu_torch.models.checkpoint, ytpu_torch.ops.decode_v2\n"
+        "import ytpu_torch.core.block_store, ytpu_torch.core.store, ytpu_torch.core.transaction\n"
+        "import ytpu_torch.core.doc, ytpu_torch.types, ytpu_torch.types.shared, ytpu_torch.types.text\n"
+        "import ytpu_torch.types.array, ytpu_torch.types.map, ytpu_torch.types.xml, ytpu_torch.types.weak\n"
+        "import ytpu_torch.types.events\n"
+        "from ytpu_torch.core import Doc\n"
         "from ytpu_torch.sync import DeviceSyncServer\n"
+        "d = Doc(client_id=1)\n"
+        "with d.transact() as txn:\n"
+        "    d.get_text('t').insert(txn, 0, 'x')\n"
+        "DeviceSyncServer(n_docs=1, capacity=8, device='cpu').doc('a').apply_update_v1(d.encode_state_as_update_v1())\n"
         "print(json.dumps(sorted(m for m in sys.modules\n"
         "    if m == 'jax' or m.startswith('jax.') or m == 'ytpu' or m.startswith('ytpu.'))))\n"
     )
@@ -78,6 +87,19 @@ def test_source_imports_no_jax_or_ytpu(path):
                                  "ytpu_torch/sync/device_server.py", "ytpu_torch/benches/sync_server.py"])
 def test_sync_slice_is_scanned(rel):
     """The sync slice's modules exist and are among the scanned sources."""
+    assert os.path.join(ROOT, rel) in port_sources()
+
+
+HOST_CRDT = ["ytpu_torch/core/" + m + ".py" for m in (
+    "ids", "id_set", "state_vector", "content", "branch", "block", "moving", "block_store", "store",
+    "transaction", "update", "doc")] + ["ytpu_torch/types/" + m + ".py" for m in (
+    "__init__", "shared", "text", "array", "map", "xml", "weak", "events")]
+
+
+@pytest.mark.parametrize("rel", HOST_CRDT)
+def test_host_crdt_slice_is_scanned(rel):
+    """The host CRDT's modules exist and are among the scanned sources (their
+    imports inside functions too: `ast.walk` reaches every node)."""
     assert os.path.join(ROOT, rel) in port_sources()
 
 

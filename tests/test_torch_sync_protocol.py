@@ -213,10 +213,9 @@ def test_merge_with_partial_overlap_splits_a_detached_copy():
         b = U({5: [mk(I, Id(5, 3), Id(5, 2), None, None, None, S("lo🙂 world"))]})
         return a, b
 
-    t_items = pair(Item, ContentString, ID, Update,
-                   lambda I, i, o, r, p, s, c: I(i, o, r, p, s, c))
-    y_items = pair(YItem, YString, YID, YUpdate,
-                   lambda I, i, o, r, p, s, c: I(i, None, o, None, r, p, s, c))
+    mk = lambda I, i, o, r, p, s, c: I(i, None, o, None, r, p, s, c)  # noqa: E731
+    t_items = pair(Item, ContentString, ID, Update, mk)
+    y_items = pair(YItem, YString, YID, YUpdate, mk)
     before = [u.encode_v1() for u in t_items]
     got = Update.merge(list(t_items)).encode_v1()
     assert got == YUpdate.merge(list(y_items)).encode_v1()

@@ -7,7 +7,8 @@ bench module) and fed to both servers. Greetings, replies, drained
 outboxes, state vectors, texts, trees, formatted diffs, capacity
 ledgers, rebalances and fan-out payloads must be equal; then the port's
 own rules: a malformed frame kills only its session, and the unported
-modes raise."""
+options raise. (The mirrored mode is held to ytpu's in
+``tests/test_torch_sync_mirrored.py``.)"""
 
 import gzip
 import os
@@ -21,10 +22,11 @@ from ytpu.sync.device_server import DeviceSyncServer as YServer
 from ytpu.sync.protocol import Protocol as YProtocol
 from ytpu_torch.benches import ingest as ingest_bench
 from ytpu_torch.benches import sync_server as bench
+from ytpu_torch.core.doc import Doc as TDoc
 from ytpu_torch.core.state_vector import StateVector
 from ytpu_torch.sync.device_server import DeviceSyncServer as TServer
 from ytpu_torch.sync.protocol import Message, SyncMessage, message_reader
-from ytpu_torch.sync.server import DeviceBatchFull, TenantAnchor
+from ytpu_torch.sync.server import DeviceBatchFull
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -41,7 +43,7 @@ class Pair:
         self.y = YServer(n_docs=n_docs, capacity=capacity, device_authoritative=True,
                          doc_factory=lambda name: Doc(client_id=client_id(name)))
         self.t = TServer(n_docs=n_docs, capacity=capacity, device_authoritative=True, device="cpu",
-                         doc_factory=lambda name: TenantAnchor(client_id=client_id(name)))
+                         doc_factory=lambda name: TDoc(client_id=client_id(name)))
 
     def connect(self, tenant):
         sy, gy = self.y.connect_frames(tenant)
@@ -145,10 +147,10 @@ def test_device_authoritative_serving_converges_without_host_doc():
     assert pair.flush() == 2
     pair.check("pad")
     assert pair.t.device_text("pad") == "hello from alice"
-    # the tenant's anchor never sees content (it has none to see)
-    assert isinstance(pair.t.doc("pad"), TenantAnchor)
-    with pytest.raises(NotImplementedError):
-        pair.t.doc("pad").state_vector()
+    # the tenant's host doc is an anchor that never sees content
+    assert isinstance(pair.t.doc("pad"), TDoc)
+    assert pair.t.doc("pad").state_vector() == StateVector()
+    assert pair.t.doc("pad").encode_state_as_update_v1() == pair.y.doc("pad").encode_state_as_update_v1()
 
     bob = Doc(client_id=2)
     s_b, greeting_b = pair.connect("pad")
@@ -351,18 +353,19 @@ def test_malformed_frame_kills_only_its_session():
 def test_port_only_rules_raise():
     import torch
 
-    for kwargs in ({}, {"device_authoritative": False}, {"device_authoritative": True, "telemetry_port": 0},
+    for kwargs in ({"telemetry_port": 0}, {"shard_docs": True}, {"device_authoritative": True, "telemetry_port": 0},
                    {"device_authoritative": True, "shard_docs": True}):
         with pytest.raises(NotImplementedError):
             TServer(n_docs=2, capacity=64, device="cpu", **kwargs)
     with pytest.raises(ValueError):
         TServer(device_authoritative=True, device="cpu")
+    # the default mode is the mirrored one
+    assert TServer(n_docs=2, capacity=64, device="cpu").device_authoritative is False
     server = TServer(n_docs=2, capacity=64, device_authoritative=True, device="cpu")
     session, _ = server.connect_frames("pad")
-    with pytest.raises(NotImplementedError):
-        server.release_tenant("pad")
-    with pytest.raises(NotImplementedError):
-        server._demote_to_host("pad")
+    server.release_tenant("pad")  # a content-less tenant: its host doc stays empty
+    assert "pad" in server._host_tenants and server._free_slots == [0]
+    assert server.doc("pad").state_vector() == StateVector()
     server.admission = object()
     with pytest.raises(NotImplementedError):
         server._receive_frames_unsafe(session, _update(b"\x00\x00"))
@@ -373,16 +376,29 @@ def test_port_only_rules_raise():
 
 
 def test_tenant_anchor_draws_its_id_from_the_given_rng():
+    """A tenant's default doc is a host `Doc` whose client id comes from the
+    `random` generator, as ytpu's does; a no-op update fires no observer."""
     import random
 
-    a = TenantAnchor(rng=random.Random(5))
-    assert a.client_id == random.Random(5).getrandbits(32)
+    from ytpu.core import Doc as YDoc
+    from ytpu_torch.sync.server import SyncServer
+
+    saved = random.getstate()
+    try:
+        random.seed(5)
+        a = SyncServer().doc("pad")
+        random.seed(5)
+        y = YDoc()
+    finally:
+        random.setstate(saved)
+    assert isinstance(a, TDoc)
+    assert a.client_id == random.Random(5).getrandbits(32) == y.client_id
     fired = []
     a.observe_update_v1(lambda *args: fired.append(args))
-    for call in (a.state_vector, a.encode_state_as_update_v1, lambda: a.apply_update_v1(b"\x00\x00")):
-        with pytest.raises(NotImplementedError):
-            call()
+    a.apply_update_v1(b"\x00\x00")
     assert fired == []
+    assert a.state_vector() == StateVector()
+    assert a.encode_state_as_update_v1() == y.encode_state_as_update_v1() == b"\x00\x00"
 
 
 # --- the whole slice: the chip phase's cohorts at 16 tenants x 512 slots ------
@@ -424,6 +440,31 @@ def test_whole_slice_small_plan_matches_ytpu():
     for t in tenants:
         if t.index % 2 == 0:
             assert bench.step2_payload(run_t.step1_replies[t.name]) == many_t[t.index]
+
+    # tenants whose root names were never noted (as a server restored from a
+    # checkpoint that holds none): the port names each root as the ingestor
+    # adopted it, so its replies stay the same; ytpu names every root by the
+    # batch's default
+    noted = {s: dict(s._root_names) for s in (pair.y, pair.t)}
+    for s in noted:
+        s._root_names.clear()
+    unnoted_y = pair.y.device_encode_diff_many([(t.name, YSV()) for t in tenants])
+    unnoted_t = pair.t.device_encode_diff_many([(t.name, StateVector()) for t in tenants])
+    for s, names in noted.items():
+        s._root_names.update(names)
+    assert unnoted_t == many_t
+    default, renamed = pair.t.ingestor.enc.root_name, 0
+    for t in tenants:
+        root = noted[pair.t][t.name]
+        if root == default:
+            assert unnoted_y[t.index] == many_y[t.index]
+            continue
+        renamed += 1
+        theirs, ours = TDoc(client_id=1), TDoc(client_id=2)
+        theirs.apply_update_v1(unnoted_y[t.index])
+        ours.apply_update_v1(unnoted_t[t.index])
+        assert theirs.to_json()[default] == ours.to_json()[root] and root not in theirs.to_json()
+    assert renamed
 
     # a fresh port replica catches up from the fan-out (its bytes equal
     # ytpu's, above) and holds what both original servers hold

@@ -1,6 +1,7 @@
-"""Inputs and run functions of the sync-server phase of ``chip_smoke.py`` (and of
-its small CPU twin in ``tests/test_torch_sync_server.py``): one
-device-authoritative `DeviceSyncServer` whose tenants are the four cohorts
+"""Inputs and run functions of the sync-server phases of ``chip_smoke.py`` (and of
+their small CPU twins in ``tests/test_torch_sync_server.py`` and
+``tests/test_torch_sync_mirrored.py``): one `DeviceSyncServer`, device
+authoritative or mirrored, whose tenants are the four cohorts
 of ``benches/ingest.py`` (B4 text with per-tenant lags, some tenants
 with swapped update pairs; BASELINE config 4's map + XML; config 3's
 256-client array; a 53-bit client's text).
@@ -39,6 +40,7 @@ __all__ = [
     "Tenant",
     "catch_up",
     "drive_reads",
+    "host_value",
     "drive_writes",
     "make_tenants",
     "tenant_client_id",
@@ -101,7 +103,7 @@ class Tenant:
 
 
 def tenant_client_id(index: int) -> int:
-    """The client id of tenant `index`'s awareness anchor (both packages'
+    """The client id of tenant `index`'s host doc (both packages'
     `doc_factory` give it this id)."""
     return 100_000 + index
 
@@ -276,3 +278,13 @@ def tenant_value(server, tenant: Tenant):
     if tenant.cohort == "array":
         return bd.get_values(ing.state, slot, ing.payloads)
     return bd.get_string(ing.state, slot, ing.payloads)
+
+
+def host_value(doc, tenant: Tenant):
+    """A tenant's host `Doc` in the committed logs' form (`tenant_value`'s):
+    text for the B4 and big-client cohorts, the array's values, and config
+    4's map "m" and XML string "x"."""
+    js = doc.to_json()
+    if tenant.cohort == "map_xml":
+        return {"m": js.get("m", {}), "x": js.get("x", "")}
+    return next(iter(js.values()), [] if tenant.cohort == "array" else "")

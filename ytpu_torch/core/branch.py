@@ -1,17 +1,25 @@
-"""The TypeRef of a shared type, as a `ContentType` carries it on the wire
-(copy of `ytpu.core.branch`'s tags, `LinkSource` and
-`Branch.decode_type_ref` / `encode_type_ref`; parity target: yrs
-types/mod.rs:36-199). The host branch tree (sequence and map components,
-observers) is the host CRDT's and is not ported: on the device a
+"""Branch, the shared-type node of the host CRDT (copy of
+`ytpu.core.branch`; parity target: yrs branch.rs:173-215 and `TypeRef`,
+types/mod.rs:36-199).
+
+Every shared type (Text, Array, Map, XmlElement, ...) is a view of a
+`Branch`: a sequence component (the `start` linked chain) and a map
+component (per-key chains in `map`), tagged with a `type_ref`. A
+`ContentType` carries one on the wire as its TypeRef; on the device a
 ContentType row owns its child sequence through its `head` column.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, List, Optional, TYPE_CHECKING
 
-from ytpu_torch.core.ids import ID
-from ytpu_torch.core.moving import ASSOC_AFTER, ASSOC_BEFORE, StickyIndex
+from ytpu_torch.encoding.lib0 import Cursor, Writer
+
+from .ids import ID
+from .moving import ASSOC_AFTER, ASSOC_BEFORE, StickyIndex
+
+if TYPE_CHECKING:
+    from .block import Item
 
 __all__ = [
     "TYPE_ARRAY",
@@ -28,7 +36,7 @@ __all__ = [
     "LinkSource",
 ]
 
-# wire tags (types/mod.rs:36-64)
+# Wire tags; parity: types/mod.rs:36-64.
 TYPE_ARRAY = 0
 TYPE_MAP = 1
 TYPE_TEXT = 2
@@ -42,23 +50,34 @@ TYPE_UNDEFINED = 15
 
 
 class LinkSource:
-    """Quoted range backing a WeakRef (yrs types/weak.rs:487)."""
+    """Quoted range backing a WeakRef (reference: types/weak.rs:487)."""
 
-    __slots__ = ("quote_start", "quote_end")
+    __slots__ = ("quote_start", "quote_end", "first_item")
 
     def __init__(self, quote_start: StickyIndex, quote_end: StickyIndex):
         self.quote_start = quote_start
         self.quote_end = quote_end
+        self.first_item = None
 
     def is_single(self) -> bool:
         return self.quote_start.id == self.quote_end.id
 
 
 class Branch:
-    """A shared type's TypeRef: the tag, an XmlElement / XmlHook name, a
-    WeakRef's link source."""
-
-    __slots__ = ("type_ref", "type_name", "link_source")
+    __slots__ = (
+        "item",
+        "name",
+        "type_ref",
+        "type_name",
+        "link_source",
+        "start",
+        "map",
+        "block_len",
+        "content_len",
+        "observers",
+        "deep_observers",
+        "store",
+    )
 
     def __init__(
         self,
@@ -66,12 +85,26 @@ class Branch:
         type_name: Optional[str] = None,
         link_source: Optional[LinkSource] = None,
     ):
+        self.item: Optional["Item"] = None  # integration anchor (None for roots)
+        self.name: Optional[str] = None  # root-type name
         self.type_ref = type_ref
-        self.type_name = type_name
+        self.type_name = type_name  # XmlElement tag / XmlHook key
         self.link_source = link_source
+        self.start: Optional["Item"] = None
+        self.map: Dict[str, "Item"] = {}
+        self.block_len = 0  # total clock length of alive sequence items
+        self.content_len = 0  # user-visible length
+        self.observers: List = []
+        self.deep_observers: List = []
+        self.store = None  # back-ref set when registered
+
+    def is_deleted(self) -> bool:
+        return self.item is not None and self.item.deleted
+
+    # --- wire ---
 
     def encode_type_ref(self, enc) -> None:
-        """types/mod.rs:118-158."""
+        """Parity: types/mod.rs:118-158."""
         enc.write_type_ref(self.type_ref)
         if self.type_ref in (TYPE_XML_ELEMENT, TYPE_XML_HOOK):
             enc.write_key(self.type_name or "")
@@ -108,5 +141,14 @@ class Branch:
             return cls(tag, link_source=src)
         return cls(tag)
 
+    # --- traversal helpers used by the shared types ---
+
+    def first(self) -> Optional["Item"]:
+        item = self.start
+        while item is not None and item.deleted:
+            item = item.right
+        return item
+
     def __repr__(self) -> str:
-        return f"Branch[{self.type_ref}]"
+        tag = self.name or (f"@{self.item.id}" if self.item else "?")
+        return f"Branch[{self.type_ref}]({tag})"

@@ -1,22 +1,51 @@
-"""Item content: the kind numbers the device code reads, and the content
-classes a host-decoded update carries (copy of `ytpu.core.content`;
-parity target: yrs block.rs:1507-1928, wire ref-numbers at :28-61).
+"""Item content variants (copy of `ytpu.core.content`; parity target: yrs
+`ItemContent`, block.rs:1507-1928, wire ref-numbers at :28-61).
 
 Each content kind knows its CRDT length (UTF-16 code units for strings,
-element count for sequences: what advances the Lamport clock), whether
-it is countable, its user-facing values, its v1 wire encoding, and for
-the kinds that can be longer than one unit a copy and a split at a clock
-offset (`splice`), which the doc-less update merge needs. Squashing neighbours is
-the host CRDT's and is not ported. `ContentDoc` keeps the
-sub-document's guid and options as plain values.
+element count for sequences: what advances the Lamport clock), whether it
+is countable (contributes to the visible length of a sequence), how to
+split at an offset, how to merge with a right neighbour, and its wire
+encoding. On the device a row carries ``(content_kind, content_ref,
+len)`` columns and the payloads stay in host-side stores
+(`ytpu_torch.models.batch_doc.PayloadStore`).
 """
 
 from __future__ import annotations
 
 import json
-from typing import Any as PyAny
-from typing import List, Tuple
+from typing import Any as PyAny, List, Optional, Tuple
 
+__all__ = [
+    "BLOCK_GC",
+    "BLOCK_SKIP",
+    "CONTENT_DELETED",
+    "CONTENT_JSON",
+    "CONTENT_BINARY",
+    "CONTENT_STRING",
+    "CONTENT_EMBED",
+    "CONTENT_FORMAT",
+    "CONTENT_TYPE",
+    "CONTENT_ANY",
+    "CONTENT_DOC",
+    "CONTENT_MOVE",
+    "utf16_len",
+    "utf16_index",
+    "split_str_utf16",
+    "Content",
+    "ContentDeleted",
+    "ContentJSON",
+    "ContentBinary",
+    "ContentString",
+    "ContentEmbed",
+    "ContentFormat",
+    "ContentType",
+    "ContentAny",
+    "ContentDoc",
+    "ContentMove",
+    "decode_content",
+]
+
+# Wire ref-numbers (low bits of the item info byte); parity: block.rs:28-61.
 BLOCK_GC = 0
 CONTENT_DELETED = 1
 CONTENT_JSON = 2
@@ -30,20 +59,42 @@ CONTENT_DOC = 9
 BLOCK_SKIP = 10
 CONTENT_MOVE = 11
 # Device-engine sentinel (NOT a wire ref): a synthetic per-doc block row
-# anchoring a non-primary named root branch. Anchor rows have client == -1
-# and length 0 (no wire identity, never ship).
+# anchoring a non-primary named root branch (doc.rs:156-228 multi-root
+# shape). Anchor rows have client == -1 (no wire identity, never ship);
+# blocks parented to one re-emit the root-name wire form at encode time.
 BLOCK_ROOT_ANCHOR = 12
 
 
 def utf16_len(s: str) -> int:
     """Length of `s` in UTF-16 code units (the Yjs clock unit for text)."""
-    return len(s) + sum(1 for ch in s if ord(ch) > 0xFFFF)
+    n = len(s)
+    # Astral characters (> U+FFFF) take two code units.
+    for ch in s:
+        if ord(ch) > 0xFFFF:
+            n += 1
+    return n
+
+
+def utf16_index(s: str, offset: int) -> int:
+    """Convert a UTF-16 code-unit offset into a Python string index."""
+    if offset <= 0:
+        return 0
+    units = 0
+    for i, ch in enumerate(s):
+        if units >= offset:
+            return i
+        units += 2 if ord(ch) > 0xFFFF else 1
+    return len(s)
 
 
 def split_str_utf16(s: str, offset: int) -> Tuple[str, str]:
-    """Split at a UTF-16 code-unit offset. An offset inside a surrogate
-    pair gives each half a U+FFFD for its severed half, so the halves'
-    UTF-16 lengths stay those of the clock split (block.rs:1852-1860)."""
+    """Split at a UTF-16 code-unit offset.
+
+    If the offset lands inside a surrogate pair (astral char), both halves
+    get a U+FFFD replacement for their severed half so the UTF-16 lengths
+    stay consistent with the clock split (the workaround documented at
+    reference block.rs:1852-1860).
+    """
     if offset <= 0:
         return "", s
     units = 0
@@ -52,6 +103,7 @@ def split_str_utf16(s: str, offset: int) -> Tuple[str, str]:
             return s[:i], s[i:]
         width = 2 if ord(ch) > 0xFFFF else 1
         if units + width > offset:
+            # offset splits this astral char
             return s[:i] + "\ufffd", "\ufffd" + s[i + 1 :]
         units += width
     return s, ""
@@ -64,15 +116,22 @@ class Content:
     countable: bool = False
 
     def length(self) -> int:
-        return 1
-
-    def values(self) -> List[PyAny]:
-        """User-facing element values (for countable sequence content)."""
-        return []
+        raise NotImplementedError
 
     def splice(self, offset: int) -> "Content":
         """Split in place at `offset` (clock units); returns the right part."""
         raise NotImplementedError(f"{type(self).__name__} is not splittable")
+
+    def merge(self, other: "Content") -> bool:
+        """Try to append `other` (right neighbor's content). True on success."""
+        return False
+
+    def encode(self, enc) -> None:
+        raise NotImplementedError
+
+    def values(self) -> List[PyAny]:
+        """User-facing element values (for countable sequence content)."""
+        return []
 
     def copy(self) -> "Content":
         raise NotImplementedError
@@ -80,6 +139,7 @@ class Content:
 
 class ContentDeleted(Content):
     kind = CONTENT_DELETED
+    countable = False
     __slots__ = ("len",)
 
     def __init__(self, length: int):
@@ -88,16 +148,25 @@ class ContentDeleted(Content):
     def length(self) -> int:
         return self.len
 
-    def encode(self, enc) -> None:
-        enc.write_len(self.len)
-
     def splice(self, offset: int) -> "ContentDeleted":
         right = ContentDeleted(self.len - offset)
         self.len = offset
         return right
 
+    def merge(self, other: Content) -> bool:
+        if isinstance(other, ContentDeleted):
+            self.len += other.len
+            return True
+        return False
+
+    def encode(self, enc) -> None:
+        enc.write_len(self.len)
+
     def copy(self) -> "ContentDeleted":
         return ContentDeleted(self.len)
+
+    def __repr__(self) -> str:
+        return f"Deleted({self.len})"
 
 
 class ContentJSON(Content):
@@ -118,8 +187,11 @@ class ContentJSON(Content):
         self.raw = self.raw[:offset]
         return right
 
-    def copy(self) -> "ContentJSON":
-        return ContentJSON(list(self.raw))
+    def merge(self, other: Content) -> bool:
+        if isinstance(other, ContentJSON):
+            self.raw.extend(other.raw)
+            return True
+        return False
 
     def encode(self, enc) -> None:
         enc.write_len(len(self.raw))
@@ -135,6 +207,12 @@ class ContentJSON(Content):
                 out.append(None)
         return out
 
+    def copy(self) -> "ContentJSON":
+        return ContentJSON(list(self.raw))
+
+    def __repr__(self) -> str:
+        return f"JSON({self.raw!r})"
+
 
 class ContentBinary(Content):
     kind = CONTENT_BINARY
@@ -144,11 +222,20 @@ class ContentBinary(Content):
     def __init__(self, data: bytes):
         self.data = data
 
+    def length(self) -> int:
+        return 1
+
     def encode(self, enc) -> None:
         enc.write_buf(self.data)
 
     def values(self) -> List[PyAny]:
         return [self.data]
+
+    def copy(self) -> "ContentBinary":
+        return ContentBinary(self.data)
+
+    def __repr__(self) -> str:
+        return f"Binary({len(self.data)}b)"
 
 
 class ContentString(Content):
@@ -169,14 +256,24 @@ class ContentString(Content):
         self._u16len = offset
         return ContentString(right)
 
-    def copy(self) -> "ContentString":
-        return ContentString(self.text)
+    def merge(self, other: Content) -> bool:
+        if isinstance(other, ContentString):
+            self.text += other.text
+            self._u16len += other._u16len
+            return True
+        return False
 
     def encode(self, enc) -> None:
         enc.write_string(self.text)
 
     def values(self) -> List[PyAny]:
         return list(self.text)
+
+    def copy(self) -> "ContentString":
+        return ContentString(self.text)
+
+    def __repr__(self) -> str:
+        return f"Str({self.text!r})"
 
 
 class ContentEmbed(Content):
@@ -187,29 +284,47 @@ class ContentEmbed(Content):
     def __init__(self, value: PyAny):
         self.value = value
 
+    def length(self) -> int:
+        return 1
+
     def encode(self, enc) -> None:
         enc.write_json(self.value)
 
     def values(self) -> List[PyAny]:
         return [self.value]
 
+    def copy(self) -> "ContentEmbed":
+        return ContentEmbed(self.value)
+
+    def __repr__(self) -> str:
+        return f"Embed({self.value!r})"
+
 
 class ContentFormat(Content):
     kind = CONTENT_FORMAT
+    countable = False
     __slots__ = ("key", "value")
 
     def __init__(self, key: str, value: PyAny):
         self.key = key
         self.value = value
 
+    def length(self) -> int:
+        return 1
+
     def encode(self, enc) -> None:
         enc.write_key(self.key)
         enc.write_json(self.value)
 
+    def copy(self) -> "ContentFormat":
+        return ContentFormat(self.key, self.value)
+
+    def __repr__(self) -> str:
+        return f"Format({self.key}={self.value!r})"
+
 
 class ContentType(Content):
-    """An embedded shared type: its `ytpu_torch.core.branch.Branch` (the
-    TypeRef tag, an XML name, a WeakRef's quoted range)."""
+    """An embedded shared type; holds the `Branch` node (`ytpu_torch.core.branch`)."""
 
     kind = CONTENT_TYPE
     countable = True
@@ -218,11 +333,21 @@ class ContentType(Content):
     def __init__(self, branch):
         self.branch = branch
 
+    def length(self) -> int:
+        return 1
+
     def encode(self, enc) -> None:
         self.branch.encode_type_ref(enc)
 
     def values(self) -> List[PyAny]:
         return [self.branch]
+
+    def copy(self) -> "ContentType":
+        # Branch copy only makes sense for carriers that were never integrated.
+        return ContentType(self.branch)
+
+    def __repr__(self) -> str:
+        return f"Type({self.branch.type_ref})"
 
 
 class ContentAny(Content):
@@ -241,8 +366,11 @@ class ContentAny(Content):
         self.items = self.items[:offset]
         return right
 
-    def copy(self) -> "ContentAny":
-        return ContentAny(list(self.items))
+    def merge(self, other: Content) -> bool:
+        if isinstance(other, ContentAny):
+            self.items.extend(other.items)
+            return True
+        return False
 
     def encode(self, enc) -> None:
         enc.write_len(len(self.items))
@@ -252,65 +380,83 @@ class ContentAny(Content):
     def values(self) -> List[PyAny]:
         return list(self.items)
 
+    def copy(self) -> "ContentAny":
+        return ContentAny(list(self.items))
+
+    def __repr__(self) -> str:
+        return f"Any({self.items!r})"
+
 
 class ContentDoc(Content):
-    """A nested sub-document, kept as its wire values: the guid and the
-    options map (doc.rs:814-845)."""
+    """A nested sub-document (reference: block.rs:1518, doc.rs:840-872)."""
 
     kind = CONTENT_DOC
     countable = True
-    __slots__ = ("guid", "options")
+    __slots__ = ("doc",)
 
-    def __init__(self, guid: str, options: PyAny):
-        self.guid = guid
-        self.options = options
+    def __init__(self, doc):
+        self.doc = doc
+
+    def length(self) -> int:
+        return 1
 
     def encode(self, enc) -> None:
-        """The options as the JAX package's `Options` reads and writes them
-        back: the known keys, defaults where absent, ``encoding`` with the
-        BigInt tag."""
-        from ytpu_torch.encoding.lib0 import BigInt
-
-        m = self.options if isinstance(self.options, dict) else {}
-        auto_load = m["autoLoad"] if isinstance(m.get("autoLoad"), bool) else False
-        out = {"gc": m["gc"] if isinstance(m.get("gc"), bool) else True}
-        if isinstance(m.get("collectionId"), str):
-            out["collectionId"] = m["collectionId"]
-        out["encoding"] = BigInt(1 if m.get("encoding") == 1 else 0)
-        out["autoLoad"] = auto_load
-        out["shouldLoad"] = auto_load
-        enc.write_string(self.guid)
-        enc.write_any(out)
+        self.doc.options.encode(enc)
 
     def values(self) -> List[PyAny]:
-        return [self.guid]
+        return [self.doc]
+
+    def copy(self) -> "ContentDoc":
+        return ContentDoc(self.doc)
+
+    def __repr__(self) -> str:
+        return f"Doc({self.doc.guid})"
 
 
 class ContentMove(Content):
-    """A move-range marker (`ytpu_torch.core.moving.Move`)."""
+    """A move-range marker (reference: moving.rs:16)."""
 
     kind = CONTENT_MOVE
+    countable = False
     __slots__ = ("move",)
 
     def __init__(self, move):
         self.move = move
 
+    def length(self) -> int:
+        return 1
+
     def encode(self, enc) -> None:
         self.move.encode(enc)
 
+    def copy(self) -> "ContentMove":
+        return ContentMove(self.move.copy())
 
-def decode_content(dec, info: int) -> Content:
-    """Decode an item's content given its info byte and a v1 decoder
-    (block.rs:1786-1835; the ref is the info byte's low four bits)."""
-    from ytpu_torch.core.branch import Branch
-    from ytpu_torch.core.moving import Move
+    def __repr__(self) -> str:
+        return f"Move({self.move})"
 
+
+def decode_content(dec, info: int, decode_branch=None, decode_doc=None, decode_move=None) -> Content:
+    """Decode an item's content given its info byte and a v1/v2 decoder.
+
+    `decode_branch(dec)` / `decode_doc(dec)` / `decode_move(dec)` are injected
+    to avoid circular imports with the branch/doc/move modules; left out,
+    they are the update decoder's (a `Branch` from its TypeRef, a `Doc`
+    from its options, a `Move`).
+    Parity: block.rs:1786-1835 (note: the reference masks with 0b1111).
+    """
+    if decode_branch is None or decode_doc is None or decode_move is None:
+        from ytpu_torch.core import update as _update
+
+        decode_branch = decode_branch or _update._decode_branch
+        decode_doc = decode_doc or _update._decode_doc
+        decode_move = decode_move or _update.Move.decode
     ref = info & 0b1111
     if ref == CONTENT_DELETED:
         return ContentDeleted(dec.read_len())
     if ref == CONTENT_JSON:
-        # Yjs writes n then n JSON strings (yrs's decoder reads n + 1; the
-        # JAX package follows Yjs)
+        # Note: Yjs writes n then n JSON strings; yrs's decoder (block.rs:1790-1797)
+        # reads n+1 which is asymmetric with its own encoder — we follow Yjs.
         n = dec.read_len()
         return ContentJSON([dec.read_string() for _ in range(n)])
     if ref == CONTENT_BINARY:
@@ -323,13 +469,12 @@ def decode_content(dec, info: int) -> Content:
         key = dec.read_key()
         return ContentFormat(key, dec.read_json())
     if ref == CONTENT_TYPE:
-        return ContentType(Branch.decode_type_ref(dec))
+        return ContentType(decode_branch(dec))
     if ref == CONTENT_ANY:
         n = dec.read_len()
         return ContentAny([dec.read_any() for _ in range(n)])
     if ref == CONTENT_DOC:
-        guid = dec.read_string()
-        return ContentDoc(guid, dec.read_any())
+        return ContentDoc(decode_doc(dec))
     if ref == CONTENT_MOVE:
-        return ContentMove(Move.decode(dec))
+        return ContentMove(decode_move(dec))
     raise ValueError(f"unexpected content ref {ref}")

@@ -1,0 +1,475 @@
+"""DocStore: one document's state and the YATA integration algorithm
+(copy of `ytpu.core.store`). Parity targets:
+- `Store` (yrs store.rs:27-62, encode_diff :194-248)
+- `ItemPtr::integrate`, the YATA conflict resolution (yrs block.rs:482-769),
+  and `Item::repair` (block.rs:1287-1343)
+- `GCCollector` (yrs gc.rs)
+
+The store owns the block lists (`ytpu_torch.core.block_store.BlockStore`),
+the root-type registry, the pending-update stash and the sub-document
+links. It is the host CRDT a mirrored sync server keeps per tenant.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Optional, Set, Tuple
+
+from ytpu_torch.encoding.codec import DecoderV1, DecoderV2, EncoderV1, EncoderV2
+from ytpu_torch.encoding.lib0 import Writer
+
+from .block import GCRange, Item, SkipRange
+from .block_store import BlockStore
+from .branch import Branch, TYPE_UNDEFINED
+from .content import (
+    ContentDeleted,
+    ContentDoc,
+    ContentMove,
+    ContentType,
+)
+from .id_set import DeleteSet
+from .ids import ID, ClientID
+from .state_vector import Snapshot, StateVector
+from .update import PendingUpdate, Update
+
+__all__ = ["DocStore"]
+
+# Optional perf probe (benches/device.py config #3 diagnostic): when set
+# to a list, every YATA conflict scan appends its candidate-walk length.
+# The device engine runs the SAME scan as a while_loop whose iteration
+# count this distribution bounds — the p99 here explains conflict-heavy
+# workloads' device step cost.
+SCAN_WIDTH_PROBE: Optional[list] = None
+
+
+class DocStore:
+    __slots__ = (
+        "doc",
+        "types",
+        "blocks",
+        "pending",
+        "pending_ds",
+        "subdocs",
+        "linked_by",
+        "node_registry",
+    )
+
+    def __init__(self, doc):
+        self.doc = doc
+        self.types: Dict[str, Branch] = {}
+        self.blocks = BlockStore()
+        self.pending: Optional[PendingUpdate] = None
+        self.pending_ds: Optional[DeleteSet] = None
+        self.subdocs: Dict[str, object] = {}
+        self.linked_by: Dict[Item, Set[Branch]] = {}
+        self.node_registry: Set[int] = set()  # ids of live nested branches
+
+    # --- root types ------------------------------------------------------------
+
+    def get_or_create_type(self, name: str, type_ref: int) -> Branch:
+        """Parity: store.rs:114 (+ repair_type_ref upgrade on Undefined)."""
+        branch = self.types.get(name)
+        if branch is None:
+            branch = Branch(type_ref)
+            branch.name = name
+            branch.store = self
+            self.types[name] = branch
+        elif branch.type_ref == TYPE_UNDEFINED and type_ref != TYPE_UNDEFINED:
+            branch.type_ref = type_ref
+        return branch
+
+    def get_local_state(self) -> int:
+        return self.blocks.get_clock(self.doc.client_id)
+
+    def register(self, branch: Branch) -> Branch:
+        branch.store = self
+        self.node_registry.add(id(branch))
+        return branch
+
+    def deregister(self, branch: Branch) -> None:
+        self.node_registry.discard(id(branch))
+
+    # --- repair: resolve wire-level references to live objects -----------------
+
+    def repair(self, item: Item) -> None:
+        """Resolve origin/right-origin IDs to split block pointers and the
+        parent reference to a live Branch. Parity: block.rs:1287-1343."""
+        if item.origin is not None:
+            item.left = self.blocks.get_item_clean_end(item.origin)
+        if item.right_origin is not None:
+            item.right = self.blocks.get_item_clean_start(item.right_origin)
+
+        parent = item.parent
+        if isinstance(parent, Branch):
+            pass
+        elif parent is None:
+            # infer from a resolved neighbor
+            if item.left is not None and item.left.parent is not None:
+                item.parent_sub = item.left.parent_sub
+                item.parent = item.left.parent
+            elif item.right is not None and item.right.parent is not None:
+                item.parent_sub = item.right.parent_sub
+                item.parent = item.right.parent
+        elif isinstance(parent, ID):
+            target = self.blocks.get_item(parent)
+            if target is not None:
+                content = target.content
+                if isinstance(content, ContentType):
+                    item.parent = content.branch
+                elif isinstance(content, ContentDeleted):
+                    item.parent = None
+                else:
+                    raise ValueError(
+                        f"defect: parent {parent} is not a shared type"
+                    )
+            else:
+                item.parent = None
+        elif isinstance(parent, str):
+            item.parent = self.get_or_create_type(parent, TYPE_UNDEFINED)
+
+    # --- YATA integrate --------------------------------------------------------
+
+    def integrate_block(self, txn, block, offset: int) -> bool:
+        """Integrate one carrier. Returns True if the block must be deleted
+        right after integration. Parity: block.rs:482-769."""
+        if isinstance(block, SkipRange):
+            return False
+        if isinstance(block, GCRange):
+            if offset > 0:
+                block.id = ID(block.id.client, block.id.clock + offset)
+                block.len -= offset
+            return False
+        item: Item = block
+        if offset > 0:
+            item.id = ID(item.id.client, item.id.clock + offset)
+            left = self.blocks.get_item_clean_end(ID(item.id.client, item.id.clock - 1))
+            item.left = left
+            item.origin = left.last_id if left is not None else None
+            item.content = item.content.splice(offset)
+            item.len -= offset
+
+        # resolve parent (local inserts arrive with a Branch already)
+        parent = item.parent
+        if isinstance(parent, str):
+            parent = self.get_or_create_type(parent, TYPE_UNDEFINED)
+            item.parent = parent
+        elif isinstance(parent, ID):
+            target = self.blocks.get_item(parent)
+            if target is not None and isinstance(target.content, ContentType):
+                parent = target.content.branch
+                item.parent = parent
+            else:
+                parent = None  # leave item.parent as the dangling ID
+        elif parent is None:
+            return True  # unknown parent: caller turns the block into GC
+
+        if parent is None:
+            return True
+
+        left = item.left
+        right = item.right
+        right_is_null_or_has_left = right is None or right.left is not None
+        left_has_other_right_than_self = left is not None and left.right is not right
+
+        if (left is None and right_is_null_or_has_left) or left_has_other_right_than_self:
+            # --- the YATA conflict scan (block.rs:537-602) ---
+            if left is not None:
+                o = left.right
+            elif item.parent_sub is not None:
+                o = parent.map.get(item.parent_sub)
+                while o is not None and o.left is not None:
+                    o = o.left
+            else:
+                o = parent.start
+
+            conflicting: Set[int] = set()
+            before_origin: Set[int] = set()
+            _scan_steps = 0
+            while o is not None and o is not item.right:
+                _scan_steps += 1
+                before_origin.add(id(o))
+                conflicting.add(id(o))
+                if item.origin == o.origin:
+                    # case 1: same insertion point — client id breaks the tie
+                    if o.id.client < item.id.client:
+                        left = o
+                        conflicting.clear()
+                    elif item.right_origin == o.right_origin:
+                        # equivalent right anchors: `item` sorts before `o`
+                        break
+                else:
+                    o_origin = (
+                        self.blocks.get_item(o.origin) if o.origin is not None else None
+                    )
+                    if o_origin is not None and id(o_origin) in before_origin:
+                        # case 2: `o` anchors inside the scanned region
+                        if id(o_origin) not in conflicting:
+                            left = o
+                            conflicting.clear()
+                    else:
+                        break
+                o = o.right
+            if SCAN_WIDTH_PROBE is not None:
+                SCAN_WIDTH_PROBE.append(_scan_steps)
+            item.left = left
+
+        # inherit parent_sub from neighbors (block.rs:604-612)
+        if item.parent_sub is None and item.left is not None:
+            if item.left.parent_sub is not None:
+                item.parent_sub = item.left.parent_sub
+            elif item.right is not None and item.right.parent_sub is not None:
+                item.parent_sub = item.right.parent_sub
+
+        # reconnect left/right (block.rs:614-659)
+        if item.left is not None:
+            item.right = item.left.right
+            item.left.right = item
+        else:
+            if item.parent_sub is not None:
+                r = parent.map.get(item.parent_sub)
+                while r is not None and r.left is not None:
+                    r = r.left
+            else:
+                r = parent.start
+                parent.start = item
+            item.right = r
+
+        if item.right is not None:
+            item.right.left = item
+        elif item.parent_sub is not None:
+            # became the live value of a map entry; shadow the previous chain
+            parent.map[item.parent_sub] = item
+            if item.left is not None:
+                if item.left.linked:
+                    # inherit links from the entry we're overriding
+                    # (parity: block.rs:642-655)
+                    links = self.linked_by.pop(item.left, None)
+                    item.left.linked = False
+                    if links:
+                        item.linked = True
+                        self.linked_by.setdefault(item, set()).update(links)
+                        for link in links:
+                            if link.link_source is not None:
+                                link.link_source.first_item = item
+                txn.delete(item.left)
+
+        # parent length bookkeeping (block.rs:661-675)
+        if item.parent_sub is None and not item.deleted:
+            if item.countable:
+                parent.block_len += item.len
+                parent.content_len += item.len
+
+        # moved-range inheritance / reconciliation (block.rs:677-702)
+        left_moved = item.left.moved if item.left is not None else None
+        right_moved = item.right.moved if item.right is not None else None
+        if left_moved is not None or right_moved is not None:
+            if left_moved is right_moved:
+                item.moved = left_moved
+            else:
+                for mover in (left_moved, right_moved):
+                    if mover is not None and isinstance(mover.content, ContentMove):
+                        m = mover.content.move
+                        if not m.is_collapsed():
+                            m.integrate_block(txn, mover)
+
+        # content side effects (block.rs:704-741)
+        content = item.content
+        if isinstance(content, ContentDeleted):
+            txn.delete_set.insert(item.id, content.len)
+            item.mark_deleted()
+        elif isinstance(content, ContentDoc):
+            subdoc = content.doc
+            subdoc.parent_doc = txn.doc
+            subdoc.parent_item = item
+            txn.subdocs_added[subdoc.guid] = subdoc
+            if subdoc.options.should_load:
+                txn.subdocs_loaded[subdoc.guid] = subdoc
+        elif isinstance(content, ContentMove):
+            content.move.integrate_block(txn, item)
+        elif isinstance(content, ContentType):
+            if not item.deleted:
+                self.register(content.branch)
+            if content.branch.link_source is not None:
+                from ytpu_torch.types.weak import materialize_link
+
+                materialize_link(self, content.branch)
+
+        txn.add_changed_type(parent, item.parent_sub)
+
+        # notify weak links covering this position (parity: block.rs:743-750)
+        if item.linked:
+            for link in self.linked_by.get(item, ()):  # pragma: no branch
+                txn.add_changed_type(link, item.parent_sub)
+
+        parent_deleted = (
+            isinstance(item.parent, Branch)
+            and item.parent.item is not None
+            and item.parent.item.deleted
+        )
+        return parent_deleted or (item.parent_sub is not None and item.right is not None)
+
+    def follow_redone(self, id_: ID) -> Optional[Item]:
+        """Follow the `redone` chain from `id_` to the live replacement item.
+
+        Parity: store.rs:344.
+        """
+        next_id = id_
+        diff = 0
+        item = None
+        while True:
+            if diff > 0:
+                next_id = ID(next_id.client, next_id.clock + diff)
+            item = self.blocks.get_item(next_id)
+            if item is None:
+                return None
+            diff = next_id.clock - item.id.clock
+            if item.redone is None:
+                break
+            next_id = item.redone
+        if diff > 0:
+            return self.blocks.get_item_clean_start(
+                ID(item.id.client, item.id.clock + diff)
+            )
+        return item
+
+    # --- delete-set view over the whole store ---------------------------------
+
+    def delete_set(self) -> DeleteSet:
+        """DeleteSet of everything tombstoned or GC'd (parity: DeleteSet::from)."""
+        ds = DeleteSet()
+        for client, lst in self.blocks.clients.items():
+            for b in lst:
+                if (b.is_item and b.deleted) or isinstance(b, GCRange):
+                    ds.insert_range(client, b.id.clock, b.id.clock + b.len)
+        ds.squash()
+        return ds
+
+    def snapshot(self) -> Snapshot:
+        return Snapshot(self.blocks.get_state_vector(), self.delete_set())
+
+    # --- diff encoding (parity: store.rs:194-248) ------------------------------
+
+    def write_blocks_from(self, remote_sv: StateVector, enc) -> None:
+        local_sv = self.blocks.get_state_vector()
+        # clients whose local clock is ahead of the remote's view
+        diff: List[Tuple[ClientID, int]] = []
+        for client, local_clock in local_sv.clocks.items():
+            remote_clock = remote_sv.get(client)
+            if local_clock > remote_clock:
+                diff.append((client, remote_clock))
+        # higher client ids first — "heavily improves the conflict algorithm"
+        diff.sort(key=lambda e: -e[0])
+        enc.write_var(len(diff))
+        for client, remote_clock in diff:
+            lst = self.blocks.clients[client]
+            pivot = lst.find_pivot(remote_clock) if remote_clock > 0 else 0
+            if pivot is None:
+                pivot = 0
+            count = len(lst) - pivot
+            first = lst[pivot]
+            offset = max(0, remote_clock - first.id.clock)
+            enc.write_var(count)
+            enc.write_client(client)
+            enc.write_var(first.id.clock + offset)
+            first.encode(enc, offset)
+            for i in range(pivot + 1, len(lst)):
+                lst[i].encode(enc, 0)
+
+    def encode_diff(self, remote_sv: StateVector, enc) -> None:
+        self.write_blocks_from(remote_sv, enc)
+        self.delete_set().encode(enc)
+
+    def encode_diff_v1(self, remote_sv: StateVector) -> bytes:
+        enc = EncoderV1()
+        self.encode_diff(remote_sv, enc)
+        return enc.to_bytes()
+
+    def encode_diff_v2(self, remote_sv: StateVector) -> bytes:
+        enc = EncoderV2()
+        self.encode_diff(remote_sv, enc)
+        return enc.to_bytes()
+
+    def write_blocks_to(self, sv: StateVector, enc) -> None:
+        """Encode all blocks *up to* `sv` (snapshot prefix encode).
+
+        Parity: store.rs:153-184.
+        """
+        local_sv = self.blocks.get_state_vector()
+        diff = [
+            (client, min(clock, local_sv.get(client)))
+            for client, clock in sv.clocks.items()
+            if client in local_sv.clocks
+        ]
+        diff.sort(key=lambda e: -e[0])
+        enc.write_var(len(diff))
+        for client, clock in diff:
+            blocks = self.blocks.clients[client]
+            clock = min(clock, blocks.clock() + 1)
+            last_idx = blocks.find_pivot(clock - 1)
+            if last_idx is None:
+                continue
+            enc.write_var(last_idx + 1)
+            enc.write_client(client)
+            enc.write_var(0)
+            for i in range(last_idx):
+                blocks[i].encode(enc, 0)
+            last = blocks[last_idx]
+            # encode the last block trimmed to end exactly at `clock`
+            end_trim = (last.id.clock + last.len) - clock
+            if end_trim > 0 and last.is_item:
+                head = last.content.copy()
+                head.splice(last.len - end_trim)
+                trimmed = Item(
+                    last.id,
+                    None,
+                    last.origin,
+                    None,
+                    last.right_origin,
+                    last.parent,
+                    last.parent_sub,
+                    head,
+                )
+                trimmed.encode(enc, 0)
+            elif end_trim > 0:
+                enc.write_info(0)  # GC
+                enc.write_len(last.len - end_trim)
+            else:
+                last.encode(enc, 0)
+
+    def encode_state_from_snapshot(self, snapshot: Snapshot) -> bytes:
+        """Historical state encode (time travel). Requires `skip_gc`.
+
+        Parity: store.rs:139-151.
+        """
+        if not self.doc.options.skip_gc:
+            raise RuntimeError(
+                "encode_state_from_snapshot requires a Doc with skip_gc=True"
+            )
+        enc = EncoderV1()
+        self.write_blocks_to(snapshot.state_vector, enc)
+        snapshot.delete_set.encode(enc)
+        return enc.to_bytes()
+
+    def _encode_state_as_update(self, remote_sv: StateVector, v2: bool) -> bytes:
+        """Full diff vs `remote_sv`, folding in any pending stashed data.
+
+        Parity: transaction.rs:73-93 + merge_pending_v1/v2 :247-281.
+        """
+        base = self.encode_diff_v2(remote_sv) if v2 else self.encode_diff_v1(remote_sv)
+        decode = Update.decode_v2 if v2 else Update.decode_v1
+        to_merge: List[Update] = []
+        if self.pending is not None:
+            # round-trip for a deep copy: merge() splits carriers in place
+            to_merge.append(Update.decode_v1(self.pending.update.encode_v1()))
+        if self.pending_ds is not None:
+            to_merge.append(Update(None, DeleteSet(dict(self.pending_ds.clients))))
+        if not to_merge:
+            return base
+        to_merge.insert(0, decode(base))
+        merged = Update.merge(to_merge)
+        return merged.encode_v2() if v2 else merged.encode_v1()
+
+    def encode_state_as_update_v1(self, remote_sv: StateVector) -> bytes:
+        return self._encode_state_as_update(remote_sv, v2=False)
+
+    def encode_state_as_update_v2(self, remote_sv: StateVector) -> bytes:
+        return self._encode_state_as_update(remote_sv, v2=True)

@@ -1738,8 +1738,9 @@ def get_string(state: DocStateBatch, doc: int, payloads) -> str:
 class Diff:
     """One run of a formatted text rendering: a value and the formatting
     attributes in force (copy of the JAX package's ``types.text.Diff``;
-    types/text.rs:1103). ``ychange`` is always None here: snapshots are
-    the host CRDT's."""
+    types/text.rs:1103). ``ychange`` is always None here: a device
+    rendering has no snapshot to diff against (the host `Text.diff_range`
+    of `ytpu_torch.types.text` has)."""
 
     __slots__ = ("insert", "attributes", "ychange")
 

@@ -174,49 +174,51 @@ def load_ingestor_with_extra(path: str, device=None) -> Tuple[BatchIngestor, dic
 
 
 def save_device_server(path: str, server) -> None:
-    """Persist a device-authoritative DeviceSyncServer: the ingestor
-    checkpoint plus the tenant overlay (slot assignments and wire root
-    names). Queued updates integrate first, so an acknowledged update is
-    never lost across a restart."""
+    """Persist a DeviceSyncServer: the ingestor checkpoint plus the tenant
+    overlay (slot assignments, wire root names, host-resident tenants) and
+    the host docs that are authoritative (every tenant's in mirrored mode,
+    the host-resident tenants' in device-authoritative mode), each as its
+    v1 state update. Queued updates integrate first, so an acknowledged
+    update is never lost across a restart."""
     server.flush_device()
+    names = server.tenants if not server.device_authoritative else server._host_tenants
+    host_docs = {name: server.doc(name).encode_state_as_update_v1() for name in names}
     save_ingestor(
         path,
         server.ingestor,
         extra={
             "slot_of": dict(server._slot_of),
             "root_names": dict(server._root_names),
-            # the port serves every tenant from the device
-            "host_tenants": [],
-            "host_docs": {},
+            "host_tenants": sorted(server._host_tenants),
+            "host_docs": host_docs,
             "device_authoritative": server.device_authoritative,
         },
     )
 
 
 def load_device_server(path: str, device=None, **server_kwargs):
-    """Restore a device-authoritative DeviceSyncServer around a
-    checkpointed ingestor. Sessions are transient (clients resync through
-    the greeting); slot assignments and root names are durable. A server
-    saved in mirrored mode, or with host tenants, raises
-    `NotImplementedError` (the host CRDT is not ported, ROADMAP A.2a)."""
+    """Restore a DeviceSyncServer around a checkpointed ingestor, in the
+    mode it was saved in unless `server_kwargs` say otherwise. Sessions are
+    transient (clients resync through the greeting); slot assignments, root
+    names and the saved host docs are durable. The host docs are rebuilt by
+    the server's ``doc_factory`` and the saved state applied to them: pass
+    the factory the server had where client ids matter."""
     from ytpu_torch.sync.device_server import DeviceSyncServer
-    from ytpu_torch.sync.server import _HOST_CRDT
 
     ing, extra = load_ingestor_with_extra(path, device)
-    if not extra.get("device_authoritative", False):
-        raise NotImplementedError(f"a mirrored-mode server checkpoint: {_HOST_CRDT}")
-    if extra.get("host_tenants") or extra.get("host_docs"):
-        raise NotImplementedError(f"a server checkpoint with host tenants: {_HOST_CRDT}")
-    server_kwargs.setdefault("device_authoritative", True)
+    server_kwargs.setdefault("device_authoritative", extra.get("device_authoritative", False))
     server = DeviceSyncServer(ingestor=ing, **server_kwargs)
     server._slot_of = dict(extra.get("slot_of", {}))
     server._root_names = dict(extra.get("root_names", {}))
+    server._host_tenants = set(extra.get("host_tenants", []))
     used = set(server._slot_of.values())
     server._next_slot = max(used, default=-1) + 1
     server._free_slots = sorted(set(range(server._next_slot)) - used)
     # register the tenants, so greetings answer from the restored slots
     for name in server._slot_of:
         server.tenant(name)
+    for name, payload in extra.get("host_docs", {}).items():
+        server.doc(name).apply_update_v1(payload)
     return server
 
 

@@ -1,25 +1,39 @@
 """Device-backed sync server: y-sync tenants fanned into batch doc slots
-(PyTorch port of `ytpu.sync.device_server`, device-authoritative mode).
+(PyTorch port of `ytpu.sync.device_server`).
 
 Clients speak the y-sync protocol to `SyncServer` sessions; each tenant
-owns one doc slot of a `BatchIngestor`. Inbound updates queue per slot and
-ship on `flush_device()`: one `apply_bytes` call integrates one queued
-update per slot (the integrate kernel's per-doc entry on the GPU), the
-ingestor's pending stashes absorbing out-of-order arrival per slot without
-stalling the batch. The device batch IS the document store: a SyncStep1 is
-answered from device state through `encode_diff_batch` and the pipelined
-finisher (`batch_doc.DiffPipeline`; store.rs:204-248 semantics over block
-columns), any pending stash folded in, and the tenant's host doc is an
-awareness and metadata anchor that never sees document content.
+owns one doc slot of a `BatchIngestor`. Updates queue per slot and ship on
+`flush_device()`: one `apply_bytes` call integrates one queued update per
+slot (the decode kernel, then the integrate kernel's per-doc entry on the
+GPU), the ingestor's pending stashes absorbing out-of-order arrival per
+slot without stalling the batch.
 
-The server runs on the GPU unless the caller passes ``device="cpu"``
-(handed to the `BatchIngestor`); a missing GPU raises. Not ported yet,
-each raising `NotImplementedError`: the mirrored mode
-(``device_authoritative=False``) and `_demote_to_host` / `release_tenant`,
-which need the host CRDT (ROADMAP A.2); the live telemetry endpoint
-(``telemetry_port``, ROADMAP A.10); doc-axis sharding (``shard_docs=True``,
-ROADMAP A.12). Each flush step opens the profiler span
-``ytpu_torch.sync.dispatch``.
+Two serving modes:
+
+- mirrored (the default, ``device_authoritative=False``): each tenant's
+  host `Doc` stays the protocol endpoint (greetings and SyncStep1 replies
+  come from `Doc.encode_state_as_update_v1`) and the device batch shadows
+  it. An update observer on the host doc queues every transaction's
+  update, as the host doc re-encodes it, to the tenant's current slot, so
+  every update integrates twice and the device sees only what the host
+  has integrated (an out-of-order update waits in the host doc's pending
+  stash).
+- device-authoritative (``device_authoritative=True``): the device batch
+  IS the document store. A SyncStep1 is answered from device state
+  through `encode_diff_batch` and the pipelined finisher
+  (`batch_doc.DiffPipeline`; store.rs:204-248 semantics over block
+  columns), any pending stash folded in; inbound updates queue straight to
+  the slot, and the tenant's host doc is an awareness and metadata anchor
+  that never sees document content.
+
+In both modes `_demote_to_host` / `release_tenant` move a tenant off its
+slot to the host path (its host doc materialised from device state), and
+`rebalance_tenant` moves it to another slot. The server runs on the GPU
+unless the caller passes ``device="cpu"`` (handed to the `BatchIngestor`);
+a missing GPU raises. Not ported yet, each raising `NotImplementedError`:
+the live telemetry endpoint (``telemetry_port``, ROADMAP A.10) and
+doc-axis sharding (``shard_docs=True``, ROADMAP A.12). Each flush step
+opens the profiler span ``ytpu_torch.sync.dispatch``.
 """
 
 from __future__ import annotations
@@ -43,7 +57,7 @@ from ytpu_torch.models.ingest import BatchIngestor
 from ytpu_torch.native import decode_update_columns
 
 from .protocol import MSG_SYNC, MSG_SYNC_STEP_1, Message, SyncMessage, message_reader
-from .server import _HOST_CRDT, DeviceBatchFull, Session, SyncServer
+from .server import DeviceBatchFull, Session, SyncServer
 
 __all__ = ["DeviceBatchFull", "DeviceSyncServer"]
 
@@ -72,8 +86,6 @@ class DeviceSyncServer(SyncServer):
         device=None,
         **kwargs,
     ):
-        if not device_authoritative:
-            raise NotImplementedError(f"device_authoritative=False: {_HOST_CRDT}")
         if telemetry_port is not None:
             raise NotImplementedError("telemetry_port: the telemetry plane is not ported yet (ROADMAP A.10)")
         if shard_docs:
@@ -85,7 +97,7 @@ class DeviceSyncServer(SyncServer):
             ingestor = BatchIngestor(n_docs, capacity, device=device)
         # the ingestor is the single source of truth for the slot count
         self.ingestor = ingestor
-        self.device_authoritative = True
+        self.device_authoritative = device_authoritative
         # encode.fallback_docs: replies the Python finisher wrote (docs the
         # native finisher left, or tables it cannot read)
         self.metrics.update({"sync.diffs_encoded": {}, "sync.multi_root_tenants": 0, "sync.rebalances": 0,
@@ -99,7 +111,11 @@ class DeviceSyncServer(SyncServer):
         # per-tenant wire root name (the first named root of its updates:
         # root branches are keyed by name on the wire, doc.rs)
         self._root_names: Dict[str, str] = {}
-        # slot allocation: next fresh slot + slots freed by rebalances
+        # tenants moved off their slot to the host path (`_demote_to_host`):
+        # served by `SyncServer` from their host doc from then on
+        self._host_tenants: set = set()
+        # slot allocation: next fresh slot + slots freed by demotions and
+        # rebalances
         self._next_slot = 0
         self._free_slots: List[int] = []
         self._queues: List[List[bytes]] = [[] for _ in range(ingestor.n_docs)]
@@ -152,15 +168,34 @@ class DeviceSyncServer(SyncServer):
         return slot
 
     def tenant(self, name: str):
-        if name not in self.tenants:
+        first_touch = name not in self.tenants
+        if first_touch and name not in self._host_tenants:
             # reserve the slot FIRST: exhaustion must fail before the tenant
-            # registers, or retries would create a slotless ghost tenant
+            # registers, or retries would create a slotless ghost tenant. A
+            # host-resident tenant (a restored checkpoint's) takes none: the
+            # JAX package's server gives it one it never uses, or raises
+            # when the batch is full
             self._assign_slot(name)
-        return super().tenant(name)
+        t = super().tenant(name)
+        if first_touch and not self.device_authoritative:
+            # mirrored mode: shadow every host apply into the device queue,
+            # after the broadcast observer. The slot is looked up per event,
+            # not captured: a rebalance moves the tenant's slot under this
+            # observer, and a tenant demoted to the host has no slot and
+            # mirrors nothing
+            def mirror(payload: bytes, origin, txn, _name=name):
+                slot = self._slot_of.get(_name)
+                if slot is not None:
+                    self._queues[slot].append(payload)
+
+            t.awareness.doc.observe_update_v1(mirror)
+        return t
 
     # --- protocol path -----------------------------------------------------------
 
     def connect_frames(self, tenant_name: str):
+        if not self.device_authoritative or tenant_name in self._host_tenants:
+            return super().connect_frames(tenant_name)
         t, session = self._open_session(tenant_name)
         # the greeting SyncStep1 carries the DEVICE state vector (flush
         # first so queued updates are reflected in the mirror)
@@ -185,6 +220,8 @@ class DeviceSyncServer(SyncServer):
             return []
 
     def _receive_frames_unsafe(self, session: Session, data: bytes) -> List[bytes]:
+        if not self.device_authoritative or session.tenant in self._host_tenants:
+            return super().receive_frames(session, data)
         t = self.tenant(session.tenant)
         slot = self.slot_of(session.tenant)
         replies: List[bytes] = []
@@ -261,21 +298,44 @@ class DeviceSyncServer(SyncServer):
         return False
 
     def _demote_to_host(self, tenant: str) -> None:
-        raise NotImplementedError(f"_demote_to_host materialises a host doc: {_HOST_CRDT}")
+        """Move a tenant from its device slot to the host path: integrate
+        everything queued, bring the host doc up to the device state (a
+        mirrored tenant's host doc already holds it), free the slot, and
+        serve the tenant through `SyncServer` from then on."""
+        self.flush_device()
+        doc = self.doc(tenant)
+        diff = self.device_encode_diff(tenant, doc.state_vector())
+        self._host_tenants.add(tenant)
+        # the apply fires the tenant's broadcast observer once where it
+        # changes the doc (every session gets a full-state update frame)
+        doc.apply_update_v1(diff)
+        slot = self._slot_of.pop(tenant)
+        self.ingestor.reset_slot(slot)
+        self._free_slots.append(slot)
 
     def release_tenant(self, tenant_name: str) -> None:
-        raise NotImplementedError(f"release_tenant materialises a host doc: {_HOST_CRDT}")
+        """Free a tenant's device slot (its ownership moved elsewhere). The
+        tenant stays servable: `_demote_to_host` materialises its host doc
+        from device state first, so its sessions keep their endpoint. A
+        no-op for a tenant that is host-resident or never held a slot."""
+        if tenant_name in self._host_tenants or tenant_name not in self._slot_of:
+            return
+        self._demote_to_host(tenant_name)
 
     def rebalance_tenant(self, tenant_name: str, to_slot: Optional[int] = None) -> int:
         """Move a tenant to another device slot LIVE; returns the new slot.
         The tenant's full device state (pending stash folded in: exactly
         `device_encode_diff` against the empty state vector) re-ingests
         into the fresh slot as one wire update, so the move rides the same
-        exactness contract as any other update. Sessions stay connected;
-        queued updates flush first."""
-        old = self.slot_of(tenant_name)
+        exactness contract as any other update; a mirrored tenant re-ingests
+        from its host doc instead. Sessions stay connected; queued updates
+        flush first."""
+        old = self.slot_of(tenant_name)  # a host-resident tenant has none: KeyError
         self.flush_device()
-        payload = self.device_encode_diff(tenant_name, StateVector())
+        if self.device_authoritative:
+            payload = self.device_encode_diff(tenant_name, StateVector())
+        else:
+            payload = self.doc(tenant_name).encode_state_as_update_v1()
         # allocate the destination BEFORE releasing the source: a full
         # batch must fail the rebalance, not strand the tenant slotless
         if to_slot is None:
@@ -301,6 +361,11 @@ class DeviceSyncServer(SyncServer):
         self._count("sync.rebalances")
         return to_slot
 
+    def tenant_state_vector(self, tenant_name: str) -> StateVector:
+        if not self.device_authoritative or tenant_name in self._host_tenants:
+            return super().tenant_state_vector(tenant_name)
+        return self.device_state_vector(tenant_name)
+
     def device_state_vector(self, tenant_name: str) -> StateVector:
         """The device mirror's state vector for one tenant (real ids)."""
         return StateVector(dict(self.ingestor.svs[self.slot_of(tenant_name)].clocks))
@@ -320,6 +385,16 @@ class DeviceSyncServer(SyncServer):
                 if idx is not None and idx < n_clients:
                     remote[slot, idx] = clock
         return torch.from_numpy(remote).to(self.ingestor.device), n_clients
+
+    def _root_name(self, tenant_name: str, slot: int) -> Optional[str]:
+        """The wire name of a tenant's primary root: the first root name of
+        its inbound updates, or where none was noted (a mirrored tenant's
+        updates reach the device through its host doc) the one the
+        ingestor adopted for its slot. The JAX package's mirrored server
+        has only the former and names such a tenant's root by the batch's
+        default."""
+        name = self._root_names.get(tenant_name)
+        return name if name is not None else self.ingestor.primary_roots.get(slot)
 
     def _tables(self, root_name: Optional[str]) -> EncoderTables:
         """What the finisher reads: the ingestor's interners and payloads,
@@ -355,7 +430,7 @@ class DeviceSyncServer(SyncServer):
         remote, n_clients = self._remote_matrix([(slot, remote_sv)])
         ship, offsets, _local, deleted = encode_diff_batch(ing.state, remote, n_clients)
         payload = self._diff_pipeline.run(
-            ing.state, [slot], ship, offsets, deleted, self._tables(self._root_names.get(tenant_name))
+            ing.state, [slot], ship, offsets, deleted, self._tables(self._root_name(tenant_name, slot))
         )[0]
         self._count("encode.fallback_docs", n=self._diff_pipeline.stats.fallback_docs)
         payload = self._merge_pending(slot, payload)
@@ -385,7 +460,7 @@ class DeviceSyncServer(SyncServer):
         out: List[Optional[bytes]] = [None] * len(requests)
         groups: Dict[Optional[str], List[int]] = {}
         for i, (t, _) in enumerate(requests):
-            groups.setdefault(self._root_names.get(t), []).append(i)
+            groups.setdefault(self._root_name(t, slots[i]), []).append(i)
         for root, idxs in groups.items():
             res = self._diff_pipeline.run(
                 ing.state, [slots[i] for i in idxs], ship, offsets, deleted, self._tables(root)

@@ -4,15 +4,13 @@
 One server hosts many tenant docs, terminates the y-sync protocol per
 (tenant, session) and broadcasts document and awareness changes to the
 tenant's other sessions. Transport-agnostic: callers pump bytes through
-`connect` / `receive` and deliver the returned frames.
+`connect` / `receive` and deliver the returned frames. The default
+``doc_factory`` builds a host `Doc` (`ytpu_torch.core.doc`) per tenant,
+which answers SyncStep1 and applies every inbound update; its update
+observer rebroadcasts what each transaction changed.
 
 What differs from the JAX package, until the modules it needs are ported:
 
-- The host CRDT (`Doc`, ROADMAP A.2's mirrored mode) is not ported, so the
-  default ``doc_factory`` builds a `TenantAnchor`: a client id for the
-  tenant's awareness and an update observer that never fires. Its
-  document reads and writes raise, so this server serves content only
-  through a subclass that keeps it elsewhere (`DeviceSyncServer`).
 - The metrics registry (ROADMAP A.10) is not ported: each server keeps
   the same tallies in `metrics`, a plain dict keyed by the registry's
   names (labelled families as ``{label: count}``).
@@ -24,48 +22,18 @@ What differs from the JAX package, until the modules it needs are ported:
 
 from __future__ import annotations
 
-import random
-from typing import Callable, Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
+
+from ytpu_torch.core.doc import Doc
 
 from .awareness import Awareness
 from .protocol import Message, Protocol, SyncMessage, message_reader
 
-__all__ = ["DeviceBatchFull", "SyncServer", "Session", "TenantAnchor"]
-
-_HOST_CRDT = "the host CRDT is not ported yet (ROADMAP A.2, mirrored mode)"
+__all__ = ["DeviceBatchFull", "SyncServer", "Session"]
 
 
 class DeviceBatchFull(RuntimeError):
     """All tenant slots of a device-backed server's batch are assigned."""
-
-
-class TenantAnchor:
-    """A tenant's awareness and metadata anchor: it holds the client id
-    the awareness reports and never sees document content. The id is
-    drawn from `rng` (by default a fresh `random.Random`) as the JAX
-    package's `Doc` draws one."""
-
-    __slots__ = ("client_id", "update_v1_subs")
-
-    def __init__(self, client_id: Optional[int] = None, rng: Optional[random.Random] = None):
-        if client_id is None:
-            client_id = (rng or random.Random()).getrandbits(32)
-        self.client_id = client_id
-        self.update_v1_subs: List[Callable] = []
-
-    def observe_update_v1(self, cb: Callable) -> Callable[[], None]:
-        """Registers `cb`; no update is ever applied here, so it never fires."""
-        self.update_v1_subs.append(cb)
-        return lambda: self.update_v1_subs.remove(cb)
-
-    def state_vector(self):
-        raise NotImplementedError(_HOST_CRDT)
-
-    def encode_state_as_update_v1(self, sv=None) -> bytes:
-        raise NotImplementedError(_HOST_CRDT)
-
-    def apply_update_v1(self, update: bytes, origin=None) -> None:
-        raise NotImplementedError(_HOST_CRDT)
 
 
 class Session:
@@ -105,7 +73,7 @@ class Session:
 class _Tenant:
     __slots__ = ("awareness", "sessions")
 
-    def __init__(self, doc):
+    def __init__(self, doc: Doc):
         self.awareness = Awareness(doc)
         self.sessions: List[Session] = []
 
@@ -114,7 +82,7 @@ class SyncServer:
     def __init__(self, protocol: Optional[Protocol] = None, doc_factory=None):
         self.protocol = protocol or Protocol()
         self.tenants: Dict[str, _Tenant] = {}
-        self._doc_factory = doc_factory or (lambda name: TenantAnchor())
+        self._doc_factory = doc_factory or (lambda name: Doc())
         self._next_session = 0
         #: per-instance tallies under the metrics registry's names
         self.metrics: Dict[str, object] = {
@@ -165,8 +133,13 @@ class SyncServer:
         update, or None: the port has no tracer yet, so tracing is off."""
         return None
 
-    def doc(self, name: str):
+    def doc(self, name: str) -> Doc:
         return self.tenant(name).awareness.doc
+
+    def tenant_state_vector(self, name: str):
+        """The authoritative state vector for a tenant (the host doc's here;
+        device-backed servers override it for device-authoritative slots)."""
+        return self.doc(name).state_vector()
 
     # --- session lifecycle ------------------------------------------------------
 
