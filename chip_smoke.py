@@ -108,7 +108,17 @@ flagged, and replayed through `replay_stream_fused` at 256 docs to the
 log's text; `BatchIngestor.apply(v2=True)` over 32 steps of the ingest
 phase's cohorts equal to `apply` of their V1 bytes, cols and meta, after
 every step; the kernel's registers, spills and shared memory),
-``mosaic_ladder``
+``observability`` (the main path's B4 replay again with the phase
+recorder and the tracer on inside one request trace context: the JAX
+package's replay stages, a stage-slot and a dispatch-slot span a chunk
+naming the trace id, the same readout syncs as untraced; then, in a child
+process ``python3 chip_smoke.py --observability-server OUT``, the default
+mirrored sync server at 1,024 tenants x 8,192 slots over 8 write rounds
+with the telemetry plane on port 0, an admission controller that defers
+part of each round and a thread scraping its six endpoints every ~100 ms,
+against the same plan without the planes: every scrape answered,
+``/healthz`` "never" until the first flush, Busy replies counted in
+``sync.busy_replies``, every tenant's value the same), ``mosaic_ladder``
 (rungs 0-10), ``plane_rmw`` (the three repros), ``diag_kernels`` (each
 diagnostic kernel against its plain version, then timed beside its
 library call in the same mode and beside an empty kernel at its grid, the
@@ -2129,6 +2139,14 @@ def _traced_catch_up(new_server, tenants, fanout, pieces):
     return out
 
 
+def _bad_frames() -> int:
+    """The port's process-wide ``net.bad_frames`` count (phases read it as
+    a delta: the registry is shared by every server of the script)."""
+    from ytpu_torch.utils.metrics import metrics
+
+    return int(metrics.counter("net.bad_frames").value)
+
+
 def phase_sync_server(gpu, log, dev="cuda"):
     """One device-authoritative `DeviceSyncServer` at 1,024 tenants x 8,192
     slots on the card (`benches/sync_server.py`'s `FULL` plan: the ingest
@@ -2173,6 +2191,7 @@ def phase_sync_server(gpu, log, dev="cuda"):
     logs = ingest_bench.load_ingest_logs()
     tenants = bench.make_tenants(plan, log, logs)
     ids = {t.name: bench.tenant_client_id(t.index) for t in tenants}
+    bad0 = _bad_frames()
 
     def new_server():
         return DeviceSyncServer(n_docs=plan.n_docs, capacity=plan.capacity, device_authoritative=True,
@@ -2325,9 +2344,10 @@ def phase_sync_server(gpu, log, dev="cuda"):
         raise RuntimeError(f"sync_server: writes got {len(run.write_replies)} replies")
     err = int(ing.state.error.max())
     stash = [t.name for t in tenants if ing.pending_update(t.index) is not None or ing.pending_ds(t.index) is not None]
-    if err or stash or ing.fast_recoveries or server.metrics["net.bad_frames"]:
+    bad_frames = _bad_frames() - bad0
+    if err or stash or ing.fast_recoveries or bad_frames:
         raise RuntimeError(f"sync_server: error {err}, tenants with a stash {stash[:8]}, recoveries "
-                           f"{ing.fast_recoveries}, bad frames {server.metrics['net.bad_frames']}")
+                           f"{ing.fast_recoveries}, bad frames {bad_frames}")
     b4_tenants = [t for t in tenants if t.cohort == "b4"]
     want = _b4_prefix_texts(log[: plan.b4_len], [len(t.log) for t in b4_tenants], plan.capacity, dev, "sync_server")
     texts_bad = [t.name for t in b4_tenants if server.device_text(t.name) != want[len(t.log)]]
@@ -2445,7 +2465,7 @@ def phase_sync_server(gpu, log, dev="cuda"):
         "fanout_s": fanout_s,
         "reply_bytes": sum(len(v) for v in replies.values()),
         "frames_broadcast": sum(len(v) for v in run.drained.values()),
-        "updates_applied": server.metrics["sync.updates_applied"],
+        "updates_applied": server.applied_local,
         "fast_docs_per_step": sum(f for f, _, _ in lanes) / n_steps,
         "slow_docs_per_step": sum(s_ for _, s_, _ in lanes) / n_steps,
         "recovery_docs_per_step": sum(r for _, _, r in lanes) / n_steps,
@@ -2461,7 +2481,7 @@ def phase_sync_server(gpu, log, dev="cuda"):
         "rest_flush_traced": {"host_ms": rest_host_ms, "device_ms": rest_device_ms,
                               "device_idle_share": rest_trace["device_idle_share"]},
         "catch_up_s": catch_up_s, "catch_up_traced": catch_up_traced,
-        "fallback_docs": server.metrics["encode.fallback_docs"],
+        "fallback_docs": server.fallback_docs,
         "rebalanced": [tenants[i].name for i in SYNC_REBALANCED],
         "rebalanced_with_stash": rebalance["stashed"], "rebalance_s_per_tenant": rebalance["s_per_tenant"],
         "cohort_values": values, "b4_texts_equal_stream_replay": True, "replies_equal_cpu_finisher": True,
@@ -2546,6 +2566,7 @@ def phase_sync_server_mirrored(gpu, log):
     def factory(name):
         return Doc(client_id=ids[name])
 
+    bad0 = _bad_frames()
     server = DeviceSyncServer(n_docs=plan.n_docs, capacity=plan.capacity, device=dev, doc_factory=factory)
     if server.device_authoritative:
         raise RuntimeError("sync_server_mirrored: the default DeviceSyncServer is not mirrored")
@@ -2641,9 +2662,10 @@ def phase_sync_server_mirrored(gpu, log):
         want = want_b4[len(t.log)] if t.cohort == "b4" else committed[t.cohort]
         if value != want:
             raise RuntimeError(f"sync_server_mirrored: {t.name}'s host doc does not hold its committed value")
-    if run.write_replies or server.metrics["net.bad_frames"]:
+    bad_frames = _bad_frames() - bad0
+    if run.write_replies or bad_frames:
         raise RuntimeError(f"sync_server_mirrored: {len(run.write_replies)} write replies, "
-                           f"{server.metrics['net.bad_frames']} bad frames")
+                           f"{bad_frames} bad frames")
     for name in bench.COHORT_NAMES:  # each cohort's first and last reader: the drained merge rebuilds the doc
         ts = [t for t in tenants if t.cohort == name]
         for t in (ts[0], ts[-1]):
@@ -4018,6 +4040,305 @@ def ik_launch_plan(plan) -> dict:
     return launch_plan(CHUNK, plan.max_rows, plan.max_dels, N_DOCS, CAPACITY)
 
 
+# observability: the B4 replay with the recorders on, then the default
+# sync server with the telemetry plane and admission, in a child process
+OBS_TRACE = "b4-observability"
+OBS_ROUNDS = 8  # FULL's write rounds, cut from 32 to bound time
+OBS_MAX_QUEUE, OBS_RATE, OBS_BURST = 1, 2000.0, 64  # the admission controller: queue bound, updates/s, burst
+OBS_SCRAPE_EVERY_S = 0.1
+OBS_ENDPOINTS = ("metrics", "fleet", "snapshot", "profile", "healthz", "capacity")
+OBS_CHILD_TIMEOUT_S = 420
+
+
+def _median(xs):
+    import statistics
+
+    return statistics.median(xs) if xs else None
+
+
+def phase_observability(gpu, log, expect, plan, b4):
+    """The planes on the card. First the main path again, the B4 overlap
+    lane at the main envelope over the whole log, with the phase recorder
+    and the tracer on inside one `trace_context`: the text must be the
+    log's, the snapshot must carry the JAX package's replay stages (the
+    chunk stage a call a chunk, the decode stage with its host-to-device
+    bytes, compaction as often as in the untraced run, the overlap
+    engine's stage / stall / overlap_ratio / inflight_depth / stage_bytes),
+    the tracer must hold a ``replay.stage_slot`` and a
+    ``replay.dispatch_slot`` span a chunk naming the ambient trace id, and
+    the readout syncs must equal the untraced run's (the recorders add
+    none). Then `_observability_server` in a child process (a fresh
+    registry, as a serving process starts). Returns the launches of both
+    parts by kernel."""
+    import torch
+
+    from ytpu_torch.utils import phases, trace_context, tracer
+
+    phases.reset()
+    tracer.clear()
+    phases.enable()
+    tracer.enable()
+    try:
+        with trace_context(trace=OBS_TRACE):
+            st, wall, launches, _, _, _, rep, decodes = _replay(plan, log, expect, traced=False)
+    finally:
+        phases.disable()
+        tracer.disable()
+    del rep
+    snap = phases.snapshot()
+    events = json.loads(tracer.export_chrome_trace())["traceEvents"]
+    phases.reset()
+    tracer.clear()
+    torch.cuda.empty_cache()
+    want_stages = ("replay.chunk_raw", "decode.v1", "compact.packed", "replay.stage", "replay.stall",
+                   "replay.overlap_ratio", "replay.inflight_depth", "replay.stage_bytes")
+    missing = [s for s in want_stages if s not in snap]
+    slots = {name: [e for e in events if e["name"] == name] for name in ("replay.stage_slot", "replay.dispatch_slot")}
+    problems = []
+    if missing:
+        problems.append(f"stages missing: {missing}")
+    else:
+        if not snap["replay.chunk_raw"]["calls"] == st.chunks == launches:
+            problems.append(f"chunk stage {snap['replay.chunk_raw']['calls']} calls, {st.chunks} chunks")
+        if snap["decode.v1"]["calls"] != decodes or snap["decode.v1"]["h2d_bytes"] <= 0:
+            problems.append(f"decode stage {snap['decode.v1']}")
+        if snap["compact.packed"]["calls"] != b4["compactions"]:
+            problems.append(f"compaction stage {snap['compact.packed']['calls']} calls, untraced run "
+                            f"{b4['compactions']}")
+        if snap["replay.stage_bytes"].get("value") != st.stage_bytes:
+            problems.append(f"stage bytes {snap['replay.stage_bytes']} against {st.stage_bytes}")
+    for name, spans in slots.items():
+        if len(spans) != st.chunks or any(e.get("args", {}).get("trace") != OBS_TRACE for e in spans):
+            problems.append(f"{len(spans)} {name} spans for {st.chunks} chunks, or one without the trace id")
+    if st.syncs != b4["overlap"]["syncs"]:
+        problems.append(f"{st.syncs} readout syncs with the recorders on, {b4['overlap']['syncs']} off")
+    if problems:
+        raise RuntimeError("observability: " + "; ".join(problems))
+    replay = {
+        "wall_s": wall, "wall_s_untraced_main_run": b4["wall_s"], "wall_ratio": wall / b4["wall_s"],
+        "chunks": st.chunks, "syncs": st.syncs, "launches": launches, "decode_launches": decodes,
+        "spans": len(events), "stages": {k: snap[k] for k in want_stages},
+        "compile_calls": {k: v["compile_calls"] for k, v in snap.items() if v["compile_calls"]},
+    }
+    server = _observability_server_in_child()
+    line = {"phase": "observability", "replay": replay, "server": server, "gpu": gpu}
+    emit(line)
+    return {"integrate_stream": launches, "decode_v1": decodes + server["launches"]["decode_v1"],
+            "integrate_batch": server["launches"]["integrate_batch"]}
+
+
+def _observability_server_in_child() -> dict:
+    """`_observability_server` in a fresh interpreter (``python3
+    chip_smoke.py --observability-server OUT``), so its registry, recorder
+    and tracer hold only that run; returns its result, or raises with the
+    child's stderr tail."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "observability_server.json")
+        proc = subprocess.run([sys.executable, os.path.join(HERE, "chip_smoke.py"), "--observability-server", out],
+                              cwd=HERE, capture_output=True, text=True, timeout=OBS_CHILD_TIMEOUT_S)
+        sys.stderr.write(proc.stderr[-4000:])
+        if proc.returncode != 0 or not os.path.exists(out):
+            raise RuntimeError(f"observability: the server child exited {proc.returncode}: {proc.stderr[-2000:]}")
+        with open(out) as f:
+            return json.load(f)
+
+
+class _Scraper:
+    """A thread that fetches every telemetry endpoint each
+    `OBS_SCRAPE_EVERY_S` and records each answer's status, latency and
+    whether its body parses (JSON, or Prometheus text lines)."""
+
+    def __init__(self, url: str):
+        import threading
+
+        self.url = url
+        self.records = []  # (endpoint, status, seconds, parsed, body or None)
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._loop, daemon=True)
+
+    def scrape(self, ep: str):
+        import re
+        import urllib.request
+
+        t0 = time.perf_counter()
+        try:
+            with urllib.request.urlopen(f"{self.url}/{ep}", timeout=30) as r:
+                status, body = r.status, r.read().decode()
+        except Exception as e:  # recorded as a failed scrape
+            self.records.append((ep, None, time.perf_counter() - t0, False, repr(e)))
+            return None
+        dt = time.perf_counter() - t0
+        parsed = None
+        try:
+            if ep in ("metrics", "fleet"):
+                sample = re.compile(r'^[a-zA-Z_:][a-zA-Z0-9_:]*(\{[^}]*\})? (\S+)$')
+                for ln in body.splitlines():
+                    if ln and not ln.startswith("#"):
+                        float(sample.match(ln).group(2))
+                parsed = body
+            else:
+                parsed = json.loads(body)
+        except Exception:
+            parsed = None
+        self.records.append((ep, status, dt, parsed is not None, parsed if ep in ("healthz", "profile") else None))
+        return parsed
+
+    def _loop(self):
+        while not self._stop.is_set():
+            for ep in OBS_ENDPOINTS:
+                self.scrape(ep)
+            self._stop.wait(OBS_SCRAPE_EVERY_S)
+
+    def start(self):
+        self._thread.start()
+
+    def stop(self):
+        self._stop.set()
+        self._thread.join()
+
+
+def _observability_server(out_path: str) -> int:
+    """The child of `phase_observability`: the default (mirrored)
+    `DeviceSyncServer` at 1,024 tenants x 8,192 slots on `FULL`'s cohorts,
+    cut to `OBS_ROUNDS` write rounds, with ``telemetry_port=0``, the phase
+    recorder and the tracer on and an `AdmissionController(policy="defer")`
+    whose queue bound and rate refuse part of each round; the writers
+    (`benches/sync_server.drive_admitted_writes`) send each frame in its
+    own request trace context and send a deferred update again after its
+    ``retry_after_s``. A scraper thread fetches all six endpoints every
+    ~100 ms. Then the same plan through a server without the planes
+    (`drive_writes`). Holds: every scrape 200 with a parseable body;
+    ``/healthz`` "never" before the first flush and an age after the
+    last; Busy replies > 0 and equal to ``sync.busy_replies``; every
+    tenant's device value equal between the two runs and its host doc's
+    value too; every ``/profile`` sum of fractions 1 within 1e-6; the
+    Chrome dump's ``sync.dispatch`` spans name only the writers' trace
+    ids, and some. Writes the result to `out_path`."""
+    import dataclasses
+    import tempfile
+
+    import torch
+
+    sys.path.insert(0, HERE)
+    from ytpu_torch.benches import ingest as ingest_bench
+    from ytpu_torch.benches import sync_server as bench
+    from ytpu_torch.core.doc import Doc
+    from ytpu_torch.ops import integrate_kernel as ik
+    from ytpu_torch.ops.decode_kernel import decode_updates_v1
+    from ytpu_torch.serving import AdmissionController
+    from ytpu_torch.sync import DeviceSyncServer
+    from ytpu_torch.utils import metrics, phases, tracer
+
+    with gzip.open(B4_LOG, "rb") as f:
+        log = pickle.load(f)["log"]
+    plan = dataclasses.replace(bench.FULL, rounds=OBS_ROUNDS)
+    tenants = bench.make_tenants(plan, log, ingest_bench.load_ingest_logs())
+    ids = {t.name: bench.tenant_client_id(t.index) for t in tenants}
+
+    def make(**kw):
+        return DeviceSyncServer(n_docs=plan.n_docs, capacity=plan.capacity, device="cuda",
+                                doc_factory=lambda name: Doc(client_id=ids[name]), **kw)
+
+    def timed(server, out):
+        def flush(step):
+            t0 = time.perf_counter()
+            n = server.flush_device()
+            torch.cuda.synchronize()
+            out.append((time.perf_counter() - t0) * 1e3)
+            return n
+        return flush
+
+    problems = []
+    # --- the planes attached
+    phases.enable()
+    tracer.enable()
+    server = make(telemetry_port=0)
+    server.admission = AdmissionController(max_queue=OBS_MAX_QUEUE, rate=OBS_RATE, burst=OBS_BURST, policy="defer")
+    scraper = _Scraper(server.telemetry.url)
+    before = {ep: scraper.scrape(ep) for ep in OBS_ENDPOINTS}
+    if before["healthz"] is None or before["healthz"].get("last_dispatch") != "never":
+        problems.append(f"/healthz before the first flush: {before['healthz']}")
+    on_ms = []
+    _reset_counts([ik.integrate_batch, decode_updates_v1])
+    scraper.start()
+    t0 = time.perf_counter()
+    try:
+        run = bench.drive_admitted_writes(server, plan, tenants, flush=timed(server, on_ms))
+    finally:
+        scraper.stop()
+    write_s = time.perf_counter() - t0
+    launches = {"integrate_batch": ik.integrate_batch.launches, "decode_v1": decode_updates_v1.launches}
+    after = scraper.scrape("healthz")
+    if after is None or "last_dispatch_age_s" not in after or "last_dispatch" in after:
+        problems.append(f"/healthz after the flushes: {after}")
+    tracer.disable()
+    phases.disable()
+    with tempfile.TemporaryDirectory() as tmp:
+        dump = os.path.join(tmp, "trace.json")
+        tracer.export_chrome_trace(dump)
+        with open(dump) as f:
+            events = json.load(f)["traceEvents"]
+    named = {tid for e in events if e["name"] == "sync.dispatch" for tid in e.get("args", {}).get("traces", [])}
+    admitted = set(run.admitted_traces)
+    if not named or not named <= admitted:
+        problems.append(f"sync.dispatch spans name {len(named)} trace ids, {len(named - admitted)} not a writer's")
+    busy_metric = int(metrics.counter("sync.busy_replies").value)
+    if run.busy <= 0 or run.busy != busy_metric:
+        problems.append(f"{run.busy} Busy replies, sync.busy_replies {busy_metric}")
+    if run.other_replies:
+        problems.append(f"{len(run.other_replies)} replies to writes that were not Busy")
+    bad = [r[:4] for r in scraper.records if r[1] != 200 or not r[3]]
+    if bad:
+        problems.append(f"{len(bad)} failed scrapes, first {bad[:3]}")
+    sums = [r[4]["fractions_sum"] for r in scraper.records if r[0] == "profile" and r[4]]
+    if not sums or any(abs(s - 1.0) > 1e-6 for s in sums):
+        problems.append(f"/profile fraction sums {sums[:5]}")
+    values_on = [bench.tenant_value(server, t) for t in tenants]
+    host_on = [bench.host_value(server.doc(t.name), t) for t in tenants]
+    server.telemetry.stop()
+    rejected = {k: v for k, v in metrics.snapshot().items() if k.startswith("admission.rejected")}
+    del server
+    torch.cuda.empty_cache()
+    # --- the same plan without the planes
+    off_ms = []
+    plain = make()
+    t0 = time.perf_counter()
+    bench.drive_writes(plain, plan, tenants, flush=timed(plain, off_ms))
+    plain_write_s = time.perf_counter() - t0
+    values_off = [bench.tenant_value(plain, t) for t in tenants]
+    if values_on != values_off or host_on != values_off:
+        diff = [t.name for t, a, b, h in zip(tenants, values_on, values_off, host_on) if a != b or h != b]
+        problems.append(f"{len(diff)} tenants end differently with the planes attached, first {diff[:4]}")
+    scrape_ms = [r[2] * 1e3 for r in scraper.records]
+    result = {
+        "tenants": len(tenants), "capacity": plan.capacity, "rounds": plan.rounds,
+        "admission": {"max_queue": OBS_MAX_QUEUE, "rate": OBS_RATE, "burst": OBS_BURST, "policy": "defer"},
+        "busy_replies": run.busy, "sync_busy_replies": busy_metric, "rejected": rejected, "resent": run.resent,
+        "drain_rounds": run.drain_rounds, "admitted_frames": len(admitted), "dispatch_named_traces": len(named),
+        # the write rounds' steps alone beside every step (the rest's and
+        # the resend rounds' flushes carry other loads)
+        "flush_ms_planes": {"median": _median(on_ms), "mean": sum(on_ms) / len(on_ms), "steps": len(on_ms),
+                            "rounds_median": _median(on_ms[:plan.rounds])},
+        "flush_ms_plain": {"median": _median(off_ms), "mean": sum(off_ms) / len(off_ms), "steps": len(off_ms),
+                           "rounds_median": _median(off_ms[:plan.rounds])},
+        "write_s_planes": write_s, "write_s_plain": plain_write_s,
+        "scrapes": len(scraper.records), "scrape_ms": {"median": _median(scrape_ms), "max": max(scrape_ms)},
+        "scrape_ms_by_endpoint": {ep: {"median": _median(ms), "max": max(ms)} for ep in OBS_ENDPOINTS
+                                  for ms in [[r[2] * 1e3 for r in scraper.records if r[0] == ep]] if ms},
+        "healthz_before": before["healthz"], "healthz_after": after, "profile_fraction_sums": [min(sums), max(sums)]
+        if sums else None, "trace_events": len(events), "launches": launches,
+        "values_equal_plain": values_on == values_off, "problems": problems,
+    }
+    with open(out_path, "w") as f:
+        json.dump(result, f)
+    if problems:
+        print("observability server: " + "; ".join(problems), file=sys.stderr)
+        return 1
+    return 0
+
+
 def main() -> int:
     import torch
 
@@ -4063,6 +4384,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     v2 = phase_decode_v2(gpu, log, expect)
     torch.cuda.empty_cache()
+    obs = phase_observability(gpu, log, expect, plan, b4)
+    torch.cuda.empty_cache()
     diag_launches, ladder_err = phase_mosaic_ladder(gpu)
     ladder_integrate = diag_launches.pop("integrate_stream")
     ladder_decodes = diag_launches.pop("decode_updates_v1")
@@ -4081,7 +4404,7 @@ def main() -> int:
                       "ingest": ingest["decode_launches"],
                       "sync_server": sync_server["decode_launches"],
                       "sync_server_mirrored": mirrored["decode_launches"], "stream_replay_full_width": stream_decodes,
-                      "mosaic_ladder": ladder_decodes}
+                      "mosaic_ladder": ladder_decodes, "observability": obs["decode_v1"]}
     chunk = decode_sets["b4_chunk"]
     v2_chunk = v2["sets"]["b4_chunk"]
     script_s = time.perf_counter() - t_script
@@ -4097,11 +4420,12 @@ def main() -> int:
                              "replay_lanes": lanes["launches"]["integrate_stream"],
                              "pipeline_checkpoint": sum(v["integrate_stream"] for k, v in pipe_ckpt["launches"].items()
                                                         if isinstance(v, dict)),
-                             "stream_replay_full_width": stream_launches, "mosaic_ladder": ladder_integrate},
+                             "stream_replay_full_width": stream_launches, "mosaic_ladder": ladder_integrate,
+                             "observability": obs["integrate_stream"]},
         "launches_by_entry": {"stream": launches,
                               "batch": sync["write"]["launches"]["batch"] + ingest["launches"]["batch"]
                               + sync_server["launches"]["batch"] + mirrored["launches"]["batch"]
-                              + pipe_ckpt["launches"]["checkpoint_integrate_batch"]},
+                              + pipe_ckpt["launches"]["checkpoint_integrate_batch"] + obs["integrate_batch"]},
         "plain_vs_kernel_case": {
             "shape": f"one B4 chunk, 2 docs, C={CAPACITY}, S={CHUNK}",
             "kernel_ms": full_kernel_ms, "plain_ms": full_plain_ms,
@@ -4117,12 +4441,13 @@ def main() -> int:
         "replaces": INTEGRATE_REPLACES,
         "launches": sync["write"]["launches"]["batch"] + ingest["launches"]["batch"]
         + sync_server["launches"]["batch"] + mirrored["launches"]["batch"]
-        + pipe_ckpt["launches"]["checkpoint_integrate_batch"],
+        + pipe_ckpt["launches"]["checkpoint_integrate_batch"] + obs["integrate_batch"],
         "launches_by_path": {"sync_step": sync["write"]["launches"]["batch"],
                              "ingest": ingest["launches"]["batch"],
                              "sync_server": sync_server["launches"]["batch"],
                              "sync_server_mirrored": mirrored["launches"]["batch"],
-                             "pipeline_checkpoint": pipe_ckpt["launches"]["checkpoint_integrate_batch"]},
+                             "pipeline_checkpoint": pipe_ckpt["launches"]["checkpoint_integrate_batch"],
+                             "observability": obs["integrate_batch"]},
         "max_abs_err": max(sync["kernel_vs_plain"]["max_abs_err"],
                            sync["write"]["max_abs_err_full_width_step"], ingest["max_abs_err"],
                            sync_server["max_abs_err"], mirrored["max_abs_err"]),
@@ -4191,4 +4516,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--observability-server"]:
+        sys.exit(_observability_server(sys.argv[2]))
     sys.exit(main())

@@ -155,7 +155,7 @@ def offset_by_one(t: torch.Tensor) -> torch.Tensor:
 # plane); layout "plane" is case a / a2 (plane `plane` of [NC, D, C]),
 # "vmem" is v_vmem's call (idx -1 over the whole state, a flat copy), the
 # others patch every plane. The one-int cases hold 2 docs (an emulated CTA
-# is 256 host threads)
+# is 256 lanes)
 CASES = {
     "g3d_in_place_idx_minus1": ("g3d", lambda: pattern((NC, D, C)), False, -1, 0, None, None),
     "g3d_in_place_live": ("g3d", lambda: seeded((NC, D, C), 1), False, 137, 12345, None, None),

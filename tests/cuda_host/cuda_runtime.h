@@ -7,22 +7,33 @@
 // tests/test_torch_plane_rmw_emulated.py, tests/test_torch_ladder_emulated.py).
 // It is an emulator, not a GPU:
 //
-//   * every CUDA thread is a std::thread; the CTAs of a launch (a 1-D or
-//     2-D grid) run one after another;
+//   * every warp is a std::thread and each of its lanes a fiber (a
+//     ucontext of its own stack) on that thread; the CTAs of a launch (a
+//     1-D or 2-D grid) run one after another;
 //   * warp collectives (__ballot_sync, __shfl_sync, __any_sync,
 //     __reduce_max_sync, __reduce_or_sync, __reduce_add_sync,
-//     __match_any_sync, __syncwarp) meet at a per-warp barrier, so every
-//     lane of the warp must reach them (__reduce_or_sync reduces over the
-//     lanes of each lane's own mask), and the lanes of a warp run freely
-//     in between, so code that leans on lanes running in lockstep without
-//     a __syncwarp fails here;
+//     __match_any_sync, __syncwarp) are where a lane yields to the next:
+//     every lane of the warp must reach them (__reduce_or_sync reduces
+//     over the lanes of each lane's own mask), and in between each lane
+//     runs alone, up to its next collective, before the next lane starts,
+//     so code that leans on lanes running in lockstep without a
+//     __syncwarp fails here. A lane never waits for another lane of its
+//     warp outside a collective (a lane blocked on an mbarrier blocks its
+//     warp's thread until another warp completes the phase);
+//   * __syncthreads meets the warp's lanes first, then the CTA's warps;
 //   * mbarriers are counters under one mutex; a bulk copy is a memcpy that
 //     completes its bytes on the barrier at once;
 //   * integrate.cu's inline-PTX helpers (mbar_*, bulk_copy) are replaced by
 //     the functions below when the test rewrites the source.
 //
-// A warp stuck at a collective is reported on stderr with the source line
-// each thread last synchronized at.
+// A CTA that has not finished after 30 s is reported on stderr with the
+// source line each thread last synchronized at.
+//
+// Lanes are fibers, not threads, so a collective costs context switches
+// inside one process rather than a wake-up of every lane by the kernel's
+// scheduler: on a loaded machine a thread-per-lane emulator waits for the
+// OS to schedule 32 sleeping threads at every collective, and ran a few
+// hundred times slower than alone.
 #pragma once
 #include <algorithm>
 #include <atomic>
@@ -38,6 +49,7 @@
 #include <memory>
 #include <mutex>
 #include <thread>
+#include <ucontext.h>
 #include <vector>
 
 #define __device__
@@ -77,33 +89,61 @@ using std::min;
 
 // ---- warps and CTAs ---------------------------------------------------------
 
+constexpr size_t EMU_LANE_STACK = size_t(1) << 18;
+
+// one warp: its lanes' fibers and the collective in progress. Two value
+// buffers alternate: the lane that completes a collective runs on to the
+// next one, and writes the other buffer while its lanes still read this one
 struct EmuWarp {
-  std::barrier<> bar{32};
-  unsigned long long v[32];
+  int lanes = 32;
+  unsigned long long v[2][32];
+  int parity = 0, arrived = 0;
+  unsigned long long gen = 0;  // collectives completed
+  int cur = 0;                 // the running lane
+  ucontext_t sched;
+  ucontext_t ctx[32];
+  bool done[32];
+  std::unique_ptr<char[]> stacks;
 };
 struct EmuCta {
-  std::barrier<> bar;
+  std::barrier<> bar;  // one arrival a warp
   std::vector<std::unique_ptr<EmuWarp>> warps;
   std::vector<unsigned char> smem;
-  EmuCta(int threads, size_t smem_bytes) : bar(threads), smem(smem_bytes + 16) {
-    for (int w = 0; w < threads / 32; ++w) warps.emplace_back(new EmuWarp);
+  EmuCta(int threads, size_t smem_bytes) : bar((threads + 31) / 32), smem(smem_bytes + 16) {
+    for (int w = 0; w * 32 < threads; ++w) {
+      warps.emplace_back(new EmuWarp);
+      warps.back()->lanes = std::min(32, threads - 32 * w);
+    }
   }
 };
 inline thread_local EmuCta* emu_cta;
+inline thread_local EmuWarp* emu_cur_warp;
 inline int emu_line[1024];  // source line of each thread's last collective
-inline EmuWarp& emu_warp() { return *emu_cta->warps[threadIdx.x / 32]; }
+inline EmuWarp& emu_warp() { return *emu_cur_warp; }
 inline int emu_lane() { return threadIdx.x % 32; }
 
-// every lane posts a value; returns all 32 once all have posted
+// the running lane hands its warp's thread back to the warp's scheduler
+inline void emu_yield() {
+  EmuWarp& w = emu_warp();
+  swapcontext(&w.ctx[w.cur], &w.sched);
+}
+
+// every lane posts a value and gets the warp's once all have posted
 template <class F>
 inline auto emu_collective(unsigned long long mine, int line, F reduce) {
   emu_line[threadIdx.x] = line;
   EmuWarp& w = emu_warp();
-  w.v[emu_lane()] = mine;
-  w.bar.arrive_and_wait();
-  auto r = reduce(w.v);
-  w.bar.arrive_and_wait();
-  return r;
+  const int p = w.parity;
+  w.v[p][emu_lane()] = mine;
+  if (++w.arrived == w.lanes) {
+    w.arrived = 0;
+    w.parity ^= 1;
+    ++w.gen;
+  } else {
+    const unsigned long long g = w.gen;
+    while (w.gen == g) emu_yield();
+  }
+  return reduce(w.v[p]);
 }
 inline unsigned emu_ballot(bool p, int line) {
   return emu_collective(p, line, [](const unsigned long long* v) {
@@ -153,8 +193,7 @@ inline unsigned emu_reduce_add(unsigned x, int line) {
   });
 }
 inline void emu_syncwarp(int line) {
-  emu_line[threadIdx.x] = line;
-  emu_warp().bar.arrive_and_wait();
+  emu_collective(0, line, [](const unsigned long long*) { return 0; });
 }
 #define __ballot_sync(m, p) emu_ballot(p, __LINE__)
 #define __shfl_sync(m, x, s) emu_shfl(x, s, __LINE__)
@@ -164,7 +203,12 @@ inline void emu_syncwarp(int line) {
 #define __match_any_sync(m, x) emu_match_any(x, __LINE__)
 #define __reduce_add_sync(m, x) emu_reduce_add(x, __LINE__)
 #define __syncwarp() emu_syncwarp(__LINE__)
-inline void __syncthreads() { emu_cta->bar.arrive_and_wait(); }
+// the warp's lanes meet, lane 0 meets the other warps, the lanes meet again
+inline void __syncthreads() {
+  emu_syncwarp(-2);
+  if (emu_lane() == 0) emu_cta->bar.arrive_and_wait();
+  emu_syncwarp(-2);
+}
 
 inline int __ffs(unsigned x) { return __builtin_ffs((int)x); }
 inline int __ffsll(long long x) { return __builtin_ffsll(x); }
@@ -269,6 +313,37 @@ inline unsigned char* emu_dyn_smem() {
   return (unsigned char*)((p + 15) & ~(uintptr_t)15);
 }
 
+inline thread_local const std::function<void()>* emu_body;
+
+inline void emu_lane_main() {
+  (*emu_body)();
+  emu_warp().done[emu_lane()] = true;
+}  // returns to the scheduler through uc_link
+
+// one warp's thread: start each lane's fiber, then resume the live lanes
+// in turn until every lane has returned
+inline void emu_run_warp(EmuWarp& w, int warp) {
+  emu_cur_warp = &w;
+  w.stacks.reset(new char[EMU_LANE_STACK * w.lanes]);
+  for (int l = 0; l < w.lanes; ++l) {
+    w.done[l] = false;
+    getcontext(&w.ctx[l]);
+    w.ctx[l].uc_stack.ss_sp = w.stacks.get() + EMU_LANE_STACK * l;
+    w.ctx[l].uc_stack.ss_size = EMU_LANE_STACK;
+    w.ctx[l].uc_link = &w.sched;
+    makecontext(&w.ctx[l], emu_lane_main, 0);
+  }
+  for (int live = w.lanes; live > 0;) {
+    for (int l = 0; l < w.lanes; ++l) {
+      if (w.done[l]) continue;
+      w.cur = l;
+      threadIdx.x = 32 * warp + l;
+      swapcontext(&w.sched, &w.ctx[l]);
+      if (w.done[l]) --live;
+    }
+  }
+}
+
 inline void emu_launch(dim3 grid, int threads, size_t smem, std::function<void()> body) {
   for (int b = 0; b < (int)(grid.x * grid.y); ++b) {
     EmuCta cta(threads, smem);
@@ -283,16 +358,16 @@ inline void emu_launch(dim3 grid, int threads, size_t smem, std::function<void()
       std::fprintf(stderr, "\n");
     });
     std::vector<std::thread> ts;
-    for (int t = 0; t < threads; ++t)
-      ts.emplace_back([&, b, t] {
+    for (int w = 0; w < (int)cta.warps.size(); ++w)
+      ts.emplace_back([&, b, w] {
         blockIdx.x = b % grid.x;
         blockIdx.y = b / grid.x;
-        threadIdx.x = t;
         gridDim.x = grid.x;
         gridDim.y = grid.y;
         blockDim.x = threads;
         emu_cta = &cta;
-        body();
+        emu_body = &body;
+        emu_run_warp(*cta.warps[w], w);
       });
     for (auto& th : ts) th.join();
     {

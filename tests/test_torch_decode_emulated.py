@@ -6,7 +6,7 @@ exactly against the plain composition `decode_kernel._decode_plain`
 
 The kernel itself is compiled and run only on the card (`chip_smoke.py`'s
 ``decode`` phase). Here g++ compiles the same ``csrc/decode.cu`` with
-every CUDA thread a host thread, from the ``[S, L]`` matrix and from the
+every warp a host thread and each lane a fiber on it, from the ``[S, L]`` matrix and from the
 flat arena, on the mixed corpus of tests/test_torch_decode.py, a B4 slice,
 merged whole-state lanes, the overflow and step-budget settings,
 truncated and garbage lanes, 1,536 corpus lanes with random bytes

@@ -7,7 +7,7 @@ from the arena of `pack_updates_v2_raw` read in place.
 
 The kernel itself is compiled and run only on the card (`chip_smoke.py`'s
 ``decode_v2`` phase). Here g++ compiles the same ``csrc/decode_v2.cu``
-with every CUDA thread a host thread, on the crafted sets of
+with every warp a host thread and each lane a fiber on it, on the crafted sets of
 ``ytpu_torch/benches/data/v2_cases.json`` with their tables (the big
 clients also without them), those sets together under each intern-table
 case (every hit, a raw client miss, an empty raw table, no hash table and

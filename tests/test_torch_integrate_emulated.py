@@ -7,8 +7,8 @@ every launch on scratch poisoned with keys and epochs it could mistake
 for its own.
 
 The kernel itself is compiled and run only on the card (`chip_smoke.py`).
-Here g++ compiles the same ``csrc/integrate.cu`` with every CUDA thread a
-host thread: the warp collectives, the mbarrier ring and the bulk copies
+Here g++ compiles the same ``csrc/integrate.cu`` with every warp a host
+thread and each lane a fiber on it: the warp collectives, the mbarrier ring and the bulk copies
 of the stream, the cursor cache, the index and the store ordering between
 lanes all run, and a result that differs from `integrate_stream_reference`
 in any plane or meta word fails. It says nothing of speed, and nothing of

@@ -43,12 +43,28 @@ def test_import_leaves_jax_and_ytpu_unloaded():
         "import ytpu_torch.core.doc, ytpu_torch.types, ytpu_torch.types.shared, ytpu_torch.types.text\n"
         "import ytpu_torch.types.array, ytpu_torch.types.map, ytpu_torch.types.xml, ytpu_torch.types.weak\n"
         "import ytpu_torch.types.events\n"
+        "import ytpu_torch.utils.phases, ytpu_torch.utils.trace, ytpu_torch.utils.slo\n"
+        "import ytpu_torch.utils.profile, ytpu_torch.utils.telemetry\n"
+        "import ytpu_torch.serving, ytpu_torch.serving.admission\n"
+        "import urllib.request\n"
         "from ytpu_torch.core import Doc\n"
+        "from ytpu_torch.serving import AdmissionController\n"
         "from ytpu_torch.sync import DeviceSyncServer\n"
+        "from ytpu_torch.utils import phases, trace_context, tracer\n"
+        "phases.enable(); tracer.enable()\n"
         "d = Doc(client_id=1)\n"
         "with d.transact() as txn:\n"
         "    d.get_text('t').insert(txn, 0, 'x')\n"
-        "DeviceSyncServer(n_docs=1, capacity=8, device='cpu').doc('a').apply_update_v1(d.encode_state_as_update_v1())\n"
+        "s = DeviceSyncServer(n_docs=1, capacity=8, device='cpu', telemetry_port=0)\n"
+        "s.admission = AdmissionController(max_queue=4)\n"
+        "w, _ = s.connect_frames('a')\n"
+        "with trace_context():\n"
+        "    s.receive_frames(w, b'\\x00\\x02' + bytes([len(d.encode_state_as_update_v1())])\n"
+        "                     + d.encode_state_as_update_v1())\n"
+        "s.flush_device()\n"
+        "for ep in ('metrics', 'fleet', 'snapshot', 'profile', 'healthz', 'capacity'):\n"
+        "    urllib.request.urlopen(s.telemetry.url + '/' + ep, timeout=30).read()\n"
+        "s.telemetry.stop()\n"
         "print(json.dumps(sorted(m for m in sys.modules\n"
         "    if m == 'jax' or m.startswith('jax.') or m == 'ytpu' or m.startswith('ytpu.'))))\n"
     )

@@ -9,7 +9,7 @@ and `fori_carry_plain`.
 
 The kernels themselves are compiled and run only on the card
 (`chip_smoke.py`). Here g++ compiles each section alone, with the shared
-helpers, with every CUDA thread a host thread. The map put's C entry points
+helpers, with every warp a host thread and each lane a fiber on it. The map put's C entry points
 run on: rung 0's program shape, a rung-7-shaped tile over several CTAs, a
 last CTA partly empty, a count below one CTA's groups, the one-int path (a
 count not a multiple of 4, the input or the output one int off a 16-byte

@@ -2,7 +2,8 @@
 overlap engine (`OverlapPipeline`, `plan_overlap`), `FusedReplay`'s serial
 lane and its overlap lane on raw and host-packed staging at depths 1-3
 (cols, meta, every chunk's readout, text and counters), the slot-reuse
-staging, and the deferred decode error's message.
+staging, the deferred decode error's message, and the phase recorder's
+stages of every lane.
 
 Every replay reuses `test_async_overlap`'s workload and its (2 docs,
 capacity 256, chunk 16) shape family; the JAX package runs each lane once
@@ -25,6 +26,7 @@ from ytpu_torch.ops import integrate_kernel as tik
 
 from test_async_overlap import CAPACITY, CHUNK, N_DOCS, _workload
 from test_torch_integrate import OS, assert_meta, assert_planes
+from _torch_obs import swap_module_globals
 
 torch.set_num_threads(1)
 
@@ -303,3 +305,55 @@ def test_staging_slots_are_views_of_their_tensors():
     packed = treplay._StagingSlot(8, 32, 2)
     packed.buf[1, 2] = 9
     assert int(packed.host[0][1, 2]) == 9 and packed.host[0].shape == (8, 32)
+
+
+def _stages_by_bucket(pkg, make, log):
+    """``{profile bucket: {stage: (calls, compile calls, h2d, d2h)}}`` of
+    one run of ``make(log)`` under a fresh recorder of package `pkg`
+    (its process-wide recorder is swapped out, not reset); stage names
+    of the JAX package's XLA lane are renamed to the port's one lane, the
+    kernel the JAX package calls "fused"."""
+    import importlib
+    import re
+
+    mod = importlib.import_module(f"{pkg}.utils.phases")
+    classify = importlib.import_module(f"{pkg}.utils.profile").classify_stage
+    rec = mod.PhaseRecorder(enabled=True)
+    with pytest.MonkeyPatch.context() as mp:
+        swap_module_globals(mp, pkg, mod.phases, rec)
+        rep = make(log)
+        rep.run(log)
+    out = {}
+    for name, d in rec.snapshot().items():
+        name = re.sub(r"(chunk_|\.)xla$", r"\1fused", name)
+        out.setdefault(classify(name), {})[name] = (d["calls"], d["compile_calls"], d["h2d_bytes"], d["d2h_bytes"])
+    return out, rep
+
+
+@needs_native
+@pytest.mark.parametrize("lane", list(LANES))
+def test_lane_records_jax_stages_in_every_bucket(jax_runs, lane):
+    """With the phase recorder on, each profile bucket holds the same
+    stages with the same call counts, first-sighting counts and transfer
+    bytes in both packages, and the recorder adds no readout sync. One
+    difference is the port's design: its chunk programs launch the decode
+    kernel through `decode_updates_v1`, so on the overlap lanes
+    ``decode.v1`` records one call a chunk (beside the chunk stage, not
+    inside it), where the JAX package's one chunk program holds the
+    decode. On the serial lane the JAX run's XLA chunk step counts no
+    transfer, and the port's kernel step counts its packed stream as the
+    JAX package's fused step does. (`jax_runs` has compiled the JAX lanes
+    already.)"""
+    log, _, _ = _workload()
+    yb, jax = _stages_by_bucket("ytpu", lambda lg: _jax(lg, **LANES[lane]), log)
+    tb, port = _stages_by_bucket("ytpu_torch", lambda lg: _port(lg, **LANES[lane]), log)
+    if lane != "serial":
+        calls, first, h2d, _ = tb["device"].pop("decode.v1")
+        assert calls == port.stats.chunks and first == 1 and h2d > 0
+    else:
+        calls, first, h2d, _ = tb["device"]["replay.chunk_fused"]
+        assert yb["device"]["replay.chunk_fused"] == (calls, first, 0, 0) and h2d > 0
+        tb["device"]["replay.chunk_fused"] = yb["device"]["replay.chunk_fused"]
+    assert tb == yb
+    assert port.stats.syncs == jax.stats.syncs == jax_runs[lane][0].stats.syncs
+    assert tb["device"]["compact.packed"][0] == port.stats.compactions >= 1

@@ -182,8 +182,41 @@ def test_options_outside_the_port_raise():
         UpdatePipeline(enc, N_ROWS, N_DELS, lane="host")
     with pytest.raises(ValueError, match="depth"):
         UpdatePipeline(enc, N_ROWS, N_DELS, depth=0)
-    with pytest.raises(NotImplementedError, match="A.2c"):
-        UpdatePipeline(enc, N_ROWS, N_DELS, admission=object())
+
+
+def test_admission_throttles_the_producer_like_jax(jax_states, stream, monkeypatch):
+    """An `AdmissionController` on the pipeline throttles its staging
+    producer a chunk at a time: under injected clocks both packages wait
+    the same seconds (registry deltas too), record the same
+    ``pipeline.decode`` calls and ``pipeline.stage_bytes``, and end in the
+    state of the unthrottled run."""
+    import importlib
+
+    from ytpu.serving import AdmissionController as JAdmission
+    from ytpu_torch.serving import AdmissionController
+
+    from _torch_obs import FakeClock, ObjectDelta, admission_families, swap_module_globals
+
+    payloads, _ = stream
+    out = []
+    for pkg, adm_cls, run in (("ytpu", JAdmission, _jax_run), ("ytpu_torch", AdmissionController, _port_run)):
+        phases_mod = importlib.import_module(f"{pkg}.utils.phases")
+        rec = phases_mod.PhaseRecorder(enabled=True)
+        swap_module_globals(monkeypatch, pkg, phases_mod.phases, rec)
+        clock, waits = FakeClock(step=0.001), []
+        adm = adm_cls(rate=40.0, burst=4.0, clock=clock.monotonic,
+                      sleep=lambda s, c=clock, w=waits: (w.append(round(s, 9)), c.sleep(s)))
+        # the counters the admission module made at import
+        tally = ObjectDelta(*admission_families(importlib.import_module(f"{pkg}.serving.admission"))[2:4])
+        state, n, _ = run("xla", payloads, admission=adm)
+        snap = rec.snapshot()
+        out.append((state, n, waits, tally.changed(),
+                     snap["pipeline.decode"]["calls"], snap["pipeline.stage_bytes"]["value"]))
+    (j_state, j_n, j_waits, j_counts, j_calls, j_bytes), (state, n, waits, counts, calls, nbytes) = out
+    assert n == j_n == jax_states["xla"][1]
+    _assert_states_equal(state, jax_states["xla"][0])
+    assert waits == j_waits and len(waits) > 1 and counts == j_counts
+    assert calls == j_calls == len(payloads) and nbytes == j_bytes == sum(len(p) for p in payloads)
 
 
 def test_build_step_and_stack_steps_match_jax(stream):

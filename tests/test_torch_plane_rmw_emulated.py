@@ -23,8 +23,8 @@ view one int off (the one-int path), into a separate SENTINEL-filled meta,
 and at small CTAs whose threads take several tiles of a doc.
 
 The kernels themselves are compiled and run only on the card
-(`chip_smoke.py`). Here g++ compiles each section with every CUDA thread a
-host thread. It says nothing of speed, and nothing of what nvcc makes of
+(`chip_smoke.py`). Here g++ compiles each section with every warp a host
+thread and each lane a fiber on it. It says nothing of speed, and nothing of what nvcc makes of
 the source.
 
 The emulation runs in a child process under a time limit, so that a

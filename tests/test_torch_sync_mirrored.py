@@ -319,6 +319,12 @@ def test_plain_sync_server_serves_content():
     from ytpu.sync.server import SyncServer as YSyncServer
     from ytpu_torch.sync.server import SyncServer
 
+    from ytpu.utils.metrics import metrics as y_metrics
+    from ytpu_torch.utils.metrics import metrics as t_metrics
+
+    from _torch_obs import RegistryDelta
+
+    tallies = [RegistryDelta(t_metrics), RegistryDelta(y_metrics)]
     servers = [SyncServer(doc_factory=lambda n: TDoc(client_id=3)),
                YSyncServer(doc_factory=lambda n: YDoc(client_id=3))]
     c = YDoc(client_id=8)
@@ -335,4 +341,5 @@ def test_plain_sync_server_serves_content():
         results.append(res)
     assert results[0] == results[1]
     assert servers[0].doc("pad").get_text("t").get_string() == "served by the host doc"
-    assert servers[0].metrics["sync.updates_applied"] == 1
+    assert tallies[0]["sync.updates_applied"] == tallies[1]["sync.updates_applied"] == 1
+    assert servers[0].applied_local == 1

@@ -25,8 +25,12 @@ from ytpu_torch.benches import sync_server as bench
 from ytpu_torch.core.doc import Doc as TDoc
 from ytpu_torch.core.state_vector import StateVector
 from ytpu_torch.sync.device_server import DeviceSyncServer as TServer
-from ytpu_torch.sync.protocol import Message, SyncMessage, message_reader
+from ytpu_torch.sync.protocol import MSG_BUSY, Message, SyncMessage, message_reader
 from ytpu_torch.sync.server import DeviceBatchFull
+from ytpu_torch.utils.metrics import metrics as t_metrics
+from ytpu.utils.metrics import metrics as y_metrics
+
+from _torch_obs import RegistryDelta
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -40,6 +44,8 @@ class Pair:
     both and the results must be equal."""
 
     def __init__(self, n_docs, capacity, client_id=_client_id):
+        # each package's registry, read as deltas from here
+        self.ytally, self.tally = RegistryDelta(y_metrics), RegistryDelta(t_metrics)
         self.y = YServer(n_docs=n_docs, capacity=capacity, device_authoritative=True,
                          doc_factory=lambda name: Doc(client_id=client_id(name)))
         self.t = TServer(n_docs=n_docs, capacity=capacity, device_authoritative=True, device="cpu",
@@ -173,8 +179,8 @@ def test_device_authoritative_serving_converges_without_host_doc():
     assert frames and pair.drain(s_b) == []
     _apply_step2(alice, frames)
     assert alice.get_text("text").get_string() == ">> hello from alice"
-    assert pair.t.metrics["sync.updates_applied"] == 3
-    assert pair.t.metrics["sync.diffs_encoded"] == {"pad": 1}
+    assert pair.tally["sync.updates_applied"] == pair.ytally["sync.updates_applied"] == 3
+    assert pair.tally['sync.diffs_encoded{tenant="pad"}'] == pair.ytally['sync.diffs_encoded{tenant="pad"}'] == 1
 
 
 def test_device_authoritative_incremental_diff():
@@ -219,7 +225,7 @@ def test_multi_root_tenant_stays_device_resident():
     pair.check("app")
     assert pair.t.device_text("app") == "words!"
     assert pair.t.device_tree("app")["roots"]["meta"]["map"] == {"title": "doc one"}
-    assert pair.t.metrics["sync.multi_root_tenants"] == 1
+    assert pair.tally["sync.multi_root_tenants"] == pair.ytally["sync.multi_root_tenants"] == 1
 
     session2, greeting = pair.connect("app")
     replies = pair.receive(session2, _step1({}))
@@ -317,7 +323,7 @@ def test_formatted_text_diff_fanout_and_rebalance():
     assert pair.t.rebalance_tenant("fmt") == pair.y.rebalance_tenant("fmt") == 2
     pair.check("fmt")
     assert (pair.t.device_text("fmt"), pair.state_vector("fmt")) == before
-    assert pair.t.metrics["sync.rebalances"] == 1
+    assert pair.tally["sync.rebalances"] == pair.ytally["sync.rebalances"] == 1
     pair.connect("third")  # takes the slot the rebalance freed
     assert pair.t.slot_of("third") == pair.y.slot_of("third") == 0
     for server in (pair.y, pair.t):
@@ -337,9 +343,10 @@ def test_malformed_frame_kills_only_its_session():
     assert pair.receive(bad, b"\x00\x01\x05\xff\xff") == []  # a truncated SyncStep2
     assert bad[1].dead and bad[0].dead
     assert not good[1].dead and not other[1].dead
-    assert pair.t.metrics["net.bad_frames"] == 1
-    assert pair.t.metrics["net.sessions_dropped"] == {"bad_frame": 1}
-    assert pair.t.metrics["sync.sessions"] == 2
+    for tally in (pair.tally, pair.ytally):
+        assert tally["net.bad_frames"] == 1
+        assert tally['net.sessions_dropped{reason="bad_frame"}'] == 1
+        assert tally["sync.sessions"] == 2
     c = Doc(client_id=71)
     with c.transact() as txn:
         c.get_text("text").insert(txn, 0, "still serving")
@@ -353,10 +360,17 @@ def test_malformed_frame_kills_only_its_session():
 def test_port_only_rules_raise():
     import torch
 
-    for kwargs in ({"telemetry_port": 0}, {"shard_docs": True}, {"device_authoritative": True, "telemetry_port": 0},
-                   {"device_authoritative": True, "shard_docs": True}):
+    from ytpu_torch.serving import AdmissionController
+
+    for kwargs in ({"shard_docs": True}, {"device_authoritative": True, "shard_docs": True}):
         with pytest.raises(NotImplementedError):
             TServer(n_docs=2, capacity=64, device="cpu", **kwargs)
+    for kwargs in ({"telemetry_port": 0}, {"device_authoritative": True, "telemetry_port": 0}):
+        served = TServer(n_docs=2, capacity=64, device="cpu", **kwargs)
+        try:
+            assert served.telemetry.port > 0  # the telemetry plane is ported
+        finally:
+            served.telemetry.stop()
     with pytest.raises(ValueError):
         TServer(device_authoritative=True, device="cpu")
     # the default mode is the mirrored one
@@ -366,9 +380,10 @@ def test_port_only_rules_raise():
     server.release_tenant("pad")  # a content-less tenant: its host doc stays empty
     assert "pad" in server._host_tenants and server._free_slots == [0]
     assert server.doc("pad").state_vector() == StateVector()
-    server.admission = object()
-    with pytest.raises(NotImplementedError):
-        server._receive_frames_unsafe(session, _update(b"\x00\x00"))
+    # admission is ported: a bound of 0 answers an update with a Busy reply
+    server.admission = AdmissionController(max_queue=0)
+    (busy,) = server._receive_frames_unsafe(session, _update(b"\x00\x00"))
+    assert next(iter(message_reader(busy))).kind == MSG_BUSY
     if not torch.cuda.is_available():
         # no device named and no GPU: it raises, it does not run on the CPU
         with pytest.raises(RuntimeError):
@@ -427,7 +442,7 @@ def test_whole_slice_small_plan_matches_ytpu():
     assert pair.t.ingestor.slow_docs > 0 and pair.t.ingestor.fast_docs > 0  # both lanes ran
     for t in tenants:
         pair.check(t.name)
-    assert pair.t.metrics["net.bad_frames"] == 0
+    assert pair.tally["net.bad_frames"] == pair.ytally["net.bad_frames"] == 0
 
     bench.drive_reads(pair.y, run_y, tenants)
     bench.drive_reads(pair.t, run_t, tenants)

@@ -24,13 +24,22 @@ package.
 
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass, field
 from typing import Callable, Dict, List, Optional, Tuple
 
 from ytpu_torch.benches import ingest as ingest_bench
 from ytpu_torch.core.state_vector import StateVector
 from ytpu_torch.core.update import merge_updates_v1
-from ytpu_torch.sync.protocol import MSG_SYNC, MSG_SYNC_UPDATE, Message, SyncMessage, message_reader
+from ytpu_torch.sync.protocol import (
+    MSG_BUSY,
+    MSG_SYNC,
+    MSG_SYNC_UPDATE,
+    Message,
+    SyncMessage,
+    decode_busy,
+    message_reader,
+)
 
 __all__ = [
     "FULL",
@@ -39,6 +48,7 @@ __all__ = [
     "Run",
     "Tenant",
     "catch_up",
+    "drive_admitted_writes",
     "drive_reads",
     "host_value",
     "drive_writes",
@@ -228,6 +238,110 @@ def drive_writes(server, plan: Plan, tenants: List[Tenant],
         run.sent[t.name].append(merged[key])
     drain()
     run.flush_steps.append(flush(plan.rounds))
+    return run
+
+
+@dataclass
+class AdmittedRun:
+    """What `drive_admitted_writes` returned: the Busy replies the writers
+    got, the updates they sent again, the rounds of sending again after
+    the write rounds, the trace id of every frame the server admitted, and
+    any reply that was not Busy."""
+
+    busy: int = 0
+    resent: int = 0
+    drain_rounds: int = 0
+    admitted_traces: List[str] = field(default_factory=list)
+    other_replies: List[bytes] = field(default_factory=list)
+
+
+def _busy_retry_after(replies: List[bytes]) -> Optional[float]:
+    """The ``retry_after_s`` of a Busy reply among `replies`, or None."""
+    for f in replies:
+        for m in message_reader(f):
+            if m.kind == MSG_BUSY:
+                return decode_busy(m.body)[0]
+    return None
+
+
+def drive_admitted_writes(server, plan: Plan, tenants: List[Tenant],
+                          flush: Optional[Callable[[int], int]] = None) -> AdmittedRun:
+    """`drive_writes`' schedule against a server whose admission controller
+    defers: each tenant's writer keeps what a Busy reply refused and sends
+    it again, before anything newer, once the reply's ``retry_after_s``
+    has passed, so no writer reorders its updates. After the rounds each
+    writer sends its log's rest as one SyncStep2 frame; then rounds of
+    sending again and flushing follow until nothing is deferred. Every
+    frame goes in a request trace context of its own, whose id (with the
+    tracer on) is recorded when the frame is admitted."""
+    from ytpu_torch.utils.trace import trace_context
+
+    flush = flush or (lambda step: server.flush_device())
+    run = AdmittedRun()
+    writers, readers = {}, {}
+    for t in tenants:
+        writers[t.name] = server.connect_frames(t.name)[0]
+        readers[t.name] = server.connect_frames(t.name)[0]
+    backlog: Dict[str, List[bytes]] = {t.name: [] for t in tenants}
+    not_before: Dict[str, float] = {}
+
+    def send(t: Tenant, frame: bytes) -> bool:
+        with trace_context() as fields:
+            replies = server.receive_frames(writers[t.name], frame)
+        retry = _busy_retry_after(replies)
+        if retry is not None:
+            run.busy += 1
+            not_before[t.name] = time.perf_counter() + retry
+            return False
+        run.other_replies += replies
+        if fields is not None:
+            run.admitted_traces.append(fields["trace"])
+        return True
+
+    def send_backlog(t: Tenant) -> None:
+        q = backlog[t.name]
+        if not q:
+            return
+        wait = not_before.get(t.name, 0.0) - time.perf_counter()
+        if wait > 0:
+            time.sleep(wait)
+        while q:
+            if not send(t, q[0]):
+                return
+            q.pop(0)
+            run.resent += 1
+
+    def settle(step: int) -> None:
+        for t in tenants:
+            server.drain(readers[t.name])
+            server.drain(writers[t.name])
+        flush(step)
+
+    for r in range(plan.rounds):
+        for t in tenants:
+            send_backlog(t)
+            p = t.round_payload(r)
+            if p is None:
+                continue
+            frame = _update_frame(p)
+            if backlog[t.name] or not send(t, frame):
+                backlog[t.name].append(frame)
+        settle(r)
+    merged: Dict[tuple, bytes] = {}
+    for t in tenants:
+        rest = t.rest(plan.rounds)
+        if rest:
+            key = (id(t.log), len(rest))
+            if key not in merged:
+                merged[key] = merge_updates_v1(rest)
+            backlog[t.name].append(_step2_frame(merged[key]))
+    step = plan.rounds
+    while any(backlog.values()):
+        for t in tenants:
+            send_backlog(t)
+        settle(step)
+        step += 1
+        run.drain_rounds += 1
     return run
 
 

@@ -333,18 +333,33 @@ def apply_update_batch(state: DocStateBatch, batch: UpdateBatch, client_rank) ->
     table shared by all docs; the conflict-scan plan is `scan_tier_plan()`,
     read per call. The input state is left as it was. The returned state's
     origin_slot plane is marked stale (the kernel does not maintain it;
-    `ensure_origin_slot` refreshes it)."""
+    `ensure_origin_slot` refreshes it). With the phase recorder on, the
+    call is its ``integrate.xla_batch`` stage (the JAX package's name for
+    this entry)."""
     from ytpu_torch.ops import integrate_kernel as ik
+    from ytpu_torch.utils.phases import NULL_SPAN, phases, program_memory
 
+    scan_plan = scan_tier_plan()
+    res: list = []
+    span = NULL_SPAN
+    if phases.enabled:
+        span = phases.span(
+            "integrate.xla_batch",
+            (tuple(state.blocks.client.shape), tuple(batch.client.shape), scan_plan),
+            axes=("state", "batch", "scan_plan"),
+            memory=program_memory(state, batch, client_rank, outputs=lambda: res),
+        )
     record = torch.profiler.record_function
-    with record("ytpu_torch.pack_state"):
-        cols, meta = ik.pack_state(state)
-    with record("ytpu_torch.pack_stream"):
-        rows, dels = ik.pack_stream(batch)
-    with record("ytpu_torch.integrate_batch"):
-        ik.integrate_batch(cols, meta, rows, dels, _rank_table(client_rank, cols.device))
-    with record("ytpu_torch.unpack_state"):
-        out = ik.unpack_state(cols, meta)
+    with span:
+        with record("ytpu_torch.pack_state"):
+            cols, meta = ik.pack_state(state)
+        with record("ytpu_torch.pack_stream"):
+            rows, dels = ik.pack_stream(batch)
+        with record("ytpu_torch.integrate_batch"):
+            ik.integrate_batch(cols, meta, rows, dels, _rank_table(client_rank, cols.device), scan_plan)
+        with record("ytpu_torch.unpack_state"):
+            out = ik.unpack_state(cols, meta)
+        res.append(out)
     mark_origin_slot_stale(out)
     return out
 
@@ -371,8 +386,23 @@ def apply_update_stream_raw(
 def apply_update_stream(
     state: DocStateBatch, stream: UpdateBatch, client_rank
 ) -> DocStateBatch:
-    """`apply_update_stream_raw` without the scan record."""
-    return apply_update_stream_raw(state, stream, client_rank)[0]
+    """`apply_update_stream_raw` without the scan record. With the phase
+    recorder on, the call is its ``integrate.xla_stream`` stage (the JAX
+    package's name for this entry)."""
+    from ytpu_torch.utils.phases import phases, program_memory
+
+    scan_plan = scan_tier_plan()
+    if not phases.enabled:
+        return apply_update_stream_raw(state, stream, client_rank, scan_plan)[0]
+    res: list = []
+    with phases.span(
+        "integrate.xla_stream",
+        (tuple(state.blocks.client.shape), tuple(stream.client.shape), scan_plan),
+        axes=("state", "stream", "scan_plan"),
+        memory=program_memory(state, stream, client_rank, outputs=lambda: res),
+    ):
+        res.append(apply_update_stream_raw(state, stream, client_rank, scan_plan)[0])
+    return res[0]
 
 
 def apply_update_stream_fused(
@@ -381,8 +411,29 @@ def apply_update_stream_fused(
     """`apply_update_stream` (sequence, map, nested-branch and move rows all
     integrate in the one launch); ``refresh_cache=True`` rebuilds the stale
     origin_slot plane here (`recompute_origin_slot`) instead of leaving it
-    to the readers' `ensure_origin_slot`."""
-    out = apply_update_stream(state, stream, client_rank)
+    to the readers' `ensure_origin_slot`. With the phase recorder on, the
+    launch is its ``integrate.fused`` stage, which counts the packed
+    stream as host-to-device bytes."""
+    from ytpu_torch.ops import integrate_kernel as ik
+    from ytpu_torch.utils.phases import NULL_SPAN, _nbytes, phases
+
+    cols, meta = ik.pack_state(state)
+    rows, dels = ik.pack_stream(stream)
+    rank = _rank_table(client_rank, cols.device)
+    scan_plan = scan_tier_plan()
+    span = NULL_SPAN
+    if phases.enabled:
+        phases.transfer("integrate.fused", _nbytes(rows) + _nbytes(dels), "h2d")
+        span = phases.span(
+            "integrate.fused",
+            (tuple(cols.shape), tuple(rows.shape), tuple(dels.shape), scan_plan),
+            axes=("state", "rows", "dels", "scan_plan"),
+            memory=ik._stream_memory(cols, meta, rows, dels, rank),
+        )
+    with span:
+        ik.integrate_stream(cols, meta, rows, dels, rank, scan_plan)
+    out = ik.unpack_state(cols, meta)
+    mark_origin_slot_stale(out)
     return recompute_origin_slot(out) if refresh_cache else out
 
 
@@ -410,7 +461,24 @@ def encode_diff_batch(state: DocStateBatch, remote_sv: torch.Tensor, n_clients: 
     offset (`Store::write_blocks_from` / `diff_state_vectors`, store.rs:
     204-248). Returns ``(ship [D, B] bool, offsets [D, B] int32, local_sv
     [D, n_clients] int32, deleted [D, B] bool)``; the host finisher turns
-    the selected rows into wire bytes."""
+    the selected rows into wire bytes. With the phase recorder on, the
+    call is its ``encode.diff_batch`` stage."""
+    from ytpu_torch.utils.phases import phases, program_memory
+
+    if not phases.enabled:
+        return _encode_diff_batch(state, remote_sv, n_clients)
+    res: list = []
+    with phases.span(
+        "encode.diff_batch",
+        (tuple(state.blocks.client.shape), tuple(remote_sv.shape), n_clients),
+        axes=("state", "remote_sv", "n_clients"),
+        memory=program_memory(state, remote_sv, outputs=lambda: res),
+    ):
+        res.extend(_encode_diff_batch(state, remote_sv, n_clients))
+    return tuple(res)
+
+
+def _encode_diff_batch(state: DocStateBatch, remote_sv, n_clients: int):
     from ytpu_torch.ops.state_vector import sv_from_blocks
 
     bl = state.blocks
@@ -1185,7 +1253,25 @@ def compact_finisher_rows(bl: BlockCols, ship, offsets, deleted, idx, R: int) ->
     ship, offsets and deleted, each doc's included rows in slot order in
     its first columns (`R` at least the largest per-doc count), so that
     only these rows cross to the host. The parent column is renumbered
-    into the compacted rows for shipped rows and -1 elsewhere."""
+    into the compacted rows for shipped rows and -1 elsewhere. With the
+    phase recorder on, the call is its ``encode.pack`` stage, keyed by
+    its ``(sub, R)`` family."""
+    from ytpu_torch.utils.phases import phases, program_memory
+
+    if not phases.enabled:
+        return _compact_finisher_rows(bl, ship, offsets, deleted, idx, R)
+    res: list = []
+    with phases.span(
+        "encode.pack",
+        (tuple(bl.client.shape), tuple(idx.shape), R),
+        axes=("state", "idx", "R"),
+        memory=program_memory(bl, ship, offsets, deleted, idx, outputs=lambda: res),
+    ):
+        res.append(_compact_finisher_rows(bl, ship, offsets, deleted, idx, R))
+    return res[0]
+
+
+def _compact_finisher_rows(bl: BlockCols, ship, offsets, deleted, idx, R: int) -> torch.Tensor:
     ship, deleted = ship[idx], deleted[idx]
     cols = [getattr(bl, n)[idx].to(I32) for n in _FINISH_COLS]
     incl, pv, spar = _finish_include(cols[-1], ship, deleted)
@@ -1576,8 +1662,24 @@ class DiffPipeline:
         return plan_diff_pipeline(n_docs, self.sub_batch, self.depth)
 
     def run(self, state: DocStateBatch, docs, ship, offsets, deleted, enc) -> List[bytes]:
+        """The payloads of `docs`, in order. Counts ``encode.pipeline_runs``
+        for a non-empty selection and, with the phase recorder on, folds
+        the run's stage times into ``encode.select`` / ``encode.finish``
+        and its host-bound bytes into ``encode.d2h_bytes`` / ``encode.d2h``."""
+        from ytpu_torch.utils.metrics import metrics
+        from ytpu_torch.utils.phases import phases
+
         with torch.profiler.record_function("ytpu_torch.finisher"):
-            return self._run(state, docs, ship, offsets, deleted, enc)
+            out = self._run(state, docs, ship, offsets, deleted, enc)
+        stats = self.stats
+        if stats.n_docs:
+            metrics.counter("encode.pipeline_runs").inc()
+            if phases.enabled:
+                phases.add_time("encode.select", stats.select_s, stats.n_sub)
+                phases.add_time("encode.finish", stats.finish_s, stats.n_sub)
+                phases.add_value("encode.d2h_bytes", stats.d2h_bytes)
+                phases.transfer("encode.d2h", stats.d2h_bytes, "d2h")
+        return out
 
     def _run(self, state: DocStateBatch, docs, ship, offsets, deleted, enc) -> List[bytes]:
         docs = [int(d) for d in docs]

@@ -60,6 +60,8 @@ from ytpu_torch.models.batch_doc import (
     state_capacity_ledger,
 )
 from ytpu_torch.native import decode_update_columns_batch
+from ytpu_torch.utils.metrics import metrics
+from ytpu_torch.utils.phases import phases
 from ytpu_torch.ops.decode_kernel import (
     FLAG_ERRORS,
     KEY_HASH_BYTES,
@@ -133,6 +135,10 @@ class BatchIngestor:
         self.fast_docs = 0
         self.slow_docs = 0
         self.fast_recoveries = 0  # flagged fast lanes replayed through the host lane
+        # the same three counts, process-wide in the metrics registry
+        self._m_fast = metrics.counter("ingest.fast_docs")
+        self._m_slow = metrics.counter("ingest.slow_docs")
+        self._m_recoveries = metrics.counter("ingest.fast_recoveries")
         # fast-lane bytes copied to the device (the wire arena or padded
         # matrix, offsets and lengths), summed over steps
         self.wire_bytes = 0
@@ -451,7 +457,8 @@ class BatchIngestor:
         Both lanes merge into one `apply_update_batch` step."""
         if len(payloads) != self.n_docs:
             raise ValueError(f"expected {self.n_docs} payload slots")
-        with torch.profiler.record_function("ytpu_torch.ingest.plan"):
+        # the host planning is the phase recorder's ``ingest.plan`` stage
+        with phases.span("ingest.plan"), torch.profiler.record_function("ytpu_torch.ingest.plan"):
             fast_idx: List[int] = []
             fast_payloads: List[bytes] = []
             # recovery: per fast doc, first-touch (client -> pre-step clock)
@@ -498,6 +505,8 @@ class BatchIngestor:
                     max_steps = max(max_steps, steps_for_columns(cols))
             self.fast_docs += len(fast_idx)
             self.slow_docs += len(slow_docs)
+            self._m_fast.inc(len(fast_idx))
+            self._m_slow.inc(len(slow_docs))
             with torch.profiler.record_function("ytpu_torch.ingest.plan.host_lane"):
                 slow_updates: List[Optional[Update]] = [None] * self.n_docs
                 for d in slow_docs:
@@ -535,6 +544,7 @@ class BatchIngestor:
             bad_lanes = set(np.nonzero(f & FLAG_ERRORS)[0].tolist())
             bad = [fast_idx[i] for i in bad_lanes]
             self.fast_recoveries += len(bad)
+            self._m_recoveries.inc(len(bad))
             # release the retained chunk if every lane with content refs in
             # it was flagged (its refs never went live)
             if chunk_base is not None and all(
@@ -575,12 +585,16 @@ class BatchIngestor:
             wire[: len(flat)] = np.frombuffer(flat, dtype=np.uint8)
             dev_buf = torch.from_numpy(wire).to(dev)
             arena = dict(offs=torch.from_numpy(offsets).to(dev), width=L)
-            self.wire_bytes += wire.nbytes + offsets.nbytes + lens.nbytes
+            sent = wire.nbytes + offsets.nbytes + lens.nbytes
         else:
             buf, lens = pack_updates(fast_payloads, pad_to=_bucket(maxlen + 16, 64))
             S, L = buf.shape
             dev_buf = torch.from_numpy(buf).to(dev)
-            self.wire_bytes += buf.nbytes + lens.nbytes
+            sent = buf.nbytes + lens.nbytes
+        self.wire_bytes += sent
+        # the fast lane's host-to-device bytes (``decode.v1`` counts them
+        # again at the kernel's call site; this stage charges them to ingest)
+        phases.transfer("ingest.fast_lane", sent, "h2d")
         # retain only the bytes of lanes with content refs (lens-trimmed,
         # concatenated); refs are rebased from the padded s * L layout
         keep = np.ones(S, dtype=bool) if retain_lanes is None else np.asarray(retain_lanes, dtype=bool)

@@ -19,6 +19,7 @@ from ytpu_torch.models.batch_doc import (
     UpdateBatch,
     apply_update_stream,
 )
+from ytpu_torch.utils.phases import phases
 
 __all__ = ["UpdatePipeline"]
 
@@ -44,9 +45,17 @@ class UpdatePipeline:
       stale.
 
     ``lane="packed_xla"`` (the JAX package's XLA chunk step) is outside the
-    port and raises `ValueError`; ``admission`` raises
-    `NotImplementedError` until ROADMAP A.2c. ``decode_v2=True`` reads
-    the payloads as v2 updates (host decode, as for v1).
+    port and raises `ValueError`. ``decode_v2=True`` reads the payloads as
+    v2 updates (host decode, as for v1).
+
+    ``admission`` (an `ytpu_torch.serving.AdmissionController`) throttles
+    the staging producer: before each chunk goes to the overlap engine it
+    calls ``throttle(steps)``, so a rate-limited pipeline blocks its
+    producer instead of growing the staged backlog.
+
+    With the phase recorder on, each payload's host decode is a
+    ``pipeline.decode`` span and a run adds its payload bytes to
+    ``pipeline.stage_bytes``.
 
     A `ReplayFault` or an injected staging fault restarts the whole run
     from the caller's `state` (which no lane writes) when `payloads` is a
@@ -74,8 +83,6 @@ class UpdatePipeline:
             raise ValueError(f"lane must be 'xla' or 'fused', got {lane!r}")
         if depth < 1:
             raise ValueError(f"depth must be >= 1, got {depth}")
-        if admission is not None:
-            raise NotImplementedError("admission: the admission controller is not ported yet (ROADMAP A.2c)")
         self.enc = enc
         self.decode_v2 = decode_v2
         self.n_rows = n_rows
@@ -85,18 +92,26 @@ class UpdatePipeline:
         self.lane = lane
         self.policy = policy
         self.max_capacity = max_capacity
+        self.admission = admission
+        self._staged_bytes = 0
 
     def _chunks(self, payloads: Iterable[bytes]):
         """Decode and build padded chunks as CPU tensors (runs on the
         worker thread)."""
         steps: List[UpdateBatch] = []
         for p in payloads:
-            u = Update.decode_v2(p) if self.decode_v2 else Update.decode_v1(p)
-            steps.append(self.enc.build_step(u, self.n_rows, self.n_dels, device="cpu"))
+            self._staged_bytes += len(p)
+            with phases.span("pipeline.decode"):
+                u = Update.decode_v2(p) if self.decode_v2 else Update.decode_v1(p)
+                steps.append(self.enc.build_step(u, self.n_rows, self.n_dels, device="cpu"))
             if len(steps) == self.chunk_steps:
+                if self.admission is not None:
+                    self.admission.throttle(len(steps))
                 yield BatchEncoder.stack_steps(steps)
                 steps = []
         if steps:
+            if self.admission is not None:
+                self.admission.throttle(len(steps))
             # pad the tail to the chunk's S: padding steps hold invalid rows
             pad = steps[-1]._replace(valid=steps[-1].valid.new_zeros(steps[-1].valid.shape),
                                      del_valid=steps[-1].del_valid.new_zeros(steps[-1].del_valid.shape))
@@ -130,6 +145,7 @@ class UpdatePipeline:
         n = 0
         rank_clients = -1
         driver = None
+        self._staged_bytes = 0
 
         def consume(chunk):
             nonlocal n, rank_clients, driver
@@ -148,6 +164,8 @@ class UpdatePipeline:
             n += 1
 
         OverlapPipeline(depth=self.depth, stage_prefix="pipeline").run(self._chunks(payloads), consume)
+        if phases.enabled and self._staged_bytes:
+            phases.add_value("pipeline.stage_bytes", self._staged_bytes)
         state = holder["state"]
         if driver is not None:
             state = self._finish_driver(driver)

@@ -29,6 +29,8 @@ import numpy as np
 import torch
 
 from ytpu_torch.core.device import resolve_device
+from ytpu_torch.utils.phases import phases
+from ytpu_torch.utils.trace import current_trace_id, tracer
 
 __all__ = [
     "ReplayPlan",
@@ -371,6 +373,10 @@ class OverlapPipeline:
 
     Worker threads run host code only: the producers in this package make
     no CUDA call there, and all device work runs on the caller thread.
+
+    With the phase recorder on, a run folds its totals into
+    ``{prefix}.stage`` / ``.stall`` (seconds and counts),
+    ``.overlap_ratio`` and ``.inflight_depth`` (a high-water mark).
     """
 
     def __init__(self, depth: int = 2, stage_prefix: str = "replay"):
@@ -455,6 +461,12 @@ class OverlapPipeline:
             raise err[0]
         if stats.stage_s > 0:
             stats.overlap_ratio = max(0.0, min(1.0, 1.0 - stats.stall_s / stats.stage_s))
+        if phases.enabled:
+            p = self.stage_prefix
+            phases.add_time(f"{p}.stage", stats.stage_s, stats.staged)
+            phases.add_time(f"{p}.stall", stats.stall_s, max(1, stats.consumed))
+            phases.set_value(f"{p}.overlap_ratio", stats.overlap_ratio)
+            phases.set_max(f"{p}.inflight_depth", stats.max_depth)
         return stats
 
 
@@ -493,7 +505,7 @@ class _StagingSlot:
     rows. ``host`` holds the tensors the driver takes, ``buf`` / ``lens``
     / ``refs`` numpy views of them."""
 
-    __slots__ = ("host", "buf", "lens", "refs", "pos", "end")
+    __slots__ = ("host", "buf", "lens", "refs", "pos", "end", "trace")
 
     def __init__(self, chunk: int, width: int, u: int, pin: bool = False):
         (tb, self.buf), (tl, self.lens), (tr, self.refs) = (
@@ -504,6 +516,7 @@ class _StagingSlot:
         self.host = (tb, tl, tr)
         self.pos = 0
         self.end = 0
+        self.trace = None  # the request trace id staged with the chunk
 
     def stage(self, batch: List[bytes], pos: int, end: int, unit_refs: np.ndarray) -> int:
         """Pack updates ``pos:end`` (`batch`) into the slot; returns the
@@ -522,7 +535,7 @@ class _RawStagingSlot:
     (`pack_raw_updates_into`). ``host`` holds the tensors the driver takes,
     ``raw`` / ``offs`` / ``lens`` / ``refs`` numpy views of them."""
 
-    __slots__ = ("host", "raw", "offs", "lens", "refs", "pos", "end")
+    __slots__ = ("host", "raw", "offs", "lens", "refs", "pos", "end", "trace")
 
     def __init__(self, raw_cap: int, chunk: int, u: int, pin: bool = False):
         (ta, self.raw), (to, self.offs), (tl, self.lens), (tr, self.refs) = (
@@ -534,6 +547,7 @@ class _RawStagingSlot:
         self.host = (ta, to, tl, tr)
         self.pos = 0
         self.end = 0
+        self.trace = None  # the request trace id staged with the chunk
 
     def stage(self, wire, woffs, pos: int, end: int, unit_refs: np.ndarray, width: int) -> int:
         """Copy updates ``pos:end`` of the wire table into the slot; returns
@@ -862,6 +876,7 @@ class FusedReplay:
         self.stats.checkpoints += 1
         self.stats.checkpoint_s += time.perf_counter() - t0
         self.stats.checkpoint_bytes += cols_np.nbytes + meta_np.nbytes
+        phases.transfer("replay.checkpoint", cols_np.nbytes + meta_np.nbytes, "d2h")
 
     def _maybe_checkpoint(self, driver, pos: int) -> None:
         if not self.checkpoint_every or driver.stats.chunks % self.checkpoint_every:
@@ -976,6 +991,10 @@ class FusedReplay:
         inflight: deque = deque()
         acquisitions = 0
         staged_bytes = 0
+        # the staging generator runs on the engine's worker thread, where
+        # the caller's trace context is not visible: capture the ambient
+        # trace id here and let each staged slot carry it to its dispatch
+        ambient_trace = current_trace_id()
 
         def produce():
             # numpy only: this runs on the staging thread
@@ -990,21 +1009,24 @@ class FusedReplay:
                         if pipe.stopping:
                             return
                 end = min(pos + chunk, S)
-                if use_raw:
-                    staged_bytes += slot.stage(wire, woffs, pos, end, plan.unit_refs, width)
-                else:
-                    staged_bytes += slot.stage(self._stage_batch(payloads, pos, end), pos, end, plan.unit_refs)
+                with tracer.span("replay.stage_slot", first=pos, last=end - 1, trace=ambient_trace):
+                    if use_raw:
+                        staged_bytes += slot.stage(wire, woffs, pos, end, plan.unit_refs, width)
+                    else:
+                        staged_bytes += slot.stage(self._stage_batch(payloads, pos, end), pos, end, plan.unit_refs)
+                    slot.trace = ambient_trace
                 acquisitions += 1
                 yield slot
 
         def consume(slot):
             t0 = time.perf_counter()
             margin = int(plan.adds[slot.pos : slot.end].sum()) + 8
-            if use_raw:
-                raw, offs, lens, refs = slot.host
-                upload = driver.step_raw(raw, offs, lens, refs, dims, width, margin=margin)
-            else:
-                upload = driver.step_bytes(*slot.host, dims, margin=margin)
+            with tracer.span("replay.dispatch_slot", first=slot.pos, last=slot.end - 1, trace=slot.trace):
+                if use_raw:
+                    raw, offs, lens, refs = slot.host
+                    upload = driver.step_raw(raw, offs, lens, refs, dims, width, margin=margin)
+                else:
+                    upload = driver.step_bytes(*slot.host, dims, margin=margin)
             self._dispatched_ranges.append((slot.pos, slot.end))
             self.cols, self.meta = driver.cols, driver.meta
             inflight.append((slot, upload))
@@ -1031,6 +1053,10 @@ class FusedReplay:
         self.stats.buffer_reuses += max(0, acquisitions - len(slots))
         self.stats.ingest = "raw" if use_raw else "packed"
         self.stats.stage_bytes += staged_bytes
+        if phases.enabled:
+            phases.add_value("replay.stage_bytes", staged_bytes)
+            if ostats.stage_s > 0:
+                phases.set_value("replay.stage_bytes_per_s", staged_bytes / ostats.stage_s)
         return self.stats
 
     def _reidentify_decode_error(self, payloads: List[bytes], flags_or: int):

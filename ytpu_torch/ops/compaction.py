@@ -50,7 +50,25 @@ _SPLICEABLE = (CONTENT_STRING, CONTENT_ANY)
 
 def compact_packed(cols, meta, unit_refs: bool = False, gc_ranges: bool = False):
     """Squash + GC + defragment every doc of a packed ``[26, D, C]`` state;
-    returns new ``(cols, meta)``."""
+    returns new ``(cols, meta)``. With the phase recorder on, the call is
+    its ``compact.packed`` stage, keyed by ``(cols.shape, unit_refs,
+    gc_ranges)``."""
+    from ytpu_torch.utils.phases import phases, program_memory
+
+    if not phases.enabled:
+        return _compact_packed(cols, meta, unit_refs, gc_ranges)
+    out: list = []
+    with phases.span(
+        "compact.packed",
+        (tuple(cols.shape), unit_refs, gc_ranges),
+        axes=("cols", "unit_refs", "gc_ranges"),
+        memory=program_memory(cols, meta, outputs=lambda: out),
+    ):
+        out.extend(_compact_packed(cols, meta, unit_refs, gc_ranges))
+    return out[0], out[1]
+
+
+def _compact_packed(cols, meta, unit_refs: bool, gc_ranges: bool):
     from ytpu_torch.ops.integrate_kernel import (
         CK, CL, CN, DL, HD, KD, KEY, LN, LT, M_NBLOCKS, M_START, MEA, MEC, MEK,
         MPR, MSA, MSC, MSK, MV, OC, OF, OK, OS, PA, RC, RF, RK, RT,

@@ -634,21 +634,46 @@ def decode_updates_v1(
     CPU tensors it is the plain composition `gather_raw_lanes` (for an
     arena) -> `_decode_loop_reference` -> `_resolve_and_pack`. Any other
     device raises, and so does a kernel that fails to build or launch.
-    The work runs inside the profiler span ``ytpu_torch.decode.v1``."""
+    The work runs inside the profiler span ``ytpu_torch.decode.v1``; with
+    the phase recorder on, inside its ``decode.v1`` stage too (keyed by
+    the lane matrix's ``[S, L]`` shape, the arena's too), which counts the
+    wire bytes, lengths and offsets as host-to-device bytes."""
+    from ytpu_torch.utils.phases import NULL_SPAN, phases, program_memory
+
     U, R = max_rows, max_dels
     T = n_steps or default_steps(U, R)
     max_sec = max_sections if max_sections is not None else U + 1
     tables = dict(client_table=client_table, key_table=key_table, client_hash_table=client_hash_table,
                   primary_root_hash=primary_root_hash)
     dev = buf.device
-    with torch.profiler.record_function("ytpu_torch.decode.v1"):
+    out: list = []
+    span = NULL_SPAN
+    if phases.enabled:
+        phases.transfer(
+            "decode.v1",
+            buf.numel() * buf.element_size() + lens.numel() * lens.element_size()
+            + (offs.numel() * offs.element_size() if offs is not None else 0),
+            "h2d",
+        )
+        span = phases.span(
+            "decode.v1",
+            (tuple(buf.shape) if offs is None else (lens.shape[0], width), max_rows, max_dels, n_steps,
+             max_sections, client_table is not None, key_table is not None, client_hash_table is not None,
+             primary_root_hash is not None),
+            axes=("buf", "max_rows", "max_dels", "n_steps", "max_sections", "client_table", "key_table",
+                  "client_hash_table", "primary_root_hash"),
+            memory=program_memory(buf, lens, offs, *tables.values(), outputs=lambda: out),
+        )
+    with span, torch.profiler.record_function("ytpu_torch.decode.v1"):
         if dev.type == "cpu":
-            return _decode_plain(buf, lens, U, R, T, max_sec, offs=offs, width=width, **tables)
-        if dev.type != "cuda":
+            out.extend(_decode_plain(buf, lens, U, R, T, max_sec, offs=offs, width=width, **tables))
+        elif dev.type != "cuda":
             raise ValueError(f"decode_updates_v1 runs on cuda or cpu tensors, not {dev}")
-        stream, flags, _ = _decode_kernel(buf, lens, U, R, T, max_sec, offs=offs, width=width, **tables)
-        decode_updates_v1.launches += 1
-        return stream, flags
+        else:
+            stream, flags, _ = _decode_kernel(buf, lens, U, R, T, max_sec, offs=offs, width=width, **tables)
+            decode_updates_v1.launches += 1
+            out.extend((stream, flags))
+    return out[0], out[1]
 
 
 def _decode_plain(buf, lens, U: int, R: int, T: int, max_sec: int, offs=None, width=None, **tables):

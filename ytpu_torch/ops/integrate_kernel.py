@@ -18,6 +18,7 @@ plain version is the stream one run on each doc's one-step stream.
 from __future__ import annotations
 
 import ctypes
+import time
 from dataclasses import dataclass
 from typing import List, NamedTuple, Optional, Tuple
 
@@ -49,6 +50,7 @@ from ytpu_torch.models.batch_doc import (
 )
 from ytpu_torch.utils.faults import FaultError, faults
 from ytpu_torch.utils.metrics import metrics as _metrics
+from ytpu_torch.utils.phases import NULL_SPAN, _nbytes, phases as _phases, program_memory as _program_memory
 
 __all__ = [
     "NC",
@@ -75,6 +77,7 @@ __all__ = [
     "PackedReplayDriver",
     "ReplayChunkStats",
     "ReplayFault",
+    "lane_health",
 ]
 
 I32 = torch.int32
@@ -807,6 +810,25 @@ def _check_args(cols, meta, rows, dels, rank, scan_plan):
     return cheap, unroll
 
 
+def _scratch_bytes(D: int, C: int) -> int:
+    """Device bytes `_scratch` allocates for a launch into ``D`` docs of
+    ``C`` slots."""
+    hb, hs = scratch_entries(C)
+    return D * (hb + hs) * 16 + 2 * D * C * 4
+
+
+def _stream_memory(cols, meta, rows, dels, rank):
+    """The ``memory=`` thunk of a stream launch's phase span: ``cols`` and
+    ``meta`` are written in place (argument, output and alias bytes) and a
+    launch on the card allocates `_scratch`."""
+    _, D, C = cols.shape
+    cuda = cols.device.type == "cuda"
+    return _program_memory(
+        cols, meta, rows, dels, rank, outputs=(cols, meta), aliased=(cols, meta),
+        scratch_bytes=lambda: _scratch_bytes(D, C) if cuda else 0,
+    )
+
+
 def _scratch(D: int, C: int, dev):
     """The kernel's per-doc scratch: the bitmap index and the start map
     ({key, payload} pairs of int64), the two scan stamps."""
@@ -1058,18 +1080,30 @@ def decode_chunk(
     return rows, dels, err | _or_reduce(flags & FLAG_ERRORS)
 
 
-def _chunk_core(cols, meta, err, buf, lens, refs, rank, *, scan_plan=None, **decode_kw):
+def _chunk_core(cols, meta, err, buf, lens, refs, rank, *, stage, key, axes, scan_plan=None, **decode_kw):
     """The body both chunk programs share: `decode_chunk` -> integrate
     -> readout. ``cols``/``meta`` update in place; returns ``(cols, meta,
     err, readout)``. Each phase is a `torch.profiler` span
-    (``ytpu_torch.decode`` / ``.integrate`` / ``.readout``)."""
+    (``ytpu_torch.decode`` / ``.integrate`` / ``.readout``). With the
+    phase recorder on, the decode is its ``decode.v1`` stage and the
+    integrate and readout that follow it the chunk program's `stage`
+    (``key`` after the state's shape, named by ``axes``): the two spans
+    are one after the other, so the profile counts each launch once."""
     record = torch.profiler.record_function
     with record("ytpu_torch.decode"):
         rows, dels, err = decode_chunk(err, buf, lens, refs, **decode_kw)
-    with record("ytpu_torch.integrate"):
-        integrate_stream(cols, meta, rows, dels, rank, scan_plan)
-    with record("ytpu_torch.readout"):
-        readout = _readout_words(cols, meta, err)
+    span = (
+        _phases.span(stage, (tuple(cols.shape), *key, "fused", scan_plan),
+                     axes=("state", *axes, "lane", "scan_plan"),
+                     memory=_stream_memory(cols, meta, rows, dels, rank))
+        if _phases.enabled
+        else NULL_SPAN
+    )
+    with span:
+        with record("ytpu_torch.integrate"):
+            integrate_stream(cols, meta, rows, dels, rank, scan_plan)
+        with record("ytpu_torch.readout"):
+            readout = _readout_words(cols, meta, err)
     return cols, meta, err, readout
 
 
@@ -1080,10 +1114,13 @@ def replay_chunk_program(
     """One replay chunk from the host-packed ``[S, L]`` lane matrix
     (`pack_updates_into` staging): `_chunk_core`. Flagged lanes integrate
     as no-ops (the decode clears their valid masks) and their flags fold
-    into the sticky ``err``."""
+    into the sticky ``err``. Its phase stage is ``replay.chunk_async``."""
+    dims = (max_rows, max_dels, n_steps, max_sections)
     return _chunk_core(
-        cols, meta, err, buf, lens, refs, rank, scan_plan=scan_plan, max_rows=max_rows,
-        max_dels=max_dels, n_steps=n_steps, max_sections=max_sections,
+        cols, meta, err, buf, lens, refs, rank, stage="replay.chunk_async",
+        key=(tuple(buf.shape), tuple(refs.shape), dims), axes=("buf", "refs", "dims"),
+        scan_plan=scan_plan, max_rows=max_rows, max_dels=max_dels, n_steps=n_steps,
+        max_sections=max_sections,
     )
 
 
@@ -1093,10 +1130,13 @@ def replay_chunk_program_raw(
 ):
     """One replay chunk from raw concatenated wire bytes and their
     offsets table: `_chunk_core` with the decode reading the arena in
-    place."""
+    place. Its phase stage is ``replay.chunk_raw``."""
+    dims = (max_rows, max_dels, n_steps, max_sections)
     return _chunk_core(
-        cols, meta, err, raw, lens, refs, rank, scan_plan=scan_plan, offs=offs, width=width,
-        max_rows=max_rows, max_dels=max_dels, n_steps=n_steps, max_sections=max_sections,
+        cols, meta, err, raw, lens, refs, rank, stage="replay.chunk_raw",
+        key=(tuple(raw.shape), tuple(refs.shape), dims, width), axes=("raw", "refs", "dims", "width"),
+        scan_plan=scan_plan, offs=offs, width=width, max_rows=max_rows, max_dels=max_dels,
+        n_steps=n_steps, max_sections=max_sections,
     )
 
 
@@ -1145,6 +1185,19 @@ class ReplayChunkStats:
 
 
 _QUARANTINED = _metrics.counter("replay.quarantined")
+
+#: wall clock of the most recent chunk dispatch: the telemetry `/healthz`
+#: last-dispatch age (a wedged device shows as a growing age while the
+#: HTTP plane, on its own thread, keeps answering)
+_LAST_DISPATCH = _metrics.gauge("integrate.last_dispatch_unix")
+
+
+def lane_health() -> dict:
+    """The lane-demotion ladder's view that `/healthz` serves: always
+    empty. The JAX package demotes a shape family from its Pallas lane to
+    XLA and the host after device faults; the port has one integrate lane,
+    its hand-written kernel, and nothing below it to demote to."""
+    return {}
 
 
 class ReplayFault(RuntimeError):
@@ -1262,6 +1315,9 @@ class PackedReplayDriver:
         self.stats.occupied_rows = int(vals[base])
         self.stats.dead_rows = int(vals[base + 1])
         self.stats.dead_max = int(vals[base + 2])
+        if _phases.enabled:
+            _phases.set_value("integrate.commit_word", self.stats.commit_word)
+            self._record_capacity_ledger()
         self.stats.peak_blocks = max(self.stats.peak_blocks, occ)
         if derr != 0 and not (self.quarantine and self.on_quarantine is not None):
             self._raise_decode_error(derr)
@@ -1276,6 +1332,7 @@ class PackedReplayDriver:
         hi = self._hi_bound
         if not self._pending:
             return hi
+        self._note_readout_bytes(len(self._pending))
         sticky = 0
         for fut in self._pending:
             hi, derr = self._absorb(fut)
@@ -1297,7 +1354,25 @@ class PackedReplayDriver:
             self._err = torch.zeros((), dtype=I32, device=self.cols.device)
         return hi
 
+    @staticmethod
+    def _note_readout_bytes(n: int) -> None:
+        """Phase accounting of ``n`` materialized readouts, as the JAX
+        package splits its readout words: ``replay.readout`` keeps the 12
+        bytes of the occupancy / error words, the conflict-scan record,
+        the commitment word and the capacity ledger count under their own
+        stages."""
+        if not _phases.enabled:
+            return
+        _phases.transfer("replay.readout", 12 * n, "d2h")
+        _phases.transfer("integrate.scan_hist", 4 * SCAN_REC_WORDS * n, "d2h")
+        _phases.transfer("integrate.commit_word", 4 * n, "d2h")
+        _phases.transfer("capacity.ledger", 4 * LEDGER_WORDS * n, "d2h")
+
     def _record_scan_width(self, buckets, observed_max: int, tiers) -> None:
+        """Fold a readout's conflict-scan words into the stats and, with
+        the phase recorder on, the ``integrate.scan_*`` gauges (each also
+        under its lane's suffix, ``.fused``, as the JAX package keys
+        them)."""
         counts = [int(c) for c in buckets]
         st = self.stats
         st.scan_hist = tuple(counts)
@@ -1309,6 +1384,32 @@ class PackedReplayDriver:
         st.scan_tier_wide = wide
         st.scan_trips_serial = width_sum
         st.scan_trips_two_tier = cheap_trips + wide_trips
+        if _phases.enabled and sum(counts):
+            for name, v in (
+                ("width_p50", st.scan_p50),
+                ("width_p99", st.scan_p99),
+                ("width_max", st.scan_max),
+                ("tier_cheap", st.scan_tier_cheap),
+                ("tier_wide", st.scan_tier_wide),
+                ("trips_serial", st.scan_trips_serial),
+                ("trips_two_tier", st.scan_trips_two_tier),
+            ):
+                _phases.set_value(f"integrate.scan_{name}", v)
+                _phases.set_value(f"integrate.scan_{name}.fused", v)
+
+    def _record_capacity_ledger(self) -> None:
+        """The ``capacity.*`` occupancy gauges of the freshest readout."""
+        st = self.stats
+        total = self.cols.shape[1] * self.capacity
+        for name, v in (
+            ("occupied_rows", st.occupied_rows),
+            ("dead_rows", st.dead_rows),
+            ("dead_max", st.dead_max),
+            ("free_rows", total - st.occupied_rows),
+            ("dead_fraction", st.dead_rows / max(st.occupied_rows, 1)),
+            ("occupancy_fraction", st.occupied_rows / max(total, 1)),
+        ):
+            _phases.set_value(f"capacity.{name}", v)
 
     def _raise_device_error(self):
         meta_np = self.meta.cpu().numpy()
@@ -1335,6 +1436,7 @@ class PackedReplayDriver:
                 chunk=self.stats.chunks,
                 cause=FaultError("replay.kill", spec),
             )
+        _LAST_DISPATCH.set(time.time())
         return out
 
     def compact(self) -> int:
@@ -1352,11 +1454,16 @@ class PackedReplayDriver:
         if self._last_compact_chunk >= 0:
             self.stats.compact_gap_chunks = self.stats.chunks - self._last_compact_chunk
         self._last_compact_chunk = self.stats.chunks
+        self._note_readout_bytes(1)
         hi, _ = self._absorb(_readout_words(self.cols, self.meta, self._err))
         self._hi_bound = hi
         self._occupied = self.stats.occupied_rows
         self.stats.syncs += 1
-        self.stats.reclaimed_rows += max(0, occ_before - self.stats.occupied_rows)
+        reclaimed = max(0, occ_before - self.stats.occupied_rows)
+        self.stats.reclaimed_rows += reclaimed
+        if _phases.enabled:
+            _phases.add_value("capacity.reclaimed_rows", reclaimed)
+            _phases.set_value("capacity.compact_gap_chunks", self.stats.compact_gap_chunks)
         return hi
 
     def ensure_room(self, margin: int) -> None:
@@ -1402,19 +1509,33 @@ class PackedReplayDriver:
 
         def dispatch():
             rows, dels = pack_stream(stream)
-            with torch.profiler.record_function("ytpu_torch.integrate"):
-                integrate_stream(self.cols, self.meta, rows, dels, self.rank, scan_tier_plan())
-            with torch.profiler.record_function("ytpu_torch.readout"):
-                return _readout_words(self.cols, self.meta, self._err)
+            scan_plan = scan_tier_plan()
+            span = NULL_SPAN
+            if _phases.enabled:
+                _phases.transfer("replay.chunk_fused", _nbytes(rows) + _nbytes(dels), "h2d")
+                span = _phases.span(
+                    "replay.chunk_fused",
+                    (tuple(self.cols.shape), tuple(rows.shape), tuple(dels.shape), scan_plan),
+                    axes=("state", "rows", "dels", "scan_plan"),
+                    memory=_stream_memory(self.cols, self.meta, rows, dels, self.rank),
+                )
+            with span:
+                with torch.profiler.record_function("ytpu_torch.integrate"):
+                    integrate_stream(self.cols, self.meta, rows, dels, self.rank, scan_plan)
+                with torch.profiler.record_function("ytpu_torch.readout"):
+                    return _readout_words(self.cols, self.meta, self._err)
 
         self._pending.append(self._dispatch(dispatch))
         self._chunk_done(margin)
 
-    def _step_program(self, program, host_arrays, dims, margin: int, **kw) -> ChunkUpload:
+    def _step_program(self, stage, program, host_arrays, dims, margin: int, **kw) -> ChunkUpload:
         """What `step_bytes` and `step_raw` share: room check -> the inputs'
-        copy to the state's device -> one chunk program -> lazy readout."""
+        copy to the state's device (counted as the chunk `stage`'s
+        host-to-device bytes) -> one chunk program -> lazy readout."""
         max_rows, max_dels, n_steps, max_sections = dims
         self.ensure_room(margin)
+        if _phases.enabled:
+            _phases.transfer(stage, sum(_nbytes(a) for a in host_arrays), "h2d")
         upload = _upload(host_arrays, self.cols.device)
         self.cols, self.meta, self._err, readout = self._dispatch(
             lambda: program(
@@ -1435,7 +1556,7 @@ class PackedReplayDriver:
         growth. Decode errors fold into the sticky flags and surface at the
         next drain or `finish()`. Returns the `ChunkUpload`: the caller
         writes the staging buffers again only after its `wait()`."""
-        return self._step_program(replay_chunk_program, (buf, lens, refs), dims, margin)
+        return self._step_program("replay.chunk_async", replay_chunk_program, (buf, lens, refs), dims, margin)
 
     def step_raw(self, raw, offs, lens, refs, dims, width: int, margin: int) -> ChunkUpload:
         """Integrate one chunk from raw concatenated wire bytes plus its
@@ -1443,7 +1564,7 @@ class PackedReplayDriver:
         readout (`replay_chunk_program_raw`). ``width`` is the per-lane
         window; the rest is as in `step_bytes`."""
         return self._step_program(
-            replay_chunk_program_raw, (raw, offs, lens, refs), dims, margin, width=width
+            "replay.chunk_raw", replay_chunk_program_raw, (raw, offs, lens, refs), dims, margin, width=width
         )
 
     def finish(self):

@@ -30,14 +30,24 @@ In both modes `_demote_to_host` / `release_tenant` move a tenant off its
 slot to the host path (its host doc materialised from device state), and
 `rebalance_tenant` moves it to another slot. The server runs on the GPU
 unless the caller passes ``device="cpu"`` (handed to the `BatchIngestor`);
-a missing GPU raises. Not ported yet, each raising `NotImplementedError`:
-the live telemetry endpoint (``telemetry_port``, ROADMAP A.10) and
-doc-axis sharding (``shard_docs=True``, ROADMAP A.12). Each flush step
-opens the profiler span ``ytpu_torch.sync.dispatch``.
+a missing GPU raises. Doc-axis sharding (``shard_docs=True``, ROADMAP
+A.12) is not ported and raises `NotImplementedError`.
+
+Observability, under the JAX package's names: each flush step is timed
+into the `sync.apply_update` histogram, opens the profiler span
+``ytpu_torch.sync.dispatch`` and, with the tracer on, a ``sync.dispatch``
+trace span naming the request trace ids whose updates it ships (each
+queued update carries the id ambient when it was queued); a failing step
+dumps the tracer's ring (``YTPU_TRACE``) and re-raises. The flush keeps
+the `sync.device_queue_depth` and `sync.last_dispatch_unix` gauges, slot
+assignment `sync.device_slots_assigned`. ``telemetry_port`` (0 = any free
+port) starts a `TelemetryServer` whose `/snapshot` carries the server's
+slot and queue view (`server.telemetry`; its `stop()` ends it).
 """
 
 from __future__ import annotations
 
+import time
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -55,6 +65,9 @@ from ytpu_torch.models.batch_doc import (
 )
 from ytpu_torch.models.ingest import BatchIngestor
 from ytpu_torch.native import decode_update_columns
+from ytpu_torch.utils import metrics, tracer
+from ytpu_torch.utils.phases import NULL_SPAN
+from ytpu_torch.utils.trace import current_trace_id
 
 from .protocol import MSG_SYNC, MSG_SYNC_STEP_1, Message, SyncMessage, message_reader
 from .server import DeviceBatchFull, Session, SyncServer
@@ -86,8 +99,6 @@ class DeviceSyncServer(SyncServer):
         device=None,
         **kwargs,
     ):
-        if telemetry_port is not None:
-            raise NotImplementedError("telemetry_port: the telemetry plane is not ported yet (ROADMAP A.10)")
         if shard_docs:
             raise NotImplementedError("shard_docs=True: doc-axis sharding is not ported yet (ROADMAP A.12)")
         super().__init__(**kwargs)
@@ -98,10 +109,14 @@ class DeviceSyncServer(SyncServer):
         # the ingestor is the single source of truth for the slot count
         self.ingestor = ingestor
         self.device_authoritative = device_authoritative
-        # encode.fallback_docs: replies the Python finisher wrote (docs the
-        # native finisher left, or tables it cannot read)
-        self.metrics.update({"sync.diffs_encoded": {}, "sync.multi_root_tenants": 0, "sync.rebalances": 0,
-                             "encode.fallback_docs": 0})
+        self.shard_docs = False
+        self._diffs_encoded = metrics.counter("sync.diffs_encoded", labelnames=("tenant",))
+        self._slots_gauge = metrics.gauge("sync.device_slots_assigned")
+        self._queue_depth = metrics.gauge("sync.device_queue_depth")
+        self._last_dispatch = metrics.gauge("sync.last_dispatch_unix")
+        #: replies the Python finisher wrote (docs the native finisher left,
+        #: or tables it cannot read), this server's count
+        self.fallback_docs = 0
         self._slot_of: Dict[str, int] = {}
         # every SyncStep1 answer and batched fan-out routes through the
         # pipelined finisher: single-tenant calls take one sub-batch,
@@ -119,22 +134,57 @@ class DeviceSyncServer(SyncServer):
         self._next_slot = 0
         self._free_slots: List[int] = []
         self._queues: List[List[bytes]] = [[] for _ in range(ingestor.n_docs)]
+        # the request trace id of each queued update, in lockstep with
+        # _queues: the dispatch span names the requests whose updates it ships
+        self._queue_traces: List[List[Optional[str]]] = [[] for _ in range(ingestor.n_docs)]
+        self.telemetry = None
+        if telemetry_port is not None:
+            from ytpu_torch.utils.telemetry import TelemetryServer
+
+            self.telemetry = TelemetryServer(port=telemetry_port)
+            self.telemetry.add_provider("server", self._telemetry_provider)
+            self.telemetry.start()
+
+    def _telemetry_provider(self) -> Dict:
+        """`/snapshot` extras: the serving-side state a scraper wants next
+        to the raw metrics, plus the per-tenant occupancy ledger (one
+        scrape-time device read per snapshot, never on the serve path)."""
+        out = {
+            "tenants": len(self.tenants),
+            "slots_assigned": len(self._slot_of),
+            "n_docs": self.ingestor.n_docs,
+            "queued_updates": self.pending_device_updates(),
+            "device_authoritative": self.device_authoritative,
+            "shard_docs": self.shard_docs,
+        }
+        try:
+            out["capacity"] = self.capacity_snapshot()
+        except Exception as e:  # a scrape must not take the server down
+            out["capacity"] = {"error": f"{type(e).__name__}: {e}"}
+        return out
 
     def capacity_snapshot(self) -> Dict:
         """Per-tenant slot-occupancy ledger: live / dead (tombstoned,
         GC-able) / free rows per assigned tenant slot, summing to the slot
-        capacity, plus batch-wide totals."""
+        capacity, plus batch-wide totals. Refreshes the per-tenant
+        ``capacity.tenant_{live,dead,free}_rows`` gauges."""
         live, dead, free = self.ingestor.capacity_ledger()
         slot_cap = int(live[0] + dead[0] + free[0]) if len(live) else 0
         tenants: Dict[str, Dict] = {}
+        live_g = metrics.gauge("capacity.tenant_live_rows", labelnames=("tenant",))
+        dead_g = metrics.gauge("capacity.tenant_dead_rows", labelnames=("tenant",))
+        free_g = metrics.gauge("capacity.tenant_free_rows", labelnames=("tenant",))
         for name, slot in sorted(self._slot_of.items()):
-            tenants[name] = {
+            row = tenants[name] = {
                 "slot": slot,
                 "live_rows": int(live[slot]),
                 "dead_rows": int(dead[slot]),
                 "free_rows": int(free[slot]),
                 "dead_fraction": round(int(dead[slot]) / float(max(int(live[slot]) + int(dead[slot]), 1)), 6),
             }
+            live_g.labels(tenant=name).set(row["live_rows"])
+            dead_g.labels(tenant=name).set(row["dead_rows"])
+            free_g.labels(tenant=name).set(row["free_rows"])
         return {
             "slot_capacity": slot_cap,
             "live_rows": int(sum(int(x) for x in live)),
@@ -142,6 +192,12 @@ class DeviceSyncServer(SyncServer):
             "free_rows": int(sum(int(x) for x in free)),
             "tenants": tenants,
         }
+
+    def _enqueue(self, slot: int, payload: bytes) -> None:
+        """Queue one update for a slot, with the ambient request trace id
+        (None outside a traced request) in lockstep."""
+        self._queues[slot].append(payload)
+        self._queue_traces[slot].append(current_trace_id())
 
     # --- slot management -------------------------------------------------------
 
@@ -165,6 +221,7 @@ class DeviceSyncServer(SyncServer):
         if slot is None:
             slot = self._take_slot("device batch is full")
             self._slot_of[tenant_name] = slot
+            self._slots_gauge.set(len(self._slot_of))
         return slot
 
     def tenant(self, name: str):
@@ -186,7 +243,7 @@ class DeviceSyncServer(SyncServer):
             def mirror(payload: bytes, origin, txn, _name=name):
                 slot = self._slot_of.get(_name)
                 if slot is not None:
-                    self._queues[slot].append(payload)
+                    self._enqueue(slot, payload)
 
             t.awareness.doc.observe_update_v1(mirror)
         return t
@@ -209,13 +266,17 @@ class DeviceSyncServer(SyncServer):
     def receive_frames(self, session: Session, data: bytes) -> List[bytes]:
         """Like `SyncServer.receive_frames`, but an error while handling
         the frames (a frame that fails to parse or apply) marks THIS
-        session dead, counts it under ``net.bad_frames`` and returns no
-        replies instead of propagating into the serving loop: one hostile
-        peer cannot take down a batch that serves every other tenant."""
+        session dead, counts it under ``net.bad_frames``, records what
+        threw as a ``net.bad_frame`` tracer instant and returns no replies
+        instead of propagating into the serving loop: one hostile peer
+        cannot take down a batch that serves every other tenant. Errors of
+        `flush_device` are not caught here: they indict the batch, not a
+        session."""
         try:
             return self._receive_frames_unsafe(session, data)
-        except Exception:
-            self._count("net.bad_frames")
+        except Exception as e:
+            metrics.counter("net.bad_frames").inc()
+            tracer.instant("net.bad_frame", error=repr(e), tenant=session.tenant, session=session.id)
             self._drop(session, "bad_frame")
             return []
 
@@ -242,8 +303,8 @@ class DeviceSyncServer(SyncServer):
                     # the first root name becomes the wire primary; later
                     # roots stay device-resident through root anchors
                     self._note_roots(session.tenant, sub.payload)
-                    self._queues[slot].append(sub.payload)
-                    self._note_applied(session.tenant)
+                    self._enqueue(slot, sub.payload)
+                    self._note_applied(t)
                     # broadcast at-least-once (CRDT updates are idempotent;
                     # the device path never touches a host doc to dedup)
                     frame = Message.sync(SyncMessage.update(sub.payload)).encode_v1()
@@ -293,7 +354,7 @@ class DeviceSyncServer(SyncServer):
         if known is None:
             self._root_names[tenant] = known = names[0]
         if any(n != known for n in names):
-            self._count("sync.multi_root_tenants")
+            metrics.counter("sync.multi_root_tenants").inc()
             return True
         return False
 
@@ -310,8 +371,15 @@ class DeviceSyncServer(SyncServer):
         # changes the doc (every session gets a full-state update frame)
         doc.apply_update_v1(diff)
         slot = self._slot_of.pop(tenant)
+        self._slots_gauge.set(len(self._slot_of))
         self.ingestor.reset_slot(slot)
         self._free_slots.append(slot)
+
+    def _tenant_queue_depth(self, tenant_name: str) -> int:
+        """The admission input: this tenant's queued device updates (0 for
+        a tenant without a slot: nothing of it is device-bound)."""
+        slot = self._slot_of.get(tenant_name)
+        return 0 if slot is None else len(self._queues[slot])
 
     def release_tenant(self, tenant_name: str) -> None:
         """Free a tenant's device slot (its ownership moved elsewhere). The
@@ -356,9 +424,9 @@ class DeviceSyncServer(SyncServer):
         if old != to_slot:
             self._free_slots.append(old)
         self._slot_of[tenant_name] = to_slot
-        self._queues[to_slot].append(payload)
+        self._enqueue(to_slot, payload)
         self.flush_device()
-        self._count("sync.rebalances")
+        metrics.counter("sync.rebalances").inc()
         return to_slot
 
     def tenant_state_vector(self, tenant_name: str) -> StateVector:
@@ -432,9 +500,9 @@ class DeviceSyncServer(SyncServer):
         payload = self._diff_pipeline.run(
             ing.state, [slot], ship, offsets, deleted, self._tables(self._root_name(tenant_name, slot))
         )[0]
-        self._count("encode.fallback_docs", n=self._diff_pipeline.stats.fallback_docs)
+        self.fallback_docs += self._diff_pipeline.stats.fallback_docs
         payload = self._merge_pending(slot, payload)
-        self._count("sync.diffs_encoded", tenant_name)
+        self._diffs_encoded.labels(tenant_name).inc()
         return payload
 
     def device_encode_diff_many(self, requests) -> List[bytes]:
@@ -465,11 +533,11 @@ class DeviceSyncServer(SyncServer):
             res = self._diff_pipeline.run(
                 ing.state, [slots[i] for i in idxs], ship, offsets, deleted, self._tables(root)
             )
-            self._count("encode.fallback_docs", n=self._diff_pipeline.stats.fallback_docs)
+            self.fallback_docs += self._diff_pipeline.stats.fallback_docs
             for i, p in zip(idxs, res):
                 out[i] = self._merge_pending(slots[i], p)
         for t, _ in requests:
-            self._count("sync.diffs_encoded", t)
+            self._diffs_encoded.labels(t).inc()
         return out  # type: ignore[return-value]
 
     # --- device dispatch -------------------------------------------------------
@@ -483,16 +551,39 @@ class DeviceSyncServer(SyncServer):
         Returns the number of batch steps dispatched. Slots with deeper
         queues keep shipping while others ride as no-ops, so a chatty
         tenant never blocks a quiet one. Each step peeks, applies, THEN
-        pops: a failing step drops no slot's update."""
+        pops: a failing step drops no slot's update; it dumps the tracer's
+        ring (``YTPU_TRACE``) and re-raises. The `sync.apply_update`
+        histogram times each step, the `sync.device_queue_depth` gauge
+        holds the queued total before and after, and a flush that
+        dispatched refreshes `sync.last_dispatch_unix`."""
+        depth_gauge = self._queue_depth
+        depth_gauge.set(sum(len(q) for q in self._queues))
         steps = 0
         while any(self._queues) and (max_steps is None or steps < max_steps):
             payloads = [q[0] if q else None for q in self._queues]
-            with torch.profiler.record_function("ytpu_torch.sync.dispatch"):
-                self.ingestor.apply_bytes(payloads)
+            span = (
+                tracer.span("sync.dispatch", step=steps, traces=[t[0] for t in self._queue_traces if t and t[0]])
+                if tracer.enabled
+                else NULL_SPAN
+            )
+            try:
+                with self._apply_hist.time(), span, torch.profiler.record_function("ytpu_torch.sync.dispatch"):
+                    self.ingestor.apply_bytes(payloads)
+            except Exception as e:
+                tracer.dump_on_error(error=e)
+                raise
             for q in self._queues:
                 if q:
                     q.pop(0)
+            for t in self._queue_traces:
+                if t:
+                    t.pop(0)
             steps += 1
+        if steps:
+            # only a real dispatch refreshes the freshness gauge: an empty
+            # flush must not make /healthz call an idle device fresh
+            self._last_dispatch.set(time.time())
+        depth_gauge.set(sum(len(q) for q in self._queues))
         return steps
 
     def device_text(self, tenant_name: str) -> str:

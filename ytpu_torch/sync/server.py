@@ -9,15 +9,20 @@ tenant's other sessions. Transport-agnostic: callers pump bytes through
 which answers SyncStep1 and applies every inbound update; its update
 observer rebroadcasts what each transaction changed.
 
-What differs from the JAX package, until the modules it needs are ported:
+Observability: the servers feed the port's metrics registry
+(`ytpu_torch.utils.metrics`) under the JAX package's family names —
+`sync.updates_applied`, `sync.tenant_updates_applied{tenant}`,
+`sync.sessions`, `sync.outbox_depth`, `sync.slow_consumer_evictions`,
+`net.sessions_dropped{reason}`, `sync.busy_replies` and the
+`sync.apply_update` latency histogram; the registry is process-global,
+so `applied_local` keeps a per-instance count. Every host apply opens an
+``apply_update`` trace span, and with the tracer on a rebroadcast update
+is preceded by a trace-context frame naming the ambient request.
 
-- The metrics registry (ROADMAP A.10) is not ported: each server keeps
-  the same tallies in `metrics`, a plain dict keyed by the registry's
-  names (labelled families as ``{label: count}``).
-- Tracing is off: `_trace_frame` returns None, as the JAX package's does
-  while its tracer is disabled (the default).
-- Admission control waits for the ``serving/`` slice: setting
-  `admission` makes the first admitted update raise.
+Admission: `admission` (an `ytpu_torch.serving.AdmissionController`,
+None by default) is consulted per inbound update; a refused update is
+answered with a Busy reply (policy "defer"), dropped ("drop") or sheds
+its session ("shed"). Mesh links bypass it.
 """
 
 from __future__ import annotations
@@ -25,9 +30,18 @@ from __future__ import annotations
 from typing import Dict, List, Optional, Tuple
 
 from ytpu_torch.core.doc import Doc
+from ytpu_torch.utils import metrics, trace_span
+from ytpu_torch.utils.trace import current_trace, tracer
 
 from .awareness import Awareness
-from .protocol import Message, Protocol, SyncMessage, message_reader
+from .protocol import (
+    TRACE_WIRE_VERSION,
+    Message,
+    Protocol,
+    SyncMessage,
+    message_reader,
+    trace_message,
+)
 
 __all__ = ["DeviceBatchFull", "SyncServer", "Session"]
 
@@ -37,7 +51,7 @@ class DeviceBatchFull(RuntimeError):
 
 
 class Session:
-    __slots__ = ("id", "tenant", "server", "outbox", "dead", "mesh_link")
+    __slots__ = ("id", "tenant", "server", "outbox", "dead", "mesh_link", "_depth_gauge")
 
     #: broadcast frames a session may hold undelivered before it is
     #: declared a slow consumer and evicted (its transport handler sees
@@ -54,6 +68,8 @@ class Session:
         # mesh-internal sessions (peer replication links) are not client
         # traffic: admission never refuses them
         self.mesh_link = False
+        # the server's outbox high-water gauge, cached: one O(1) call a push
+        self._depth_gauge = server._outbox_depth
 
     def push(self, frame: bytes) -> None:
         """Queue a broadcast frame, evicting the session when it is too
@@ -62,20 +78,22 @@ class Session:
         if self.dead:
             return
         self.outbox.append(frame)
+        self._depth_gauge.set_max(len(self.outbox))
         if len(self.outbox) > self.OUTBOX_CAP:
             self.dead = True
             self.outbox = []
-            self.server._count("sync.slow_consumer_evictions")
+            self.server._evictions.inc()
             # a slow-consumer eviction is a shed, counted beside admission sheds
-            self.server._count("net.sessions_dropped", "shed")
+            self.server._dropped.labels("shed").inc()
 
 
 class _Tenant:
-    __slots__ = ("awareness", "sessions")
+    __slots__ = ("awareness", "sessions", "applied")
 
     def __init__(self, doc: Doc):
         self.awareness = Awareness(doc)
         self.sessions: List[Session] = []
+        self.applied = None  # the tenant's `sync.tenant_updates_applied` child
 
 
 class SyncServer:
@@ -84,27 +102,20 @@ class SyncServer:
         self.tenants: Dict[str, _Tenant] = {}
         self._doc_factory = doc_factory or (lambda name: Doc())
         self._next_session = 0
-        #: per-instance tallies under the metrics registry's names
-        self.metrics: Dict[str, object] = {
-            "sync.updates_applied": 0,
-            "sync.tenant_updates_applied": {},
-            "sync.sessions": 0,
-            "sync.slow_consumer_evictions": 0,
-            "sync.busy_replies": 0,
-            "net.sessions_dropped": {},
-            "net.bad_frames": 0,
-        }
+        self._apply_hist = metrics.histogram("sync.apply_update")
+        self._applied = metrics.counter("sync.updates_applied")
+        self._tenant_applied = metrics.counter("sync.tenant_updates_applied", labelnames=("tenant",))
+        self._sessions_gauge = metrics.gauge("sync.sessions")
+        self._outbox_depth = metrics.gauge("sync.outbox_depth")
+        self._evictions = metrics.counter("sync.slow_consumer_evictions")
+        self._dropped = metrics.counter("net.sessions_dropped", labelnames=("reason",))
+        self._busy_replies = metrics.counter("sync.busy_replies")
+        #: per-instance applied count (the registry's counters are
+        #: process-global: servers in one process share them)
         self.applied_local = 0
         #: an admission controller consulted per inbound update; None (the
         #: default) admits everything
         self.admission = None
-
-    def _count(self, name: str, label: Optional[str] = None, n: int = 1) -> None:
-        if label is None:
-            self.metrics[name] = self.metrics.get(name, 0) + n
-        else:
-            family = self.metrics.setdefault(name, {})
-            family[label] = family.get(label, 0) + n
 
     # --- tenant / doc management ----------------------------------------------
 
@@ -113,6 +124,7 @@ class SyncServer:
         if t is None:
             doc = self._doc_factory(name)
             t = _Tenant(doc)
+            t.applied = self._tenant_applied.labels(name)
             self.tenants[name] = t
 
             # live update broadcast: one observer per tenant doc
@@ -130,8 +142,16 @@ class SyncServer:
 
     def _trace_frame(self) -> Optional[bytes]:
         """The wire trace-context frame to push just before a rebroadcast
-        update, or None: the port has no tracer yet, so tracing is off."""
-        return None
+        update, or None when tracing is off, no request context is ambient,
+        or this server speaks a protocol version before trace frames."""
+        if not tracer.enabled:
+            return None
+        if getattr(self.protocol, "version", 1) < TRACE_WIRE_VERSION:
+            return None
+        ctx = current_trace()
+        if ctx is None:
+            return None
+        return trace_message(str(ctx.get("trace", "")), str(ctx.get("replica", "") or "")).encode_v1()
 
     def doc(self, name: str) -> Doc:
         return self.tenant(name).awareness.doc
@@ -153,7 +173,7 @@ class SyncServer:
         self._next_session += 1
         session = Session(self._next_session, tenant_name, self)
         t.sessions.append(session)
-        self._count("sync.sessions")
+        self._sessions_gauge.inc()
         return t, session
 
     def connect_frames(self, tenant_name: str) -> Tuple[Session, List[bytes]]:
@@ -165,13 +185,13 @@ class SyncServer:
         t = self.tenants.get(session.tenant)
         if t and session in t.sessions:
             t.sessions.remove(session)
-            self._count("sync.sessions", n=-1)
+            self._sessions_gauge.dec()
 
     def _drop(self, session: Session, reason: str) -> None:
         session.dead = True
         session.outbox = []
         self.disconnect(session)
-        self._count("net.sessions_dropped", reason)
+        self._dropped.labels(reason).inc()
 
     def drop_sessions(self, reason: str = "failover") -> int:
         """Kill every live session at once (replica failover, shutdown):
@@ -188,16 +208,39 @@ class SyncServer:
 
     # --- admission ----------------------------------------------------------------
 
+    def _tenant_queue_depth(self, tenant_name: str) -> int:
+        """A tenant's device-queue depth, the admission controller's input:
+        0 on a host-only server (there is no device queue to bound; the
+        rate limit still applies). `DeviceSyncServer` overrides it."""
+        return 0
+
     def _admit_update(self, session: Session):
-        """``(admitted, reply)`` for one inbound update: with no admission
-        controller (the default) or on a mesh link, admitted with no
-        reply."""
-        if self.admission is None or session.mesh_link:
+        """Consult the admission controller for ONE inbound update.
+
+        Returns ``(admitted, reply)``: admitted updates proceed; refused
+        ones carry a Busy ``reply`` (policy "defer"), drop silently
+        ("drop", counted under ``net.sessions_dropped{reason=
+        "update_drop"}``) or shed the session ("shed": marked dead and
+        disconnected). With no controller (the default) or on a mesh link
+        every update is admitted: a refused peer update would be data
+        loss in flight, not load shedding."""
+        adm = self.admission
+        if adm is None or session.mesh_link:
             return True, None
-        raise NotImplementedError(
-            "admission control is not ported yet (the serving/ slice: "
-            "ytpu/serving/admission.py needs the metrics and faults utilities)"
-        )
+        from ytpu_torch.serving.admission import Overload
+
+        try:
+            adm.admit(session.tenant, queue_depth=self._tenant_queue_depth(session.tenant))
+            return True, None
+        except Overload as e:
+            if adm.policy == "shed":
+                self._drop(session, "shed")
+                return False, None
+            if adm.policy == "drop":
+                self._dropped.labels("update_drop").inc()
+                return False, None
+            self._busy_replies.inc()
+            return False, adm.busy_reply(e)
 
     # --- message pumping --------------------------------------------------------
 
@@ -210,7 +253,8 @@ class SyncServer:
     def receive_frames(self, session: Session, data: bytes) -> List[bytes]:
         """Like `receive`, but one bytes object per reply message — framed
         transports forward these without re-parsing. Every applied update
-        is counted."""
+        is counted and its apply latency lands in the `sync.apply_update`
+        histogram."""
         t = self.tenant(session.tenant)
         replies: List[bytes] = []
         for msg in message_reader(data):
@@ -223,8 +267,9 @@ class SyncServer:
                         break  # shed: the transport sees dead and closes
                     continue
                 # apply with the session as origin so we don't echo it back
-                t.awareness.doc.apply_update_v1(msg.body.payload, origin=session)
-                self._note_applied(session.tenant)
+                with self._apply_hist.time(), trace_span("apply_update", tenant=session.tenant):
+                    t.awareness.doc.apply_update_v1(msg.body.payload, origin=session)
+                self._note_applied(t)
                 continue
             if msg.kind == 1:  # Awareness: apply + broadcast to others
                 t.awareness.apply_update(msg.body)
@@ -238,9 +283,9 @@ class SyncServer:
                 replies.append(reply.encode_v1())
         return replies
 
-    def _note_applied(self, tenant_name: str) -> None:
-        self._count("sync.updates_applied")
-        self._count("sync.tenant_updates_applied", tenant_name)
+    def _note_applied(self, t: _Tenant) -> None:
+        self._applied.inc()
+        t.applied.inc()
         self.applied_local += 1
 
     def drain(self, session: Session) -> List[bytes]:

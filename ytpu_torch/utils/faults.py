@@ -50,6 +50,15 @@ Sites the port fires:
                       ``prefix`` = OverlapPipeline stage_prefix; covers
                       the raw memcpy staging and the packed staging alike
                       — the site lives in the shared engine's worker)
+``admission.reject``  force the next admission decision to refuse (typed
+                      `QueueFull` → protocol Busy reply / drop / shed per
+                      the armed policy; args: ``tenant`` restricts to one
+                      tenant)
+``compile.retrace``   perturb the next instrumented call site's shape
+                      signature with a nonce (args: ``program`` restricts
+                      to one phases stage) — forces an attributable
+                      retrace event, so chaos can prove the compile
+                      sentinel and its budget scoring fire end to end
 ====================  =======================================================
 
 Every fired injection increments the ``faults.injected`` counter (plus a
